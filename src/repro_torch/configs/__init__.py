@@ -1,0 +1,22 @@
+"""Config registry of the port: ``get_config("<arch-id>")``.
+
+It holds only the architectures the port serves so far; the JAX package's
+other configs raise `KeyError` until their slice lands (see ROADMAP.md).
+"""
+from . import chatglm3_6b
+from .base import HybridConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
+
+REGISTRY = {m.CONFIG.name: m.CONFIG for m in (chatglm3_6b,)}
+
+ARCH_IDS = tuple(sorted(REGISTRY))
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in REGISTRY:
+        raise KeyError(f"arch {name!r} is not ported yet; ported: "
+                       f"{', '.join(ARCH_IDS)}")
+    return REGISTRY[name]
+
+
+__all__ = ["ARCH_IDS", "HybridConfig", "MLAConfig", "ModelConfig", "MoEConfig",
+           "REGISTRY", "SSMConfig", "get_config"]

@@ -1,0 +1,4 @@
+from .kernel import rmsnorm
+from .ref import rmsnorm_ref
+
+__all__ = ["rmsnorm", "rmsnorm_ref"]

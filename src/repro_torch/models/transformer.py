@@ -1,0 +1,120 @@
+"""Model assembly of the port: the dense transformer decoder's serve path.
+
+Counterpart of `repro/models/transformer.py`.  Ported so far: the dense
+branch of `init_model` and `init_cache`, `_apply_tf_layer` without MoE, and
+`_model_step`, `_serve_tf`, `prefill` and `decode_step`.  Layers are kept as
+a list of per-layer param dicts (`params["blocks"][i]`) where JAX stacks
+them for `lax.scan`, and the loop over layers is a Python loop.
+
+Public entry points (used by runtime/launch):
+  init_model(cfg, gen, device)                 -> params
+  prefill(params, batch, cfg, cache)           -> (logits_last, cache)
+  decode_step(params, batch, cfg, cache, pos)  -> (logits, cache)
+  init_cache(cfg, batch, max_len, device)      -> cache
+The cache is updated in place and returned.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+Params = Dict[str, Any]
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    """Raise for the families and features later slices bring."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(ROADMAP.md Queue 1 item 8, SSM and hybrid)")
+    if cfg.moe is not None or cfg.mla is not None or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, MLA and MTP are not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
+    if cfg.frontend is not None or cfg.pos_embed != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: stub frontends and sinusoidal positions are not "
+            "ported yet (ROADMAP.md Queue 1 item 9)")
+
+
+# ---------------------------------------------------------------------------
+# per-layer init/apply
+# ---------------------------------------------------------------------------
+
+def _init_tf_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    return {"attn_norm": L.init_norm(cfg, device),
+            "attn": L.init_attention(cfg, gen, device),
+            "ffn_norm": L.init_norm(cfg, device),
+            "ffn": L.init_mlp(cfg, gen, device)}
+
+
+def _apply_tf_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
+                    *, cache=None, cache_pos=None):
+    attn_in = L.apply_norm(p["attn_norm"], h)
+    y, new_cache = L.attention_fwd(p["attn"], attn_in, cfg, positions,
+                                   kv_cache=cache, cache_pos=cache_pos)
+    h = h + y
+    ffn_in = L.apply_norm(p["ffn_norm"], h)
+    return h + L.apply_mlp(p["ffn"], ffn_in, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# whole-model init
+# ---------------------------------------------------------------------------
+
+def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    """Random weights with the JAX init's distributions, drawn on `device`
+    from `gen` (the numbers differ from `jax.random`'s)."""
+    _require_ported(cfg)
+    return {"embed": L.init_embed(cfg, gen, device),
+            "final_norm": L.init_norm(cfg, device),
+            "blocks": [_init_tf_layer(cfg, gen, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, Any]:
+    _require_ported(cfg)
+    return {"kv": L.init_kv_cache(cfg, batch, max_len, cfg.n_layers, device)}
+
+
+def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                cache: Dict[str, Any], cache_pos: int
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Shared incremental forward for prefill (s>1) and decode (s=1)."""
+    _require_ported(cfg)
+    h = L.embed_tokens(params["embed"], batch["tokens"])
+    s = h.shape[1]
+    positions = cache_pos + torch.arange(s, device=h.device)
+    h, nc = _serve_tf(params, h, cfg, cache["kv"], cache_pos, positions)
+    h = L.apply_norm(params["final_norm"], h)
+    logits = L.lm_logits(params["embed"], h[:, -1:], cfg)
+    return logits, {"kv": nc}
+
+
+def _serve_tf(params, h, cfg, cache, cache_pos, positions):
+    """Transformer serve path: every layer reads and writes its slice of
+    the stacked [L, ...] cache in place."""
+    for i, lp in enumerate(params["blocks"]):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        h, _ = _apply_tf_layer(cfg, lp, h, positions, cache=layer_cache,
+                               cache_pos=cache_pos)
+    return h, cache
+
+
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    return _model_step(params, batch, cfg, cache, 0)
+
+
+def decode_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                cache: Dict[str, Any], pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token step against a cache filled up to `pos`."""
+    return _model_step(params, batch, cfg, cache, int(pos))

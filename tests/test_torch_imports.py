@@ -1,0 +1,230 @@
+"""Rules of the port, checked on the CPU.
+
+* `repro_torch` and `chip_smoke.py` import neither JAX nor the JAX package.
+* A kernel wrapper dispatches on `tensor.is_cuda` alone: a CUDA tensor goes
+  to the kernel or raises, and never reaches the plain version.
+* The kernels are built from the repo's CUDA sources, at first use only.
+* `chip_smoke.py` exits non-zero and prints no result without a card or
+  without the repo around it.
+"""
+import ast
+import importlib
+import inspect
+import json
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                        "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert {"repro_torch.convert", "repro_torch.launch.serve",
+            "repro_torch.models.transformer", "repro_torch.runtime.steps",
+            "repro_torch.kernels._build"} <= set(mods)
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_jax_or_repro(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {n}"
+
+
+# ---------------------------------------------------------------------------
+# dispatch: is_cuda alone decides, and a CUDA tensor never takes the plain path
+# ---------------------------------------------------------------------------
+
+class _LooksCuda(torch.Tensor):
+    """A CPU tensor that answers is_cuda = True: what a wrapper does with a
+    CUDA tensor, without a card (the C entry points are faked)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _cuda_like(t):
+    return torch.Tensor._make_subclass(_LooksCuda, t)
+
+
+WRAPPERS = {
+    "rmsnorm": ("repro_torch.kernels.rmsnorm.kernel", "rmsnorm_ref", "rmsnorm_bf16"),
+    "flash_attention_fwd": ("repro_torch.kernels.flash_attention.kernel",
+                            "attention_with_lse_ref", "flash_attention_fwd_bf16"),
+    "decode_attention": ("repro_torch.kernels.decode_attention.kernel",
+                         "decode_attention_ref", "decode_attention_bf16"),
+}
+
+
+def _args(name, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return _cuda_like(torch.randn(*shape, generator=g).to(dtype))
+    if name == "rmsnorm":
+        return (r(4, 64), r(64)), {}
+    if name == "flash_attention_fwd":
+        return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32)), {}
+    lengths = _cuda_like(torch.tensor([5], dtype=torch.int32))
+    return (r(1, 4, 32), r(1, 20, 2, 32), r(1, 20, 2, 32), lengths), {}
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    calls = []
+
+    def function(name, argtypes):
+        def call(*args):
+            assert len(args) == len(argtypes)
+            calls.append(name)
+            return 64 if name == "decode_attention_chunk" else 0
+        return call
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cuda_tensor_launches_the_kernel_never_the_plain_version(name, fake_kernels,
+                                                                 monkeypatch):
+    mod_name, ref_name, entry = WRAPPERS[name]
+    mod = importlib.import_module(mod_name)
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(mod, ref_name, plain)
+    wrapper = getattr(mod, name)
+    args, kw = _args(name)
+    before = wrapper.launches
+    wrapper(*args, **kw)
+    assert wrapper.launches == before + 1
+    assert entry in fake_kernels
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cuda_tensor_of_another_dtype_raises_not_casts(name, fake_kernels):
+    mod = importlib.import_module(WRAPPERS[name][0])
+    args, kw = _args(name, torch.float32)
+    with pytest.raises(TypeError):
+        getattr(mod, name)(*args, **kw)
+    assert not fake_kernels
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cpu_tensor_takes_the_plain_version_without_building(name, fake_kernels):
+    mod = importlib.import_module(WRAPPERS[name][0])
+    args, kw = _args(name)
+    plain = [a.as_subclass(torch.Tensor) for a in args]
+    before = getattr(mod, name).launches
+    getattr(mod, name)(*plain, **kw)
+    assert getattr(mod, name).launches == before and not fake_kernels
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_dispatch_reads_only_is_cuda_and_never_falls_back(name):
+    """Structurally: the wrapper's first statement after its argument
+    unpacking that branches is `if not <first arg>.is_cuda: return <plain>`,
+    no other branch returns the plain version, and there is no try."""
+    mod = importlib.import_module(WRAPPERS[name][0])
+    fn = ast.parse(inspect.getsource(getattr(mod, name))).body[0]
+    first_arg = fn.args.args[0].arg
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    ifs = [n for n in fn.body if isinstance(n, ast.If)]
+    dispatch = next(n for n in ifs if isinstance(n.body[-1], ast.Return))
+    assert ast.unparse(dispatch.test) == f"not {first_arg}.is_cuda"
+    ref = WRAPPERS[name][1]
+    calls_ref = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Name) and n.func.id == ref]
+    assert len(calls_ref) == 1
+    assert calls_ref[0] in list(ast.walk(dispatch))
+    assert "environ" not in ast.unparse(fn)
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def test_kernel_sources_name_the_tpu_kernel_they_replace():
+    sources = {p.name: p.read_text() for p in (PKG / "kernels" / "csrc").glob("*.cu")}
+    for src, body in (("rmsnorm.cu", "rmsnorm/kernel.py::_rms_kernel"),
+                      ("flash_attention.cu", "flash_attention/kernel.py::_fwd_kernel"),
+                      ("decode_attention.cu", "decode_attention/kernel.py::_decode_kernel")):
+        head = sources[src][:1500]
+        assert f"src/repro/kernels/{body}" in head
+        assert "Bound on an H100" in head and "Design" in head
+
+
+def test_build_targets_sm90a_into_an_ignored_directory(monkeypatch):
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    if shutil.which("nvcc") or os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    _build.load.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load()
+
+
+def test_importing_the_package_builds_nothing():
+    code = ("import repro_torch.launch.serve, repro_torch.kernels._build as b;"
+            "print(b.load.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "0"
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py refuses to report without a card or without the repo
+# ---------------------------------------------------------------------------
+
+def test_chip_smoke_alone_in_a_directory_fails_without_result(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_without_a_card_fails_without_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and "no CUDA device" in res.stderr

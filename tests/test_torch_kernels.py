@@ -1,0 +1,224 @@
+"""The port's kernels, plain versions against the JAX side, on the CPU.
+
+Each kernel wrapper of `repro_torch.kernels` runs its plain PyTorch version
+on a CPU tensor.  The same numpy inputs go through that and through the JAX
+oracle (`ref.py`) and the Pallas kernel in interpret mode, as
+`tests/test_kernels.py` runs them.  Tolerances are that file's: TOL for
+fp32, TOL_BF16 for bf16, 1e-2 for rmsnorm.  The CUDA kernels themselves are
+checked against these plain versions on the card (tests/test_torch_cuda.py
+and chip_smoke.py).
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as jax_decode_kernel
+from repro.kernels.decode_attention import decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention.kernel import flash_attention_fwd as jax_flash_kernel
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention.ref import lse_ref as jax_lse_ref
+from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm_kernel
+from repro.kernels.rmsnorm import rmsnorm_ref as jax_rmsnorm_ref
+from repro.models.layers import blocked_causal_attention as jax_blocked
+from repro_torch.convert import to_tensor
+from repro_torch.kernels import (attention_ref, decode_attention, flash_attention_fwd,
+                                 lse_ref, rmsnorm)
+from repro_torch.models.layers import blocked_causal_attention
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
+DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
+
+
+def _rand(rng, shape, dtype, scale=1.0):
+    return (rng.standard_normal(shape, dtype=np.float32) * scale).astype(dtype)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _tol(dtype):
+    return TOL if dtype is np.float32 else TOL_BF16
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(8, 128), (4, 32, 128), (2, 16, 512)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rmsnorm_plain_matches_jax(shape, dt):
+    rng = np.random.default_rng(0)
+    x = _rand(rng, shape, DTYPES[dt])
+    sc = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(DTYPES[dt])
+    out = rmsnorm(to_tensor(x), to_tensor(sc))
+    assert out.dtype == to_tensor(x).dtype
+    for ref in (jax_rmsnorm_ref(jnp.asarray(x), jnp.asarray(sc)),
+                jax_rmsnorm_kernel(jnp.asarray(x), jnp.asarray(sc), interpret=True)):
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (1, 2, 2, 64, 32),     # MHA
+    (2, 4, 2, 128, 32),    # GQA rep=2
+    (1, 8, 1, 128, 64),    # MQA
+    (1, 4, 4, 96, 16),     # non-pow2 seq (3 Pallas blocks of 32)
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_plain_matches_jax(b, h, hkv, s, d, dt):
+    """Sq == T and q_offset = 0: the one case where the Pallas kernel
+    (top-left causal), the JAX oracle (bottom-right) and the port agree."""
+    rng = np.random.default_rng(1)
+    q = _rand(rng, (b, h, s, d), DTYPES[dt])
+    k = _rand(rng, (b, hkv, s, d), DTYPES[dt])
+    v = _rand(rng, (b, hkv, s, d), DTYPES[dt])
+    out, lse = flash_attention_fwd(to_tensor(q), to_tensor(k), to_tensor(v))
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    kout, klse = jax_flash_kernel(jq, jk, jv, block_q=32, block_kv=32, interpret=True)
+    for ref in (jax_attention_ref(jq, jk, jv), kout):
+        np.testing.assert_allclose(_np(out), _np(ref), **_tol(DTYPES[dt]))
+    for ref in (jax_lse_ref(jq, jk), klse):
+        np.testing.assert_allclose(_np(lse), _np(ref), rtol=1e-2, atol=1e-2)
+    # the oracle-shaped plain functions give the same, in the oracle's alignment
+    tq, tk, tv = to_tensor(q), to_tensor(k), to_tensor(v)
+    np.testing.assert_array_equal(_np(attention_ref(tq, tk, tv)), _np(out))
+    np.testing.assert_array_equal(_np(lse_ref(tq, tk)), _np(lse))
+
+
+def test_flash_plain_noncausal_matches_jax():
+    rng = np.random.default_rng(3)
+    q, k, v = (_rand(rng, (1, 2, 64, 32), np.float32) for _ in range(3))
+    out, _ = flash_attention_fwd(to_tensor(q), to_tensor(k), to_tensor(v),
+                                 causal=False)
+    ref = jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=False)
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_plain_tail_s100_matches_oracle(dt):
+    """S = 100 is not a multiple of any tile.  The Pallas kernel drops the
+    tail rows (its grid is s // block), so the port is held to the oracle."""
+    rng = np.random.default_rng(4)
+    q = _rand(rng, (2, 4, 100, 32), DTYPES[dt])
+    k = _rand(rng, (2, 2, 100, 32), DTYPES[dt])
+    v = _rand(rng, (2, 2, 100, 32), DTYPES[dt])
+    out, lse = flash_attention_fwd(to_tensor(q), to_tensor(k), to_tensor(v))
+    jq, jk = jnp.asarray(q), jnp.asarray(k)
+    np.testing.assert_allclose(
+        _np(out), _np(jax_attention_ref(jq, jk, jnp.asarray(v))), **_tol(DTYPES[dt]))
+    np.testing.assert_allclose(_np(lse), _np(jax_lse_ref(jq, jk)), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("q_offset,s,t,kv_len", [
+    (16, 16, 48, 32),      # chunked prefill: 16 cached rows, cache longer than kv_len
+    (40, 8, 64, 48),       # GQA at a deep offset
+    (0, 24, 40, 24),       # first prefill into a longer cache
+])
+def test_flash_plain_q_offset_matches_blocked_attention(q_offset, s, t, kv_len):
+    """q_offset > 0 with kv_len > S: held to the model's plain attention
+    (absolute positions), in JAX and in the port."""
+    rng = np.random.default_rng(5)
+    b, h, hkv, d = 2, 4, 2, 32
+    q = _rand(rng, (b, s, h, d), np.float32)
+    k = _rand(rng, (b, t, hkv, d), np.float32)
+    v = _rand(rng, (b, t, hkv, d), np.float32)
+    out, _ = flash_attention_fwd(to_tensor(q).transpose(1, 2),
+                                 to_tensor(k).transpose(1, 2),
+                                 to_tensor(v).transpose(1, 2),
+                                 q_offset=q_offset, kv_len=kv_len)
+    out = out.transpose(1, 2)
+    scale = 1.0 / np.sqrt(d)
+    ref = jax_blocked(jnp.asarray(q), jnp.asarray(k[:, :kv_len]),
+                      jnp.asarray(v[:, :kv_len]), scale, q_offset=q_offset)
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL)
+    port = blocked_causal_attention(to_tensor(q), to_tensor(k[:, :kv_len]),
+                                    to_tensor(v[:, :kv_len]), scale, q_offset=q_offset)
+    np.testing.assert_allclose(_np(out), _np(port), **TOL)
+
+
+def test_flash_plain_bottom_right_default_matches_jax_oracle():
+    """Sq < T with the oracle's own alignment (q_offset = T - S)."""
+    rng = np.random.default_rng(6)
+    q = _rand(rng, (1, 4, 16, 32), np.float32)
+    k = _rand(rng, (1, 2, 48, 32), np.float32)
+    v = _rand(rng, (1, 2, 48, 32), np.float32)
+    out, lse = flash_attention_fwd(to_tensor(q), to_tensor(k), to_tensor(v),
+                                   q_offset=48 - 16)
+    jq, jk = jnp.asarray(q), jnp.asarray(k)
+    np.testing.assert_allclose(_np(out), _np(jax_attention_ref(jq, jk, jnp.asarray(v))), **TOL)
+    np.testing.assert_allclose(_np(lse), _np(jax_lse_ref(jq, jk)), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,h,hkv,t,d,bkv", [
+    (2, 8, 2, 64, 32, 16),
+    (1, 4, 4, 128, 64, 32),
+    (4, 16, 1, 64, 32, 64),   # MQA, single block
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_plain_matches_jax(b, h, hkv, t, d, bkv, dt):
+    rng = np.random.default_rng(7)
+    q = _rand(rng, (b, h, d), DTYPES[dt])
+    k = _rand(rng, (b, t, hkv, d), DTYPES[dt])
+    v = _rand(rng, (b, t, hkv, d), DTYPES[dt])
+    lengths = rng.integers(1, t + 1, size=(b,)).astype(np.int32)  # JAX gives NaN at 0
+    out = decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), to_tensor(lengths))
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, k, v, lengths))
+    for ref in (jax_decode_ref(jq, jk, jv, jl),
+                jax_decode_kernel(jq, jk, jv, jl, block_kv=bkv, interpret=True)):
+        np.testing.assert_allclose(_np(out), _np(ref), **_tol(DTYPES[dt]))
+
+
+def test_decode_plain_ragged_lengths_poisoned_cache():
+    """Each sequence attends only within its own length: poisoning the
+    cache past each length changes nothing, as in the JAX test."""
+    b, h, hkv, t, d = 3, 4, 2, 64, 32
+    rng = np.random.default_rng(8)
+    q = _rand(rng, (b, h, d), np.float32)
+    k = _rand(rng, (b, t, hkv, d), np.float32)
+    v = _rand(rng, (b, t, hkv, d), np.float32)
+    lengths = np.array([1, 17, 64], np.int32)
+    out = decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), to_tensor(lengths))
+    k2, v2 = k.copy(), v.copy()
+    k2[0, 1:] = 1e4
+    k2[1, 17:] = -1e4
+    v2[0, 1:] = 1e4
+    out2 = decode_attention(to_tensor(q), to_tensor(k2), to_tensor(v2), to_tensor(lengths))
+    np.testing.assert_allclose(_np(out), _np(out2), **TOL)
+    ref = jax_decode_ref(*(jnp.asarray(a) for a in (q, k, v, lengths)))
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL)
+
+
+def test_decode_plain_length_zero_gives_zeros():
+    """The port defines length 0 as zeros (the JAX oracle gives NaN)."""
+    rng = np.random.default_rng(9)
+    q = _rand(rng, (2, 4, 32), np.float32)
+    k = _rand(rng, (2, 16, 2, 32), np.float32)
+    v = _rand(rng, (2, 16, 2, 32), np.float32)
+    lengths = np.array([0, 5], np.int32)
+    out = decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), to_tensor(lengths))
+    assert np.all(_np(out)[0] == 0)
+    ref = jax_decode_ref(*(jnp.asarray(a) for a in (q[1:], k[1:], v[1:], lengths[1:])))
+    np.testing.assert_allclose(_np(out)[1:], _np(ref), **TOL)
+
+
+def test_decode_plain_t_not_multiple_of_tile():
+    """T = 100: the Pallas kernel asserts T % block == 0; held to the oracle."""
+    rng = np.random.default_rng(10)
+    q = _rand(rng, (2, 8, 32), ml_dtypes.bfloat16)
+    k = _rand(rng, (2, 100, 2, 32), ml_dtypes.bfloat16)
+    v = _rand(rng, (2, 100, 2, 32), ml_dtypes.bfloat16)
+    lengths = np.array([100, 37], np.int32)
+    out = decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), to_tensor(lengths))
+    ref = jax_decode_ref(*(jnp.asarray(a) for a in (q, k, v, lengths)))
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL_BF16)

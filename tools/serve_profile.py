@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Where the time of the port's serve path goes, on one NVIDIA card.
+
+    python3 tools/serve_profile.py
+
+Builds full-width chatglm3-6b (random weights from seed 0), prefills 4
+prompts of 512 tokens and decodes 8 tokens, each phase under
+`torch.profiler`.  For each phase it prints one JSON line: the wall time
+(host clock, synchronised), the device busy time (sum of kernel durations,
+one stream), the device idle share, and the kernels that take the most
+device time.  The card's name and power limit are printed first.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import init_cache, init_model  # noqa: E402
+from repro_torch.runtime.steps import prefill_step, serve_step  # noqa: E402
+
+
+def _phase(name, fn, n_items):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(json.dumps({
+        "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+        "kernel_launches": sum(e.count for e in kernels),
+        "per_item_wall_ms": wall_ms / n_items,
+        "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                         "count": e.count} for e in top]}), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("serve_profile: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    cfg = get_config("chatglm3-6b")
+    b, s0, max_len, steps, seed = 4, 512, 1024, 8, 0
+    with torch.inference_mode():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+            1, cfg.vocab_size, size=(b, s0))).to(dev)
+        cache = init_cache(cfg, b, max_len, dev)
+        prefill_step(params, cache, {"tokens": toks}, cfg)      # warm-up
+        state = {}
+
+        def run_prefill():
+            state["logits"], state["cache"] = prefill_step(
+                params, cache, {"tokens": toks}, cfg)
+
+        def run_decode():
+            tok = state["logits"][:, -1].argmax(-1)
+            for i in range(steps):
+                lg, _ = serve_step(params, state["cache"], {"tokens": tok[:, None]},
+                                   s0 + i, cfg)
+                tok = lg[:, -1].argmax(-1)
+
+        _phase("prefill", run_prefill, 1)
+        _phase("decode", run_decode, steps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
