@@ -7,14 +7,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`.
-3. kernels — each kernel of the serve path, at the shapes that path gives
-   it, against its plain PyTorch version on the same inputs; its time, the
-   plain version's, one library call's as a yardstick (never used by the
-   port), and the least time the card could take (the bound).
+3. kernels — each kernel of the serve and train paths, at the shapes that
+   path gives it, against its plain PyTorch version on the same inputs; its
+   time, the plain version's, one library call's as a yardstick (never used
+   by the port), and the least time the card could take (the bound).
 4. serve   — full-width chatglm3-6b (28 layers, d 4096, random weights from
    a seed) serves 4 prompts of 512 tokens and generates 64 tokens through
    `Server.generate`, with every kernel's launch count checked; then a
    513-token prefill is held against a 512-token prefill plus one decode.
+5. train_check — one loss and every gradient of reduced chatglm3-6b on the
+   card (kernels) against the same weights and batch on the CPU (plain
+   versions).
+6. train   — full-width chatglm3-6b trains 8 steps of batch 8 x 512 tokens
+   through `Trainer.run` (remat per layer, 8 cross-entropy chunks, AdamW
+   with bf16 moments: the one cut, as the fp32-moment state alone is
+   74.9 GB), on one fixed batch; every loss finite, the last below the
+   first, and every kernel's launch count per step checked.
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -23,6 +31,7 @@ no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -44,6 +53,9 @@ PEAK_BYTES = 3.35e12
 TOL_BF16 = 3e-2          # rtol = atol, as tests/test_kernels.py's TOL_BF16
 TOL_RMSNORM = 1e-2       # as tests/test_kernels.py's rmsnorm tolerance
 TOL_LSE = 1e-2
+TOL_CE = 1e-4            # per-row nll and lse: fp32 sums over the vocab
+TOL_DSCALE = 2e-2        # rmsnorm dscale: x its largest |value| (a sum over 4096 rows)
+TOL_GRAD = 3e-2          # train_check: relative error of the loss and of all gradients
 # prefill(513) against prefill(512) + decode(1): max |diff| over the
 # logits' largest magnitude, the bound tests/test_torch_serve.py holds the
 # reduced model to (the elementwise 3e-2 bound fails at full width; see
@@ -53,6 +65,9 @@ TOL_CROSS = 3e-2
 ARCH = "chatglm3-6b"
 BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 64, 1024
 SEED = 0
+# the train phase: global batch x sequence, steps, cross-entropy chunks
+TRAIN_B, TRAIN_S, TRAIN_STEPS, CE_CHUNKS = 8, 512, 8, 8
+TRAIN_CUT = ["adamw moment_dtype bf16 (fp32 state is 74.9 GB)"]
 
 
 def emit(obj) -> None:
@@ -92,6 +107,20 @@ def bound(nbytes: float, flops: float, peak_ops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def grad_fn(out, inputs, grad):
+    """A callable that runs the backward of `out` (built once) again."""
+    return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a param tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -102,13 +131,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, decode_attention, decode_attention_ref,
-                                     flash_attention_fwd, launches, reset_launches,
-                                     rmsnorm, rmsnorm_ref)
-    from repro_torch.kernels.flash_attention import attention_with_lse_ref
+                                     flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                                     flash_attention_fwd, fused_ce, fused_ce_bwd,
+                                     launches, reset_launches, rmsnorm, rmsnorm_bwd,
+                                     rmsnorm_bwd_ref, rmsnorm_ref)
+    from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
+    from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
+                                                     attention_bwd_dq_ref,
+                                                     attention_with_lse_ref)
     from repro_torch.launch.serve import Server
-    from repro_torch.models import init_cache
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.models import init_cache, init_model, loss_fn
     from repro_torch.runtime.steps import prefill_step, serve_step
+    from repro_torch.tree import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -215,7 +252,108 @@ def main() -> int:
     r["max_abs_err"] = float((out.float() - ref.float()).abs().max())
     emit({"phase": "kernel", **r, "shape": {"B": b, "H": h, "Hkv": hkv, "T": t,
                                             "D": hd, "lengths": lens_np.tolist()}})
-    del x, q, ck, cv, k, v, ke, ve, kd, vd, scratch
+
+    # rmsnorm backward: every norm of the train step, [8 x 512, 4096]
+    rows_t = TRAIN_B * TRAIN_S
+    x = randn(rows_t, d, scale=3.0)
+    dy = randn(rows_t, d)
+    (dx, dsc), (rdx, rdsc) = rmsnorm_bwd(x, sc, dy), rmsnorm_bwd_ref(x, sc, dy)
+    torch.cuda.synchronize()
+    over = max(excess(dx, rdx, TOL_BF16),
+               float((dsc.float() - rdsc.float()).abs().max())
+               - TOL_DSCALE * float(rdsc.float().abs().max()))
+    xl = x.detach().requires_grad_(True)
+    scl = sc.detach().requires_grad_(True)
+    r = kernel_row("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                   "none (JAX differentiates src/repro/kernels/rmsnorm/ref.py:5 with XLA)",
+                   over, lambda: rmsnorm_bwd(x, sc, dy), lambda: rmsnorm_bwd_ref(x, sc, dy),
+                   grad_fn(F.rms_norm(xl, (d,), scl, 1e-6), (xl, scl), dy),
+                   nbytes=3 * x.numel() * 2 + 2 * d * 2, flops=10 * x.numel(),
+                   peak=PEAK_F32)
+    r["max_abs_err"] = float((dx.float() - rdx.float()).abs().max())
+    emit({"phase": "kernel", **r, "shape": [rows_t, d],
+          "dscale_max_abs_err": float((dsc.float() - rdsc.float()).abs().max())})
+    del x, dy, dx, dsc, rdx, rdsc, xl, scl
+
+    # flash backward: one layer's attention gradient in the train step
+    b, s = TRAIN_B, TRAIN_S
+    q = randn(b, s, h, hd).transpose(1, 2)
+    k, v = randn(b, s, hkv, hd).transpose(1, 2), randn(b, s, hkv, hd).transpose(1, 2)
+    do = randn(b, s, h, hd).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v)
+    (dq, delta), (rq, rdelta) = (flash_attention_bwd_dq(q, k, v, out, do, lse),
+                                 attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0))
+    (dk, dv), (rk, rv) = (flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                          attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0))
+    torch.cuda.synchronize()
+    pairs = b * h * s * (s + 1) // 2
+    qe = q.detach().requires_grad_(True)
+    ke = k.repeat_interleave(h // hkv, dim=1).detach().requires_grad_(True)
+    ve = v.repeat_interleave(h // hkv, dim=1).detach().requires_grad_(True)
+    sdpa_bwd = grad_fn(F.scaled_dot_product_attention(qe, ke, ve, is_causal=True),
+                       (qe, ke, ve), do)
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each
+    r = kernel_row("flash_attention_bwd_dq",
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:125",
+                   max(excess(dq, rq, TOL_BF16), excess(delta, rdelta, TOL_LSE)),
+                   lambda: flash_attention_bwd_dq(q, k, v, out, do, lse),
+                   lambda: attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0),
+                   sdpa_bwd,      # dq, dk and dv in one call
+                   nbytes=4 * qb + 2 * kvb + 2 * rowb, flops=6 * hd * pairs,
+                   peak=PEAK_BF16)
+    r["max_abs_err"] = float((dq.float() - rq.float()).abs().max())
+    emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
+          "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
+    r = kernel_row("flash_attention_bwd_dkv",
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:162",
+                   max(excess(dk, rk, TOL_BF16), excess(dv, rv, TOL_BF16)),
+                   lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                   lambda: attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0),
+                   sdpa_bwd,
+                   nbytes=2 * qb + 4 * kvb + 2 * rowb, flops=8 * hd * pairs,
+                   peak=PEAK_BF16)
+    r["max_abs_err"] = max(float((dk.float() - rk.float()).abs().max()),
+                           float((dv.float() - rv.float()).abs().max()))
+    emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
+          "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
+    del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, qe, ke, ve, sdpa_bwd
+
+    # fused cross-entropy: one of the train step's 8 chunks, [8 x 64, 65024]
+    vocab = get_config(ARCH).vocab_size
+    rows_c = TRAIN_B * TRAIN_S // CE_CHUNKS
+    logits = randn(rows_c, vocab, scale=2.0)
+    labels = torch.from_numpy(rng.integers(0, vocab, rows_c)).to(dev)
+    cmask = torch.from_numpy((rng.random(rows_c) > 0.1).astype(np.float32)).to(dev)
+    g = torch.ones(rows_c, device=dev)
+    (nll, lse), (rn, rl) = fused_ce(logits, labels, cmask), ce_rows_ref(logits, labels, cmask)
+    dl, rdl = fused_ce_bwd(logits, labels, cmask, lse, g), ce_bwd_ref(logits, labels, cmask, rl, g)
+    torch.cuda.synchronize()
+    lgl = logits.detach().requires_grad_(True)
+    ce_lib = (F.cross_entropy(lgl, labels, reduction="none") * cmask).sum()
+    rowsb = rows_c * (8 + 4)                                   # labels + mask
+    r = kernel_row("fused_ce", "src/repro_torch/kernels/csrc/cross_entropy.cu",
+                   "src/repro/kernels/cross_entropy/kernel.py:25",
+                   max(excess(nll, rn, TOL_CE), excess(lse, rl, TOL_CE)),
+                   lambda: fused_ce(logits, labels, cmask),
+                   lambda: ce_rows_ref(logits, labels, cmask),
+                   lambda: (F.cross_entropy(logits, labels, reduction="none") * cmask).sum(),
+                   nbytes=logits.numel() * 2 + rowsb + rows_c * 8,
+                   flops=4 * logits.numel(), peak=PEAK_F32)
+    r["max_abs_err"] = float((nll - rn).abs().max())
+    emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
+    r = kernel_row("fused_ce_bwd", "src/repro_torch/kernels/csrc/cross_entropy.cu",
+                   "none (JAX differentiates src/repro/kernels/cross_entropy/ref.py:5)",
+                   excess(dl, rdl, TOL_BF16),
+                   lambda: fused_ce_bwd(logits, labels, cmask, lse, g),
+                   lambda: ce_bwd_ref(logits, labels, cmask, rl, g),
+                   grad_fn(ce_lib, (lgl,), None),
+                   nbytes=2 * logits.numel() * 2 + rowsb + rows_c * 8,
+                   flops=4 * logits.numel(), peak=PEAK_F32)
+    r["max_abs_err"] = float((dl.float() - rdl.float()).abs().max())
+    emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
+    del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv, kd, vd, scratch
     torch.cuda.empty_cache()
 
     # -- serve: full-width chatglm3-6b through Server.generate ----------------
@@ -232,8 +370,9 @@ def main() -> int:
     out = srv.generate(prompts[:, :PROMPT], NEW)
     got = launches()
     n = cfg.n_layers
-    want = {"rmsnorm": (2 * n + 1) * (1 + NEW), "flash_attention_fwd": n,
-            "decode_attention": n * NEW}
+    want = {name: 0 for name in got}
+    want.update({"rmsnorm": (2 * n + 1) * (1 + NEW), "flash_attention_fwd": n,
+                 "decode_attention": n * NEW})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit({"phase": "serve", "arch": ARCH, "n_layers": n, "d_model": cfg.d_model,
           "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW, "init_s": init_s,
@@ -247,8 +386,7 @@ def main() -> int:
         raise AssertionError("non-finite logits in the serve run")
     if out["tokens"].shape != (BATCH, NEW):
         raise AssertionError(f"tokens shape {out['tokens'].shape}")
-    for row in rows:
-        row["launches"] = got[row["name"]]
+    by_path = {"serve": got}
 
     # -- cross-check: prefill(513) == prefill(512) + decode(1) ----------------
     with torch.inference_mode():
@@ -275,6 +413,105 @@ def main() -> int:
         raise AssertionError(f"prefill+decode disagrees with prefill: max |err| "
                              f"{err} > {TOL_CROSS} * {scale}")
 
+    del srv, toks, full, cache, step, half
+    torch.cuda.empty_cache()
+
+    # -- train_check: reduced chatglm3-6b, loss and every gradient, card vs CPU
+    small = get_config(ARCH).reduced()
+    with torch.no_grad():
+        sp = init_model(small, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    sp_cpu = tree_map(lambda t: t.cpu(), sp)
+    toks = np.random.default_rng(SEED + 3).integers(0, small.vocab_size, (2, 65))
+    smask = np.ones((2, 64), np.float32)
+    smask[1, 40:] = 0.0                       # padding, as pack_batch makes it
+    res = {}
+    for where, params in (("cuda", sp), ("cpu", sp_cpu)):
+        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(where),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(where),
+                 "loss_mask": torch.from_numpy(smask).to(where)}
+        loss, _ = loss_fn(params, batch, small)
+        res[where] = [loss.detach().cpu()] + [
+            gr.float().cpu() for gr in torch.autograd.grad(loss, leaves)]
+    names = leaf_names(sp)
+    (loss_c, *g_c), (loss_p, *g_p) = res["cuda"], res["cpu"]
+    # The bf16 kernels round P and dS where the plain versions keep fp32.
+    # Gate on the loss and on the relative L2 error of all gradients taken
+    # together; per leaf it is reported, not gated: the key-bias gradient's
+    # unrotated half is exactly 0 (softmax ignores a shift shared by all
+    # keys), so that leaf is rounding noise on both sides.
+    rel_loss = float((loss_c - loss_p).abs() / loss_p.abs())
+    rel_all = float(torch.cat([(a - b).flatten() for a, b in zip(g_c, g_p)]).norm()
+                    / torch.cat([b.flatten() for b in g_p]).norm())
+    rel_l2 = {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
+              for nm, a, b in zip(names, g_c, g_p)}
+    worst = sorted(rel_l2, key=rel_l2.get, reverse=True)[:4]
+    emit({"phase": "train_check", "arch": ARCH, "reduced": True,
+          "loss_cuda": float(loss_c), "loss_cpu": float(loss_p), "rel_err_loss": rel_loss,
+          "n_grads": len(g_p), "rel_l2_all_grads": rel_all,
+          "worst_leaf_rel_l2": {nm: rel_l2[nm] for nm in worst}, "tol": TOL_GRAD})
+    if not (rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD):
+        raise AssertionError(f"reduced train step on the card disagrees with the CPU: "
+                             f"loss {rel_loss}, gradients {rel_all} (relative) > {TOL_GRAD}")
+    del sp, sp_cpu, res, g_c, g_p
+
+    # -- train: full-width chatglm3-6b through Trainer.run ----------------------
+    tc = TrainerConfig(arch=ARCH, reduced=False, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                       steps=TRAIN_STEPS, log_every=TRAIN_STEPS, device="cuda",
+                       seed=SEED, moment_dtype=torch.bfloat16)
+    cfg = get_config(ARCH)
+    # one fixed batch, repeated: a learnable target for 8 steps
+    toks = np.random.default_rng(SEED + 4).integers(
+        1, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+    fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": np.ones((TRAIN_B, TRAIN_S), np.float32)}
+    t0 = time.perf_counter()
+    tr = Trainer(tc, batches=itertools.repeat(fixed))
+    tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.state["params"]))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = tr.run()
+    got = launches()
+    by_path["train"] = got
+    n, c = cfg.n_layers, CE_CHUNKS
+    per_step = {name: 0 for name in got}
+    per_step.update({"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
+                     "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+                     "flash_attention_bwd_dkv": n, "fused_ce": 2 * c, "fused_ce_bwd": c})
+    tokens = TRAIN_B * TRAIN_S
+    # 6 N tokens (N without the token-embedding gather) plus causal attention
+    # (4 D flops per unmasked pair forward, 3x with the backward), no recompute
+    pairs = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
+    flops = (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+             + 12 * cfg.head_dim * pairs * n)
+    losses = out["losses"]
+    emit({"phase": "train", "arch": ARCH, "n_layers": n, "d_model": cfg.d_model,
+          "n_params": n_params, "global_batch": TRAIN_B, "seq_len": TRAIN_S,
+          "steps": TRAIN_STEPS, "remat": cfg.remat, "ce_chunks": c,
+          "moment_dtype": "bfloat16", "reduced": TRAIN_CUT, "init_s": init_s,
+          "losses": losses, "step_ms": out["step_s"] * 1e3,
+          "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "model_tflops_per_step": flops / 1e12,
+          "model_tflops_per_s": flops / out["step_s"] / 1e12,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
+          "expected_launches_per_step": per_step})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in the train run: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if got != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"train launch counts {got} != {TRAIN_STEPS} x {per_step}")
+
+    for row in rows:
+        row["launches_by_path"] = {p: cnt[row["name"]] for p, cnt in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']}: no launch on the main paths")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,12 @@
 """Config registry of the port: ``get_config("<arch-id>")``.
 
-It holds only the architectures the port serves so far; the JAX package's
+It holds only the architectures the port runs so far; the JAX package's
 other configs raise `KeyError` until their slice lands (see ROADMAP.md).
 """
-from . import chatglm3_6b
+from . import chatglm3_6b, stablelm_3b
 from .base import HybridConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (chatglm3_6b,)}
+REGISTRY = {m.CONFIG.name: m.CONFIG for m in (chatglm3_6b, stablelm_3b)}
 
 ARCH_IDS = tuple(sorted(REGISTRY))
 

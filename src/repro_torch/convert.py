@@ -1,10 +1,12 @@
-"""Carry JAX `init_model` params across to the port.
+"""Carry params between the JAX package's layout and the port's.
 
 `from_jax_params` takes the JAX params as nested dicts of numpy arrays (for
 example `jax.tree_util.tree_map(np.asarray, params)`), so this module itself
-imports no JAX.  Leaf names and einsum layouts are kept (`wq` [d,H,dh],
+imports no JAX; `to_jax_params` gives the port's params (or grads) back as
+such numpy dicts.  Leaf names and einsum layouts are kept (`wq` [d,H,dh],
 `wo` [H,dh,d], ...); the stacked `[L, ...]` leaves of `params["blocks"]`
-become one param dict per layer.
+become one param dict per layer and back.  bf16 crosses as its bits,
+through an `int16` view.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .tree import tree_map
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -25,12 +28,6 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _tree(x, fn):
-    if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
-
-
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"
                     ) -> Dict[str, Any]:
     """JAX dense-decoder params (numpy leaves) -> the port's params."""
@@ -38,9 +35,31 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"
     if extra:
         raise NotImplementedError(f"{cfg.name}: params {sorted(extra)} belong to "
                                   "families the port does not serve yet")
-    stacked = _tree(tree["blocks"], lambda a: to_tensor(a, device))
-    blocks = [_tree(stacked, lambda t, i=i: t[i].clone())
+    stacked = tree_map(lambda a: to_tensor(a, device), tree["blocks"])
+    blocks = [tree_map(lambda t, i=i: t[i].clone(), stacked)
               for i in range(cfg.n_layers)]
-    return {"embed": _tree(tree["embed"], lambda a: to_tensor(a, device)),
-            "final_norm": _tree(tree["final_norm"], lambda a: to_tensor(a, device)),
+    return {"embed": tree_map(lambda a: to_tensor(a, device), tree["embed"]),
+            "final_norm": tree_map(lambda a: to_tensor(a, device), tree["final_norm"]),
             "blocks": blocks}
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same values; bf16 comes out, bit for
+    bit, as `np.dtype("bfloat16")`, which exists once `ml_dtypes` is
+    imported (as JAX does)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    return t.numpy()
+
+
+def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's dense-decoder params (or grads) -> the JAX layout, as
+    numpy: the per-layer dicts restacked to `[L, ...]` leaves."""
+    blocks = params["blocks"]
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(blocks)} blocks, config has {cfg.n_layers}")
+    stacked = tree_map(lambda *ts: np.stack([to_numpy(t) for t in ts]), *blocks)
+    return {"embed": tree_map(to_numpy, params["embed"]),
+            "final_norm": tree_map(to_numpy, params["final_norm"]),
+            "blocks": stacked}

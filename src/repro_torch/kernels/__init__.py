@@ -1,19 +1,27 @@
 """repro_torch.kernels — hand-written CUDA kernels for Hopper (sm_90a).
 
-Each subpackage holds the wrapper of one kernel (`kernel.py`, which counts
-its launches in `<wrapper>.launches`) and its plain PyTorch version
-(`ref.py`).  The CUDA sources live in `csrc/` and are built at first use by
-`_build.py`.  A wrapper given a CPU tensor runs the plain version; given a
-CUDA tensor it launches the kernel or raises.
+Each subpackage holds the wrappers of its kernels (`kernel.py`, each
+counting its launches in `<wrapper>.launches`), their plain PyTorch
+versions (`ref.py`) and, for the train path, an autograd op (`ops.py`)
+whose backward runs the backward kernels.  The CUDA sources live in `csrc/`
+and are built at first use by `_build.py`.  A wrapper given a CPU tensor
+runs the plain version; given a CUDA tensor it launches the kernel or
+raises.
 
-Ported so far (the serve path): rmsnorm, flash-attention forward, decode
-attention.  The others are listed in ROADMAP.md.
+Ported so far: rmsnorm (forward and backward), flash attention (forward,
+and the backward's dq and dk/dv passes), decode attention, fused
+cross-entropy (forward and backward).  The SSD scan is listed in
+ROADMAP.md.
 """
+from .cross_entropy import ce_bwd_ref, ce_ref, ce_rows_ref, fused_ce, fused_ce_bwd, fused_ce_op
 from .decode_attention import decode_attention, decode_attention_ref
-from .flash_attention import attention_ref, flash_attention_fwd, lse_ref
-from .rmsnorm import rmsnorm, rmsnorm_ref
+from .flash_attention import (attention_bwd_ref, attention_ref, flash_attention,
+                              flash_attention_bwd, flash_attention_bwd_dkv,
+                              flash_attention_bwd_dq, flash_attention_fwd, lse_ref)
+from .rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_op, rmsnorm_ref
 
-WRAPPERS = (rmsnorm, flash_attention_fwd, decode_attention)
+WRAPPERS = (rmsnorm, rmsnorm_bwd, flash_attention_fwd, flash_attention_bwd_dq,
+            flash_attention_bwd_dkv, decode_attention, fused_ce, fused_ce_bwd)
 
 
 def reset_launches() -> None:
@@ -25,6 +33,9 @@ def launches() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["WRAPPERS", "attention_ref", "decode_attention", "decode_attention_ref",
-           "flash_attention_fwd", "launches", "lse_ref", "reset_launches",
-           "rmsnorm", "rmsnorm_ref"]
+__all__ = ["WRAPPERS", "attention_bwd_ref", "attention_ref", "ce_bwd_ref", "ce_ref",
+           "ce_rows_ref", "decode_attention", "decode_attention_ref", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_fwd", "fused_ce", "fused_ce_bwd", "fused_ce_op", "launches",
+           "lse_ref", "reset_launches", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_ref",
+           "rmsnorm_op", "rmsnorm_ref"]

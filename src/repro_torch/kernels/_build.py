@@ -117,21 +117,37 @@ def check(rc: int, name: str) -> None:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            device: torch.device) -> None:
+            device: torch.device, *, vector: bool = True) -> None:
     """Raise unless `t` is a `dtype` tensor on `device` whose last dim is
-    contiguous and whose other strides and data pointer keep 16-byte loads
-    aligned.  Nothing is cast or copied: a tensor the kernel cannot take is
-    an error."""
+    contiguous and, when the kernel reads it in 16-byte vectors (`vector`),
+    whose other strides and data pointer keep those loads aligned.  Nothing
+    is cast or copied: a tensor the kernel cannot take is an error."""
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not vector:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous (strides {t.stride()})")
+        return
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the last dim must be contiguous")
     vec = 16 // t.element_size()
     if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
         raise ValueError(f"{name}: data pointer and strides must keep 16-byte "
                          f"alignment (strides {t.stride()})")
+
+
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself if its last dim is contiguous and its strides and data
+    pointer keep 16-byte loads aligned (what `require` takes), else a
+    contiguous copy.  For tensors the caller does not control the layout
+    of, such as the gradients autograd hands to a backward."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % vec == 0 for st in t.stride()[:-1])):
+        return t
+    return t.contiguous()
 
 
 def stream(t) -> int:

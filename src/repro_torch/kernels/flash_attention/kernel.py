@@ -1,13 +1,15 @@
-"""Flash attention forward: the wrapper of the CUDA kernel in
-`csrc/flash_attention.cu`.
+"""Flash attention forward and backward: the wrappers of the CUDA kernels in
+`csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`.
 
-Counterpart of `repro/kernels/flash_attention/kernel.py::flash_attention_fwd`
-(forward only; the backward passes come with the training slice).  Unlike
-the Pallas grid, the kernel takes an explicit `q_offset` and `kv_len`, masks
-tails that are not a multiple of its tile, and reads strided views.
+Counterparts of `repro/kernels/flash_attention/kernel.py::flash_attention_fwd`
+and `::flash_attention_bwd`; the backward's two passes (dq, then dk/dv) are
+two wrappers, as they are two Pallas kernels.  Unlike the Pallas grids, the
+kernels take an explicit `q_offset` and `kv_len`, mask tails that are not a
+multiple of their tile, read strided views, and give dk/dv per kv head
+(summed over the GQA group inside the kernel).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `flash_attention_fwd.launches` counts kernel launches.
+raises.  `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -18,11 +20,49 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import attention_with_lse_ref
+from .ref import attention_bwd_dkv_ref, attention_bwd_dq_ref, attention_with_lse_ref
 
 HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 8 + (
     _build.FLOAT, _build.PTR, _build.PTR)
+_BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 9 + (
+    _build.FLOAT, _build.PTR, _build.PTR)
+
+
+def _check(name: str, q, k, v, kv_len: int, q_offset: int) -> None:
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        _build.require(x, arg, torch.bfloat16, q.device)
+    if (k.shape != (b, hkv, t, d) or v.shape != k.shape or h % hkv
+            or d not in HEAD_DIMS or not 0 <= kv_len <= t or q_offset < 0):
+        raise ValueError(
+            f"{name}: unsupported shapes q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}, "
+            f"q_offset {q_offset} (head dim must be one of {HEAD_DIMS})")
+
+
+def _check_like(name: str, x: torch.Tensor, shape, dtype, device) -> None:
+    """A [B,H,S,D] view read in vectors, or a contiguous [B,H,S] lse/delta
+    read one value at a time."""
+    _build.require(x, name, dtype, device, vector=dtype == torch.bfloat16)
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {tuple(shape)}, got {tuple(x.shape)}")
+
+
+def _strides(*ts) -> ctypes.Array:
+    """(batch, head, row) element strides of each tensor; None gives zeros."""
+    vals = []
+    for t in ts:
+        vals.extend(t.stride()[:3] if t is not None else (0, 0, 0))
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _empty_like_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,S,D] view of a new contiguous [B,S,H,D] tensor: the model's
+    layout, so the caller's transpose back is free."""
+    b, h, s, d = x.shape
+    return torch.empty((b, s, h, d), dtype=x.dtype, device=x.device).transpose(1, 2)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,25 +84,97 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return attention_with_lse_ref(q, k, v, scale, causal=causal,
                                       q_offset=q_offset, kv_len=kv_len)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _build.require(x, name, torch.bfloat16, q.device)
-    if (k.shape != (b, hkv, t, d) or v.shape != k.shape or h % hkv
-            or d not in HEAD_DIMS or not 0 <= kv_len <= t or q_offset < 0):
-        raise ValueError(
-            f"flash_attention_fwd: unsupported shapes q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}, "
-            f"q_offset {q_offset} (head dim must be one of {HEAD_DIMS})")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    _check("flash_attention_fwd", q, k, v, kv_len, q_offset)
+    out = _empty_like_heads(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                     *v.stride()[:3], *out.stride()[:3])
     fn = _build.function("flash_attention_fwd_bf16", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, hkv, s, d, kv_len, int(q_offset), int(causal),
-            float(scale), strides, _build.stream(q))
+            float(scale), _strides(q, k, v, out), _build.stream(q))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                           scale: Optional[float] = None, causal: bool = True,
+                           q_offset: int = 0, kv_len: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dq pass (counterpart of `_bwd_dq_kernel`): q, out, do [B,H,S,D];
+    k, v [B,Hkv,T,D]; lse [B,H,S] fp32 from the forward -> (dq [B,H,S,D],
+    delta [B,H,S] fp32 = rowsum(out * do)), with the forward's mask."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    kv_len = t if kv_len is None else int(kv_len)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not q.is_cuda:
+        return attention_bwd_dq_ref(q, k, v, out, do, lse, scale, causal=causal,
+                                    q_offset=q_offset, kv_len=kv_len)
+    _check("flash_attention_bwd_dq", q, k, v, kv_len, q_offset)
+    _check_like("out", out, q.shape, torch.bfloat16, q.device)
+    _check_like("do", do, q.shape, torch.bfloat16, q.device)
+    _check_like("lse", lse, (b, h, s), torch.float32, q.device)
+    dq = _empty_like_heads(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention_bwd_dq_bf16", _BWD_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hkv, s, t, d,
+            kv_len, int(q_offset), int(causal), float(scale),
+            _strides(q, k, v, out, do, dq, None, None), _build.stream(q))
+    _build.check(rc, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                            scale: Optional[float] = None, causal: bool = True,
+                            q_offset: int = 0, kv_len: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv pass (counterpart of `_bwd_dkv_kernel` plus the GQA sum at
+    kernel.py:262-264): -> (dk, dv [B,Hkv,T,D]); rows at or past kv_len get
+    zeros."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    kv_len = t if kv_len is None else int(kv_len)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not q.is_cuda:
+        return attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal=causal,
+                                     q_offset=q_offset, kv_len=kv_len)
+    _check("flash_attention_bwd_dkv", q, k, v, kv_len, q_offset)
+    _check_like("do", do, q.shape, torch.bfloat16, q.device)
+    _check_like("lse", lse, (b, h, s), torch.float32, q.device)
+    _check_like("delta", delta, (b, h, s), torch.float32, q.device)
+    dk, dv = _empty_like_heads(k), _empty_like_heads(v)
+    fn = _build.function("flash_attention_bwd_dkv_bf16", _BWD_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t, d,
+            kv_len, int(q_offset), int(causal), float(scale),
+            _strides(q, k, v, None, do, None, dk, dv), _build.stream(q))
+    _build.check(rc, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, scale: Optional[float] = None,
+                        causal: bool = True, q_offset: int = 0,
+                        kv_len: Optional[int] = None):
+    """(dq, dk, dv): the dq pass, then the dk/dv pass on its delta.  The
+    counterpart of the JAX `flash_attention_bwd`, with the same argument
+    order; dk/dv come per kv head."""
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv

@@ -1,18 +1,36 @@
-"""RMSNorm: the wrapper of the CUDA kernel in `csrc/rmsnorm.cu`.
+"""RMSNorm forward and backward: the wrappers of the CUDA kernels in
+`csrc/rmsnorm.cu`.
 
-Counterpart of `repro/kernels/rmsnorm/kernel.py::rmsnorm`.  A CPU tensor
-takes the plain version `rmsnorm_ref`; a CUDA tensor launches the kernel or
-raises.  `rmsnorm.launches` counts kernel launches.
+`rmsnorm` is the counterpart of `repro/kernels/rmsnorm/kernel.py::rmsnorm`;
+`rmsnorm_bwd` has no Pallas counterpart (JAX differentiates the jnp
+reference) and gives the gradients of both inputs.  A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
+`<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from .. import _build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
              _build.FLOAT, _build.PTR)
+_BWD_ARGTYPES = (_build.PTR,) * 6 + (_build.INT,) * 3 + (_build.FLOAT, _build.PTR)
+# blocks of the backward's first launch, each writing one partial dscale row:
+# two per SM of an H100 (132 SMs)
+_BWD_BLOCKS = 264
+
+
+def _check(x: torch.Tensor, scale: torch.Tensor, name: str) -> None:
+    d = x.shape[-1]
+    # the backward keeps a [D] fp32 row in shared memory (227 KB a block)
+    if not x.is_contiguous() or scale.shape != (d,) or d % 8 or d > 56 * 1024:
+        raise ValueError(f"{name}: needs contiguous x [..., D] with D % 8 == 0, "
+                         f"D <= 57344, and scale [D]; got {tuple(x.shape)}, "
+                         f"{tuple(scale.shape)}")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
@@ -23,9 +41,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
     d = x.shape[-1]
     _build.require(x, "x", torch.bfloat16, x.device)
     _build.require(scale, "scale", torch.bfloat16, x.device)
-    if not x.is_contiguous() or scale.shape != (d,) or d % 8:
-        raise ValueError(f"rmsnorm: needs contiguous x [..., D] with D % 8 == 0 "
-                         f"and scale [D]; got {tuple(x.shape)}, {tuple(scale.shape)}")
+    _check(x, scale, "rmsnorm")
     out = torch.empty_like(x)
     fn = _build.function("rmsnorm_bf16", _ARGTYPES)
     rc = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d,
@@ -36,3 +52,33 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, dy [..., D]; scale [D] -> (dx [..., D], dscale [D]), each in its
+    input's dtype (fp32 math; dscale summed over rows in a fixed order)."""
+    if not x.is_cuda:
+        return rmsnorm_bwd_ref(x, scale, dy, eps)
+    d = x.shape[-1]
+    for name, t in (("x", x), ("scale", scale), ("dy", dy)):
+        _build.require(t, name, torch.bfloat16, x.device)
+    _check(x, scale, "rmsnorm_bwd")
+    if dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"rmsnorm_bwd: dy must be contiguous and shaped like x "
+                         f"{tuple(x.shape)}; got {tuple(dy.shape)}")
+    rows = x.numel() // d
+    n_part = max(1, min(rows, _BWD_BLOCKS))
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    partial = torch.empty((n_part, d), dtype=torch.float32, device=x.device)
+    fn = _build.function("rmsnorm_bwd_bf16", _BWD_ARGTYPES)
+    rc = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), rows, d, n_part, float(eps),
+            _build.stream(x))
+    _build.check(rc, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0

@@ -1,5 +1,7 @@
-"""Plain PyTorch version of the RMSNorm kernel (the counterpart of
-`repro/kernels/rmsnorm/ref.py::rmsnorm_ref`)."""
+"""Plain PyTorch versions of the RMSNorm kernels (`rmsnorm_ref` is the
+counterpart of `repro/kernels/rmsnorm/ref.py::rmsnorm_ref`)."""
+from typing import Tuple
+
 import torch
 
 
@@ -8,3 +10,14 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     ms = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale): autograd through `rmsnorm_ref`, as JAX differentiates
+    its jnp reference."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        sr = scale.detach().requires_grad_(True)
+        dx, dscale = torch.autograd.grad(rmsnorm_ref(xr, sr, eps), (xr, sr), dy)
+    return dx, dscale

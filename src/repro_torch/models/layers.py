@@ -7,11 +7,14 @@ Counterpart of `repro/models/layers.py`, with the same names and layouts:
 * attention layouts: x [B, S, D]; q [B, S, H, dh]; kv [B, S, Hkv, dh];
   the KV cache is [L, B, T, Hkv, dh] in bf16.
 
-The RMS norm, prefill attention and decode attention go through the CUDA
-kernels on a CUDA tensor, and through their plain versions on a CPU tensor
-(see `repro_torch.kernels`).  The activation-sharding constraints of
-`repro.context` are single-device no-ops and have no counterpart here; MLA,
-MoE and the `embeds` frontends are not ported yet (ROADMAP.md).
+The RMS norm, attention (train, prefill and decode) and, in the model's
+loss, the cross-entropy go through the CUDA kernels on a CUDA tensor, and
+through their plain versions on a CPU tensor (see `repro_torch.kernels`);
+on the train path through autograd ops whose backward runs the backward
+kernels.  The LayerNorm stays plain torch, as JAX computes it in jnp.
+The activation-sharding constraints of `repro.context` are single-device
+no-ops and have no counterpart here; MLA, MoE and the `embeds` frontends
+are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import flash_attention_fwd
-from ..kernels.rmsnorm import rmsnorm
+from ..kernels.flash_attention import flash_attention, flash_attention_fwd
+from ..kernels.rmsnorm import rmsnorm_op
 
 Params = Dict[str, torch.Tensor]
 
@@ -62,7 +65,7 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
         return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
-    return rmsnorm(x, p["scale"], eps=eps)
+    return rmsnorm_op(x, p["scale"], eps=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +164,8 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     scale = 1.0 / math.sqrt(cfg.head_dim)
     s = x.shape[1]
     if kv_cache is None:
-        out, _ = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), scale=scale)
-        out = out.transpose(1, 2)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), scale).transpose(1, 2)
     else:
         ck, cv = kv_cache["k"], kv_cache["v"]
         ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
@@ -229,7 +231,13 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, p["tok"])
 
 
-def lm_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def head_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The output head's product in the params' dtype: what the fused
+    cross-entropy reads (JAX casts it to fp32 first, which changes no value)."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", h, p["tok"]).float()
-    return torch.einsum("bsd,dv->bsv", h, p["head"]).float()
+        return torch.einsum("bsd,vd->bsv", h, p["tok"])
+    return torch.einsum("bsd,dv->bsv", h, p["head"])
+
+
+def lm_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return head_logits(p, h, cfg).float()

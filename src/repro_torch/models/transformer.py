@@ -1,13 +1,18 @@
-"""Model assembly of the port: the dense transformer decoder's serve path.
+"""Model assembly of the port: the dense transformer decoder's train and
+serve paths.
 
 Counterpart of `repro/models/transformer.py`.  Ported so far: the dense
-branch of `init_model` and `init_cache`, `_apply_tf_layer` without MoE, and
-`_model_step`, `_serve_tf`, `prefill` and `decode_step`.  Layers are kept as
-a list of per-layer param dicts (`params["blocks"][i]`) where JAX stacks
-them for `lax.scan`, and the loop over layers is a Python loop.
+branch of `init_model`, `init_cache` and `forward`, `_apply_tf_layer`
+without MoE, `_chunked_ce`, `loss_fn` (without MTP), and `_model_step`,
+`_serve_tf`, `prefill` and `decode_step`.  Layers are kept as a list of
+per-layer param dicts (`params["blocks"][i]`) where JAX stacks them for
+`lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
+becomes `torch.utils.checkpoint` (non-reentrant): around each layer when
+`cfg.remat == "layer"`, and around each cross-entropy chunk always.
 
 Public entry points (used by runtime/launch):
   init_model(cfg, gen, device)                 -> params
+  loss_fn(params, batch, cfg)                  -> (loss, metrics)   [train]
   prefill(params, batch, cfg, cache)           -> (logits_last, cache)
   decode_step(params, batch, cfg, cache, pos)  -> (logits, cache)
   init_cache(cfg, batch, max_len, device)      -> cache
@@ -18,8 +23,10 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..kernels.cross_entropy import fused_ce_op
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -74,6 +81,71 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
             "final_norm": L.init_norm(cfg, device),
             "blocks": [_init_tf_layer(cfg, gen, device)
                        for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# forward (train: full sequence, no cache) and loss
+# ---------------------------------------------------------------------------
+
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward; returns (hidden [B,S,D], aux_loss)."""
+    _require_ported(cfg)
+    h = L.embed_tokens(params["embed"], batch["tokens"])
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)   # no MoE yet
+
+    def body(hh, lp):
+        return _apply_tf_layer(cfg, lp, hh, positions)[0]
+
+    for lp in params["blocks"]:
+        # activation checkpointing: backward recomputes each layer from its
+        # input, so only the [B,S,D] carry per layer is kept
+        h = (checkpoint(body, h, lp, use_reentrant=False) if cfg.remat == "layer"
+             else body(h, lp))
+    return L.apply_norm(params["final_norm"], h), aux
+
+
+def _chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor, cfg: ModelConfig, n_chunks: int = 8
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materialising the full [B,S,V] logits: the
+    sequence is processed in recomputed chunks (peak memory = one chunk of
+    bf16 logits; backward recomputes them).  Returns (sum_nll, sum_mask)."""
+    b, s, d = h.shape
+    while s % n_chunks:
+        n_chunks -= 1
+    cs = s // n_chunks
+
+    def chunk_nll(hc, lc, mc):
+        logits = L.head_logits(embed_params, hc, cfg)        # [B,cs,V]
+        return fused_ce_op(logits.reshape(-1, logits.shape[-1]), lc.reshape(-1),
+                           mc.reshape(-1))
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * cs, (c + 1) * cs)
+        total = total + checkpoint(chunk_nll, h[:, sl], labels[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return total, mask.sum()
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            *, aux_weight: float = 0.01, ce_chunks: int = 8
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens, labels [B,S] int64 and loss_mask [B,S] fp32 (optional)
+    -> (loss, {loss, ce, aux, ppl})."""
+    h, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    nll_sum, msum = _chunked_ce(params["embed"], h, labels, mask, cfg,
+                                n_chunks=ce_chunks)
+    ce = nll_sum / torch.clamp(msum, min=1.0)
+    loss = ce + aux_weight * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux,
+                  "ppl": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 # ---------------------------------------------------------------------------

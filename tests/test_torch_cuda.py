@@ -4,15 +4,23 @@ Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 On the card they run with `python -m pytest -q -m cuda tests/test_torch_cuda.py`
 (this file imports no JAX).  Each kernel is compared with its plain version
 on the same bf16 inputs at TOL_BF16 (1e-2 for rmsnorm and lse), and each
-wrapper's launch counter must rise.
+wrapper's launch counter must rise.  The backward kernels are held to their
+plain versions on the same inputs: flash dq/dk/dv and the CE gradient at
+TOL_BF16, the RMSNorm gradients at TOL_BF16 for dx and at 2e-2 relative to
+the largest |dscale| for dscale (a sum over thousands of rows, taken in
+another order than the plain version's).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (decode_attention, decode_attention_ref,
-                                 flash_attention_fwd, rmsnorm, rmsnorm_ref)
-from repro_torch.kernels.flash_attention import attention_with_lse_ref
+                                 flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                                 flash_attention_fwd, fused_ce, fused_ce_bwd, rmsnorm,
+                                 rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref)
+from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
+from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref, attention_bwd_dq_ref,
+                                                 attention_with_lse_ref)
 
 TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 
@@ -35,7 +43,8 @@ def _rand(rng, shape, dev, scale=1.0):
 
 def _close(a, b, **tol):
     torch.cuda.synchronize()
-    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(a.detach().float().cpu().numpy(),
+                               b.detach().float().cpu().numpy(), **tol)
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (4, 32, 128), (3, 4096), (2048, 4096)])
@@ -129,8 +138,118 @@ def test_reduced_server_on_card_matches_cpu(dev):
     out = gpu.generate(toks.numpy()[:, :16], 8)
     assert out["finite"]
     n = cfg.n_layers
-    assert launches() == {"rmsnorm": (2 * n + 1) * 9, "flash_attention_fwd": n,
-                          "decode_attention": n * 8}
+    assert {k: v for k, v in launches().items() if v} == {
+        "rmsnorm": (2 * n + 1) * 9, "flash_attention_fwd": n, "decode_attention": n * 8}
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 4096), (4096, 4096), (2, 100, 256)])
+def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(5)
+    x = _rand(rng, shape, dev, 3.0)
+    sc = 1.0 + 0.1 * _rand(rng, (shape[-1],), dev)
+    dy = _rand(rng, shape, dev)
+    before = rmsnorm_bwd.launches
+    dx, ds = rmsnorm_bwd(x, sc, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    rx, rs = rmsnorm_bwd_ref(x, sc, dy)
+    _close(dx, rx, **TOL_BF16)
+    _close(ds, rs, rtol=0, atol=2e-2 * float(rs.float().abs().max()))
+    # dscale is summed in a fixed order: the same inputs give the same bits
+    assert torch.equal(rmsnorm_bwd(x, sc, dy)[1], ds)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,d,q_offset,kv_len,causal", [
+    (2, 4, 2, 128, 128, 64, 0, 128, True),     # GQA, whole tiles
+    (1, 8, 1, 100, 100, 128, 0, 100, True),    # MQA, S not a multiple of 64
+    (2, 32, 2, 130, 300, 128, 40, 170, True),  # offset queries into a longer cache
+    (1, 2, 2, 64, 64, 32, 0, 64, False),       # full attention
+    (8, 32, 2, 512, 512, 128, 0, 512, True),   # the train step's shape
+])
+def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
+    rng = np.random.default_rng(6)
+    q = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
+    k = _rand(rng, (b, t, hkv, d), dev).transpose(1, 2)
+    v = _rand(rng, (b, t, hkv, d), dev).transpose(1, 2)
+    do = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    n_dq, n_dkv = flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert flash_attention_bwd_dq.launches == n_dq + 1
+    assert flash_attention_bwd_dkv.launches == n_dkv + 1
+    rq, rdelta = attention_bwd_dq_ref(q, k, v, out, do, lse, **kw)
+    rk, rv = attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, **kw)
+    _close(delta, rdelta, rtol=1e-2, atol=1e-2)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        _close(got, want, **TOL_BF16)
+    if kv_len < t:      # kv rows past kv_len get zero gradients
+        assert not dk[:, :, kv_len:].any() and not dv[:, :, kv_len:].any()
+
+
+@pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512)])
+def test_fused_ce_kernels_match_plain(dev, r, v):
+    rng = np.random.default_rng(7)
+    logits = _rand(rng, (r, v), dev, 2.0)
+    labels = torch.from_numpy(rng.integers(0, v, r)).to(dev)
+    mask = torch.from_numpy((rng.random(r) > 0.2).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.random(r, dtype=np.float32)).to(dev)
+    n_f, n_b = fused_ce.launches, fused_ce_bwd.launches
+    nll, lse = fused_ce(logits, labels, mask)
+    dl = fused_ce_bwd(logits, labels, mask, lse, g)
+    assert fused_ce.launches == n_f + 1 and fused_ce_bwd.launches == n_b + 1
+    rn, rl = ce_rows_ref(logits, labels, mask)
+    _close(lse, rl, rtol=1e-5, atol=1e-4)
+    _close(nll, rn, rtol=1e-5, atol=1e-4)
+    _close(dl, ce_bwd_ref(logits, labels, mask, rl, g), **TOL_BF16)
+
+
+def test_reduced_train_step_on_card_matches_cpu(dev):
+    """One train step of reduced chatglm3-6b on the card (kernels) against
+    the same weights and batch on the CPU (plain versions): loss, every
+    gradient and the updated params, at TOL_BF16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import make_train_state, train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("chatglm3-6b").reduced()
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(8), dev)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (2, 65))
+    mask = np.ones((2, 64), np.float32)
+    mask[1, 40:] = 0
+    batches = {}
+    for d in (dev, torch.device("cpu")):
+        batches[d.type] = {"tokens": torch.from_numpy(toks[:, :-1]).to(d),
+                           "labels": torch.from_numpy(toks[:, 1:]).to(d),
+                           "loss_mask": torch.from_numpy(mask).to(d)}
+    opt_cfg = AdamWConfig(warmup_steps=1, moment_dtype=torch.bfloat16)
+    states = {"cuda": make_train_state(cfg, opt_cfg, params=params),
+              "cpu": make_train_state(cfg, opt_cfg, params=_map(
+                  params, lambda t: t.detach().cpu().clone()))}
+    grads = {}
+    for d, st in states.items():
+        leaves = tree_leaves(st["params"])
+        loss, _ = loss_fn(st["params"], batches[d], cfg)
+        grads[d] = (loss, torch.autograd.grad(loss, leaves))
+    _close(grads["cuda"][0], grads["cpu"][0], **TOL_BF16)
+    for a, b in zip(grads["cuda"][1], grads["cpu"][1]):
+        _close(a, b, rtol=3e-2, atol=3e-2 * max(1.0, float(b.float().abs().max())))
+    reset_launches()
+    for d, st in states.items():
+        train_step(st, batches[d], cfg, opt_cfg)
+    n, c = cfg.n_layers, 8
+    assert launches() == {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
+                          "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+                          "flash_attention_bwd_dkv": n, "decode_attention": 0,
+                          "fused_ce": 2 * c, "fused_ce_bwd": c}
+    for a, b in zip(tree_leaves(states["cuda"]["params"]),
+                    tree_leaves(states["cpu"]["params"])):
+        _close(a, b, **TOL_BF16)
 
 
 def _map(tree, fn):

@@ -37,8 +37,15 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.convert", "repro_torch.launch.serve",
-            "repro_torch.models.transformer", "repro_torch.runtime.steps",
-            "repro_torch.kernels._build"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.models.transformer",
+            "repro_torch.runtime.steps", "repro_torch.optim.adamw",
+            "repro_torch.data.sampler", "repro_torch.data.tokens",
+            "repro_torch.data.pipeline", "repro_torch.tree",
+            "repro_torch.configs.stablelm_3b", "repro_torch.kernels._build",
+            "repro_torch.kernels.cross_entropy.kernel",
+            "repro_torch.kernels.cross_entropy.ops",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.rmsnorm.ops"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -81,24 +88,48 @@ def _cuda_like(t):
     return torch.Tensor._make_subclass(_LooksCuda, t)
 
 
+_FLASH = "repro_torch.kernels.flash_attention.kernel"
+_CE = "repro_torch.kernels.cross_entropy.kernel"
 WRAPPERS = {
     "rmsnorm": ("repro_torch.kernels.rmsnorm.kernel", "rmsnorm_ref", "rmsnorm_bf16"),
-    "flash_attention_fwd": ("repro_torch.kernels.flash_attention.kernel",
-                            "attention_with_lse_ref", "flash_attention_fwd_bf16"),
+    "rmsnorm_bwd": ("repro_torch.kernels.rmsnorm.kernel", "rmsnorm_bwd_ref",
+                    "rmsnorm_bwd_bf16"),
+    "flash_attention_fwd": (_FLASH, "attention_with_lse_ref", "flash_attention_fwd_bf16"),
+    "flash_attention_bwd_dq": (_FLASH, "attention_bwd_dq_ref", "flash_attention_bwd_dq_bf16"),
+    "flash_attention_bwd_dkv": (_FLASH, "attention_bwd_dkv_ref",
+                                "flash_attention_bwd_dkv_bf16"),
     "decode_attention": ("repro_torch.kernels.decode_attention.kernel",
                          "decode_attention_ref", "decode_attention_bf16"),
+    "fused_ce": (_CE, "ce_rows_ref", "ce_fwd_bf16"),
+    "fused_ce_bwd": (_CE, "ce_bwd_ref", "ce_bwd_bf16"),
 }
 
 
 def _args(name, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(0)
 
-    def r(*shape):
-        return _cuda_like(torch.randn(*shape, generator=g).to(dtype))
+    def r(*shape, dt=dtype):
+        return _cuda_like(torch.randn(*shape, generator=g).to(dt))
+
+    def rows(*shape):                       # fp32 per-row tensors (lse, delta, mask, g)
+        return r(*shape, dt=torch.float32)
     if name == "rmsnorm":
         return (r(4, 64), r(64)), {}
+    if name == "rmsnorm_bwd":
+        return (r(4, 64), r(64), r(4, 64)), {}
     if name == "flash_attention_fwd":
         return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32)), {}
+    if name == "flash_attention_bwd_dq":
+        return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32), r(1, 4, 16, 32),
+                r(1, 4, 16, 32), rows(1, 4, 16)), {}
+    if name == "flash_attention_bwd_dkv":
+        return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32), r(1, 4, 16, 32),
+                rows(1, 4, 16), rows(1, 4, 16)), {}
+    labels = _cuda_like(torch.tensor([3, 0, 63, 7]))
+    if name == "fused_ce":
+        return (r(4, 64), labels, rows(4)), {}
+    if name == "fused_ce_bwd":
+        return (r(4, 64), labels, rows(4), rows(4), rows(4)), {}
     lengths = _cuda_like(torch.tensor([5], dtype=torch.int32))
     return (r(1, 4, 32), r(1, 20, 2, 32), r(1, 20, 2, 32), lengths), {}
 
@@ -174,6 +205,58 @@ def test_dispatch_reads_only_is_cuda_and_never_falls_back(name):
     assert "environ" not in ast.unparse(fn)
 
 
+# the autograd ops of the train path: forward and backward both reach the
+# kernels on a CUDA tensor, and no plain version
+OPS = {
+    "rmsnorm_op": ("repro_torch.kernels.rmsnorm.ops", ("rmsnorm", "rmsnorm_bwd"),
+                   ("rmsnorm_bf16", "rmsnorm_bwd_bf16")),
+    "flash_attention": ("repro_torch.kernels.flash_attention.ops",
+                        ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"),
+                        ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+                         "flash_attention_bwd_dkv_bf16")),
+    "fused_ce_op": ("repro_torch.kernels.cross_entropy.ops", ("fused_ce", "fused_ce_bwd"),
+                    ("ce_fwd_bf16", "ce_bwd_bf16")),
+}
+
+
+def _op_args(name):
+    g = torch.Generator().manual_seed(1)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(torch.bfloat16).requires_grad_(True)
+    if name == "rmsnorm_op":
+        return r(4, 64), r(64)
+    if name == "flash_attention":
+        return r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32)
+    return r(4, 64), torch.tensor([3, 0, 63, 7]), torch.ones(4)
+
+
+@pytest.mark.parametrize("name", sorted(OPS))
+def test_autograd_op_runs_the_kernels_forward_and_backward(name, fake_kernels,
+                                                           monkeypatch):
+    """Every tensor answers is_cuda = True (autograd makes the backward's
+    tensors itself, so a subclass would not reach them)."""
+    mod_name, wrappers, entries = OPS[name]
+    op = getattr(importlib.import_module(mod_name), name)
+    for w in wrappers:                      # no wrapper may take its plain path
+        wmod = importlib.import_module(WRAPPERS[w][0])
+        monkeypatch.setattr(wmod, WRAPPERS[w][1], lambda *a, **k: pytest.fail(
+            "a CUDA tensor reached the plain version"))
+    before = {w: getattr(importlib.import_module(WRAPPERS[w][0]), w).launches
+              for w in wrappers}
+    args = _op_args(name)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    out = op(*args)
+    inputs = [a for a in args if a.requires_grad]
+    grads = torch.autograd.grad(out, inputs, torch.ones_like(out))
+    monkeypatch.undo()
+    assert len(grads) == len(inputs)
+    assert fake_kernels == list(entries)    # forward, then the backward passes in order
+    for w in wrappers:
+        assert getattr(importlib.import_module(WRAPPERS[w][0]), w).launches == before[w] + 1
+
+
 # ---------------------------------------------------------------------------
 # build
 # ---------------------------------------------------------------------------
@@ -182,7 +265,9 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     sources = {p.name: p.read_text() for p in (PKG / "kernels" / "csrc").glob("*.cu")}
     for src, body in (("rmsnorm.cu", "rmsnorm/kernel.py::_rms_kernel"),
                       ("flash_attention.cu", "flash_attention/kernel.py::_fwd_kernel"),
-                      ("decode_attention.cu", "decode_attention/kernel.py::_decode_kernel")):
+                      ("flash_attention_bwd.cu", "flash_attention/kernel.py::_bwd_dq_kernel"),
+                      ("decode_attention.cu", "decode_attention/kernel.py::_decode_kernel"),
+                      ("cross_entropy.cu", "cross_entropy/kernel.py::_ce_kernel")):
         head = sources[src][:1500]
         assert f"src/repro/kernels/{body}" in head
         assert "Bound on an H100" in head and "Design" in head
@@ -201,7 +286,8 @@ def test_build_targets_sm90a_into_an_ignored_directory(monkeypatch):
 
 
 def test_importing_the_package_builds_nothing():
-    code = ("import repro_torch.launch.serve, repro_torch.kernels._build as b;"
+    code = ("import repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.kernels._build as b;"
             "print(b.load.cache_info().currsize)")
     out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)

@@ -4,9 +4,13 @@ Each kernel wrapper of `repro_torch.kernels` runs its plain PyTorch version
 on a CPU tensor.  The same numpy inputs go through that and through the JAX
 oracle (`ref.py`) and the Pallas kernel in interpret mode, as
 `tests/test_kernels.py` runs them.  Tolerances are that file's: TOL for
-fp32, TOL_BF16 for bf16, 1e-2 for rmsnorm.  The CUDA kernels themselves are
-checked against these plain versions on the card (tests/test_torch_cuda.py
-and chip_smoke.py).
+fp32, TOL_BF16 for bf16, 1e-2 for rmsnorm.  The gradients (flash attention,
+RMSNorm, cross-entropy) go through the port's autograd ops, whose backward
+runs the backward kernels' plain versions on the CPU, against `jax.grad` of
+the JAX oracles, and the flash backward's plain passes against the Pallas
+backward in interpret mode.  The CUDA kernels themselves are checked
+against these plain versions on the card (tests/test_torch_cuda.py and
+chip_smoke.py).
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -14,8 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from repro.kernels.cross_entropy import ce_ref as jax_ce_ref
+from repro.kernels.cross_entropy import fused_ce as jax_fused_ce
 from repro.kernels.decode_attention import decode_attention as jax_decode_kernel
 from repro.kernels.decode_attention import decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention.kernel import flash_attention_bwd as jax_flash_bwd
 from repro.kernels.flash_attention.kernel import flash_attention_fwd as jax_flash_kernel
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention.ref import lse_ref as jax_lse_ref
@@ -23,8 +32,10 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm_kernel
 from repro.kernels.rmsnorm import rmsnorm_ref as jax_rmsnorm_ref
 from repro.models.layers import blocked_causal_attention as jax_blocked
 from repro_torch.convert import to_tensor
-from repro_torch.kernels import (attention_ref, decode_attention, flash_attention_fwd,
-                                 lse_ref, rmsnorm)
+from repro_torch.kernels import (attention_bwd_ref, attention_ref, ce_ref, decode_attention,
+                                 flash_attention, flash_attention_bwd, flash_attention_fwd,
+                                 fused_ce, fused_ce_op, lse_ref, rmsnorm, rmsnorm_bwd,
+                                 rmsnorm_op)
 from repro_torch.models.layers import blocked_causal_attention
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -38,7 +49,7 @@ def _rand(rng, shape, dtype, scale=1.0):
 
 def _np(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -222,3 +233,140 @@ def test_decode_plain_t_not_multiple_of_tile():
     out = decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), to_tensor(lengths))
     ref = jax_decode_ref(*(jnp.asarray(a) for a in (q, k, v, lengths)))
     np.testing.assert_allclose(_np(out), _np(ref), **TOL_BF16)
+
+
+# ---------------------------------------------------------------------------
+# backward passes and autograd ops
+# ---------------------------------------------------------------------------
+def _leaf(x):
+    return to_tensor(x).requires_grad_(True)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (2, 16, 512)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rmsnorm_grad_matches_jax(shape, dt):
+    """rmsnorm_op's gradient (x and scale) against jax.grad(rmsnorm_ref),
+    and rmsnorm_bwd's plain version against the same."""
+    rng = np.random.default_rng(10)
+    x = _rand(rng, shape, DTYPES[dt], 3.0)
+    sc = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(DTYPES[dt])
+    dy = _rand(rng, shape, DTYPES[dt])
+    jdx, jds = jax.grad(lambda a, b: jnp.sum(jax_rmsnorm_ref(a, b).astype(jnp.float32)
+                                             * jnp.asarray(dy, jnp.float32)),
+                        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(sc))
+    xt, st = _leaf(x), _leaf(sc)
+    dx, ds = torch.autograd.grad(rmsnorm_op(xt, st), (xt, st), to_tensor(dy))
+    assert dx.dtype == xt.dtype and ds.dtype == st.dtype
+    tol = _tol(DTYPES[dt])
+    np.testing.assert_allclose(_np(dx), _np(jdx), **tol)
+    np.testing.assert_allclose(_np(ds), _np(jds), rtol=tol["rtol"],
+                               atol=tol["atol"] * max(1.0, float(np.abs(_np(jds)).max())))
+    bx, bs = rmsnorm_bwd(to_tensor(x), to_tensor(sc), to_tensor(dy))
+    np.testing.assert_array_equal(_np(bx), _np(dx))
+    np.testing.assert_array_equal(_np(bs), _np(ds))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,blk", [
+    (1, 2, 2, 64, 32, 32),      # MHA, two Pallas blocks
+    (2, 4, 2, 64, 32, 32),      # GQA rep=2
+    (1, 8, 1, 96, 16, 32),      # MQA, three blocks
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_bwd_plain_matches_pallas_interpret(b, h, hkv, s, d, blk, dt):
+    """S == T, q_offset 0: the plain passes against flash_attention_bwd
+    (interpret=True) on the forward's own out and lse."""
+    rng = np.random.default_rng(11)
+    q, k, v = (_rand(rng, (b, n, s, d), DTYPES[dt]) for n in (h, hkv, hkv))
+    do = _rand(rng, (b, h, s, d), DTYPES[dt])
+    jo, jl = jax_flash_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              block_q=blk, block_kv=blk, interpret=True)
+    jq, jk, jv = jax_flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jo, jl,
+                               jnp.asarray(do), block_q=blk, block_kv=blk, interpret=True)
+    tq, tk, tv = flash_attention_bwd(*(to_tensor(np.asarray(a)) for a in
+                                       (q, k, v, jo, jl, do)))
+    tol = _tol(DTYPES[dt])
+    for got, want in ((tq, jq), (tk, jk), (tv, jv)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+    rq, rk, rv = attention_bwd_ref(*(to_tensor(np.asarray(a)) for a in (q, k, v, jo, jl, do)),
+                                   q_offset=0)
+    for got, want in ((tq, rq), (tk, rk), (tv, rv)):
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d", [(1, 2, 2, 64, 32), (2, 4, 2, 48, 32),
+                                         (1, 8, 1, 100, 64)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_grad_matches_jax_grad_of_attention_ref(b, h, hkv, s, d, dt):
+    """The autograd op `flash_attention` (forward, then the dq and dk/dv
+    passes) against jax.grad of attention_ref, S == T (S = 100: a tail)."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_rand(rng, (b, n, s, d), DTYPES[dt]) for n in (h, hkv, hkv))
+    do = _rand(rng, (b, h, s, d), DTYPES[dt])
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jax_attention_ref(q_, k_, v_).astype(jnp.float32)
+                       * jnp.asarray(do, jnp.float32))
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
+    out = flash_attention(tq, tk, tv)
+    np.testing.assert_allclose(_np(out), _np(jax_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                                               jnp.asarray(v))),
+                               **_tol(DTYPES[dt]))
+    tg = torch.autograd.grad(out, (tq, tk, tv), to_tensor(do))
+    tol = _tol(DTYPES[dt])
+    for got, want in zip(tg, jg):
+        assert got.dtype == tq.dtype
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol["rtol"],
+                                   atol=tol["atol"] * max(1.0, float(np.abs(_np(want)).max())))
+
+
+def _ce_inputs(seed, r, v, dtype):
+    rng = np.random.default_rng(seed)
+    logits = _rand(rng, (r, v), dtype, 2.0)
+    labels = rng.integers(0, v, r).astype(np.int32)
+    mask = (rng.random(r) > 0.25).astype(np.float32)
+    return logits, labels, mask
+
+
+@pytest.mark.parametrize("r,v,block_rows,block_v", [(16, 4096, 8, 2048), (32, 512, 16, 512)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ce_plain_matches_jax_and_pallas_interpret(r, v, block_rows, block_v, dt):
+    """Vocabs the Pallas kernel's tile divides: the plain version against
+    JAX ce_ref and fused_ce(interpret=True)."""
+    logits, labels, mask = _ce_inputs(13, r, v, DTYPES[dt])
+    nll, lse = fused_ce(to_tensor(logits), to_tensor(labels), to_tensor(mask))
+    got = float(nll.sum())
+    assert float(ce_ref(to_tensor(logits), to_tensor(labels), to_tensor(mask))) == \
+        pytest.approx(got, rel=1e-6)
+    np.testing.assert_allclose(_np(lse), np.asarray(jax.nn.logsumexp(
+        jnp.asarray(logits, jnp.float32), axis=-1)), **TOL)
+    args = (jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask))
+    for want in (jax_ce_ref(*args),
+                 jax_fused_ce(*args, block_rows=block_rows, block_v=block_v, interpret=True)):
+        assert got == pytest.approx(float(want), rel=1e-5)
+
+
+@pytest.mark.parametrize("v", [65024, 50304, 1000])
+def test_ce_plain_at_vocabs_the_pallas_tile_does_not_divide(v):
+    """chatglm3-6b's and stablelm-3b's full vocabs (65024 = 31.75 x 2048,
+    50304) are refused by the Pallas kernel's tiling; the plain version
+    (and the CUDA kernel, which masks no tile) is held to JAX ce_ref."""
+    logits, labels, mask = _ce_inputs(14, 8, v, ml_dtypes.bfloat16)
+    got = float(fused_ce(to_tensor(logits), to_tensor(labels), to_tensor(mask))[0].sum())
+    want = float(jax_ce_ref(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask)))
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("r,v", [(16, 4096), (8, 65024)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ce_grad_matches_jax_grad_of_ce_ref(r, v, dt):
+    logits, labels, mask = _ce_inputs(15, r, v, DTYPES[dt])
+    jg = jax.grad(jax_ce_ref)(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask))
+    tl = _leaf(logits)
+    loss = fused_ce_op(tl, to_tensor(labels).long(), to_tensor(mask))
+    (tg,) = torch.autograd.grad(loss * 3.0, tl)      # a scale other than 1 reaches g
+    assert tg.dtype == tl.dtype
+    np.testing.assert_allclose(_np(tg), 3.0 * _np(jg), **_tol(DTYPES[dt]))
+    assert not _np(tg)[mask == 0].any()               # masked rows get no gradient
+

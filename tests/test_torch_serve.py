@@ -99,7 +99,7 @@ def test_config_values_and_reduced_match_jax():
                {f.name: getattr(jc, f.name) for f in fields(jc)}
         assert tc.head_dim == jc.head_dim
     with pytest.raises(KeyError):
-        get_config("stablelm-3b")
+        get_config("mamba2-130m")
 
 
 def test_convert_keeps_names_layouts_and_bits(model):

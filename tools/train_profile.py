@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time of the port's train step goes, on one NVIDIA card.
+
+    python3 tools/train_profile.py
+
+Builds full-width chatglm3-6b (random weights from seed 0, AdamW with bf16
+moments) and runs two train steps of 8 x 512 tokens as warm-up and one for
+the wall time of a whole step.  Then it profiles the step's two halves
+under `torch.profiler`: the forward and backward (`loss_fn` and
+`torch.autograd.grad`), and the AdamW update.  For each it prints one JSON
+line: the wall time (host clock, synchronised), the device busy time (sum
+of kernel durations, one stream), the device idle share, the kernel
+launches, the device time by group (the ported kernels, cuBLAS GEMMs, the
+rest), and the kernels that take the most device time.  The card's name and
+power limit are printed first.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+from repro_torch.launch.train import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.models import loss_fn  # noqa: E402
+from repro_torch.optim import adamw_update  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
+
+PORTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm_kernel",
+          "rmsnorm_bwd", "ce_fwd", "ce_bwd")
+GEMM = ("nvjet", "gemm", "cutlass", "xmma")
+
+
+def _group(name: str) -> str:
+    if any(k in name for k in PORTED):
+        return "ported kernels"
+    if any(k in name.lower() for k in GEMM):
+        return "GEMM"
+    return "other"
+
+
+def _phase(name, fn, **extra):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(_group(e.key), {"ms": 0.0, "count": 0})
+        g["ms"] += e.self_device_time_total / 1e3
+        g["count"] += e.count
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    print(json.dumps({
+        "phase": name, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+        "kernel_launches": sum(e.count for e in kernels), "groups": groups,
+        "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                         "count": e.count} for e in top]}), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    b, s = 8, 512
+    tc = TrainerConfig(arch="chatglm3-6b", reduced=False, global_batch=b, seq_len=s,
+                       steps=1, device="cuda", seed=0, moment_dtype=torch.bfloat16)
+    toks = np.random.default_rng(4).integers(1, 65024, size=(b, s + 1)).astype(np.int32)
+    fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": np.ones((b, s), np.float32)}
+    tr = Trainer(tc, batches=itertools.repeat(fixed))
+    tr.init_state()
+    batch = tr._to_device(fixed)
+    for _ in range(2):                                   # warm-up: cuBLAS, allocator
+        tr.state, _ = tr.step_fn(tr.state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.state, metrics = tr.step_fn(tr.state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+
+    params, held = tr.state["params"], {}
+
+    def forward_backward():
+        loss, _ = loss_fn(params, batch, tr.cfg)
+        held["grads"] = torch.autograd.grad(loss, tree_leaves(params))
+
+    def update():
+        adamw_update(tree_unflatten(params, list(held.pop("grads"))), tr.state["opt"],
+                     params, tr.opt_cfg)
+
+    _phase("forward_backward", forward_backward, step_ms_unprofiled=step_ms,
+           loss=float(metrics["loss"]), tokens=b * s)
+    _phase("adamw_update", update, n_params=sum(t.numel() for t in tree_leaves(params)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
