@@ -15,10 +15,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    a seed) serves 4 prompts of 512 tokens and generates 64 tokens through
    `Server.generate`, with every kernel's launch count checked; then a
    513-token prefill is held against a 512-token prefill plus one decode.
-5. train_check — one loss and every gradient of reduced chatglm3-6b on the
+5. serve_ssm — full-width mamba2-130m (24 layers, d 768, random weights
+   from a seed) serves 4 prompts of 8192 tokens and generates 64 tokens
+   through `Server.generate`, with every kernel's launch count checked (the
+   SSD scan once per layer in the prefill, rmsnorm 49 times a model step,
+   no attention kernel); then an 8193-token prefill is held against an
+   8192-token prefill plus one decode.
+6. train_check — one loss and every gradient of reduced chatglm3-6b on the
    card (kernels) against the same weights and batch on the CPU (plain
    versions).
-6. train   — full-width chatglm3-6b trains 8 steps of batch 8 x 512 tokens
+7. train   — full-width chatglm3-6b trains 8 steps of batch 8 x 512 tokens
    through `Trainer.run` (remat per layer, 8 cross-entropy chunks, AdamW
    with bf16 moments: the one cut, as the fp32-moment state alone is
    74.9 GB), on one fixed batch; every loss finite, the last below the
@@ -68,6 +74,9 @@ SEED = 0
 # the train phase: global batch x sequence, steps, cross-entropy chunks
 TRAIN_B, TRAIN_S, TRAIN_STEPS, CE_CHUNKS = 8, 512, 8, 8
 TRAIN_CUT = ["adamw moment_dtype bf16 (fp32 state is 74.9 GB)"]
+# the serve_ssm phase: mamba2-130m at 4 prompts x 8192 tokens, 64 new
+SSM_ARCH, SSM_PROMPT = "mamba2-130m", 8192
+SSD_CHUNK = 64           # the SSD-scan kernel's chunk (csrc/ssd_scan.cu)
 
 
 def emit(obj) -> None:
@@ -136,7 +145,7 @@ def main() -> int:
                                      flash_attention_bwd_dkv, flash_attention_bwd_dq,
                                      flash_attention_fwd, fused_ce, fused_ce_bwd,
                                      launches, reset_launches, rmsnorm, rmsnorm_bwd,
-                                     rmsnorm_bwd_ref, rmsnorm_ref)
+                                     rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan, ssd_scan_ref)
     from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
     from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
                                                      attention_bwd_dq_ref,
@@ -186,7 +195,7 @@ def main() -> int:
                "launches": None, "max_abs_err": None, "ms": time_ms(kern, flush),
                "plain_ms": time_ms(plain, flush),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": time_ms(lib, flush)}
+               "library_ms": None if lib is None else time_ms(lib, flush)}
         rows.append(row)
         return row
 
@@ -353,7 +362,71 @@ def main() -> int:
                    flops=4 * logits.numel(), peak=PEAK_F32)
     r["max_abs_err"] = float((dl.float() - rdl.float()).abs().max())
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
-    del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv, kd, vd, scratch
+    del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv, kd, vd
+
+    # SSD scan: one layer's prefill scan of mamba2-130m, x, B and C as the
+    # model passes them (slices of one conv output), from the cache's zero state
+    scfg = get_config(SSM_ARCH)
+    ps, ns = scfg.ssm.head_dim, scfg.ssm.d_state
+    hs = scfg.ssm.expand * scfg.d_model // ps
+    di = hs * ps
+
+    def ssd_inputs(s, h0_scale):
+        buf = randn(BATCH, s, di + 2 * ns)
+        dts = F.softplus(torch.from_numpy(
+            rng.standard_normal((BATCH, s, hs), dtype=np.float32)).to(dev))
+        h0 = torch.from_numpy(rng.standard_normal((BATCH, hs, ps, ns), dtype=np.float32)
+                              * h0_scale).to(dev)
+        return (buf[..., :di].reshape(BATCH, s, hs, ps), dts,
+                torch.log(torch.linspace(1.0, 16.0, hs, device=dev)),
+                buf[..., di:di + ns], buf[..., di + ns:]), h0
+
+    with torch.inference_mode():
+        sargs, h0 = ssd_inputs(SSM_PROMPT, 0.0)
+        (y, hf), (ry, rh) = (ssd_scan(*sargs, h0=h0),
+                             ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0))
+        # the tail: S = 8193 (one row past a chunk), from a nonzero state
+        targs, th0 = ssd_inputs(SSM_PROMPT + 1, 0.3)
+        (ty, thf), (rty, rth) = (ssd_scan(*targs, h0=th0),
+                                 ssd_scan_ref(*targs, chunk=scfg.ssm.chunk, h0=th0))
+        torch.cuda.synchronize()
+        over = max(excess(y, ry, TOL_BF16), excess(hf, rh, TOL_BF16))
+        tail_over = max(excess(ty, rty, TOL_BF16), excess(thf, rth, TOL_BF16))
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, hf, ty, thf))
+        if not (finite and tail_over <= 0):
+            raise AssertionError(f"ssd_scan at S = {SSM_PROMPT + 1} from a nonzero state "
+                                 f"disagrees with its plain version (excess {tail_over}, "
+                                 f"finite {finite})")
+        tok_heads = BATCH * SSM_PROMPT * hs
+        n_chunks = -(-SSM_PROMPT // SSD_CHUNK)
+        # operations of the kernel's algorithm (64-row chunks): per (batch,
+        # head, chunk) the causal quadratic term L(L+1) P and the inter-chunk
+        # term and state update 4 L N P, fp32 on the CUDA cores; C B^T on the
+        # tensor cores, L(L+1) N per (batch, chunk).  Time at each type's peak,
+        # expressed as fp32-rate operations.
+        f32_ops = BATCH * hs * n_chunks * (SSD_CHUNK * (SSD_CHUNK + 1) * ps
+                                           + 4 * SSD_CHUNK * ns * ps)
+        bf16_ops = BATCH * n_chunks * SSD_CHUNK * (SSD_CHUNK + 1) * ns
+        r = kernel_row("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                       "src/repro/kernels/ssd_scan/kernel.py:28", over,
+                       lambda: ssd_scan(*sargs, h0=h0),
+                       lambda: ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0),
+                       None,          # no single PyTorch call computes the scan
+                       nbytes=(tok_heads * ps * (2 + 4) + tok_heads * 4 + hs * 4
+                               + 2 * BATCH * SSM_PROMPT * ns * 2
+                               + 2 * BATCH * hs * ps * ns * 4),
+                       flops=f32_ops + bf16_ops * PEAK_F32 / PEAK_BF16, peak=PEAK_F32)
+    r["max_abs_err"] = max(float((y - ry).abs().max()), float((hf - rh).abs().max()))
+    emit({"phase": "kernel", **r, "tol": TOL_BF16,
+          "shape": {"B": BATCH, "S": SSM_PROMPT, "H": hs, "P": ps, "N": ns,
+                    "x_strides": list(sargs[0].stride()), "kernel_chunk": SSD_CHUNK},
+          "gflop": {"fp32": f32_ops / 1e9, "bf16": bf16_ops / 1e9},
+          "y_absmax": float(ry.abs().max()),
+          "tail_check": {"S": SSM_PROMPT + 1, "h0": "N(0, 0.3^2)",
+                         "max_abs_err": max(float((ty - rty).abs().max()),
+                                            float((thf - rth).abs().max())),
+                         "excess_at_tol": tail_over}})
+    del sargs, h0, y, hf, ry, rh, targs, th0, ty, thf, rty, rth, scratch
     torch.cuda.empty_cache()
 
     # -- serve: full-width chatglm3-6b through Server.generate ----------------
@@ -414,6 +487,64 @@ def main() -> int:
                              f"{err} > {TOL_CROSS} * {scale}")
 
     del srv, toks, full, cache, step, half
+    torch.cuda.empty_cache()
+
+    # -- serve_ssm: full-width mamba2-130m through Server.generate -------------
+    t0 = time.perf_counter()
+    srv = Server(SSM_ARCH, reduced=False, max_len=SSM_PROMPT + NEW + 1, device="cuda",
+                 seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = srv.cfg
+    prompts = np.random.default_rng(SEED + 5).integers(
+        1, cfg.vocab_size, size=(BATCH, SSM_PROMPT + 1)).astype(np.int32)
+    # warm-up at the served shape: the first 4 x 8192 prefill also pays the
+    # allocator's growth and cuBLAS's choices for its shapes
+    srv.generate(prompts[:, :SSM_PROMPT], 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = srv.generate(prompts[:, :SSM_PROMPT], NEW)
+    got = launches()
+    n = cfg.n_layers
+    want = {name: 0 for name in got}
+    want.update({"rmsnorm": (2 * n + 1) * (1 + NEW), "ssd_scan": n})
+    emit({"phase": "serve_ssm", "arch": SSM_ARCH, "n_layers": n, "d_model": cfg.d_model,
+          "batch": BATCH, "prompt": SSM_PROMPT, "new_tokens": NEW, "init_s": init_s,
+          "prefill_ms": out["prefill_s"] * 1e3,
+          "decode_tok_per_s": out["decode_tok_per_s"],
+          "decode_step_ms": BATCH / out["decode_tok_per_s"] * 1e3,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": got, "expected_launches": want, "finite": out["finite"],
+          "tokens_head": out["tokens"][:, :8].tolist()})
+    if got != want:
+        raise AssertionError(f"serve_ssm launch counts {got} != expected {want}")
+    if not out["finite"]:
+        raise AssertionError("non-finite logits in the serve_ssm run")
+    if out["tokens"].shape != (BATCH, NEW):
+        raise AssertionError(f"tokens shape {out['tokens'].shape}")
+    by_path["serve_ssm"] = got
+
+    # -- cross-check: prefill(8193) == prefill(8192) + decode(1): the scan of
+    # every row against the scan's final state (its tail) and the recurrence
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts).long().to(dev)
+        full, _ = prefill_step(srv.params, init_cache(cfg, BATCH, 0, dev),
+                               {"tokens": toks}, cfg)
+        cache = init_cache(cfg, BATCH, 0, dev)
+        _, cache = prefill_step(srv.params, cache, {"tokens": toks[:, :SSM_PROMPT]}, cfg)
+        step, _ = serve_step(srv.params, cache, {"tokens": toks[:, SSM_PROMPT:]},
+                             SSM_PROMPT, cfg)
+        torch.cuda.synchronize()
+    finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
+    err = float((step - full).abs().max())
+    scale = float(full.abs().max())
+    emit({"phase": "cross_check_ssm", "arch": SSM_ARCH, "max_abs_err": err,
+          "logit_absmax": scale, "rel_err": err / scale, "tol": TOL_CROSS,
+          "elementwise_excess_at_tol": excess(step, full, TOL_CROSS), "finite": finite})
+    if not finite or not err <= TOL_CROSS * scale:
+        raise AssertionError(f"mamba2 prefill+decode disagrees with prefill: max |err| "
+                             f"{err} > {TOL_CROSS} * {scale}")
+    del srv, toks, full, cache, step
     torch.cuda.empty_cache()
 
     # -- train_check: reduced chatglm3-6b, loss and every gradient, card vs CPU

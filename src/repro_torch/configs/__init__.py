@@ -3,10 +3,10 @@
 It holds only the architectures the port runs so far; the JAX package's
 other configs raise `KeyError` until their slice lands (see ROADMAP.md).
 """
-from . import chatglm3_6b, stablelm_3b
+from . import chatglm3_6b, mamba2_130m, stablelm_3b
 from .base import HybridConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (chatglm3_6b, stablelm_3b)}
+REGISTRY = {m.CONFIG.name: m.CONFIG for m in (chatglm3_6b, mamba2_130m, stablelm_3b)}
 
 ARCH_IDS = tuple(sorted(REGISTRY))
 

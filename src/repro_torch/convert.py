@@ -4,8 +4,11 @@
 example `jax.tree_util.tree_map(np.asarray, params)`), so this module itself
 imports no JAX; `to_jax_params` gives the port's params (or grads) back as
 such numpy dicts.  Leaf names and einsum layouts are kept (`wq` [d,H,dh],
-`wo` [H,dh,d], ...); the stacked `[L, ...]` leaves of `params["blocks"]`
-become one param dict per layer and back.  bf16 crosses as its bits,
+`wo` [H,dh,d], the Mamba2 `in_proj` [d,in], `conv_w` [W,C], ...); the
+stacked `[L, ...]` leaves of `params["blocks"]` become one param dict per
+layer and back, for the dense and the ssm families; fp32 leaves (the SSM's
+`A_log`, `D`, `dt_bias`) stay fp32, and a tied embedding is the one `tok`
+leaf.  bf16 crosses as its bits,
 through an `int16` view.
 """
 from __future__ import annotations
@@ -30,11 +33,12 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"
                     ) -> Dict[str, Any]:
-    """JAX dense-decoder params (numpy leaves) -> the port's params."""
+    """JAX dense-decoder or Mamba2 params (numpy leaves) -> the port's
+    params."""
     extra = set(tree) - {"embed", "final_norm", "blocks"}
-    if extra:
-        raise NotImplementedError(f"{cfg.name}: params {sorted(extra)} belong to "
-                                  "families the port does not serve yet")
+    if extra or cfg.family == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: params {sorted(extra) or ['blocks']} "
+                                  "belong to families the port does not serve yet")
     stacked = tree_map(lambda a: to_tensor(a, device), tree["blocks"])
     blocks = [tree_map(lambda t, i=i: t[i].clone(), stacked)
               for i in range(cfg.n_layers)]
@@ -54,8 +58,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """The port's dense-decoder params (or grads) -> the JAX layout, as
-    numpy: the per-layer dicts restacked to `[L, ...]` leaves."""
+    """The port's dense-decoder or Mamba2 params (or grads) -> the JAX
+    layout, as numpy: the per-layer dicts restacked to `[L, ...]` leaves."""
     blocks = params["blocks"]
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(blocks)} blocks, config has {cfg.n_layers}")

@@ -8,10 +8,10 @@ and are built at first use by `_build.py`.  A wrapper given a CPU tensor
 runs the plain version; given a CUDA tensor it launches the kernel or
 raises.
 
-Ported so far: rmsnorm (forward and backward), flash attention (forward,
-and the backward's dq and dk/dv passes), decode attention, fused
-cross-entropy (forward and backward).  The SSD scan is listed in
-ROADMAP.md.
+Ported: rmsnorm (forward and backward), flash attention (forward, and the
+backward's dq and dk/dv passes), decode attention, fused cross-entropy
+(forward and backward), and the SSD scan (forward; its backward comes with
+the SSM train path, ROADMAP.md).
 """
 from .cross_entropy import ce_bwd_ref, ce_ref, ce_rows_ref, fused_ce, fused_ce_bwd, fused_ce_op
 from .decode_attention import decode_attention, decode_attention_ref
@@ -19,9 +19,10 @@ from .flash_attention import (attention_bwd_ref, attention_ref, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd, lse_ref)
 from .rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_op, rmsnorm_ref
+from .ssd_scan import ssd_scan, ssd_scan_ref
 
 WRAPPERS = (rmsnorm, rmsnorm_bwd, flash_attention_fwd, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv, decode_attention, fused_ce, fused_ce_bwd)
+            flash_attention_bwd_dkv, decode_attention, fused_ce, fused_ce_bwd, ssd_scan)
 
 
 def reset_launches() -> None:
@@ -38,4 +39,4 @@ __all__ = ["WRAPPERS", "attention_bwd_ref", "attention_ref", "ce_bwd_ref", "ce_r
            "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_fwd", "fused_ce", "fused_ce_bwd", "fused_ce_op", "launches",
            "lse_ref", "reset_launches", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_ref",
-           "rmsnorm_op", "rmsnorm_ref"]
+           "rmsnorm_op", "rmsnorm_ref", "ssd_scan", "ssd_scan_ref"]

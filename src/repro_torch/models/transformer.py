@@ -1,10 +1,13 @@
 """Model assembly of the port: the dense transformer decoder's train and
-serve paths.
+serve paths, and the serve path of the pure Mamba2 (ssm) stack.
 
 Counterpart of `repro/models/transformer.py`.  Ported so far: the dense
 branch of `init_model`, `init_cache` and `forward`, `_apply_tf_layer`
 without MoE, `_chunked_ce`, `loss_fn` (without MTP), and `_model_step`,
-`_serve_tf`, `prefill` and `decode_step`.  Layers are kept as a list of
+`_serve_tf`, `prefill` and `decode_step`; for the ssm family
+`_init_ssm_layer`, `_apply_ssm_layer` and the ssm branches of
+`init_model`, `init_cache` and `_model_step` (serving only: `forward` and
+`loss_fn` on ssm wait for an SSD backward).  Layers are kept as a list of
 per-layer param dicts (`params["blocks"][i]`) where JAX stacks them for
 `lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
 becomes `torch.utils.checkpoint` (non-reentrant): around each layer when
@@ -16,7 +19,8 @@ Public entry points (used by runtime/launch):
   prefill(params, batch, cfg, cache)           -> (logits_last, cache)
   decode_step(params, batch, cfg, cache, pos)  -> (logits, cache)
   init_cache(cfg, batch, max_len, device)      -> cache
-The cache is updated in place and returned.
+The cache (KV, or the ssm conv and scan states) is updated in place and
+returned.
 """
 from __future__ import annotations
 
@@ -28,16 +32,21 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.cross_entropy import fused_ce_op
 from . import layers as L
+from . import ssm as S
 
 Params = Dict[str, Any]
 
 
-def _require_ported(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
     """Raise for the families and features later slices bring."""
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md Queue 1 item 8, SSM and hybrid)")
+            f"{cfg.name}: the hybrid family is not ported yet "
+            "(ROADMAP.md Queue 1 item 8, hybrid, after MoE)")
+    if cfg.family == "ssm" and train:
+        raise NotImplementedError(
+            f"{cfg.name}: the ssm family serves but does not train yet: the SSD "
+            "scan has no backward (ROADMAP.md Queue 1 item 8, SSM train)")
     if cfg.moe is not None or cfg.mla is not None or cfg.mtp:
         raise NotImplementedError(
             f"{cfg.name}: MoE, MLA and MTP are not ported yet "
@@ -70,6 +79,19 @@ def _apply_tf_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
 
 
 # ---------------------------------------------------------------------------
+# ssm layer (pure mamba stack)
+# ---------------------------------------------------------------------------
+
+def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    return {"norm": L.init_norm(cfg, device), "ssm": S.init_ssm(cfg, gen, device)}
+
+
+def _apply_ssm_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, *, state=None):
+    y, new_state = S.ssm_fwd(p["ssm"], L.apply_norm(p["norm"], h), cfg, state=state)
+    return h + y, new_state
+
+
+# ---------------------------------------------------------------------------
 # whole-model init
 # ---------------------------------------------------------------------------
 
@@ -77,10 +99,10 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Random weights with the JAX init's distributions, drawn on `device`
     from `gen` (the numbers differ from `jax.random`'s)."""
     _require_ported(cfg)
+    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_tf_layer
     return {"embed": L.init_embed(cfg, gen, device),
             "final_norm": L.init_norm(cfg, device),
-            "blocks": [_init_tf_layer(cfg, gen, device)
-                       for _ in range(cfg.n_layers)]}
+            "blocks": [init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]}
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +112,7 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward; returns (hidden [B,S,D], aux_loss)."""
-    _require_ported(cfg)
+    _require_ported(cfg, train=True)
     h = L.embed_tokens(params["embed"], batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)   # no MoE yet
@@ -153,7 +175,12 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, Any]:
+    """KV cache [L,B,max_len,Hkv,dh]; for ssm the conv and scan states
+    ({"ssm_state": {"conv": [L,B,W-1,C] bf16, "ssm": [L,B,H,P,N] fp32}}),
+    whose size does not depend on max_len."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"ssm_state": S.init_ssm_state(cfg, batch, cfg.n_layers, device)}
     return {"kv": L.init_kv_cache(cfg, batch, max_len, cfg.n_layers, device)}
 
 
@@ -163,12 +190,27 @@ def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     """Shared incremental forward for prefill (s>1) and decode (s=1)."""
     _require_ported(cfg)
     h = L.embed_tokens(params["embed"], batch["tokens"])
-    s = h.shape[1]
-    positions = cache_pos + torch.arange(s, device=h.device)
-    h, nc = _serve_tf(params, h, cfg, cache["kv"], cache_pos, positions)
+    if cfg.family == "ssm":
+        h, new_cache = _serve_ssm(params, h, cfg, cache["ssm_state"]), cache
+    else:
+        s = h.shape[1]
+        positions = cache_pos + torch.arange(s, device=h.device)
+        h, nc = _serve_tf(params, h, cfg, cache["kv"], cache_pos, positions)
+        new_cache = {"kv": nc}
     h = L.apply_norm(params["final_norm"], h)
     logits = L.lm_logits(params["embed"], h[:, -1:], cfg)
-    return logits, {"kv": nc}
+    return logits, new_cache
+
+
+def _serve_ssm(params, h, cfg, states):
+    """Mamba2 serve path: every layer reads its slice of the stacked [L, ...]
+    conv and scan states and writes the new ones back in place."""
+    for i, lp in enumerate(params["blocks"]):
+        st = {"conv": states["conv"][i], "ssm": states["ssm"][i]}
+        h, nst = _apply_ssm_layer(cfg, lp, h, state=st)
+        st["conv"].copy_(nst["conv"])
+        st["ssm"].copy_(nst["ssm"])
+    return h
 
 
 def _serve_tf(params, h, cfg, cache, cache_pos, positions):

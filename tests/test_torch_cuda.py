@@ -8,7 +8,9 @@ wrapper's launch counter must rise.  The backward kernels are held to their
 plain versions on the same inputs: flash dq/dk/dv and the CE gradient at
 TOL_BF16, the RMSNorm gradients at TOL_BF16 for dx and at 2e-2 relative to
 the largest |dscale| for dscale (a sum over thousands of rows, taken in
-another order than the plain version's).
+another order than the plain version's).  The SSD scan's y and final state
+(fp32 outputs of fp32 sums taken in another order and chunking than the
+plain version's) at TOL_BF16.
 """
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ import torch
 from repro_torch.kernels import (decode_attention, decode_attention_ref,
                                  flash_attention_bwd_dkv, flash_attention_bwd_dq,
                                  flash_attention_fwd, fused_ce, fused_ce_bwd, rmsnorm,
-                                 rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref)
+                                 rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan,
+                                 ssd_scan_ref)
 from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
 from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref, attention_bwd_dq_ref,
                                                  attention_with_lse_ref)
@@ -246,10 +249,111 @@ def test_reduced_train_step_on_card_matches_cpu(dev):
     assert launches() == {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
                           "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
                           "flash_attention_bwd_dkv": n, "decode_attention": 0,
-                          "fused_ce": 2 * c, "fused_ce_bwd": c}
+                          "fused_ce": 2 * c, "fused_ce_bwd": c, "ssd_scan": 0}
     for a, b in zip(tree_leaves(states["cuda"]["params"]),
                     tree_leaves(states["cpu"]["params"])):
         _close(a, b, **TOL_BF16)
+
+
+def _ssd_inputs(rng, dev, b, s, h, p, n, *, strong=False, strided=False, h0=False):
+    """bf16 x, B, C (strided: slices of one [b, s, h p + 2 n] buffer, as the
+    model passes them), fp32 dt = softplus(N(0,1)) and a_log, optional h0."""
+    if strided:
+        buf = _rand(rng, (b, s, h * p + 2 * n), dev)
+        x = buf[..., :h * p].reshape(b, s, h, p)
+        Bm, Cm = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    else:
+        x, Bm, Cm = _rand(rng, (b, s, h, p), dev), _rand(rng, (b, s, n), dev), \
+            _rand(rng, (b, s, n), dev)
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h), dtype=np.float32)).to(dev))
+    if strong:       # cum falls by ~10^3 inside a chunk: exp(-cum) is inf in fp32
+        dt = torch.clamp(dt * 3, max=3.0)
+        a_log = torch.full((h,), float(np.log(16.0)), device=dev)
+    else:
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    hs = (torch.from_numpy(rng.standard_normal((b, h, p, n), dtype=np.float32)).to(dev)
+          if h0 else None)
+    return x, dt, a_log, Bm, Cm, hs
+
+
+@pytest.mark.parametrize("b,s,h,p,n,case", [
+    (2, 256, 4, 16, 16, "plain"),
+    (2, 256, 4, 32, 32, "plain"),
+    (1, 512, 3, 64, 128, "plain"),
+    (2, 300, 4, 64, 128, "tail"),        # S = 300: a 44-row tail chunk
+    (2, 200, 4, 32, 64, "h0"),           # from a nonzero state
+    (2, 130, 6, 64, 128, "strided"),     # the model's slices of one conv output
+    (1, 256, 4, 64, 128, "strong"),      # a_log = log 16, dt up to 3
+    (4, 8192, 24, 64, 128, "strided"),   # the mamba2-130m serve prefill
+])
+def test_ssd_scan_kernel_matches_plain(dev, b, s, h, p, n, case):
+    rng = np.random.default_rng(10)
+    x, dt, a_log, Bm, Cm, h0 = _ssd_inputs(rng, dev, b, s, h, p, n, strong=case == "strong",
+                                           strided=case == "strided", h0=case == "h0")
+    before = ssd_scan.launches
+    with torch.inference_mode():
+        y, hf = ssd_scan(x, dt, a_log, Bm, Cm, h0=h0)
+        ry, rh = ssd_scan_ref(x, dt, a_log, Bm, Cm, chunk=256, h0=h0)
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == hf.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(hf).all()
+    _close(y, ry, **TOL_BF16)
+    _close(hf, rh, **TOL_BF16)
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(11)
+    x, dt, a_log, Bm, Cm, _ = _ssd_inputs(rng, dev, 1, 64, 2, 64, 128)
+    with pytest.raises(ValueError):                 # head dim 48
+        ssd_scan(x[..., :48], dt, a_log, Bm, Cm)
+    with pytest.raises(ValueError):                 # d_state 96
+        ssd_scan(x, dt, a_log, Bm[..., :96], Cm[..., :96])
+    with pytest.raises(TypeError):
+        ssd_scan(x.float(), dt, a_log, Bm, Cm)
+    with pytest.raises(NotImplementedError):        # no backward yet
+        ssd_scan(x, dt.requires_grad_(True), a_log, Bm, Cm)
+
+
+def test_reduced_mamba2_server_on_card_matches_cpu(dev):
+    """The reduced mamba2-130m served on the card (kernels) against the same
+    weights served on the CPU (plain versions), prefill and 8 decode steps,
+    with the launch counts of the run.  Logits are held at a relative L2
+    error <= 3e-2 (TOL_BF16), as tests/test_torch_ssm.py holds them to JAX:
+    the scan's fp32 sums are taken in another order on the card, and a value
+    rounded to bf16 one ulp apart moves single logits further through four
+    random layers."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    gpu = Server("mamba2-130m", max_len=64, device=dev, seed=3)
+    cpu_params = _map(gpu.params, lambda t: t.cpu())
+    cfg = gpu.cfg
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 48)))
+    with torch.inference_mode():
+        lg, cg = prefill(gpu.params, {"tokens": toks[:, :40].to(dev)}, cfg,
+                         init_cache(cfg, 2, 0, dev))
+        lc, cc = prefill(cpu_params, {"tokens": toks[:, :40]}, cfg,
+                         init_cache(cfg, 2, 0, "cpu"))
+        _rel_close(lg, lc, 3e-2)
+        for i in range(40, 48):
+            lg, cg = decode_step(gpu.params, {"tokens": toks[:, i:i + 1].to(dev)}, cfg, cg, i)
+            lc, cc = decode_step(cpu_params, {"tokens": toks[:, i:i + 1]}, cfg, cc, i)
+            _rel_close(lg, lc, 3e-2)
+    reset_launches()
+    out = gpu.generate(toks.numpy()[:, :16], 8)
+    assert out["finite"]
+    n = cfg.n_layers
+    assert {k: v for k, v in launches().items() if v} == {"rmsnorm": (2 * n + 1) * 9,
+                                                          "ssd_scan": n}
+
+
+def _rel_close(got, want, tol):
+    torch.cuda.synchronize()
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    rel = float((got - want).norm() / want.norm())
+    assert torch.isfinite(got).all() and rel <= tol, f"relative L2 error {rel} > {tol}"
 
 
 def _map(tree, fn):

@@ -45,7 +45,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.cross_entropy.kernel",
             "repro_torch.kernels.cross_entropy.ops",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.rmsnorm.ops"} <= set(mods)
+            "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.ssd_scan.kernel",
+            "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -102,6 +103,7 @@ WRAPPERS = {
                          "decode_attention_ref", "decode_attention_bf16"),
     "fused_ce": (_CE, "ce_rows_ref", "ce_fwd_bf16"),
     "fused_ce_bwd": (_CE, "ce_bwd_ref", "ce_bwd_bf16"),
+    "ssd_scan": ("repro_torch.kernels.ssd_scan.kernel", "ssd_scan_ref", "ssd_scan_fwd"),
 }
 
 
@@ -125,6 +127,9 @@ def _args(name, dtype=torch.bfloat16):
     if name == "flash_attention_bwd_dkv":
         return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32), r(1, 4, 16, 32),
                 rows(1, 4, 16), rows(1, 4, 16)), {}
+    if name == "ssd_scan":                  # x, dt, a_log, B, C; h0 given
+        return (r(1, 8, 2, 16), rows(1, 8, 2), rows(2), r(1, 8, 16), r(1, 8, 16)), {
+            "h0": rows(1, 2, 16, 16)}
     labels = _cuda_like(torch.tensor([3, 0, 63, 7]))
     if name == "fused_ce":
         return (r(4, 64), labels, rows(4)), {}
@@ -267,7 +272,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
                       ("flash_attention.cu", "flash_attention/kernel.py::_fwd_kernel"),
                       ("flash_attention_bwd.cu", "flash_attention/kernel.py::_bwd_dq_kernel"),
                       ("decode_attention.cu", "decode_attention/kernel.py::_decode_kernel"),
-                      ("cross_entropy.cu", "cross_entropy/kernel.py::_ce_kernel")):
+                      ("cross_entropy.cu", "cross_entropy/kernel.py::_ce_kernel"),
+                      ("ssd_scan.cu", "ssd_scan/kernel.py::_ssd_kernel")):
         head = sources[src][:1500]
         assert f"src/repro/kernels/{body}" in head
         assert "Bound on an H100" in head and "Design" in head

@@ -17,7 +17,8 @@ the logits differ by up to 0.047 (on logits of magnitude ~3.7), with 1 of
 1024 logits 0.0036 past the bound at the prefill and at one of 8 decode
 steps.  Strict, the largest difference is 0.031 and every logit is inside.
 """
-from dataclasses import fields, replace
+import itertools
+from dataclasses import asdict, fields, replace
 
 import jax
 import jax.numpy as jnp
@@ -91,15 +92,14 @@ def test_config_schema_is_a_copy_of_jax(name):
 
 
 def test_config_values_and_reduced_match_jax():
-    for full in (False, True):
-        jc, tc = jax_get_config(ARCH), get_config(ARCH)
+    for arch, full in itertools.product((ARCH, "mamba2-130m"), (False, True)):
+        jc, tc = jax_get_config(arch), get_config(arch)
         if not full:
             jc, tc = jc.reduced(), tc.reduced()
-        assert {f.name: getattr(tc, f.name) for f in fields(tc)} == \
-               {f.name: getattr(jc, f.name) for f in fields(jc)}
+        assert asdict(tc) == asdict(jc)
         assert tc.head_dim == jc.head_dim
     with pytest.raises(KeyError):
-        get_config("mamba2-130m")
+        get_config("jamba-1.5-large-398b")
 
 
 def test_convert_keeps_names_layouts_and_bits(model):
@@ -315,7 +315,7 @@ def test_serve_main_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(family="ssm"), "item 8"),
+    (dict(family="hybrid"), "item 8"),
     (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "item 7"),
     (dict(pos_embed="sinusoidal"), "item 9"),
 ])

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes, on one NVIDIA card.
 
-    python3 tools/serve_profile.py
+    python3 tools/serve_profile.py [--arch mamba2-130m]
 
-Builds full-width chatglm3-6b (random weights from seed 0), prefills 4
-prompts of 512 tokens and decodes 8 tokens, each phase under
-`torch.profiler`.  For each phase it prints one JSON line: the wall time
+Builds a full-width model (chatglm3-6b by default, or mamba2-130m; random
+weights from seed 0), prefills 4 prompts (512 tokens for chatglm3-6b, 8192
+for mamba2-130m, as `chip_smoke.py` serves them) and decodes 8 tokens, each
+phase under `torch.profiler`.  For each phase it prints one JSON line: the wall time
 (host clock, synchronised), the device busy time (sum of kernel durations,
 one stream), the device idle share, and the kernels that take the most
 device time.  The card's name and power limit are printed first.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -49,7 +51,13 @@ def _phase(name, fn, n_items):
                          "count": e.count} for e in top]}), flush=True)
 
 
+PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="chatglm3-6b", choices=sorted(PROMPT))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -57,14 +65,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    cfg = get_config("chatglm3-6b")
-    b, s0, max_len, steps, seed = 4, 512, 1024, 8, 0
+    cfg = get_config(args.arch)
+    b, s0, steps, seed = 4, PROMPT[args.arch], 8, 0
+    max_len = 2 * s0
     with torch.inference_mode():
         params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
             1, cfg.vocab_size, size=(b, s0))).to(dev)
         cache = init_cache(cfg, b, max_len, dev)
         prefill_step(params, cache, {"tokens": toks}, cfg)      # warm-up
+        cache = init_cache(cfg, b, max_len, dev)    # an ssm prefill starts from the cache's state
         state = {}
 
         def run_prefill():
@@ -78,6 +88,7 @@ def main() -> int:
                                    s0 + i, cfg)
                 tok = lg[:, -1].argmax(-1)
 
+        print(json.dumps({"arch": args.arch, "batch": b, "prompt": s0}), flush=True)
         _phase("prefill", run_prefill, 1)
         _phase("decode", run_decode, steps)
     return 0
