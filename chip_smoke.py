@@ -6,11 +6,16 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi).
-2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`.
+2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`;
+   for each kernel written with wgmma/TMA (the flash forward and dk/dv
+   pass) and head dim, its registers, spills, shared memory and blocks an
+   SM from the `ptxas -v` report.
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
    time, the plain version's, one library call's as a yardstick (never used
-   by the port), and the least time the card could take (the bound).
+   by the port), and the least time the card could take (the bound).  The
+   flash forward is also timed at the train shape, and the dk/dv pass at
+   every cluster size it takes.
 4. serve   — full-width chatglm3-6b (28 layers, d 4096, random weights from
    a seed) serves 4 prompts of 512 tokens and generates 64 tokens through
    `Server.generate`, with every kernel's launch count checked; then a
@@ -40,6 +45,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +136,57 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
+# The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
+# ptxas report, dynamic shared memory and blocks an SM, at each head dim.
+HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", "flash_attention_fwd_smem_bytes",
+                   160),
+                  ("flash_bwd_dkv_kernel", "flash_attention_bwd.cu",
+                   "flash_attention_bwd_dkv_smem_bytes", 160))
+
+
+def ptxas_entries(text: str) -> dict:
+    """{mangled entry name: {registers, stack, spill_stores, spill_loads}}
+    from a `ptxas -v` report."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def hopper_kernel_report(build) -> list:
+    rows = []
+    for kernel, source, smem_fn, threads in HOPPER_KERNELS:
+        entries = ptxas_entries((build.BUILD_DIR / f"{source}.log").read_text())
+        smem_of = build.function(smem_fn, (build.INT,))
+        for d in (32, 64, 128):
+            name = next(n for n in entries if f"{kernel}ILi{d}E" in n)
+            e = entries[name]
+            smem = smem_of(d)
+            # registers are allocated per warp in units of 256; 1 KB of
+            # shared memory a block is reserved; 228 KB an SM
+            per_warp = -(-e["registers"] * 32 // 256) * 256
+            by_regs = 65536 // (per_warp * -(-threads // 32))
+            by_smem = 233472 // (smem + 1024)
+            rows.append({"kernel": kernel, "source": source, "D": d, "threads": threads,
+                         **e, "dynamic_smem_bytes": smem, "blocks_per_sm_by_registers": by_regs,
+                         "blocks_per_sm_by_smem": by_smem,
+                         "blocks_per_sm": min(by_regs, by_smem)})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -150,6 +207,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
                                                      attention_bwd_dq_ref,
                                                      attention_with_lse_ref)
+    from repro_torch.kernels.flash_attention.kernel import DKV_CLUSTERS, dkv_cluster_size
     from repro_torch.launch.serve import Server
     from repro_torch.launch.train import Trainer, TrainerConfig
     from repro_torch.models import init_cache, init_model, loss_fn
@@ -171,6 +229,8 @@ def main() -> int:
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library_dir": str(_build.BUILD_DIR)})
+    for entry in hopper_kernel_report(_build):
+        emit({"phase": "build_kernel", **entry})
 
     # -- kernels at the serve path's shapes ------------------------------------
     rng = np.random.default_rng(SEED)
@@ -235,6 +295,34 @@ def main() -> int:
                    nbytes=(2 * q.numel() + 2 * b * hkv * s * hd) * 2 + b * h * s * 4,
                    flops=4 * hd * pairs, peak=PEAK_BF16)
     r["max_abs_err"] = float((out.float() - ref.float()).abs().max())
+    # the train step's shape (B 8, no cache), 448 of the forward's launches in
+    # a run against 28 at the serve shape; its own generator leaves the other
+    # rows' inputs as they were
+    trng = np.random.default_rng(SEED + 6)
+
+    def trandn(*shape):
+        return torch.from_numpy(trng.standard_normal(shape, dtype=np.float32)).to(
+            dev, torch.bfloat16)
+
+    qt = trandn(TRAIN_B, s, h, hd).transpose(1, 2)
+    kt, vt = (trandn(TRAIN_B, s, hkv, hd).transpose(1, 2) for _ in range(2))
+    (out_t, lse_t), (ref_t, rlse_t) = (flash_attention_fwd(qt, kt, vt),
+                                       attention_with_lse_ref(qt, kt, vt, q_offset=0))
+    torch.cuda.synchronize()
+    over_t = max(excess(out_t, ref_t, TOL_BF16), excess(lse_t, rlse_t, TOL_LSE))
+    if not over_t <= 0:
+        raise AssertionError(f"flash_attention_fwd at B {TRAIN_B} disagrees with its plain "
+                             f"version (excess over tolerance {over_t})")
+    kte, vte = (x.repeat_interleave(h // hkv, dim=1) for x in (kt, vt))
+    pairs_t = TRAIN_B * h * s * (s + 1) // 2
+    r["train_shape"] = {
+        "B": TRAIN_B, "max_abs_err": float((out_t.float() - ref_t.float()).abs().max()),
+        "ms": time_ms(lambda: flash_attention_fwd(qt, kt, vt), flush),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kte, vte,
+                                                                     is_causal=True), flush),
+        "bound_ms": bound((2 * qt.numel() + 2 * kt.numel()) * 2 + TRAIN_B * h * s * 4,
+                          4 * hd * pairs_t, PEAK_BF16)[0]}
+    del qt, kt, vt, out_t, lse_t, ref_t, rlse_t, kte, vte
     emit({"phase": "kernel", **r,
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "q_offset": 0}})
 
@@ -325,6 +413,20 @@ def main() -> int:
                    peak=PEAK_BF16)
     r["max_abs_err"] = max(float((dk.float() - rk.float()).abs().max()),
                            float((dv.float() - rv.float()).abs().max()))
+    # the cluster that splits each kv tile's GQA group: the wrapper's choice,
+    # and every size against the plain version and timed
+    r["cluster"] = dkv_cluster_size(h // hkv, b * hkv * s // 64)
+    r["cluster_ms"] = {}
+    for c in DKV_CLUSTERS:
+        ck_, cv_ = flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=c)
+        torch.cuda.synchronize()
+        over_c = max(excess(ck_, rk, TOL_BF16), excess(cv_, rv, TOL_BF16))
+        if not over_c <= 0:
+            raise AssertionError(f"flash_attention_bwd_dkv with cluster {c} disagrees with "
+                                 f"its plain version (excess over tolerance {over_c})")
+        r["cluster_ms"][str(c)] = time_ms(
+            lambda c=c: flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=c), flush)
+    del ck_, cv_
     emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
     del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, qe, ke, ve, sdpa_bwd

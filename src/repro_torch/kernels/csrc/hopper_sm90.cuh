@@ -1,0 +1,337 @@
+// Hopper (sm_90a) building blocks for the flash-attention kernels, as
+// inline PTX: shared-memory matrix descriptors and the bf16 `wgmma` products
+// the kernels issue, `mbarrier` rings, 4-D TMA tile loads, cluster ranks and
+// distributed shared memory, and the host-side encoding of the TMA tensor
+// maps (`cuTensorMapEncodeTiled`, looked up with `cudaGetDriverEntryPoint`,
+// so the library links only the CUDA runtime).
+//
+// Tiles in shared memory.  A [R rows x D cols] bf16 tile is stored as D*2/SW
+// slabs of [R][SW bytes], SW = min(2 D, 128): each slab is one TMA box, and
+// TMA writes it in the SW-byte swizzled layout (128B for D = 64, 128; 64B
+// for D = 32) that the wgmma descriptors read.  A slab starts on a 1024-byte
+// boundary, so the swizzle pattern's base offset is 0.
+//   * K-major operand (rows = M or N, cols = K): k-step kk (16 columns) of
+//     rows [r0, r0 + 64) starts at slab (32 kk / SW), byte 32 kk % SW of row
+//     r0; SBO = 8 rows x SW bytes, LBO unused.
+//   * MN-major operand (rows = K, cols = N): k-step kk starts at row 16 kk
+//     of slab 0; SBO = 8 rows x SW bytes (the next 8 k rows), LBO = the slab
+//     stride (the next SW/2 columns of N).
+// wgmma register layouts (PTX ISA): warp w of the warpgroup holds rows
+// 16 w + g and 16 w + g + 8 (g = lane / 4) of an m64 accumulator; register
+// 4 j + e holds column 8 j + 2 (lane % 4) + (e % 2) of row 16 w + g + 8 (e / 2).
+// The A operand from registers has mma.sync's m16n8k16 A layout per warp, so
+// accumulator columns 16 kk .. 16 kk + 15, rounded to bf16 and paired, are the
+// A registers of k-step kk without any data movement (see mma_sm90.cuh).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper_sm90 {
+
+typedef __nv_bfloat16 bf16_t;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Swizzle geometry of a tile with D bf16 columns.
+template <int D>
+struct Swz {
+    static constexpr int SW = D * 2 < 128 ? D * 2 : 128;   // bytes per slab row
+    static constexpr int COLS = SW / 2;                     // bf16 columns per slab
+    static constexpr int SLABS = D / COLS;
+    static constexpr uint64_t TYPE = SW == 128 ? 1 : 2;     // descriptor layout type
+};
+
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo_bytes) {
+    return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo_bytes >> 4) & 0x3FFF) << 16) |
+           (uint64_t((8 * Swz<D>::SW) >> 4) << 32) | (Swz<D>::TYPE << 62);
+}
+
+// K-major descriptor: rows [r0, r0 + 64) of a tile of R rows, k-step kk
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+    constexpr int SW = Swz<D>::SW;
+    const uint32_t off = (kk * 32 / SW) * (R * SW) + r0 * SW + (kk * 32) % SW;
+    return make_desc<D>(tile + off, 16);
+}
+
+// MN-major descriptor: k rows [16 kk, 16 kk + 16) of a tile of R rows, all D columns
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+    constexpr int SW = Swz<D>::SW;
+    return make_desc<D>(tile + kk * 16 * SW, R * SW);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products that read and write them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+
+// ---- wgmma products (bf16 in, fp32 accumulate) ---------------------------------
+// d (m64 x n64, fp32) = A B^T (+ d if scale_d): A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (m64 x n32, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
+// the accumulator-to-A layout, B in shared memory, MN-major if TB else K-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// d (m64 x n64, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
+// the accumulator-to-A layout, B in shared memory, MN-major if TB else K-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// d (m64 x n128, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
+// the accumulator-to-A layout, B in shared memory, MN-major if TB else K-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// B MN-major (TB = 1, the default) or K-major (TB = 0)
+template <int N, int TB = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+    if constexpr (N == 32) wgmma_rs_m64n32<TB>(d, a, desc_b, scale_d);
+    else if constexpr (N == 64) wgmma_rs_m64n64<TB>(d, a, desc_b, scale_d);
+    else wgmma_rs_m64n128<TB>(d, a, desc_b, scale_d);
+}
+
+// The shared-memory address of (row, col) of a swizzled tile of R rows:
+// TMA's swizzle XORs the 16-byte chunk index (address bits 4..) with the
+// address bits from 7 up, within each SW-byte row group of 8 (SW / 16 chunks).
+template <int D, int R>
+__device__ __forceinline__ uint32_t swz_addr(uint32_t tile, int row, int col) {
+    constexpr int SW = Swz<D>::SW;
+    const uint32_t off = (col / Swz<D>::COLS) * (R * SW) + row * SW + (col % Swz<D>::COLS) * 2;
+    return tile + (off ^ (((off >> 7) & (SW / 16 - 1)) << 4));
+}
+
+// Four 8x8 bf16 matrices from shared memory (mma's A-fragment layout when
+// lane l gives row l % 16, column 8 (l / 16) of a 16 x 16 block)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// ---- mbarrier -------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+// waits until the phase of the given parity has completed; a wait of more
+// than ~2^35 cycles (~20 s) traps, so a lost arrival faults the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    long long start = 0;
+    while (true) {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (start == 0) start = clock64();
+        else if (clock64() - start > (1ll << 35)) __trap();
+    }
+}
+
+// ---- TMA ------------------------------------------------------------------
+// One box of a 4-D tensor map into shared memory; completion (the box's
+// bytes, zero-filled where it leaves the tensor) is reported to `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+        : "memory");
+}
+
+// Loads rows [row0, row0 + R) of (head, batch) of a [D, rows, heads, batch]
+// map as its slabs (boxes of SW/2 columns x R rows) into `tile`.
+template <int D, int R>
+__device__ __forceinline__ void tma_load_tile(bf16_t* tile, const CUtensorMap* map,
+                                              uint64_t* bar, int row0, int head, int batch) {
+#pragma unroll
+    for (int s = 0; s < Swz<D>::SLABS; ++s)
+        tma_load_4d(tile + s * R * Swz<D>::COLS, map, bar, s * Swz<D>::COLS, row0, head, batch);
+}
+
+// ---- clusters ---------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+// every thread of every block of the cluster; orders shared-memory writes
+// before it with reads after it across the cluster
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of the same shared-memory location in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+    return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(addr)
+                 : "memory");
+    return v;
+}
+
+// ---- host: tensor maps --------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+    static EncodeTiledFn fn = nullptr;
+    if (!fn) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                               12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A [B, heads, rows, D] bf16 view (element strides sb, sh, ss; last dim
+// contiguous) as a 4-D map (D, rows, heads, B) read in boxes of SW/2 columns
+// x box_rows rows, SW-byte swizzled.  Rows at or past `rows` read as zeros.
+// Returns a CUDA error code (0 on success).
+template <int D>
+int encode_map(CUtensorMap* map, const void* base, int B, int heads, int rows, int64_t sb,
+               int64_t sh, int64_t ss, int box_rows) {
+    const EncodeTiledFn fn = encode_tiled_fn();
+    if (!fn) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(rows > 0 ? rows : 1),
+                                cuuint64_t(heads), cuuint64_t(B)};
+    const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
+    const cuuint32_t box[4] = {cuuint32_t(Swz<D>::COLS), cuuint32_t(box_rows), 1, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          Swz<D>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hopper_sm90

@@ -5,8 +5,11 @@ Counterparts of `repro/kernels/flash_attention/kernel.py::flash_attention_fwd`
 and `::flash_attention_bwd`; the backward's two passes (dq, then dk/dv) are
 two wrappers, as they are two Pallas kernels.  Unlike the Pallas grids, the
 kernels take an explicit `q_offset` and `kv_len`, mask tails that are not a
-multiple of their tile, read strided views, and give dk/dv per kv head
-(summed over the GQA group inside the kernel).
+multiple of their tile, read strided views, and give dk/dv per kv head: the
+dk/dv pass splits each kv tile's GQA group over a cluster of blocks
+(`dkv_cluster_size`, `dkv_heads`) and sums their fp32 partials through
+distributed shared memory in a fixed order, so no per-head buffer is
+written and the same inputs give the same bits.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.
@@ -27,6 +30,32 @@ _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 8 + (
     _build.FLOAT, _build.PTR, _build.PTR)
 _BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 9 + (
     _build.FLOAT, _build.PTR, _build.PTR)
+_DKV_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 10 + (
+    _build.FLOAT, _build.PTR, _build.PTR)
+DKV_CLUSTERS = (1, 2, 4, 8)
+_KV_TILE = 64               # kv rows of one dk/dv block (csrc/flash_attention_bwd.cu)
+_SMS = 132                  # SMs of an H100 (and H200) SXM
+
+
+def dkv_cluster_size(rep: int, blocks: int) -> int:
+    """Blocks of the cluster that splits one kv tile's GQA group of `rep`
+    query heads in the dk/dv pass, given `blocks` = B x Hkv x kv tiles: the
+    largest of 1, 2, 4, 8 that is at most `rep` and keeps the grid within
+    two blocks an SM.  One block is resident on an SM at a time; past two
+    waves, more and shorter blocks lose more to the cluster's reduction and
+    to waiting for a whole cluster of free SMs than they gain in balance
+    (at the train shape C = 2 beats 1, 4 and 8: PERF.md)."""
+    c = 1
+    while 2 * c <= min(rep, DKV_CLUSTERS[-1]) and 2 * c * blocks <= 2 * _SMS:
+        c *= 2
+    return c
+
+
+def dkv_heads(rep: int, cluster: int, rank: int) -> range:
+    """The query heads of a GQA group (0 .. rep-1) that block `rank` of a
+    dk/dv cluster walks; empty when rep < cluster.  The kernel computes the
+    same split."""
+    return range(rank * rep // cluster, (rank + 1) * rep // cluster)
 
 
 def _check(name: str, q, k, v, kv_len: int, q_offset: int) -> None:
@@ -137,11 +166,13 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
                             scale: Optional[float] = None, causal: bool = True,
-                            q_offset: int = 0, kv_len: Optional[int] = None
+                            q_offset: int = 0, kv_len: Optional[int] = None,
+                            cluster: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv pass (counterpart of `_bwd_dkv_kernel` plus the GQA sum at
     kernel.py:262-264): -> (dk, dv [B,Hkv,T,D]); rows at or past kv_len get
-    zeros."""
+    zeros.  `cluster` (one of DKV_CLUSTERS; default `dkv_cluster_size`) is
+    the number of blocks that split each kv tile's GQA group."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     kv_len = t if kv_len is None else int(kv_len)
@@ -154,11 +185,16 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_like("do", do, q.shape, torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
     _check_like("delta", delta, (b, h, s), torch.float32, q.device)
+    if cluster is None:
+        cluster = dkv_cluster_size(h // hkv, b * hkv * -(-t // _KV_TILE))
+    if cluster not in DKV_CLUSTERS:
+        raise ValueError(f"flash_attention_bwd_dkv: cluster must be one of "
+                         f"{DKV_CLUSTERS}, got {cluster}")
     dk, dv = _empty_like_heads(k), _empty_like_heads(v)
-    fn = _build.function("flash_attention_bwd_dkv_bf16", _BWD_ARGTYPES)
+    fn = _build.function("flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t, d,
-            kv_len, int(q_offset), int(causal), float(scale),
+            kv_len, int(q_offset), int(causal), int(cluster), float(scale),
             _strides(q, k, v, None, do, None, dk, dv), _build.stream(q))
     _build.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1

@@ -24,6 +24,7 @@ from repro_torch.kernels import (decode_attention, decode_attention_ref,
 from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
 from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref, attention_bwd_dq_ref,
                                                  attention_with_lse_ref)
+from repro_torch.kernels.flash_attention.kernel import DKV_CLUSTERS
 
 TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 
@@ -67,6 +68,11 @@ def test_rmsnorm_kernel_matches_plain(dev, shape):
     (2, 32, 2, 130, 300, 128, 40, 170, True),  # chunked prefill into a longer cache
     (1, 2, 2, 64, 64, 32, 0, 64, False),       # full attention
     (4, 32, 2, 512, 1024, 128, 0, 512, True),  # serve-path prefill shape
+    (1, 6, 2, 200, 200, 64, 0, 200, True),     # rep 3, S not a multiple of 128
+    (2, 4, 4, 100, 100, 128, 0, 100, True),    # MHA (rep 1), S = 100
+    (1, 4, 2, 200, 200, 32, 0, 200, True),     # D 32 in a 128-row tile
+    (2, 6, 2, 100, 256, 64, 40, 140, True),    # kv_len < T, q_offset 40: TMA's edge
+    (1, 8, 2, 200, 200, 64, 0, 200, False),    # full attention, D 64
 ])
 def test_flash_kernel_matches_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(1)
@@ -167,6 +173,10 @@ def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
     (2, 32, 2, 130, 300, 128, 40, 170, True),  # offset queries into a longer cache
     (1, 2, 2, 64, 64, 32, 0, 64, False),       # full attention
     (8, 32, 2, 512, 512, 128, 0, 512, True),   # the train step's shape
+    (1, 6, 2, 200, 200, 64, 0, 200, True),     # rep 3: the cluster does not divide it
+    (2, 4, 4, 100, 100, 128, 0, 100, True),    # MHA (rep 1), S = 100
+    (1, 4, 2, 200, 200, 32, 0, 200, True),     # D 32, S = 200
+    (2, 6, 2, 100, 256, 64, 40, 140, True),    # kv_len < T, q_offset 40
 ])
 def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(6)
@@ -188,6 +198,41 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len
         _close(got, want, **TOL_BF16)
     if kv_len < t:      # kv rows past kv_len get zero gradients
         assert not dk[:, :, kv_len:].any() and not dv[:, :, kv_len:].any()
+
+
+def _dkv_inputs(rng, dev, b, h, hkv, s, d):
+    q = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
+    k = _rand(rng, (b, s, hkv, d), dev).transpose(1, 2)
+    v = _rand(rng, (b, s, hkv, d), dev).transpose(1, 2)
+    do = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v)
+    _, delta = flash_attention_bwd_dq(q, k, v, out, do, lse)
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("cluster", DKV_CLUSTERS)
+@pytest.mark.parametrize("h,hkv", [(6, 2), (16, 1)])   # rep 3 (< 4, 8) and rep 16
+def test_flash_dkv_every_cluster_size_matches_plain(dev, cluster, h, hkv):
+    """Each cluster size splits the GQA group (blocks with no head when
+    rep < cluster) and sums it to the plain version's dk/dv."""
+    rng = np.random.default_rng(12)
+    q, k, v, do, lse, delta = _dkv_inputs(rng, dev, 2, h, hkv, 192, 128)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=cluster)
+    rk, rv = attention_bwd_dkv_ref(q, k, v, do, lse, delta, q_offset=0)
+    _close(dk, rk, **TOL_BF16)
+    _close(dv, rv, **TOL_BF16)
+
+
+@pytest.mark.parametrize("cluster", [None, 8])
+def test_flash_dkv_kernel_is_bitwise_repeatable(dev, cluster):
+    """The cluster sums its partials in rank order: the same inputs give the
+    same bits."""
+    rng = np.random.default_rng(13)
+    args = _dkv_inputs(rng, dev, 2, 32, 2, 512, 128)
+    dk, dv = flash_attention_bwd_dkv(*args, cluster=cluster)
+    for _ in range(3):
+        dk2, dv2 = flash_attention_bwd_dkv(*args, cluster=cluster)
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
 @pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512)])

@@ -266,6 +266,24 @@ def test_rmsnorm_grad_matches_jax(shape, dt):
     np.testing.assert_array_equal(_np(bs), _np(ds))
 
 
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 8, 16, 32])
+def test_dkv_cluster_split_covers_every_query_head_once(rep):
+    """The dk/dv pass's cluster of blocks (chosen, and each size it takes)
+    walks every query head of a GQA group exactly once, so the cluster's sum
+    is the group's sum."""
+    from repro_torch.kernels.flash_attention.kernel import (DKV_CLUSTERS, dkv_cluster_size,
+                                                            dkv_heads)
+    for blocks in (1, 16, 128, 1024):
+        assert dkv_cluster_size(rep, blocks) in DKV_CLUSTERS
+        assert dkv_cluster_size(rep, blocks) <= rep
+    assert dkv_cluster_size(16, 8 * 2 * 8) == 2       # the train step: 256 blocks
+    for c in DKV_CLUSTERS:
+        heads = [h for rank in range(c) for h in dkv_heads(rep, c, rank)]
+        assert sorted(heads) == list(range(rep))
+        sizes = [len(dkv_heads(rep, c, rank)) for rank in range(c)]
+        assert max(sizes) - min(sizes) <= 1
+
+
 @pytest.mark.parametrize("b,h,hkv,s,d,blk", [
     (1, 2, 2, 64, 32, 32),      # MHA, two Pallas blocks
     (2, 4, 2, 64, 32, 32),      # GQA rep=2

@@ -11,7 +11,8 @@ under `torch.profiler`: the forward and backward (`loss_fn` and
 line: the wall time (host clock, synchronised), the device busy time (sum
 of kernel durations, one stream), the device idle share, the kernel
 launches, the device time by group (the ported kernels, cuBLAS GEMMs, the
-rest), and the kernels that take the most device time.  The card's name and
+rest), the device time of each ported kernel, and the kernels that take the
+most device time.  The card's name and
 power limit are printed first.
 """
 from __future__ import annotations
@@ -62,11 +63,19 @@ def _phase(name, fn, **extra):
         g = groups.setdefault(_group(e.key), {"ms": 0.0, "count": 0})
         g["ms"] += e.self_device_time_total / 1e3
         g["count"] += e.count
+    ported: dict = {}
+    for e in kernels:
+        key = next((k for k in PORTED if k in e.key), None)
+        if key is not None:
+            g = ported.setdefault(key, {"ms": 0.0, "count": 0})
+            g["ms"] += e.self_device_time_total / 1e3
+            g["count"] += e.count
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     print(json.dumps({
         "phase": name, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
         "kernel_launches": sum(e.count for e in kernels), "groups": groups,
+        "ported_kernels": ported,
         "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                          "count": e.count} for e in top]}), flush=True)
 
