@@ -7,15 +7,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`;
-   for each kernel written with wgmma/TMA (the flash forward and dk/dv
-   pass) and head dim, its registers, spills, shared memory and blocks an
-   SM from the `ptxas -v` report.
+   for each kernel written with wgmma/TMA (the flash forward, dq and dk/dv
+   passes at each head dim, the SSD scan at each state dim), its registers,
+   spills, shared memory and blocks an SM from the `ptxas -v` report.
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
    time, the plain version's, one library call's as a yardstick (never used
    by the port), and the least time the card could take (the bound).  The
-   flash forward is also timed at the train shape, and the dk/dv pass at
-   every cluster size it takes.
+   flash forward is also timed at the train shape, the dk/dv pass at
+   every cluster size it takes, the whole flash backward (dq, then dk/dv)
+   beside SDPA's backward, and the dq pass is checked bitwise repeatable;
+   the SSD scan's y and final state are checked at the serve shape and at
+   an 8193-token tail from a nonzero state, against the plain version and,
+   by relative L2 error, against an fp64 recurrence.
 4. serve   — full-width chatglm3-6b (28 layers, d 4096, random weights from
    a seed) serves 4 prompts of 512 tokens and generates 64 tokens through
    `Server.generate`, with every kernel's launch count checked; then a
@@ -68,6 +72,12 @@ TOL_LSE = 1e-2
 TOL_CE = 1e-4            # per-row nll and lse: fp32 sums over the vocab
 TOL_DSCALE = 2e-2        # rmsnorm dscale: x its largest |value| (a sum over 4096 rows)
 TOL_GRAD = 3e-2          # train_check: relative error of the loss and of all gradients
+# the SSD scan's y and final state: relative L2 error against the fp64
+# recurrence (`ssd_scan_f64`), at the serve shape and the 8193-token tail;
+# the kernel's split bf16 hi + lo operands keep ~16 bits of mantissa, and
+# the limit sits between their readings and those of the same products
+# without the lo terms (plain bf16 operands), both recorded in PERF.md
+TOL_SSD_REL_L2 = 1e-4
 # prefill(513) against prefill(512) + decode(1): max |diff| over the
 # logits' largest magnitude, the bound tests/test_torch_serve.py holds the
 # reduced model to (the elementwise 3e-2 bound fails at full width; see
@@ -127,6 +137,78 @@ def grad_fn(out, inputs, grad):
     return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
 
 
+def bf16_normal(rng, dev):
+    """randn(*shape, scale=1.0): N(0, scale^2) draws of `rng`, bf16 on `dev`."""
+    def randn(*shape, scale=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32) * scale
+        return torch.from_numpy(x).to(dev, torch.bfloat16)
+    return randn
+
+
+def flash_bwd_inputs(randn, b, s, h, hkv, d):
+    """q, k, v and dO of one layer's attention gradient: [B, H, S, D] views
+    of [B, S, H, D] tensors, as the model passes them."""
+    q = randn(b, s, h, d).transpose(1, 2)
+    k, v = randn(b, s, hkv, d).transpose(1, 2), randn(b, s, hkv, d).transpose(1, 2)
+    return q, k, v, randn(b, s, h, d).transpose(1, 2)
+
+
+def sdpa_backward(q, k, v, do):
+    """A callable that runs SDPA's backward of causal attention (dq, dk, dv),
+    the GQA group expanded to one kv head per query head."""
+    rep = q.shape[1] // k.shape[1]
+    qe = q.detach().requires_grad_(True)
+    ke, ve = (t.repeat_interleave(rep, dim=1).detach().requires_grad_(True) for t in (k, v))
+    return grad_fn(F.scaled_dot_product_attention(qe, ke, ve, is_causal=True),
+                   (qe, ke, ve), do)
+
+
+def ssd_inputs(randn, rng, dev, batch, s, h, p, n, h0_scale):
+    """The SSD scan's inputs as mamba2 passes them: x, B and C bf16 slices of
+    one conv output [batch, s, h p + 2 n], dt = softplus(N(0, 1)) fp32,
+    a_log = log(linspace(1, 16)) and h0 ~ N(0, h0_scale^2) fp32."""
+    di = h * p
+    buf = randn(batch, s, di + 2 * n)
+    dt = F.softplus(torch.from_numpy(rng.standard_normal((batch, s, h), dtype=np.float32)).to(dev))
+    h0 = torch.from_numpy(rng.standard_normal((batch, h, p, n), dtype=np.float32)
+                          * h0_scale).to(dev)
+    return (buf[..., :di].reshape(batch, s, h, p), dt,
+            torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
+            buf[..., di:di + n], buf[..., di + n:]), h0
+
+
+def ssd_scan_f64(x, dt, a_log, B, C, h0):
+    """The SSD scan as its recurrence, one row at a time in fp64:
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T, y_t = h_t C_t, A = -exp(a_log).
+    The reference both the kernel and the chunked plain version are measured
+    against; it shares no code with either."""
+    a = -torch.exp(a_log.double())
+    dt = dt.double()
+    decay = torch.exp(dt * a)                                   # [b, s, h]
+    xdt = x.double() * dt[..., None]                            # [b, s, h, p]
+    Bd, Cd = B.double(), C.double()
+    hc = h0.double().clone()
+    y = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    for t in range(x.shape[1]):
+        hc.mul_(decay[:, t, :, None, None]).add_(xdt[:, t, :, :, None] * Bd[:, t, None, None, :])
+        y[:, t] = (hc @ Cd[:, t, None, :, None])[..., 0]
+    return y, hc
+
+
+def rel_l2(got, want) -> float:
+    """||got - want||_2 / ||want||_2, in fp64."""
+    want = want.double()
+    return float(torch.linalg.vector_norm(got.double() - want) / torch.linalg.vector_norm(want))
+
+
+def ssd_rel_errors(args, h0, outs) -> dict:
+    """The relative L2 error of y and of the final state of each named
+    output pair in `outs` against `ssd_scan_f64` on the same inputs."""
+    y64, h64 = ssd_scan_f64(*args, h0=h0)
+    return {name: {"y": rel_l2(y, y64), "h_final": rel_l2(hf, h64)}
+            for name, (y, hf) in outs.items()}
+
+
 def leaf_names(tree, prefix=""):
     """Dotted names of a param tree's leaves, in `tree_leaves` order."""
     if isinstance(tree, dict):
@@ -137,11 +219,17 @@ def leaf_names(tree, prefix=""):
 
 
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
-# ptxas report, dynamic shared memory and blocks an SM, at each head dim.
+# ptxas report, dynamic shared memory and blocks an SM, at each value of
+# their template parameter (the head dim D, or the SSD scan's state dim N).
+HEAD_DIM_VALUES = ("D", (32, 64, 128))
 HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", "flash_attention_fwd_smem_bytes",
-                   160),
+                   160, HEAD_DIM_VALUES),
+                  ("flash_bwd_dq_kernel", "flash_attention_bwd.cu",
+                   "flash_attention_bwd_dq_smem_bytes", 384, HEAD_DIM_VALUES),
                   ("flash_bwd_dkv_kernel", "flash_attention_bwd.cu",
-                   "flash_attention_bwd_dkv_smem_bytes", 160))
+                   "flash_attention_bwd_dkv_smem_bytes", 160, HEAD_DIM_VALUES),
+                  ("ssd_scan_kernel", "ssd_scan.cu", "ssd_scan_smem_bytes", 288,
+                   ("N", (16, 32, 64, 128))))
 
 
 def ptxas_entries(text: str) -> dict:
@@ -168,10 +256,10 @@ def ptxas_entries(text: str) -> dict:
 
 def hopper_kernel_report(build) -> list:
     rows = []
-    for kernel, source, smem_fn, threads in HOPPER_KERNELS:
+    for kernel, source, smem_fn, threads, (param, values) in HOPPER_KERNELS:
         entries = ptxas_entries((build.BUILD_DIR / f"{source}.log").read_text())
         smem_of = build.function(smem_fn, (build.INT,))
-        for d in (32, 64, 128):
+        for d in values:
             name = next(n for n in entries if f"{kernel}ILi{d}E" in n)
             e = entries[name]
             smem = smem_of(d)
@@ -180,7 +268,7 @@ def hopper_kernel_report(build) -> list:
             per_warp = -(-e["registers"] * 32 // 256) * 256
             by_regs = 65536 // (per_warp * -(-threads // 32))
             by_smem = 233472 // (smem + 1024)
-            rows.append({"kernel": kernel, "source": source, "D": d, "threads": threads,
+            rows.append({"kernel": kernel, "source": source, param: d, "threads": threads,
                          **e, "dynamic_smem_bytes": smem, "blocks_per_sm_by_registers": by_regs,
                          "blocks_per_sm_by_smem": by_smem,
                          "blocks_per_sm": min(by_regs, by_smem)})
@@ -199,7 +287,8 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, decode_attention, decode_attention_ref,
-                                     flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                                     flash_attention_bwd, flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq,
                                      flash_attention_fwd, fused_ce, fused_ce_bwd,
                                      launches, reset_launches, rmsnorm, rmsnorm_bwd,
                                      rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan, ssd_scan_ref)
@@ -239,10 +328,7 @@ def main() -> int:
     def flush():     # a read leaves no dirty lines for the timed kernel to write back
         scratch.sum()
 
-    def randn(*shape, scale=1.0):
-        x = rng.standard_normal(shape, dtype=np.float32) * scale
-        return torch.from_numpy(x).to(dev, torch.bfloat16)
-
+    randn = bf16_normal(rng, dev)
     rows = []
 
     def kernel_row(name, source, replaces, over, kern, plain, lib, nbytes, flops,
@@ -374,9 +460,7 @@ def main() -> int:
 
     # flash backward: one layer's attention gradient in the train step
     b, s = TRAIN_B, TRAIN_S
-    q = randn(b, s, h, hd).transpose(1, 2)
-    k, v = randn(b, s, hkv, hd).transpose(1, 2), randn(b, s, hkv, hd).transpose(1, 2)
-    do = randn(b, s, h, hd).transpose(1, 2)
+    q, k, v, do = flash_bwd_inputs(randn, b, s, h, hkv, hd)
     out, lse = flash_attention_fwd(q, k, v)
     (dq, delta), (rq, rdelta) = (flash_attention_bwd_dq(q, k, v, out, do, lse),
                                  attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0))
@@ -384,11 +468,7 @@ def main() -> int:
                           attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0))
     torch.cuda.synchronize()
     pairs = b * h * s * (s + 1) // 2
-    qe = q.detach().requires_grad_(True)
-    ke = k.repeat_interleave(h // hkv, dim=1).detach().requires_grad_(True)
-    ve = v.repeat_interleave(h // hkv, dim=1).detach().requires_grad_(True)
-    sdpa_bwd = grad_fn(F.scaled_dot_product_attention(qe, ke, ve, is_causal=True),
-                       (qe, ke, ve), do)
+    sdpa_bwd = sdpa_backward(q, k, v, do)
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each
     r = kernel_row("flash_attention_bwd_dq",
                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -400,6 +480,20 @@ def main() -> int:
                    nbytes=4 * qb + 2 * kvb + 2 * rowb, flops=6 * hd * pairs,
                    peak=PEAK_BF16)
     r["max_abs_err"] = float((dq.float() - rq.float()).abs().max())
+    # the pass writes each row from one warpgroup's registers, no atomics:
+    # the same inputs give the same bits
+    for _ in range(3):
+        dq2, delta2 = flash_attention_bwd_dq(q, k, v, out, do, lse)
+        if not (torch.equal(dq2, dq) and torch.equal(delta2, delta)):
+            raise AssertionError("flash_attention_bwd_dq is not bitwise repeatable")
+    r["bitwise_repeatable"] = True
+    del dq2, delta2
+    # the whole backward as the train step runs it (dq, then dk/dv), beside
+    # SDPA's backward, timed here
+    r["flash_attention_bwd"] = {
+        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do), flush),
+        "sdpa_backward_ms": time_ms(sdpa_bwd, flush),
+        "covers": "dq + dk + dv (SDPA with the GQA group expanded)"}
     emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
     r = kernel_row("flash_attention_bwd_dkv",
@@ -429,7 +523,7 @@ def main() -> int:
     del ck_, cv_
     emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
-    del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, qe, ke, ve, sdpa_bwd
+    del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, sdpa_bwd
 
     # fused cross-entropy: one of the train step's 8 chunks, [8 x 64, 65024]
     vocab = get_config(ARCH).vocab_size
@@ -471,24 +565,13 @@ def main() -> int:
     scfg = get_config(SSM_ARCH)
     ps, ns = scfg.ssm.head_dim, scfg.ssm.d_state
     hs = scfg.ssm.expand * scfg.d_model // ps
-    di = hs * ps
-
-    def ssd_inputs(s, h0_scale):
-        buf = randn(BATCH, s, di + 2 * ns)
-        dts = F.softplus(torch.from_numpy(
-            rng.standard_normal((BATCH, s, hs), dtype=np.float32)).to(dev))
-        h0 = torch.from_numpy(rng.standard_normal((BATCH, hs, ps, ns), dtype=np.float32)
-                              * h0_scale).to(dev)
-        return (buf[..., :di].reshape(BATCH, s, hs, ps), dts,
-                torch.log(torch.linspace(1.0, 16.0, hs, device=dev)),
-                buf[..., di:di + ns], buf[..., di + ns:]), h0
 
     with torch.inference_mode():
-        sargs, h0 = ssd_inputs(SSM_PROMPT, 0.0)
+        sargs, h0 = ssd_inputs(randn, rng, dev, BATCH, SSM_PROMPT, hs, ps, ns, 0.0)
         (y, hf), (ry, rh) = (ssd_scan(*sargs, h0=h0),
                              ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0))
         # the tail: S = 8193 (one row past a chunk), from a nonzero state
-        targs, th0 = ssd_inputs(SSM_PROMPT + 1, 0.3)
+        targs, th0 = ssd_inputs(randn, rng, dev, BATCH, SSM_PROMPT + 1, hs, ps, ns, 0.3)
         (ty, thf), (rty, rth) = (ssd_scan(*targs, h0=th0),
                                  ssd_scan_ref(*targs, chunk=scfg.ssm.chunk, h0=th0))
         torch.cuda.synchronize()
@@ -499,34 +582,60 @@ def main() -> int:
             raise AssertionError(f"ssd_scan at S = {SSM_PROMPT + 1} from a nonzero state "
                                  f"disagrees with its plain version (excess {tail_over}, "
                                  f"finite {finite})")
+        # beside TOL_BF16, the kernel and the plain version against the fp64
+        # recurrence: the kernel is gated, the plain version's error is shown
+        rel = {"serve": ssd_rel_errors(sargs, h0, {"kernel": (y, hf), "plain": (ry, rh)}),
+               "tail": ssd_rel_errors(targs, th0, {"kernel": (ty, thf), "plain": (rty, rth)})}
+        worst = max(max(e["kernel"].values()) for e in rel.values())
+        if not worst <= TOL_SSD_REL_L2:
+            raise AssertionError(f"ssd_scan is further from the fp64 recurrence than "
+                                 f"{TOL_SSD_REL_L2} (relative L2): {rel}")
         tok_heads = BATCH * SSM_PROMPT * hs
         n_chunks = -(-SSM_PROMPT // SSD_CHUNK)
-        # operations of the kernel's algorithm (64-row chunks): per (batch,
-        # head, chunk) the causal quadratic term L(L+1) P and the inter-chunk
-        # term and state update 4 L N P, fp32 on the CUDA cores; C B^T on the
-        # tensor cores, L(L+1) N per (batch, chunk).  Time at each type's peak,
-        # expressed as fp32-rate operations.
-        f32_ops = BATCH * hs * n_chunks * (SSD_CHUNK * (SSD_CHUNK + 1) * ps
-                                           + 4 * SSD_CHUNK * ns * ps)
-        bf16_ops = BATCH * n_chunks * SSD_CHUNK * (SSD_CHUNK + 1) * ns
+        r_bytes = (tok_heads * ps * (2 + 4) + tok_heads * 4 + hs * 4
+                   + 2 * BATCH * SSM_PROMPT * ns * 2 + 2 * BATCH * hs * ps * ns * 4)
+        # The bound: the kernel runs its products on the tensor cores in bf16,
+        # each fp32 operand split into hi + lo; per (batch, head, 64-row chunk)
+        # C B^T (1 product, L L N), C h^T (2, L P N), att (x dt) (3, L L P)
+        # and the state update (2, P N L), with P padded to 64.
+        pk = max(ps, 64)
+        tc_ops = 2 * BATCH * hs * n_chunks * (SSD_CHUNK * SSD_CHUNK * ns
+                                              + 2 * SSD_CHUNK * pk * ns
+                                              + 3 * SSD_CHUNK * SSD_CHUNK * pk
+                                              + 2 * pk * ns * SSD_CHUNK)
         r = kernel_row("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                        "src/repro/kernels/ssd_scan/kernel.py:28", over,
                        lambda: ssd_scan(*sargs, h0=h0),
                        lambda: ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0),
                        None,          # no single PyTorch call computes the scan
-                       nbytes=(tok_heads * ps * (2 + 4) + tok_heads * 4 + hs * 4
-                               + 2 * BATCH * SSM_PROMPT * ns * 2
-                               + 2 * BATCH * hs * ps * ns * 4),
-                       flops=f32_ops + bf16_ops * PEAK_F32 / PEAK_BF16, peak=PEAK_F32)
+                       nbytes=r_bytes, flops=tc_ops, peak=PEAK_BF16)
     r["max_abs_err"] = max(float((y - ry).abs().max()), float((hf - rh).abs().max()))
+    # A yardstick for the earlier CUDA-core design's time, the bound that
+    # design was held to: the same bytes, and the algorithm's operations
+    # (64-row chunks) per (batch, head, chunk), the causal quadratic term
+    # L(L+1) P and the inter-chunk term and state update 4 L N P in fp32 on
+    # the CUDA cores; C B^T on the tensor cores, L(L+1) N per (batch,
+    # chunk), expressed as fp32-rate operations.
+    f32_ops = BATCH * hs * n_chunks * (SSD_CHUNK * (SSD_CHUNK + 1) * ps
+                                       + 4 * SSD_CHUNK * ns * ps)
+    bf16_ops = BATCH * n_chunks * SSD_CHUNK * (SSD_CHUNK + 1) * ns
+    yard_ms, yard_by = bound(r_bytes, f32_ops + bf16_ops * PEAK_F32 / PEAK_BF16, PEAK_F32)
     emit({"phase": "kernel", **r, "tol": TOL_BF16,
           "shape": {"B": BATCH, "S": SSM_PROMPT, "H": hs, "P": ps, "N": ns,
                     "x_strides": list(sargs[0].stride()), "kernel_chunk": SSD_CHUNK},
-          "gflop": {"fp32": f32_ops / 1e9, "bf16": bf16_ops / 1e9},
+          "bound_type": "bf16 tensor cores (split operands)", "gflop_bf16": tc_ops / 1e9,
+          "fp32_yardstick": {"ms": yard_ms, "by": yard_by,
+                             "gflop": {"fp32": f32_ops / 1e9, "bf16": bf16_ops / 1e9}},
+          "y_max_abs_err": float((y - ry).abs().max()),
+          "h_final_max_abs_err": float((hf - rh).abs().max()),
           "y_absmax": float(ry.abs().max()),
+          "rel_l2_vs_fp64": rel["serve"], "tol_rel_l2": TOL_SSD_REL_L2,
           "tail_check": {"S": SSM_PROMPT + 1, "h0": "N(0, 0.3^2)",
                          "max_abs_err": max(float((ty - rty).abs().max()),
                                             float((thf - rth).abs().max())),
+                         "y_max_abs_err": float((ty - rty).abs().max()),
+                         "h_final_max_abs_err": float((thf - rth).abs().max()),
+                         "rel_l2_vs_fp64": rel["tail"],
                          "excess_at_tol": tail_over}})
     del sargs, h0, y, hf, ry, rh, targs, th0, ty, thf, rty, rth, scratch
     torch.cuda.empty_cache()

@@ -17,11 +17,32 @@
 // * The TPU grid carries dq (or dk, dv) across a sequential grid axis in
 //   VMEM.  Here each becomes a loop inside one block, so the accumulator
 //   stays in registers.
-// * dq pass: one block (4 warps) per (64-row q tile, head, batch), looping
-//   over 64-row kv tiles up to the causal limit of its last row.  Its
-//   products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate), operands
-//   fetched from shared memory with ldmatrix (mma_sm90.cuh), the next K/V
-//   tile double-buffered with cp.async.
+// * dq pass: a persistent grid, one block an SM, each walking work items
+//   (64-row q tile, two query heads of one GQA group), the q tiles with the
+//   most kv tiles first.  A block is two consumer warpgroups, one per head,
+//   and a producer warpgroup of which one warp loads (384 threads; its
+//   registers go to the consumers with setmaxnreg, 40 against 232 a
+//   thread).  The producer TMA-loads each item's Q and dO tiles of both
+//   heads into one of two item buffers, ahead of the consumers, and the kv
+//   tiles up to the causal limit of the tile's last row into a 3-stage K
+//   ring and a 2-stage V ring that both
+//   warpgroups read (K_t is read until dQ's product of tile t, V_t only by
+//   dP's): the group's K/V is fetched once for two heads.  Its lanes copy
+//   the item's lse, which TMA cannot take.  Each buffer and stage has a
+//   `full` mbarrier (TMA's byte count) and an `empty` one (one arrival per
+//   consumer warp).  A warpgroup computes delta = rowsum(out * dO) from the
+//   dO tile in shared memory and one read of out (issued before the tile's
+//   wait), runs S = Q K^T and dP = dO V^T on wgmma m64n64k16 (both operands
+//   K-major), P = 2^(S scale - lse) on the special-function unit (masked
+//   entries by selecting the exponent -inf) and dS in registers, then
+//   dQ += dS K on wgmma m64nDk16 with dS from registers in the accumulator
+//   layout and K MN-major.  Tile t + 1's S and dP are issued with tile t's
+//   dQ, so the tensor cores work while the next dS is formed.  dq leaves
+//   through the forward's quad transpose as 16-byte stores.  No atomics:
+//   the same inputs give the same bits.  Measured no faster (PERF.md):
+//   288 threads without setmaxnreg (168 registers, spills), the two
+//   warpgroups taking turns on the tensor cores, the next item's out read
+//   one item ahead, delta computed by extra producer warps.
 // * dk/dv pass: a cluster of C blocks (C = 1, 2, 4 or 8, chosen by the
 //   wrapper) per (64-row kv tile, kv head, batch).  Block `rank` of the
 //   cluster owns query heads [rank rep / C, (rank + 1) rep / C) of the GQA
@@ -77,202 +98,329 @@ using namespace hopper_sm90;
 
 constexpr int BM = 64;              // rows of the block's own tile
 constexpr int BN = 64;              // rows of each tile the loop walks over
-constexpr int kWarps = BM / 16;     // each warp owns 16 rows
-constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct BwdParams {
-    const bf16* q;
-    const bf16* k;
-    const bf16* v;
-    const bf16* o;
-    const bf16* dout;
-    const float* lse;           // [B, H, S] contiguous
-    float* delta;               // [B, H, S] contiguous: written by dq, read by dkv
-    bf16* dq;
-    bf16* dk;
-    bf16* dv;
-    int H, rep, S, T, kv_len, q_offset, causal;
-    float scale, scale_log2;
-    int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-    int64_t do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-};
-
-template <int D>
-struct Smem {
-    static constexpr int LD = D + 8;     // bf16 rows padded by 16 B
-    // two own tiles + two double-buffered walked tiles, and 4 x 64 floats
-    static constexpr size_t bytes = size_t(2 * BM + 4 * BN) * LD * 2 + 4 * BN * 4;
-};
 
 // ---------------------------------------------------------------------------
 // dq pass
 // ---------------------------------------------------------------------------
+constexpr int kDqKStages = 3;                // K ring depth: K_t is read until dQ's product of t
+constexpr int kDqVStages = 2;                // V ring depth: V_t only by dP's product of t
+constexpr int kDqThreads = 3 * 128;          // two consumer warpgroups + a producer warpgroup
+constexpr int kDqProducerRegs = 40;          // registers a thread after setmaxnreg:
+constexpr int kDqConsumerRegs = 232;         // 128 x 40 + 256 x 232 <= 65536
+
+struct DqParams {
+    const bf16* o;
+    const float* lse;           // [B, H, S] contiguous
+    float* delta;               // [B, H, S] contiguous: written here, read by dk/dv
+    bf16* dq;
+    int B, H, Hkv, rep, S, kv_len, q_offset, causal, n_qt;
+    float scale, scale_log2;
+    int64_t o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss;
+};
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
-    constexpr int LD = Smem<D>::LD;
-    constexpr int VPR = D / 8;  // 16-byte vectors per row
-    extern __shared__ __align__(128) unsigned char smem[];
-    bf16* q_sh = reinterpret_cast<bf16*>(smem);    // [BM][LD]
-    bf16* do_sh = q_sh + BM * LD;                  // [BM][LD]
-    bf16* k_sh = do_sh + BM * LD;                  // [2][BN][LD]
-    bf16* v_sh = k_sh + 2 * BN * LD;               // [2][BN][LD]
-    float* delta_sh = reinterpret_cast<float*>(v_sh + 2 * BN * LD);   // [BM]
+struct DqSmem {
+    static constexpr int TILE = BM * D * 2;              // one [64 x D] bf16 tile
+    static constexpr int ITEM = 4 * TILE;                // q and dO of an item's two heads
+    static constexpr int k_off = 2 * ITEM;               // after the two item buffers
+    static constexpr int v_off = k_off + kDqKStages * TILE;
+    static constexpr int rows_off = v_off + kDqVStages * TILE;   // [2 items] lse [2][64]
+    static constexpr int bar_off = rows_off + 2 * 2 * BM * 4;
+    static constexpr size_t bytes =
+        bar_off + (4 + 2 * kDqKStages + 2 * kDqVStages) * 8 + 1024;   // + alignment
+};
 
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int q0 = blockIdx.x * BM;
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, c = lane % 4;
-    const bf16* qg = p.q + b * p.q_sb + h * p.q_sh;
-    const bf16* og = p.o + b * p.o_sb + h * p.o_sh;
-    const bf16* dog = p.dout + b * p.do_sb + h * p.do_sh;
-    const bf16* kg = p.k + b * p.k_sb + (h / p.rep) * p.k_sh;
-    const bf16* vg = p.v + b * p.v_sb + (h / p.rep) * p.v_sh;
-    const int64_t row_base = (int64_t(b) * p.H + h) * p.S;
+// Work item w: a 64-row q tile of two query heads of one GQA group (one
+// when the group's size is odd and the pair is its last), the q tiles with
+// the most kv tiles first; neighbouring items are pairs of one group.  The
+// card tests (tests/test_torch_cuda.py::test_flash_bwd_kernels_match_plain)
+// hold every head and tile of this order against the plain version: rep 1,
+// 3 and 16, S not a multiple of 64, an offset into a longer cache.
+struct DqItem {
+    int b, hk, pair, q0, n_tiles;
+};
 
+__device__ __forceinline__ DqItem dq_item(const DqParams& p, int w) {
+    const int n_pairs = (p.rep + 1) / 2, per_qt = p.B * p.Hkv * n_pairs;
+    DqItem it;
+    it.q0 = (p.n_qt - 1 - w / per_qt) * BM;
+    const int r = w % per_qt;
+    it.pair = r % n_pairs;
+    it.hk = (r / n_pairs) % p.Hkv;
+    it.b = r / (n_pairs * p.Hkv);
     int kv_end = p.kv_len;
-    if (p.causal) kv_end = min(kv_end, p.q_offset + min(q0 + BM, p.S));
-    const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+    if (p.causal) kv_end = min(kv_end, p.q_offset + min(it.q0 + BM, p.S));
+    it.n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+    return it;
+}
 
-    auto load_kv = [&](int tile, int buf) {
-        const int n0 = tile * BN;
-        for (int i = tid; i < BN * VPR; i += kThreads) {
-            const int r = i / VPR, col = (i % VPR) * 8;
-            const bool ok = n0 + r < p.kv_len;
-            cp_async16(k_sh + (buf * BN + r) * LD + col, ok ? kg + (n0 + r) * p.k_ss + col : kg, ok);
-            cp_async16(v_sh + (buf * BN + r) * LD + col, ok ? vg + (n0 + r) * p.v_ss + col : vg, ok);
-        }
-    };
-    for (int i = tid; i < BM * VPR; i += kThreads) {
-        const int r = i / VPR, col = (i % VPR) * 8;
-        const bool ok = q0 + r < p.S;
-        cp_async16(q_sh + r * LD + col, ok ? qg + (q0 + r) * p.q_ss + col : qg, ok);
-        cp_async16(do_sh + r * LD + col, ok ? dog + (q0 + r) * p.do_ss + col : dog, ok);
-    }
-    if (n_tiles > 0) load_kv(0, 0);
-    cp_async_commit();
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const DqParams p) {
+    using L = DqSmem<D>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    float* rows_sh = reinterpret_cast<float*>(smem + L::rows_off);     // item buffer b: lse
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);   // [2]
+    uint64_t* q_empty = q_full + 2;                                      // [2]
+    uint64_t* k_full = q_empty + 2;                                      // [kDqKStages]
+    uint64_t* k_empty = k_full + kDqKStages;                             // [kDqKStages]
+    uint64_t* v_full = k_empty + kDqKStages;                             // [kDqVStages]
+    uint64_t* v_empty = v_full + kDqVStages;                             // [kDqVStages]
 
-    // delta = rowsum(out * dO) in fp32: two threads per row, half a row each
-    {
-        const int r = tid / 2, half = tid % 2;
-        float acc = 0.f;
-        if (q0 + r < p.S) {
-            const bf16* orow = og + (q0 + r) * p.o_ss + half * (D / 2);
-            const bf16* drow = dog + (q0 + r) * p.do_ss + half * (D / 2);
-#pragma unroll
-            for (int i = 0; i < D / 2; i += 8) {
-                const uint4 ou = *reinterpret_cast<const uint4*>(orow + i);
-                const uint4 du = *reinterpret_cast<const uint4*>(drow + i);
-                const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&ou);
-                const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&du);
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const float2 of = __bfloat1622float2(oh[j]), df = __bfloat1622float2(dh[j]);
-                    acc += of.x * df.x + of.y * df.y;
-                }
-            }
+    const int n_work = p.n_qt * p.B * p.Hkv * ((p.rep + 1) / 2);
+    const int tid = threadIdx.x, lane = tid % 32;
+    if (tid == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(&q_full[i], 1 + 32);  // TMA's expect_tx and the 32 lse lanes
+            mbar_init(&q_empty[i], 8);      // one arrival per consumer warp
         }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        if (half == 0) {
-            delta_sh[r] = acc;
-            if (q0 + r < p.S) p.delta[row_base + q0 + r] = acc;
+        for (int s = 0; s < kDqKStages; ++s) {
+            mbar_init(&k_full[s], 1);
+            mbar_init(&k_empty[s], 8);
         }
+        for (int s = 0; s < kDqVStages; ++s) {
+            mbar_init(&v_full[s], 1);
+            mbar_init(&v_empty[s], 8);
+        }
+        mbar_fence_init();
     }
     __syncthreads();
 
-    // rows g and g+8 of this warp's 16: column limit, lse (base 2), delta
-    int lim[2];
-    float lse2[2], dlt[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-        const int rr = warp * 16 + g + 8 * hr, row = q0 + rr;
-        const bool ok = row < p.S;
-        lim[hr] = !ok ? 0 : p.causal ? min(p.kv_len, p.q_offset + row + 1) : p.kv_len;
-        lse2[hr] = ok ? p.lse[row_base + row] * kLog2e : 0.f;
-        dlt[hr] = delta_sh[rr];
-    }
-    float acc[D / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-    for (int t = 0; t < n_tiles; ++t) {
-        if (t + 1 < n_tiles) {
-            load_kv(t + 1, (t + 1) & 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const bf16* kb = k_sh + (t & 1) * BN * LD;
-        const bf16* vb = v_sh + (t & 1) * BN * LD;
-
-        // S = Q K^T and dP = dO V^T: 16 rows x BN columns each
-        float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t qf[4], df[4];
-            ldmatrix_x4(qf, frag_a(q_sh, LD, warp * 16, kk * 16, lane));
-            ldmatrix_x4(df, frag_a(do_sh, LD, warp * 16, kk * 16, lane));
-#pragma unroll
-            for (int jj = 0; jj < BN / 16; ++jj) {
-                uint32_t kf[4], vf[4];
-                ldmatrix_x4(kf, frag_bt(kb, LD, jj * 16, kk * 16, lane));
-                ldmatrix_x4(vf, frag_bt(vb, LD, jj * 16, kk * 16, lane));
-                mma_bf16(s[2 * jj], qf, kf[0], kf[1]);
-                mma_bf16(s[2 * jj + 1], qf, kf[2], kf[3]);
-                mma_bf16(dp[2 * jj], df, vf[0], vf[1]);
-                mma_bf16(dp[2 * jj + 1], df, vf[2], vf[3]);
+    if (tid >= 256) {               // producer warpgroup: its first warp loads
+        setmaxnreg_dec<kDqProducerRegs>();
+        if (tid >= 256 + 32) return;
+        for (int w = blockIdx.x, j = 0, n = 0; w < n_work; w += gridDim.x, ++j) {
+            const DqItem it = dq_item(p, w);
+            const int qb = j & 1, h0 = it.hk * p.rep + 2 * it.pair;
+            const int nh = min(2, p.rep - 2 * it.pair);
+            unsigned char* buf = smem + qb * L::ITEM;
+            float* lse_sh = rows_sh + qb * 2 * BM;      // [2 heads][64]
+            if (j >= 2) mbar_wait(&q_empty[qb], ((j >> 1) - 1) & 1);
+            // q and dO of both heads by TMA, their lse by the lanes, then the
+            // item's K and V tiles
+            if (lane == 0) {
+                mbar_expect_tx(&q_full[qb], 2 * nh * L::TILE);
+                for (int g = 0; g < nh; ++g) {
+                    tma_load_tile<D, BM>(reinterpret_cast<bf16*>(buf + 2 * g * L::TILE), &tq,
+                                         &q_full[qb], it.q0, h0 + g, it.b);
+                    tma_load_tile<D, BM>(reinterpret_cast<bf16*>(buf + (2 * g + 1) * L::TILE),
+                                         &tdo, &q_full[qb], it.q0, h0 + g, it.b);
+                }
+            }
+            for (int i = lane; i < 2 * BM; i += 32) {
+                const int g = i / BM, row = it.q0 + i % BM;
+                lse_sh[i] = g < nh && row < p.S
+                    ? p.lse[(int64_t(it.b) * p.H + h0 + g) * p.S + row] * kLog2e : 0.f;
+            }
+            mbar_arrive(&q_full[qb]);
+            for (int t = 0; t < it.n_tiles; ++t, ++n) {
+                const int sk = n % kDqKStages, sv = n % kDqVStages;
+                if (n >= kDqKStages) mbar_wait(&k_empty[sk], (n / kDqKStages - 1) & 1);
+                if (lane == 0) {
+                    mbar_expect_tx(&k_full[sk], L::TILE);
+                    tma_load_tile<D, BN>(reinterpret_cast<bf16*>(smem + L::k_off + sk * L::TILE),
+                                         &tk, &k_full[sk], t * BN, it.hk, it.b);
+                }
+                if (n >= kDqVStages) mbar_wait(&v_empty[sv], (n / kDqVStages - 1) & 1);
+                if (lane == 0) {
+                    mbar_expect_tx(&v_full[sv], L::TILE);
+                    tma_load_tile<D, BN>(reinterpret_cast<bf16*>(smem + L::v_off + sv * L::TILE),
+                                         &tv, &v_full[sv], t * BN, it.hk, it.b);
+                }
             }
         }
+        __syncwarp();
+        return;
+    }
 
-        // P = exp(S * scale - lse) on unmasked entries, dS = P (dP - delta)
-        const int n0 = t * BN;
-        uint32_t dsf[BN / 16][4];
+    // consumer warpgroup wg: head 2 pair + wg of the item's group, q rows
+    // [q0, q0 + 64); this thread's rows are g and g + 8 of its warp's 16
+    setmaxnreg_inc<kDqConsumerRegs>();
+    const int wg = tid / 128, warp = (tid % 128) / 32;
+    const int g = lane / 4, c = lane % 4;
+    constexpr int QV = D / 32;          // 16-byte vectors of a quarter row
+    const uint32_t k_base = smem_u32(smem + L::k_off), v_base = smem_u32(smem + L::v_off);
+    int n = 0;                          // K/V tiles consumed so far, over all items
+    for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
+        const DqItem it = dq_item(p, w);
+        const int qb = j & 1, hg = 2 * it.pair + wg;
+        const bool active = hg < p.rep;     // an odd group's last pair has one head
+        const int h = it.hk * p.rep + hg;
+        const uint32_t q_addr = smem_u32(smem + qb * L::ITEM + 2 * wg * L::TILE);
+        const uint32_t do_addr = q_addr + L::TILE;
+        const float* lse_sh = rows_sh + qb * 2 * BM + wg * BM;
+
+        // delta = rowsum(out * dO) in fp32: out read now, ahead of the tile's
+        // arrival; dO from the tile in shared memory; a quarter row a lane
+        int lim[2];
+        uint4 ov[2][QV];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
+            const int row = it.q0 + warp * 16 + g + 8 * hr;
+            const bool ok = active && row < p.S;
+            lim[hr] = !ok ? 0 : p.causal ? min(p.kv_len, p.q_offset + row + 1) : p.kv_len;
+            const bf16* orow =
+                p.o + it.b * p.o_sb + h * p.o_sh + int64_t(row) * p.o_ss + c * (D / 4);
 #pragma unroll
-            for (int j = 0; j < BN / 8; ++j) {
-                float ds[2];
+            for (int k = 0; k < QV; ++k)
+                ov[hr][k] = ok ? *reinterpret_cast<const uint4*>(orow + 8 * k)
+                               : make_uint4(0u, 0u, 0u, 0u);
+        }
+        mbar_wait(&q_full[qb], (j >> 1) & 1);
+        float lse2[2], dlt[2];
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = n0 + j * 8 + 2 * c + e;
-                    const float pv = col < lim[hr]
-                        ? exp2f(s[j][2 * hr + e] * p.scale_log2 - lse2[hr]) : 0.f;
-                    ds[e] = pv * (dp[j][2 * hr + e] - dlt[hr]);
+        for (int hr = 0; hr < 2; ++hr) {
+            const int rr = warp * 16 + g + 8 * hr, row = it.q0 + rr;
+            float acc = 0.f;
+#pragma unroll
+            for (int k = 0; k < QV; ++k) {
+                const uint4 du = lds_u4(swz_addr<D, BM>(do_addr, rr, c * (D / 4) + 8 * k));
+                const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&ov[hr][k]);
+                const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&du);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 of = __bfloat1622float2(oh[e]), df = __bfloat1622float2(dh[e]);
+                    acc += of.x * df.x + of.y * df.y;
                 }
-                dsf[j / 2][(j % 2) * 2 + hr] = pack_bf16(ds[0], ds[1]);
             }
+            acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+            acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+            dlt[hr] = acc;
+            lse2[hr] = lse_sh[rr];
+            if (c == 0 && active && row < p.S)
+                p.delta[(int64_t(it.b) * p.H + h) * p.S + row] = acc;
         }
 
-        // dQ += dS K
+        // kv tile t: S, dP = Q K_t^T, dO V_t^T; P, dS in registers; dQ += dS K_t.
+        // The products of tile t + 1 are issued with dQ's of tile t, so the
+        // tensor cores work while the next dS is computed.  dsf stays live
+        // across the loop's back edge: dQ's product of tile t reads it until
+        // the wait at the top of iteration t + 1.
+        float acc[D / 2], sc[BN / 2], dp[BN / 2];
+        uint32_t dsf[BN / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        auto wait_kv = [&](int t) {
+            mbar_wait(&k_full[(n + t) % kDqKStages], ((n + t) / kDqKStages) & 1);
+            mbar_wait(&v_full[(n + t) % kDqVStages], ((n + t) / kDqVStages) & 1);
+        };
+        auto issue_s_dp = [&](int t) {      // tile t's K and V are there
+            const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TILE;
+            const uint32_t v_addr = v_base + ((n + t) % kDqVStages) * L::TILE;
 #pragma unroll
-            for (int dd = 0; dd < D / 16; ++dd) {
-                uint32_t kf[4];
-                ldmatrix_x4_trans(kf, frag_b(kb, LD, kk * 16, dd * 16, lane));
-                mma_bf16(acc[2 * dd], dsf[kk], kf[0], kf[1]);
-                mma_bf16(acc[2 * dd + 1], dsf[kk], kf[2], kf[3]);
+            for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<BN, 0, 0>(sc, desc_k<D, BM>(q_addr, 0, kk), desc_k<D, BN>(k_addr, 0, kk),
+                                kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<BN, 0, 0>(dp, desc_k<D, BM>(do_addr, 0, kk), desc_k<D, BN>(v_addr, 0, kk),
+                                kk > 0);
+        };
+        auto release = [&](uint64_t* bar) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar);
+        };
+        if (it.n_tiles > 0) {
+            wait_kv(0);
+            if (active) {
+                issue_s_dp(0);
+                wgmma_commit();
             }
         }
-        __syncthreads();  // the next iteration refills this tile's buffer
-    }
-    cp_async_wait<0>();
+        for (int t = 0; t < it.n_tiles; ++t) {
+            if (active) {
+                // S, dP of tile t (and dQ of tile t - 1) are done
+                wgmma_wait<0>();
+                fence_regs(sc);
+                fence_regs(dp);
+                fence_regs(acc);
+                fence_regs(dsf);
+            }
+            release(&v_empty[(n + t) % kDqVStages]);
+            if (t > 0) release(&k_empty[(n + t - 1) % kDqKStages]);
+            if (!active) {
+                if (t + 1 < it.n_tiles) wait_kv(t + 1);
+                continue;
+            }
+            // P = exp(S * scale - lse) on unmasked entries (0 elsewhere),
+            // dS = P (dP - delta), rounded to bf16 A registers; register
+            // 4 j + 2 hr + e of S and dP holds row g + 8 hr, column 8 j + 2 c + e
+            const int n0 = t * BN;
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+                for (int jj = 0; jj < BN / 8; ++jj) {
+                    float ds[2];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int r = 4 * jj + 2 * hr + e;
+                        // masked entries: 2^-inf = 0, by selection of the exponent
+                        const float pv = exp2_approx(n0 + jj * 8 + 2 * c + e < lim[hr]
+                                                         ? sc[r] * p.scale_log2 - lse2[hr]
+                                                         : -INFINITY);
+                        ds[e] = pv * (dp[r] - dlt[hr]);
+                    }
+                    dsf[jj / 2][(jj % 2) * 2 + hr] = pack_bf16(ds[0], ds[1]);
+                }
+            }
+            // dQ += dS K_t (K MN-major), then tile t + 1's S and dP
+            wgmma_fence();
+            const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TILE;
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk)
+                wgmma_rs<D>(acc, dsf[kk], desc_mn<D, BN>(k_addr, kk), 1);
+            if (t + 1 < it.n_tiles) {
+                wait_kv(t + 1);
+                issue_s_dp(t + 1);
+            }
+            wgmma_commit();
+            fence_regs(dsf);
+        }
+        if (it.n_tiles > 0) {
+            if (active) {
+                wgmma_wait<0>();
+                fence_regs(acc);
+                fence_regs(dsf);
+            }
+            release(&k_empty[(n + it.n_tiles - 1) % kDqKStages]);
+        }
+        n += it.n_tiles;
+        release(&q_empty[qb]);              // done with the item's q and dO
+        if (!active) continue;
 
+        // dq * scale in bf16, through the quad's 4 x 4 transpose (as the
+        // forward stores O): lane c stores 16-byte chunk dt0 + c / 2 of row
+        // g + 8 (c % 2), two full 32-byte sectors of a row an instruction
+        const int odd = c & 1, hi = c & 2;
+        const int row = it.q0 + warp * 16 + g + 8 * odd;
+        bf16* drow = p.dq + it.b * p.dq_sb + h * p.dq_sh + int64_t(row) * p.dq_ss;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-        const int row = q0 + warp * 16 + g + 8 * hr;
-        if (row >= p.S) continue;
-        bf16* drow = p.dq + b * p.dq_sb + h * p.dq_sh + row * p.dq_ss + 2 * c;
+        for (int dt0 = 0; dt0 < D / 8; dt0 += 2) {
+            uint32_t x[4];              // x[e]: row g + 8 (e % 2), chunk dt0 + e / 2
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt)
-            *reinterpret_cast<__nv_bfloat162*>(drow + dt * 8) = __floats2bfloat162_rn(
-                acc[dt][2 * hr] * p.scale, acc[dt][2 * hr + 1] * p.scale);
+            for (int e = 0; e < 4; ++e) {
+                const int hr = e & 1, dt = dt0 + e / 2;
+                x[e] = pack_bf16(acc[4 * dt + 2 * hr] * p.scale, acc[4 * dt + 2 * hr + 1] * p.scale);
+            }
+            uint32_t r = __shfl_xor_sync(0xffffffffu, odd ? x[0] : x[1], 1);
+            if (odd) x[0] = r; else x[1] = r;
+            r = __shfl_xor_sync(0xffffffffu, odd ? x[2] : x[3], 1);
+            if (odd) x[2] = r; else x[3] = r;
+            r = __shfl_xor_sync(0xffffffffu, hi ? x[0] : x[2], 2);
+            if (hi) x[0] = r; else x[2] = r;
+            r = __shfl_xor_sync(0xffffffffu, hi ? x[1] : x[3], 2);
+            if (hi) x[1] = r; else x[3] = r;
+            if (row < p.S)
+                *reinterpret_cast<uint4*>(drow + (dt0 + c / 2) * 8) = make_uint4(x[0], x[1], x[2], x[3]);
+        }
     }
 }
 
@@ -401,11 +549,11 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss_m64n64(sc, desc_k<D, BM>(k_addr, 0, kk), desc_k<D, BN>(q_addr, 0, kk),
+                wgmma_ss<BN, 0, 0>(sc, desc_k<D, BM>(k_addr, 0, kk), desc_k<D, BN>(q_addr, 0, kk),
                                 kk > 0);
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss_m64n64(dp, desc_k<D, BM>(v_addr, 0, kk), desc_k<D, BN>(do_addr, 0, kk),
+                wgmma_ss<BN, 0, 0>(dp, desc_k<D, BM>(v_addr, 0, kk), desc_k<D, BN>(do_addr, 0, kk),
                                 kk > 0);
             wgmma_commit();
             wgmma_wait<0>();
@@ -519,13 +667,30 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 }
 
 template <int D>
-int launch_dq(const BwdParams& p, int B, cudaStream_t stream) {
-    const int bytes = static_cast<int>(Smem<D>::bytes);
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const DqParams& p,
+              const int64_t* st, cudaStream_t stream) {
+    CUtensorMap tq, tdo, tk, tv;
+    int rc = encode_map<D>(&tq, q, p.B, p.H, p.S, st[0], st[1], st[2], BM);
+    if (!rc) rc = encode_map<D>(&tdo, dout, p.B, p.H, p.S, st[12], st[13], st[14], BM);
+    if (!rc) rc = encode_map<D>(&tk, k, p.B, p.Hkv, p.kv_len, st[3], st[4], st[5], BN);
+    if (!rc) rc = encode_map<D>(&tv, v, p.B, p.Hkv, p.kv_len, st[6], st[7], st[8], BN);
+    if (rc) return rc;
+    const int bytes = static_cast<int>(DqSmem<D>::bytes);
     cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((p.S + BM - 1) / BM, p.H, B);
-    flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(p);
+    // a persistent grid: as many blocks as stay resident, each walking the
+    // work items blockIdx.x, blockIdx.x + gridDim.x, ...
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return static_cast<int>(e);
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dq_kernel<D>,
+                                                           kDqThreads, bytes)) != cudaSuccess)
+        return static_cast<int>(e);
+    const int n_work = p.n_qt * p.B * p.Hkv * ((p.rep + 1) / 2);
+    const int grid = max(1, min(n_work, sms * max(per_sm, 1)));
+    flash_bwd_dq_kernel<D><<<grid, kDqThreads, bytes, stream>>>(tq, tdo, tk, tv, p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,41 +725,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 
-BwdParams make_params(const void* q, const void* k, const void* v, const void* out,
-                      const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                      void* dv, int H, int Hkv, int S, int T, int kv_len, int q_offset,
-                      int causal, float scale, const int64_t* st) {
-    BwdParams p;
-    p.q = static_cast<const bf16*>(q);
-    p.k = static_cast<const bf16*>(k);
-    p.v = static_cast<const bf16*>(v);
-    p.o = static_cast<const bf16*>(out);
-    p.dout = static_cast<const bf16*>(dout);
-    p.lse = static_cast<const float*>(lse);
-    p.delta = static_cast<float*>(delta);
-    p.dq = static_cast<bf16*>(dq);
-    p.dk = static_cast<bf16*>(dk);
-    p.dv = static_cast<bf16*>(dv);
-    p.H = H;
-    p.rep = H / Hkv;
-    p.S = S;
-    p.T = T;
-    p.kv_len = kv_len;
-    p.q_offset = q_offset;
-    p.causal = causal;
-    p.scale = scale;
-    p.scale_log2 = scale * kLog2e;
-    p.q_sb = st[0];  p.q_sh = st[1];  p.q_ss = st[2];
-    p.k_sb = st[3];  p.k_sh = st[4];  p.k_ss = st[5];
-    p.v_sb = st[6];  p.v_sh = st[7];  p.v_ss = st[8];
-    p.o_sb = st[9];  p.o_sh = st[10]; p.o_ss = st[11];
-    p.do_sb = st[12]; p.do_sh = st[13]; p.do_ss = st[14];
-    p.dq_sb = st[15]; p.dq_sh = st[16]; p.dq_ss = st[17];
-    p.dk_sb = st[18]; p.dk_sh = st[19]; p.dk_ss = st[20];
-    p.dv_sb = st[21]; p.dv_sh = st[22]; p.dv_ss = st[23];
-    return p;
-}
-
 }  // namespace
 
 // Shared layout of both entry points: q, out, dO, dq [B,H,S,D] and k, v, dk,
@@ -610,14 +740,31 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const v
                                            void* delta, void* dq, int B, int H, int Hkv, int S,
                                            int T, int D, int kv_len, int q_offset, int causal,
                                            float scale, const int64_t* strides, void* stream) {
-    const BwdParams p = make_params(q, k, v, out, dout, lse, delta, dq, nullptr, nullptr, H,
-                                    Hkv, S, T, kv_len, q_offset, causal, scale, strides);
+    (void)T;
+    DqParams p;
+    p.o = static_cast<const bf16*>(out);
+    p.lse = static_cast<const float*>(lse);
+    p.delta = static_cast<float*>(delta);
+    p.dq = static_cast<bf16*>(dq);
+    p.B = B;
+    p.H = H;
+    p.Hkv = Hkv;
+    p.rep = H / Hkv;
+    p.S = S;
+    p.kv_len = kv_len;
+    p.q_offset = q_offset;
+    p.causal = causal;
+    p.n_qt = (S + BM - 1) / BM;
+    p.scale = scale;
+    p.scale_log2 = scale * kLog2e;
+    p.o_sb = strides[9];   p.o_sh = strides[10];  p.o_ss = strides[11];
+    p.dq_sb = strides[15]; p.dq_sh = strides[16]; p.dq_ss = strides[17];
     if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch_dq<32>(p, B, st);
-        case 64: return launch_dq<64>(p, B, st);
-        case 128: return launch_dq<128>(p, B, st);
+        case 32: return launch_dq<32>(q, k, v, dout, p, strides, st);
+        case 64: return launch_dq<64>(q, k, v, dout, p, strides, st);
+        case 128: return launch_dq<128>(q, k, v, dout, p, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -666,6 +813,16 @@ extern "C" int flash_attention_bwd_dkv_smem_bytes(int D) {
         case 32: return static_cast<int>(DkvSmem<32>::bytes);
         case 64: return static_cast<int>(DkvSmem<64>::bytes);
         case 128: return static_cast<int>(DkvSmem<128>::bytes);
+        default: return 0;
+    }
+}
+
+// Dynamic shared memory of one dq block at head dim D (0 for another D).
+extern "C" int flash_attention_bwd_dq_smem_bytes(int D) {
+    switch (D) {
+        case 32: return static_cast<int>(DqSmem<32>::bytes);
+        case 64: return static_cast<int>(DqSmem<64>::bytes);
+        case 128: return static_cast<int>(DqSmem<128>::bytes);
         default: return 0;
     }
 }

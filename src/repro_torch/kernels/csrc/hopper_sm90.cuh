@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks for the flash-attention kernels, as
+// Hopper (sm_90a) building blocks for the flash-attention and SSD-scan kernels, as
 // inline PTX: shared-memory matrix descriptors and the bf16 `wgmma` products
 // the kernels issue, `mbarrier` rings, 4-D TMA tile loads, cluster ranks and
 // distributed shared memory, and the host-side encoding of the TMA tensor
@@ -8,8 +8,8 @@
 // Tiles in shared memory.  A [R rows x D cols] bf16 tile is stored as D*2/SW
 // slabs of [R][SW bytes], SW = min(2 D, 128): each slab is one TMA box, and
 // TMA writes it in the SW-byte swizzled layout (128B for D = 64, 128; 64B
-// for D = 32) that the wgmma descriptors read.  A slab starts on a 1024-byte
-// boundary, so the swizzle pattern's base offset is 0.
+// for D = 32; 32B for D = 16) that the wgmma descriptors read.  A slab
+// starts on a 1024-byte boundary, so the swizzle pattern's base offset is 0.
 //   * K-major operand (rows = M or N, cols = K): k-step kk (16 columns) of
 //     rows [r0, r0 + 64) starts at slab (32 kk / SW), byte 32 kk % SW of row
 //     r0; SBO = 8 rows x SW bytes, LBO unused.
@@ -43,7 +43,10 @@ struct Swz {
     static constexpr int SW = D * 2 < 128 ? D * 2 : 128;   // bytes per slab row
     static constexpr int COLS = SW / 2;                     // bf16 columns per slab
     static constexpr int SLABS = D / COLS;
-    static constexpr uint64_t TYPE = SW == 128 ? 1 : 2;     // descriptor layout type
+    static constexpr uint64_t TYPE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // descriptor layout type
+    static constexpr CUtensorMapSwizzle TMA = SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : SW == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
 template <int D>
@@ -93,22 +96,63 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
 }
 
 // ---- wgmma products (bf16 in, fp32 accumulate) ---------------------------------
-// d (m64 x n64, fp32) = A B^T (+ d if scale_d): A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+// d (m64 x nN, fp32) = A B (+ d if scale_d), both operands in shared memory:
+// A K-major (TA = 0) or M-major (TA = 1), B K-major (TB = 0) or N-major (TB = 1)
+#define HOPPER_SM90_D8 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                       "+f"(d[6]), "+f"(d[7])
+#define HOPPER_SM90_D16 HOPPER_SM90_D8, "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HOPPER_SM90_D32 HOPPER_SM90_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+                        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+                        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+                        "+f"(d[30]), "+f"(d[31])
+#define HOPPER_SM90_D64 HOPPER_SM90_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+                        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+                        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+                        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+                        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+                        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+                        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+    static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss: n16, 32, 64 or 128");
+    if constexpr (N == 16) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+            : HOPPER_SM90_D8
+            : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+    } else if constexpr (N == 32) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p, 1, 1, %19, %20;\n}\n"
+            : HOPPER_SM90_D16
+            : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+    } else if constexpr (N == 64) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p, 1, 1, %35, %36;\n}\n"
+            : HOPPER_SM90_D32
+            : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+    } else {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+            "%64, %65, p, 1, 1, %67, %68;\n}\n"
+            : HOPPER_SM90_D64
+            : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+    }
 }
 
 // d (m64 x n32, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
@@ -199,6 +243,80 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(addr));
+}
+
+// 2^x on the special-function unit in one instruction (subnormal results
+// flush to 0; 2^-inf = 0), where exp2f adds a range fix-up around it
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// (a, b) as bf16 pairs hi + lo, a = hi + lo to ~16 bits.  Round: hi to
+// nearest, |lo| <= 2^-8 |a| (two conversions); else hi truncated (a mask),
+// |lo| < 2^-7 |a| (one conversion), for products where lo meets only an
+// exact bf16 operand, so no lo x lo term is dropped.
+template <bool Round>
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+    float ra, rb;
+    if constexpr (Round) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        hi = *reinterpret_cast<const uint32_t*>(&h);
+        ra = __low2float(h);
+        rb = __high2float(h);
+    } else {
+        const uint32_t ua = __float_as_uint(a) & 0xffff0000u, ub = __float_as_uint(b) & 0xffff0000u;
+        hi = __byte_perm(ua, ub, 0x7632);
+        ra = __uint_as_float(ua);
+        rb = __uint_as_float(ub);
+    }
+    const __nv_bfloat162 l = __floats2bfloat162_rn(a - ra, b - rb);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 16 bytes from / to shared memory at a 32-bit shared address
+__device__ __forceinline__ uint4 lds_u4(uint32_t addr) {
+    uint4 v;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(addr));
+    return v;
+}
+__device__ __forceinline__ void sts_u4(uint32_t addr, uint4 v) {
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+                 "r"(v.z), "r"(v.w)
+                 : "memory");
+}
+// four 8x8 bf16 matrices to shared memory: register i of lane l holds row
+// l / 4, columns 2 (l % 4) and + 1 of matrix i (an accumulator fragment,
+// paired to bf16); lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+                 "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+                 : "memory");
+}
+// makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands, TMA); a barrier among the writers follows
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier among `threads` threads (a multiple of 32) on hardware barrier `id`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// moves registers between warpgroups: every warp of the warpgroup executes
+// it, and the block's total stays within the register file.  ptxas gives
+// the code after an increase the larger budget.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // ---- mbarrier -------------------------------------------------------------
@@ -311,27 +429,35 @@ inline EncodeTiledFn encode_tiled_fn() {
     return fn;
 }
 
-// A [B, heads, rows, D] bf16 view (element strides sb, sh, ss; last dim
-// contiguous) as a 4-D map (D, rows, heads, B) read in boxes of SW/2 columns
-// x box_rows rows, SW-byte swizzled.  Rows at or past `rows` read as zeros.
-// Returns a CUDA error code (0 on success).
-template <int D>
-int encode_map(CUtensorMap* map, const void* base, int B, int heads, int rows, int64_t sb,
-               int64_t sh, int64_t ss, int box_rows) {
+// A 4-D bf16 tensor map: dims[0] contiguous, strides of dims 1..3 in
+// elements, boxes of box[0] x box[1] x 1 x 1.  Elements past a dim's extent
+// read as zeros.  Returns a CUDA error code (0 on success).
+inline int encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                        const int64_t (&strides)[3], int box0, int box1,
+                        CUtensorMapSwizzle swizzle) {
     const EncodeTiledFn fn = encode_tiled_fn();
     if (!fn) return static_cast<int>(cudaErrorNotSupported);
-    const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(rows > 0 ? rows : 1),
-                                cuuint64_t(heads), cuuint64_t(B)};
-    const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
-    const cuuint32_t box[4] = {cuuint32_t(Swz<D>::COLS), cuuint32_t(box_rows), 1, 1};
+    const cuuint64_t bytes[3] = {cuuint64_t(strides[0]) * 2, cuuint64_t(strides[1]) * 2,
+                                 cuuint64_t(strides[2]) * 2};
+    const cuuint32_t box[4] = {cuuint32_t(box0), cuuint32_t(box1), 1, 1};
     const cuuint32_t estr[4] = {1, 1, 1, 1};
     const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          Swz<D>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                            : CU_TENSOR_MAP_SWIZZLE_64B,
+                          dims, bytes, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A [B, heads, rows, D] bf16 view (element strides sb, sh, ss; last dim
+// contiguous) as a 4-D map (D, rows, heads, B) read in boxes of SW/2 columns
+// x box_rows rows, SW-byte swizzled.  Rows at or past `rows` read as zeros.
+template <int D>
+int encode_map(CUtensorMap* map, const void* base, int B, int heads, int rows, int64_t sb,
+               int64_t sh, int64_t ss, int box_rows) {
+    const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(rows > 0 ? rows : 1),
+                                cuuint64_t(heads), cuuint64_t(B)};
+    const int64_t strides[3] = {ss, sh, sb};
+    return encode_tiled(map, base, dims, strides, Swz<D>::COLS, box_rows, Swz<D>::TMA);
 }
 
 }  // namespace hopper_sm90

@@ -9,7 +9,11 @@ multiple of their tile, read strided views, and give dk/dv per kv head: the
 dk/dv pass splits each kv tile's GQA group over a cluster of blocks
 (`dkv_cluster_size`, `dkv_heads`) and sums their fp32 partials through
 distributed shared memory in a fixed order, so no per-head buffer is
-written and the same inputs give the same bits.
+written and the same inputs give the same bits.  The dq pass is a persistent
+grid walking (q tile, pair of heads of a GQA group) items heavy-first, the
+pair sharing one K/V ring; the kernel numbers the items itself, and the card
+tests hold every head and tile against the plain version (rep 1, 3 and 16,
+S not a multiple of 64: tests/test_torch_cuda.py).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.

@@ -235,6 +235,22 @@ def test_flash_dkv_kernel_is_bitwise_repeatable(dev, cluster):
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
+def test_flash_dq_kernel_is_bitwise_repeatable(dev):
+    """The dq pass writes each dq row from one warpgroup's registers, with no
+    atomics: the same inputs give the same bits, and the same delta."""
+    rng = np.random.default_rng(14)
+    b, h, hkv, s, d = 8, 32, 2, 512, 128
+    q = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
+    k = _rand(rng, (b, s, hkv, d), dev).transpose(1, 2)
+    v = _rand(rng, (b, s, hkv, d), dev).transpose(1, 2)
+    do = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse)
+    for _ in range(3):
+        dq2, delta2 = flash_attention_bwd_dq(q, k, v, out, do, lse)
+        assert torch.equal(dq2, dq) and torch.equal(delta2, delta)
+
+
 @pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512)])
 def test_fused_ce_kernels_match_plain(dev, r, v):
     rng = np.random.default_rng(7)
@@ -331,11 +347,18 @@ def _ssd_inputs(rng, dev, b, s, h, p, n, *, strong=False, strided=False, h0=Fals
     (2, 130, 6, 64, 128, "strided"),     # the model's slices of one conv output
     (1, 256, 4, 64, 128, "strong"),      # a_log = log 16, dt up to 3
     (4, 8192, 24, 64, 128, "strided"),   # the mamba2-130m serve prefill
+    (2, 1, 3, 64, 128, "plain"),         # one row
+    (2, 63, 3, 64, 128, "plain"),        # one row short of the kernel's 64-row chunk
+    (2, 65, 3, 64, 128, "plain"),        # one row past it
+    (2, 1, 3, 32, 32, "h0"),             # one row from a nonzero state
+    (2, 65, 3, 16, 16, "strong_h0"),     # strong decay from a nonzero state, every P
+    (2, 200, 3, 32, 64, "strong_h0"),
+    (2, 130, 3, 64, 128, "strong_h0"),
 ])
 def test_ssd_scan_kernel_matches_plain(dev, b, s, h, p, n, case):
     rng = np.random.default_rng(10)
-    x, dt, a_log, Bm, Cm, h0 = _ssd_inputs(rng, dev, b, s, h, p, n, strong=case == "strong",
-                                           strided=case == "strided", h0=case == "h0")
+    x, dt, a_log, Bm, Cm, h0 = _ssd_inputs(rng, dev, b, s, h, p, n, strong="strong" in case,
+                                           strided=case == "strided", h0="h0" in case)
     before = ssd_scan.launches
     with torch.inference_mode():
         y, hf = ssd_scan(x, dt, a_log, Bm, Cm, h0=h0)
@@ -345,6 +368,19 @@ def test_ssd_scan_kernel_matches_plain(dev, b, s, h, p, n, case):
     assert torch.isfinite(y).all() and torch.isfinite(hf).all()
     _close(y, ry, **TOL_BF16)
     _close(hf, rh, **TOL_BF16)
+
+
+def test_ssd_scan_kernel_is_bitwise_repeatable(dev):
+    """One block owns a (batch, head) and sums in a fixed order: the same
+    inputs give the same bits, at the serve prefill's shape from a state."""
+    rng = np.random.default_rng(16)
+    x, dt, a_log, Bm, Cm, h0 = _ssd_inputs(rng, dev, 4, 8192, 24, 64, 128, strided=True,
+                                           h0=True)
+    with torch.inference_mode():
+        y, hf = ssd_scan(x, dt, a_log, Bm, Cm, h0=h0)
+        for _ in range(2):
+            y2, hf2 = ssd_scan(x, dt, a_log, Bm, Cm, h0=h0)
+            assert torch.equal(y2, y) and torch.equal(hf2, hf)
 
 
 def test_ssd_scan_refuses_what_the_kernel_does_not_take(dev):

@@ -32,7 +32,9 @@ The whole-model JAX references are jitted with XLA's
 `xla_allow_excess_precision` off, as in tests/test_torch_serve.py, so that
 XLA rounds every bf16 op as the program states, as the port does.
 """
+import importlib.util
 from dataclasses import asdict
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -191,6 +193,35 @@ def test_ssd_scan_raises_on_an_input_that_requires_grad():
         y, _ = ssd_scan(x, dt, a_log, Bm, Cm, chunk=8)
     yr, _ = ssd_scan_ref(x.detach(), dt, a_log, Bm, Cm, chunk=8)
     assert torch.equal(y, yr)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["plain", "h0", "strong_h0"])
+def test_chip_smoke_fp64_recurrence_matches_ssd_chunked(case):
+    """`chip_smoke.ssd_scan_f64`, the fp64 one-row-at-a-time recurrence the
+    SSD kernel's relative-L2 gate is measured against, computes the same
+    function as JAX `ssd_chunked` and the port's plain version (S = 40, not
+    a multiple of their chunk 16, from a state, under strong decay).  The
+    other two sum in fp32: TOL_SCAN."""
+    args = _scan_inputs(5, 2, 40, 4, 16, 32, h0=True)
+    h0 = args.pop() * ("h0" in case)
+    if "strong" in case:
+        args[1] = np.minimum(args[1] * 3, 3.0).astype(np.float32)
+        args[2] = np.full(4, np.log(16.0), np.float32)
+    y64, h64 = _chip_smoke().ssd_scan_f64(*(to_tensor(a) for a in args), to_tensor(h0))
+    assert y64.dtype == h64.dtype == torch.float64
+    yr, hr = JS.ssd_chunked(*(jnp.asarray(a) for a in args[:3]),
+                            *(jnp.asarray(a) for a in args[3:]), 8, h0=jnp.asarray(h0))
+    yt, ht = ssd_scan_ref(*(to_tensor(a) for a in args), chunk=16, h0=to_tensor(h0))
+    for got, want in ((y64, yr), (h64, hr), (y64, yt), (h64, ht)):
+        np.testing.assert_allclose(got.numpy(), _np(want), **TOL_SCAN)
 
 
 # ---------------------------------------------------------------------------
