@@ -9,35 +9,39 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`;
    for each kernel written with wgmma/TMA (the flash forward, dq and dk/dv
    passes at each head dim, the SSD scan at each state dim), its registers,
-   spills, shared memory and blocks an SM from the `ptxas -v` report.
+   spills, shared memory and blocks an SM from the `ptxas -v` report, and
+   the registers and spills of every instance of decode attention and of
+   the RMSNorm backward.
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
    time, the plain version's, one library call's as a yardstick (never used
    by the port), and the least time the card could take (the bound).  The
-   flash forward is also timed at the train shape, the dk/dv pass at
-   every cluster size it takes, the whole flash backward (dq, then dk/dv)
-   beside SDPA's backward, and the dq pass is checked bitwise repeatable;
-   the SSD scan's y and final state are checked at the serve shape and at
-   an 8193-token tail from a nonzero state, against the plain version and,
-   by relative L2 error, against an fp64 recurrence.
-4. serve   — full-width chatglm3-6b (28 layers, d 4096, random weights from
-   a seed) serves 4 prompts of 512 tokens and generates 64 tokens through
-   `Server.generate`, with every kernel's launch count checked; then a
-   513-token prefill is held against a 512-token prefill plus one decode.
-5. serve_ssm — full-width mamba2-130m (24 layers, d 768, random weights
-   from a seed) serves 4 prompts of 8192 tokens and generates 64 tokens
-   through `Server.generate`, with every kernel's launch count checked (the
-   SSD scan once per layer in the prefill, rmsnorm 49 times a model step,
-   no attention kernel); then an 8193-token prefill is held against an
-   8192-token prefill plus one decode.
-6. train_check — one loss and every gradient of reduced chatglm3-6b on the
+   flash forward is also timed at the train shape and, with dq and dk/dv,
+   at stablelm-3b's head dim 80 (padded to 128 inside the wrappers; bounds
+   on the unpadded work); the dk/dv pass at every cluster size it takes,
+   the whole flash backward (dq, then dk/dv) beside SDPA's backward.  Decode
+   attention runs at the serve paths' own lengths (513-576 of a 1024-row
+   cache) for chatglm3-6b and stablelm-3b, at every cluster size; RMSNorm
+   also at the decode steps' [4, d].  The dq pass, decode attention and the
+   RMSNorm backward's dscale are checked bitwise repeatable; the SSD scan's
+   y and final state at the serve shape and at an 8193-token tail from a
+   nonzero state, against the plain version and, by relative L2 error,
+   against an fp64 recurrence.
+4. serve, serve_ssm, serve_stablelm — full-width chatglm3-6b (28 layers, d
+   4096), mamba2-130m (24 layers, d 768) and stablelm-3b (32 layers, d
+   2560, head dim 80), random weights from a seed, serve 4 prompts of 512
+   (mamba2: 8192) tokens and generate 64 through `Server.generate`, every
+   kernel's launch count checked; after each, cross_check(_ssm, _stablelm)
+   holds a prefill of one token more against the prefill plus one decode.
+5. train_check — one loss and every gradient of reduced chatglm3-6b on the
    card (kernels) against the same weights and batch on the CPU (plain
    versions).
-7. train   — full-width chatglm3-6b trains 8 steps of batch 8 x 512 tokens
-   through `Trainer.run` (remat per layer, 8 cross-entropy chunks, AdamW
-   with bf16 moments: the one cut, as the fp32-moment state alone is
-   74.9 GB), on one fixed batch; every loss finite, the last below the
-   first, and every kernel's launch count per step checked.
+6. train, train_stablelm — full-width chatglm3-6b trains 8 steps and
+   stablelm-3b 4 steps of batch 8 x 512 tokens through `Trainer.run` (remat
+   per layer, 8 cross-entropy chunks, AdamW; chatglm3-6b with bf16 moments,
+   the one cut, as its fp32-moment state alone is 74.9 GB; stablelm-3b with
+   the Trainer's default fp32 moments), on one fixed batch; every loss
+   finite, the last below the first, every launch count per step checked.
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -93,6 +97,10 @@ TRAIN_CUT = ["adamw moment_dtype bf16 (fp32 state is 74.9 GB)"]
 # the serve_ssm phase: mamba2-130m at 4 prompts x 8192 tokens, 64 new
 SSM_ARCH, SSM_PROMPT = "mamba2-130m", 8192
 SSD_CHUNK = 64           # the SSD-scan kernel's chunk (csrc/ssd_scan.cu)
+# the serve_stablelm and train_stablelm phases: stablelm-3b, head dim 80
+LM_ARCH, LM_TRAIN_STEPS = "stablelm-3b", 4
+# decode attention's lengths in the serve runs: cache_pos + 1, 513 to 576
+SERVE_LENGTHS = (PROMPT + 1, PROMPT + NEW)
 
 
 def emit(obj) -> None:
@@ -275,6 +283,25 @@ def hopper_kernel_report(build) -> list:
     return rows
 
 
+# Kernels of plain CUDA (mma.sync, cp.async): registers and spills of each
+# instance (template arguments named), from the `ptxas -v` report.
+PTXAS_KERNELS = (("decode_kernel", "decode_attention.cu", ("D", "MT")),
+                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ()))
+
+
+def ptxas_report(build) -> list:
+    rows = []
+    for kernel, source, params in PTXAS_KERNELS:
+        entries = ptxas_entries((build.BUILD_DIR / f"{source}.log").read_text())
+        for name, e in entries.items():
+            m = re.search(kernel + r"(?:I((?:Li\d+E)+))?E", name)
+            if m:
+                args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(1) or "")]
+                rows.append({"kernel": kernel, "source": source, **dict(zip(params, args)),
+                             **e})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -293,6 +320,9 @@ def main() -> int:
                                      launches, reset_launches, rmsnorm, rmsnorm_bwd,
                                      rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan, ssd_scan_ref)
     from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
+    from repro_torch.kernels.decode_attention.kernel import CLUSTERS as DECODE_CLUSTERS
+    from repro_torch.kernels.decode_attention.kernel import cluster_size as decode_cluster_size
+    from repro_torch.kernels.decode_attention.kernel import head_chunks as decode_head_chunks
     from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
                                                      attention_bwd_dq_ref,
                                                      attention_with_lse_ref)
@@ -318,7 +348,7 @@ def main() -> int:
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library_dir": str(_build.BUILD_DIR)})
-    for entry in hopper_kernel_report(_build):
+    for entry in hopper_kernel_report(_build) + ptxas_report(_build):
         emit({"phase": "build_kernel", **entry})
 
     # -- kernels at the serve path's shapes ------------------------------------
@@ -345,6 +375,23 @@ def main() -> int:
         rows.append(row)
         return row
 
+    def other_shape(what, over, kern, plain, lib, nbytes, flops, peak, err, **extra):
+        """A kernel at another shape of the main paths, checked and timed as
+        a row is; nested in that kernel's row."""
+        if not over <= 0:
+            raise AssertionError(f"{what}: kernel disagrees with its plain version "
+                                 f"(excess over tolerance {over})")
+        b_ms, b_by = bound(nbytes, flops, peak)
+        return {**extra, "max_abs_err": err, "ms": time_ms(kern, flush),
+                "plain_ms": None if plain is None else time_ms(plain, flush),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib is None else time_ms(lib, flush)}
+
+    # the inputs of the later shapes (the decode steps' norms, head dim 80, the
+    # serve lengths), from their own generator, so that the other rows'
+    # inputs stay as they were
+    xrandn = bf16_normal(np.random.default_rng(SEED + 7), dev)
+
     # rmsnorm: every attn_norm / ffn_norm of a 4 x 512 prefill
     d = 4096
     x = randn(BATCH * PROMPT, d, scale=3.0)
@@ -359,6 +406,19 @@ def main() -> int:
                    nbytes=2 * x.numel() * 2 + d * 2, flops=4 * x.numel(),
                    peak=PEAK_F32)
     r["max_abs_err"] = float((out.float() - ref.float()).abs().max())
+    # the decode steps' norms: [4, 4096] (chatglm3-6b, 57 a step) and [4, 768]
+    # (mamba2-130m, 49 a step), 6,784 of the serve runs' 7,794 launches
+    r["decode_shapes"] = {}
+    for dd in (4096, 768):
+        xd, sd = xrandn(BATCH, dd, scale=3.0), 1.0 + 0.1 * xrandn(dd)
+        od, rd = rmsnorm(xd, sd), rmsnorm_ref(xd, sd)
+        torch.cuda.synchronize()
+        r["decode_shapes"][f"{BATCH}x{dd}"] = other_shape(
+            f"rmsnorm [{BATCH}, {dd}]", excess(od, rd, TOL_RMSNORM),
+            lambda xd=xd, sd=sd: rmsnorm(xd, sd), lambda xd=xd, sd=sd: rmsnorm_ref(xd, sd),
+            lambda xd=xd, sd=sd, dd=dd: F.rms_norm(xd, (dd,), sd, 1e-6),
+            2 * xd.numel() * 2 + dd * 2, 4 * xd.numel(), PEAK_F32,
+            float((od.float() - rd.float()).abs().max()))
     emit({"phase": "kernel", **r, "shape": [BATCH * PROMPT, d]})
 
     # flash forward: one layer's prefill attention, q from the cache layout
@@ -409,32 +469,95 @@ def main() -> int:
         "bound_ms": bound((2 * qt.numel() + 2 * kt.numel()) * 2 + TRAIN_B * h * s * 4,
                           4 * hd * pairs_t, PEAK_BF16)[0]}
     del qt, kt, vt, out_t, lse_t, ref_t, rlse_t, kte, vte
+    # stablelm-3b's head dim 80 (MHA, 32 heads), zero-padded to 128 inside the
+    # wrapper: its serve prefill (into the 1024-row cache) and its train step;
+    # the bounds count the unpadded work
+    r["head_dim_80"] = {}
+    for what, bb, t80 in (("serve", BATCH, MAX_LEN), ("train", TRAIN_B, s)):
+        q8 = xrandn(bb, s, h, 80).transpose(1, 2)
+        k8, v8 = (xrandn(bb, t80, h, 80).transpose(1, 2) for _ in range(2))
+        (o8, l8), (r8, rl8) = (flash_attention_fwd(q8, k8, v8, kv_len=s),
+                               attention_with_lse_ref(q8, k8, v8, q_offset=0, kv_len=s))
+        torch.cuda.synchronize()
+        k8s, v8s = k8[:, :, :s], v8[:, :, :s]
+        pairs8 = bb * h * s * (s + 1) // 2
+        r["head_dim_80"][what] = other_shape(
+            f"flash_attention_fwd at D 80 ({what})",
+            max(excess(o8, r8, TOL_BF16), excess(l8, rl8, TOL_LSE)),
+            lambda q8=q8, k8=k8, v8=v8: flash_attention_fwd(q8, k8, v8, kv_len=s),
+            lambda q8=q8, k8=k8, v8=v8: attention_with_lse_ref(q8, k8, v8, q_offset=0,
+                                                               kv_len=s),
+            lambda q8=q8, k8s=k8s, v8s=v8s: F.scaled_dot_product_attention(q8, k8s, v8s,
+                                                                           is_causal=True),
+            (2 * q8.numel() + 2 * k8s.numel()) * 2 + bb * h * s * 4, 4 * 80 * pairs8,
+            PEAK_BF16, float((o8.float() - r8.float()).abs().max()),
+            shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80})
+    del q8, k8, v8, o8, l8, r8, rl8, k8s, v8s
     emit({"phase": "kernel", **r,
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "q_offset": 0}})
 
-    # decode: one layer's decode attention over a ragged batch
+    # decode: one layer's decode attention, at the serve runs' lengths
+    # (cache_pos + 1: 513 to 576 of T = 1024), for chatglm3-6b (GQA, 16 heads
+    # a kv head, D 128) and stablelm-3b (MHA, D 80); the bytes are those of
+    # the live rows; every cluster size is checked and timed
     t = MAX_LEN
-    qd = randn(b, h, hd)
+    qd = randn(b, h, hd)                       # the ragged-lengths case below
     lens_np = rng.integers(1, t + 1, size=(b,)).astype(np.int32)
-    lens = torch.from_numpy(lens_np).to(dev)
-    out, ref = decode_attention(qd, ck, cv, lens), decode_attention_ref(qd, ck, cv, lens)
-    torch.cuda.synchronize()
-    over = excess(out, ref, TOL_BF16)
-    kd = ck.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
-    vd = cv.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
-    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    used = int(lens_np.sum())
+
+    def decode_case(what, q_, ck_, cv_, lens_np_):
+        """The kernel, its plain version and masked SDPA (the group expanded)
+        at these inputs, checked: other_shape's arguments."""
+        lens_ = torch.from_numpy(lens_np_).to(dev)
+        h_, d_, hkv_ = q_.shape[1], q_.shape[2], ck_.shape[2]
+        out_, ref_ = decode_attention(q_, ck_, cv_, lens_), decode_attention_ref(q_, ck_, cv_,
+                                                                                   lens_)
+        torch.cuda.synchronize()
+        kd_, vd_ = (c.transpose(1, 2).repeat_interleave(h_ // hkv_, dim=1) for c in (ck_, cv_))
+        mask_ = (torch.arange(t, device=dev)[None, :] < lens_[:, None])[:, None, None, :]
+        used = int(lens_np_.sum())
+        clusters = {}
+        for c in DECODE_CLUSTERS:
+            oc = decode_attention(q_, ck_, cv_, lens_, cluster=c)
+            torch.cuda.synchronize()
+            over_c = excess(oc, ref_, TOL_BF16)
+            if not over_c <= 0:
+                raise AssertionError(f"decode_attention ({what}) with cluster {c} disagrees "
+                                     f"with its plain version (excess {over_c})")
+            clusters[str(c)] = time_ms(
+                lambda c=c: decode_attention(q_, ck_, cv_, lens_, cluster=c), flush)
+        # one launch combines the cluster's partials in a fixed order
+        for _ in range(3):
+            if not torch.equal(decode_attention(q_, ck_, cv_, lens_), out_):
+                raise AssertionError(f"decode_attention ({what}) is not bitwise repeatable")
+        args = (f"decode_attention ({what})", excess(out_, ref_, TOL_BF16),
+                lambda: decode_attention(q_, ck_, cv_, lens_),
+                lambda: decode_attention_ref(q_, ck_, cv_, lens_),
+                lambda: F.scaled_dot_product_attention(q_[:, :, None], kd_, vd_,
+                                                       attn_mask=mask_),
+                2 * used * hkv_ * d_ * 2 + 2 * q_.numel() * 2 + b * 4, 4 * d_ * h_ * used,
+                PEAK_BF16, float((out_.float() - ref_.float()).abs().max()))
+        extra = {"shape": {"B": b, "H": h_, "Hkv": hkv_, "T": t, "D": d_,
+                           "lengths": lens_np_.tolist()},
+                 "cluster": decode_cluster_size(b * hkv_ * decode_head_chunks(h_ // hkv_)),
+                 "cluster_ms": clusters, "bitwise_repeatable": True}
+        return args, extra
+
+    serve_lens = np.random.default_rng(SEED + 10).integers(
+        SERVE_LENGTHS[0], SERVE_LENGTHS[1] + 1, size=(b,)).astype(np.int32)
+    args, extra = decode_case("chatglm3-6b", xrandn(b, h, hd), ck, cv, serve_lens)
+    what, over, kern, plain, lib, nbytes, flops, peak, err = args
     r = kernel_row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention/kernel.py:25", over,
-                   lambda: decode_attention(qd, ck, cv, lens),
-                   lambda: decode_attention_ref(qd, ck, cv, lens),
-                   lambda: F.scaled_dot_product_attention(qd[:, :, None], kd, vd,
-                                                          attn_mask=mask),
-                   nbytes=2 * used * hkv * hd * 2 + 2 * qd.numel() * 2 + b * 4,
-                   flops=4 * hd * h * used, peak=PEAK_BF16)
-    r["max_abs_err"] = float((out.float() - ref.float()).abs().max())
-    emit({"phase": "kernel", **r, "shape": {"B": b, "H": h, "Hkv": hkv, "T": t,
-                                            "D": hd, "lengths": lens_np.tolist()}})
+                   "src/repro/kernels/decode_attention/kernel.py:25", over, kern, plain, lib,
+                   nbytes=nbytes, flops=flops, peak=peak)
+    r["max_abs_err"] = err
+    r.update(extra)
+    ck8, cv8 = xrandn(b, t, h, 80), xrandn(b, t, h, 80)
+    args, extra = decode_case("stablelm-3b", xrandn(b, h, 80), ck8, cv8, serve_lens)
+    r["stablelm_3b"] = other_shape(*args, **extra)
+    args, extra = decode_case("ragged lengths", qd, ck, cv, lens_np)
+    r["ragged_lengths"] = other_shape(*args, **extra)
+    del ck8, cv8, args
+    emit({"phase": "kernel", **r})
 
     # rmsnorm backward: every norm of the train step, [8 x 512, 4096]
     rows_t = TRAIN_B * TRAIN_S
@@ -454,6 +577,13 @@ def main() -> int:
                    nbytes=3 * x.numel() * 2 + 2 * d * 2, flops=10 * x.numel(),
                    peak=PEAK_F32)
     r["max_abs_err"] = float((dx.float() - rdx.float()).abs().max())
+    # dscale's sums run in a fixed order: the same inputs give the same bits
+    for _ in range(3):
+        dx2, dsc2 = rmsnorm_bwd(x, sc, dy)
+        if not (torch.equal(dx2, dx) and torch.equal(dsc2, dsc)):
+            raise AssertionError("rmsnorm_bwd is not bitwise repeatable")
+    r["bitwise_repeatable"] = True
+    del dx2, dsc2
     emit({"phase": "kernel", **r, "shape": [rows_t, d],
           "dscale_max_abs_err": float((dsc.float() - rdsc.float()).abs().max())})
     del x, dy, dx, dsc, rdx, rdsc, xl, scl
@@ -466,8 +596,36 @@ def main() -> int:
                                  attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0))
     (dk, dv), (rk, rv) = (flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                           attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0))
+    # stablelm-3b's train step: head dim 80 (padded to 128 inside the
+    # wrappers; the bounds count the unpadded work), MHA
+    q8, k8, v8, do8 = flash_bwd_inputs(xrandn, b, s, h, h, 80)
+    out8, lse8 = flash_attention_fwd(q8, k8, v8)
+    (dq8, delta8), (rq8, rdelta8) = (flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8),
+                                     attention_bwd_dq_ref(q8, k8, v8, out8, do8, lse8,
+                                                          q_offset=0))
+    (dk8, dv8), (rk8, rv8) = (flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8),
+                              attention_bwd_dkv_ref(q8, k8, v8, do8, lse8, rdelta8, q_offset=0))
     torch.cuda.synchronize()
-    pairs = b * h * s * (s + 1) // 2
+    sdpa_bwd8 = sdpa_backward(q8, k8, v8, do8)
+    qb8, kvb8, pairs = q8.numel() * 2, k8.numel() * 2, b * h * s * (s + 1) // 2
+    shape8 = {"B": b, "H": h, "Hkv": h, "S": s, "D": 80, "causal": True}
+    dq80 = other_shape("flash_attention_bwd_dq at D 80",
+                       max(excess(dq8, rq8, TOL_BF16), excess(delta8, rdelta8, TOL_LSE)),
+                       lambda: flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8),
+                       lambda: attention_bwd_dq_ref(q8, k8, v8, out8, do8, lse8, q_offset=0),
+                       sdpa_bwd8, 4 * qb8 + 2 * kvb8 + 2 * b * h * s * 4, 6 * 80 * pairs,
+                       PEAK_BF16, float((dq8.float() - rq8.float()).abs().max()),
+                       shape=shape8)
+    dkv80 = other_shape("flash_attention_bwd_dkv at D 80",
+                        max(excess(dk8, rk8, TOL_BF16), excess(dv8, rv8, TOL_BF16)),
+                        lambda: flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8),
+                        lambda: attention_bwd_dkv_ref(q8, k8, v8, do8, lse8, rdelta8,
+                                                      q_offset=0),
+                        sdpa_bwd8, 2 * qb8 + 4 * kvb8 + 2 * b * h * s * 4, 8 * 80 * pairs,
+                        PEAK_BF16, max(float((dk8.float() - rk8.float()).abs().max()),
+                                       float((dv8.float() - rv8.float()).abs().max())),
+                        shape=shape8)
+    del q8, k8, v8, do8, out8, lse8, dq8, delta8, rq8, rdelta8, dk8, dv8, rk8, rv8, sdpa_bwd8
     sdpa_bwd = sdpa_backward(q, k, v, do)
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each
     r = kernel_row("flash_attention_bwd_dq",
@@ -487,6 +645,7 @@ def main() -> int:
         if not (torch.equal(dq2, dq) and torch.equal(delta2, delta)):
             raise AssertionError("flash_attention_bwd_dq is not bitwise repeatable")
     r["bitwise_repeatable"] = True
+    r["head_dim_80"] = dq80
     del dq2, delta2
     # the whole backward as the train step runs it (dq, then dk/dv), beside
     # SDPA's backward, timed here
@@ -520,6 +679,7 @@ def main() -> int:
                                  f"its plain version (excess over tolerance {over_c})")
         r["cluster_ms"][str(c)] = time_ms(
             lambda c=c: flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=c), flush)
+    r["head_dim_80"] = dkv80
     del ck_, cv_
     emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
@@ -558,7 +718,7 @@ def main() -> int:
                    flops=4 * logits.numel(), peak=PEAK_F32)
     r["max_abs_err"] = float((dl.float() - rdl.float()).abs().max())
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
-    del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv, kd, vd
+    del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv
 
     # SSD scan: one layer's prefill scan of mamba2-130m, x, B and C as the
     # model passes them (slices of one conv output), from the cache's zero state
@@ -640,122 +800,100 @@ def main() -> int:
     del sargs, h0, y, hf, ry, rh, targs, th0, ty, thf, rty, rth, scratch
     torch.cuda.empty_cache()
 
-    # -- serve: full-width chatglm3-6b through Server.generate ----------------
-    t0 = time.perf_counter()
-    srv = Server(ARCH, reduced=False, max_len=MAX_LEN, device="cuda", seed=SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = srv.cfg
-    prompts = np.random.default_rng(SEED + 1).integers(
-        1, cfg.vocab_size, size=(BATCH, PROMPT + 1)).astype(np.int32)
-    srv.generate(prompts[:1, :16], 2)               # warm-up: cuBLAS, allocator
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    out = srv.generate(prompts[:, :PROMPT], NEW)
-    got = launches()
-    n = cfg.n_layers
-    want = {name: 0 for name in got}
-    want.update({"rmsnorm": (2 * n + 1) * (1 + NEW), "flash_attention_fwd": n,
-                 "decode_attention": n * NEW})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit({"phase": "serve", "arch": ARCH, "n_layers": n, "d_model": cfg.d_model,
-          "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW, "init_s": init_s,
-          "prefill_ms": out["prefill_s"] * 1e3,
-          "decode_tok_per_s": out["decode_tok_per_s"], "peak_mem_gb": peak_gb,
-          "launches": got, "expected_launches": want, "finite": out["finite"],
-          "tokens_head": out["tokens"][:, :8].tolist()})
-    if got != want:
-        raise AssertionError(f"launch counts {got} != expected {want}")
-    if not out["finite"]:
-        raise AssertionError("non-finite logits in the serve run")
-    if out["tokens"].shape != (BATCH, NEW):
-        raise AssertionError(f"tokens shape {out['tokens'].shape}")
-    by_path = {"serve": got}
-
-    # -- cross-check: prefill(513) == prefill(512) + decode(1) ----------------
-    with torch.inference_mode():
-        toks = torch.from_numpy(prompts).long().to(dev)
-        full, _ = prefill_step(srv.params, init_cache(cfg, BATCH, MAX_LEN, dev),
-                               {"tokens": toks}, cfg)
-        cache = init_cache(cfg, BATCH, MAX_LEN, dev)
-        _, cache = prefill_step(srv.params, cache, {"tokens": toks[:, :PROMPT]}, cfg)
-        step, _ = serve_step(srv.params, cache, {"tokens": toks[:, PROMPT:]},
-                             PROMPT, cfg)
-        # the noise floor: the same prefill at batch 2 (other GEMM shapes)
-        half, _ = prefill_step(srv.params, init_cache(cfg, 2, MAX_LEN, dev),
-                               {"tokens": toks[:2]}, cfg)
+    # -- the serve paths: Server.generate, launch counts, then prefill(S + 1)
+    # against prefill(S) + decode(1) -----------------------------------------
+    def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup):
+        """Full-width `arch` serves BATCH prompts of `prompt` tokens and NEW
+        more through Server.generate; every launch count must be `want`(cfg).
+        Returns the server, the prompts (one token longer) and the counts."""
+        t0 = time.perf_counter()
+        srv = Server(arch, reduced=False, max_len=max_len, device="cuda", seed=SEED)
         torch.cuda.synchronize()
-    finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
-    err = float((step - full).abs().max())
-    scale = float(full.abs().max())
-    emit({"phase": "cross_check", "max_abs_err": err, "logit_absmax": scale,
-          "rel_err": err / scale, "tol": TOL_CROSS,
-          "elementwise_excess_at_tol": excess(step, full, TOL_CROSS),
-          "batch2_vs_batch4_max_abs_err": float((half - full[:2]).abs().max()),
-          "finite": finite})
-    if not finite or not err <= TOL_CROSS * scale:
-        raise AssertionError(f"prefill+decode disagrees with prefill: max |err| "
-                             f"{err} > {TOL_CROSS} * {scale}")
+        init_s = time.perf_counter() - t0
+        cfg = srv.cfg
+        prompts = np.random.default_rng(prompt_seed).integers(
+            1, cfg.vocab_size, size=(BATCH, prompt + 1)).astype(np.int32)
+        srv.generate(*warmup(prompts))             # warm-up: cuBLAS, allocator
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = srv.generate(prompts[:, :prompt], NEW)
+        got = launches()
+        expect = {name: 0 for name in got}
+        expect.update(want(cfg))
+        emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "head_dim": cfg.head_dim, "batch": BATCH, "prompt": prompt, "new_tokens": NEW,
+              "init_s": init_s, "prefill_ms": out["prefill_s"] * 1e3,
+              "decode_tok_per_s": out["decode_tok_per_s"],
+              "decode_step_ms": BATCH / out["decode_tok_per_s"] * 1e3,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": got, "expected_launches": expect, "finite": out["finite"],
+              "tokens_head": out["tokens"][:, :8].tolist()})
+        if got != expect:
+            raise AssertionError(f"{phase} launch counts {got} != expected {expect}")
+        if not out["finite"]:
+            raise AssertionError(f"non-finite logits in the {phase} run")
+        if out["tokens"].shape != (BATCH, NEW):
+            raise AssertionError(f"{phase} tokens shape {out['tokens'].shape}")
+        return srv, prompts, got
 
-    del srv, toks, full, cache, step, half
+    def cross_check(phase, srv, prompts, cache_len, noise_floor=False):
+        """The last logits of a prefill of every prompt token against a
+        prefill of all but the last plus one decode step."""
+        cfg, s = srv.cfg, prompts.shape[1] - 1
+        with torch.inference_mode():
+            toks = torch.from_numpy(prompts).long().to(dev)
+            full, _ = prefill_step(srv.params, init_cache(cfg, BATCH, cache_len, dev),
+                                   {"tokens": toks}, cfg)
+            cache = init_cache(cfg, BATCH, cache_len, dev)
+            _, cache = prefill_step(srv.params, cache, {"tokens": toks[:, :s]}, cfg)
+            step, _ = serve_step(srv.params, cache, {"tokens": toks[:, s:]}, s, cfg)
+            # the noise floor: the same prefill at batch 2 (other GEMM shapes)
+            half = (prefill_step(srv.params, init_cache(cfg, 2, cache_len, dev),
+                                 {"tokens": toks[:2]}, cfg)[0] if noise_floor else None)
+            torch.cuda.synchronize()
+        finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
+        err = float((step - full).abs().max())
+        scale = float(full.abs().max())
+        rec = {"phase": phase, "arch": srv.cfg.name, "prompt": s, "max_abs_err": err,
+               "logit_absmax": scale, "rel_err": err / scale, "tol": TOL_CROSS,
+               "elementwise_excess_at_tol": excess(step, full, TOL_CROSS), "finite": finite}
+        if noise_floor:
+            rec["batch2_vs_batch4_max_abs_err"] = float((half - full[:2]).abs().max())
+        emit(rec)
+        if not finite or not err <= TOL_CROSS * scale:
+            raise AssertionError(f"{phase}: prefill+decode disagrees with prefill: max |err| "
+                                 f"{err} > {TOL_CROSS} * {scale}")
+
+    by_path = {}
+    # chatglm3-6b: 4 x 512 prompt tokens, 64 new, KV cache 1024
+    srv, prompts, by_path["serve"] = serve(
+        "serve", ARCH, PROMPT, MAX_LEN, SEED + 1,
+        lambda c: {"rmsnorm": (2 * c.n_layers + 1) * (1 + NEW),
+                   "flash_attention_fwd": c.n_layers, "decode_attention": c.n_layers * NEW},
+        lambda p: (p[:1, :16], 2))
+    cross_check("cross_check", srv, prompts, MAX_LEN, noise_floor=True)
+    del srv
     torch.cuda.empty_cache()
 
-    # -- serve_ssm: full-width mamba2-130m through Server.generate -------------
-    t0 = time.perf_counter()
-    srv = Server(SSM_ARCH, reduced=False, max_len=SSM_PROMPT + NEW + 1, device="cuda",
-                 seed=SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = srv.cfg
-    prompts = np.random.default_rng(SEED + 5).integers(
-        1, cfg.vocab_size, size=(BATCH, SSM_PROMPT + 1)).astype(np.int32)
-    # warm-up at the served shape: the first 4 x 8192 prefill also pays the
-    # allocator's growth and cuBLAS's choices for its shapes
-    srv.generate(prompts[:, :SSM_PROMPT], 1)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    out = srv.generate(prompts[:, :SSM_PROMPT], NEW)
-    got = launches()
-    n = cfg.n_layers
-    want = {name: 0 for name in got}
-    want.update({"rmsnorm": (2 * n + 1) * (1 + NEW), "ssd_scan": n})
-    emit({"phase": "serve_ssm", "arch": SSM_ARCH, "n_layers": n, "d_model": cfg.d_model,
-          "batch": BATCH, "prompt": SSM_PROMPT, "new_tokens": NEW, "init_s": init_s,
-          "prefill_ms": out["prefill_s"] * 1e3,
-          "decode_tok_per_s": out["decode_tok_per_s"],
-          "decode_step_ms": BATCH / out["decode_tok_per_s"] * 1e3,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": got, "expected_launches": want, "finite": out["finite"],
-          "tokens_head": out["tokens"][:, :8].tolist()})
-    if got != want:
-        raise AssertionError(f"serve_ssm launch counts {got} != expected {want}")
-    if not out["finite"]:
-        raise AssertionError("non-finite logits in the serve_ssm run")
-    if out["tokens"].shape != (BATCH, NEW):
-        raise AssertionError(f"tokens shape {out['tokens'].shape}")
-    by_path["serve_ssm"] = got
+    # mamba2-130m: 4 x 8192 prompt tokens, 64 new; the scan of every row
+    # against the scan's final state (its tail) and the recurrence.  The
+    # warm-up is at the served shape: the first 4 x 8192 prefill also pays
+    # the allocator's growth and cuBLAS's choices for its shapes.
+    srv, prompts, by_path["serve_ssm"] = serve(
+        "serve_ssm", SSM_ARCH, SSM_PROMPT, SSM_PROMPT + NEW + 1, SEED + 5,
+        lambda c: {"rmsnorm": (2 * c.n_layers + 1) * (1 + NEW), "ssd_scan": c.n_layers},
+        lambda p: (p[:, :SSM_PROMPT], 1))
+    cross_check("cross_check_ssm", srv, prompts, 0)
+    del srv
+    torch.cuda.empty_cache()
 
-    # -- cross-check: prefill(8193) == prefill(8192) + decode(1): the scan of
-    # every row against the scan's final state (its tail) and the recurrence
-    with torch.inference_mode():
-        toks = torch.from_numpy(prompts).long().to(dev)
-        full, _ = prefill_step(srv.params, init_cache(cfg, BATCH, 0, dev),
-                               {"tokens": toks}, cfg)
-        cache = init_cache(cfg, BATCH, 0, dev)
-        _, cache = prefill_step(srv.params, cache, {"tokens": toks[:, :SSM_PROMPT]}, cfg)
-        step, _ = serve_step(srv.params, cache, {"tokens": toks[:, SSM_PROMPT:]},
-                             SSM_PROMPT, cfg)
-        torch.cuda.synchronize()
-    finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
-    err = float((step - full).abs().max())
-    scale = float(full.abs().max())
-    emit({"phase": "cross_check_ssm", "arch": SSM_ARCH, "max_abs_err": err,
-          "logit_absmax": scale, "rel_err": err / scale, "tol": TOL_CROSS,
-          "elementwise_excess_at_tol": excess(step, full, TOL_CROSS), "finite": finite})
-    if not finite or not err <= TOL_CROSS * scale:
-        raise AssertionError(f"mamba2 prefill+decode disagrees with prefill: max |err| "
-                             f"{err} > {TOL_CROSS} * {scale}")
-    del srv, toks, full, cache, step
+    # stablelm-3b: head dim 80, LayerNorm (plain torch, as JAX's jnp), MHA
+    srv, prompts, by_path["serve_stablelm"] = serve(
+        "serve_stablelm", LM_ARCH, PROMPT, MAX_LEN, SEED + 8,
+        lambda c: {"flash_attention_fwd": c.n_layers, "decode_attention": c.n_layers * NEW},
+        lambda p: (p[:1, :16], 2))
+    cross_check("cross_check_stablelm", srv, prompts, MAX_LEN)
+    del srv
     torch.cuda.empty_cache()
 
     # -- train_check: reduced chatglm3-6b, loss and every gradient, card vs CPU
@@ -785,69 +923,87 @@ def main() -> int:
     rel_loss = float((loss_c - loss_p).abs() / loss_p.abs())
     rel_all = float(torch.cat([(a - b).flatten() for a, b in zip(g_c, g_p)]).norm()
                     / torch.cat([b.flatten() for b in g_p]).norm())
-    rel_l2 = {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
-              for nm, a, b in zip(names, g_c, g_p)}
-    worst = sorted(rel_l2, key=rel_l2.get, reverse=True)[:4]
+    rel_leaf = {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
+                for nm, a, b in zip(names, g_c, g_p)}
+    worst = sorted(rel_leaf, key=rel_leaf.get, reverse=True)[:4]
     emit({"phase": "train_check", "arch": ARCH, "reduced": True,
           "loss_cuda": float(loss_c), "loss_cpu": float(loss_p), "rel_err_loss": rel_loss,
           "n_grads": len(g_p), "rel_l2_all_grads": rel_all,
-          "worst_leaf_rel_l2": {nm: rel_l2[nm] for nm in worst}, "tol": TOL_GRAD})
+          "worst_leaf_rel_l2": {nm: rel_leaf[nm] for nm in worst}, "tol": TOL_GRAD})
     if not (rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD):
         raise AssertionError(f"reduced train step on the card disagrees with the CPU: "
                              f"loss {rel_loss}, gradients {rel_all} (relative) > {TOL_GRAD}")
     del sp, sp_cpu, res, g_c, g_p
 
-    # -- train: full-width chatglm3-6b through Trainer.run ----------------------
-    tc = TrainerConfig(arch=ARCH, reduced=False, global_batch=TRAIN_B, seq_len=TRAIN_S,
-                       steps=TRAIN_STEPS, log_every=TRAIN_STEPS, device="cuda",
-                       seed=SEED, moment_dtype=torch.bfloat16)
-    cfg = get_config(ARCH)
-    # one fixed batch, repeated: a learnable target for 8 steps
-    toks = np.random.default_rng(SEED + 4).integers(
-        1, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)).astype(np.int32)
-    fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-             "loss_mask": np.ones((TRAIN_B, TRAIN_S), np.float32)}
-    t0 = time.perf_counter()
-    tr = Trainer(tc, batches=itertools.repeat(fixed))
-    tr.init_state()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(tr.state["params"]))
-    state_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    out = tr.run()
-    got = launches()
-    by_path["train"] = got
-    n, c = cfg.n_layers, CE_CHUNKS
-    per_step = {name: 0 for name in got}
-    per_step.update({"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
-                     "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
-                     "flash_attention_bwd_dkv": n, "fused_ce": 2 * c, "fused_ce_bwd": c})
-    tokens = TRAIN_B * TRAIN_S
-    # 6 N tokens (N without the token-embedding gather) plus causal attention
-    # (4 D flops per unmasked pair forward, 3x with the backward), no recompute
-    pairs = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
-    flops = (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
-             + 12 * cfg.head_dim * pairs * n)
-    losses = out["losses"]
-    emit({"phase": "train", "arch": ARCH, "n_layers": n, "d_model": cfg.d_model,
-          "n_params": n_params, "global_batch": TRAIN_B, "seq_len": TRAIN_S,
-          "steps": TRAIN_STEPS, "remat": cfg.remat, "ce_chunks": c,
-          "moment_dtype": "bfloat16", "reduced": TRAIN_CUT, "init_s": init_s,
-          "losses": losses, "step_ms": out["step_s"] * 1e3,
-          "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "model_tflops_per_step": flops / 1e12,
-          "model_tflops_per_s": flops / out["step_s"] / 1e12,
-          "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
-          "expected_launches_per_step": per_step})
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss in the train run: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    if got != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"train launch counts {got} != {TRAIN_STEPS} x {per_step}")
+    # -- the train paths: Trainer.run on one fixed batch ------------------------
+    def train(phase, arch, steps, moment_dtype, cut, want, batch_seed):
+        """Full-width `arch` trains `steps` steps of TRAIN_B x TRAIN_S tokens
+        (remat per layer, CE_CHUNKS cross-entropy chunks, AdamW) on one fixed
+        batch, repeated: a learnable target.  Every loss finite, the last
+        below the first, every launch count per step `want`(cfg)."""
+        tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                           steps=steps, log_every=steps, device="cuda", seed=SEED,
+                           moment_dtype=moment_dtype)
+        cfg = get_config(arch)
+        toks = np.random.default_rng(batch_seed).integers(
+            1, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+        fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "loss_mask": np.ones((TRAIN_B, TRAIN_S), np.float32)}
+        t0 = time.perf_counter()
+        tr = Trainer(tc, batches=itertools.repeat(fixed))
+        tr.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(tr.state["params"]))
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = tr.run()
+        got = launches()
+        per_step = {name: 0 for name in got}
+        per_step.update(want(cfg))
+        tokens = TRAIN_B * TRAIN_S
+        # 6 N tokens (N without the token-embedding gather) plus causal
+        # attention (4 D flops per unmasked pair forward, 3x with the
+        # backward), no recompute
+        pairs = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
+        flops = (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+                 + 12 * cfg.head_dim * pairs * cfg.n_layers)
+        losses = out["losses"]
+        emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "head_dim": cfg.head_dim, "n_params": n_params, "global_batch": TRAIN_B,
+              "seq_len": TRAIN_S, "steps": steps, "remat": cfg.remat, "ce_chunks": CE_CHUNKS,
+              "moment_dtype": str(moment_dtype).split(".")[-1], "reduced": cut,
+              "init_s": init_s, "losses": losses, "step_ms": out["step_s"] * 1e3,
+              "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "model_tflops_per_step": flops / 1e12,
+              "model_tflops_per_s": flops / out["step_s"] / 1e12,
+              "launches_per_step": {k: v / steps for k, v in got.items()},
+              "expected_launches_per_step": per_step})
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite loss in the {phase} run: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall in the {phase} run: {losses}")
+        if got != {k: v * steps for k, v in per_step.items()}:
+            raise AssertionError(f"{phase} launch counts {got} != {steps} x {per_step}")
+        del tr
+        torch.cuda.empty_cache()
+        return got
+
+    def attention_per_step(c):
+        return {"flash_attention_fwd": 2 * c.n_layers, "flash_attention_bwd_dq": c.n_layers,
+                "flash_attention_bwd_dkv": c.n_layers, "fused_ce": 2 * CE_CHUNKS,
+                "fused_ce_bwd": CE_CHUNKS}
+
+    by_path["train"] = train(
+        "train", ARCH, TRAIN_STEPS, torch.bfloat16, TRAIN_CUT,
+        lambda c: {"rmsnorm": 4 * c.n_layers + 1, "rmsnorm_bwd": 2 * c.n_layers + 1,
+                   **attention_per_step(c)}, SEED + 4)
+    # stablelm-3b: the Trainer's default fp32 moments (~34 GB of state)
+    by_path["train_stablelm"] = train(
+        "train_stablelm", LM_ARCH, LM_TRAIN_STEPS, torch.float32, [], attention_per_step,
+        SEED + 9)
 
     for row in rows:
         row["launches_by_path"] = {p: cnt[row["name"]] for p, cnt in by_path.items()}

@@ -5,283 +5,405 @@
 // Pallas TPU kernel behind `decode_attention`).
 //
 // Bound on an H100: device-memory bytes.  Each cache row is used for 4*D
-// flops per query head of its group (16 heads for chatglm3-6b), some 16
-// flops per byte, far below the card's ~295.  At the serve path's shapes
-// (B = 4, T = 1024, 2 kv heads, D = 128) the cache is ~4 MB, about 1.3 us
-// at full bandwidth, so a launch costs more than the bytes.
+// flops per query head of its group (16 heads for chatglm3-6b, 1 for
+// stablelm-3b), at most ~16 flops per byte, far below the card's ~295.  At
+// the serve path's lengths (513-576 of T = 1024) chatglm3-6b reads ~2.2 MB
+// a call (0.67 us at full bandwidth) and stablelm-3b ~22 MB (6.7 us), so a
+// launch's fixed costs weigh as much as the bytes.
 //
-// Design (split over T, as in flash-decoding):
-// * The TPU kernel walks T sequentially, one grid cell per (b, group).  Here
-//   that would be B * Hkv = 8 blocks on 132 SMs, so T is cut into 64-row
-//   chunks and each block takes one (chunk, group, b).  It reads each K/V
-//   row of its chunk once, into shared memory, for all `rep` query heads of
-//   the group, and writes a partial (m, l, acc) in fp32.  Chunks at or past
-//   the sequence's length exit at once and are never read.
-// * A block issues all of its chunk's K/V loads into registers before it
-//   stores any to shared memory, so the loads' latencies overlap.
-// * A second launch combines the partials of each (b, head) with the usual
-//   max-rescaled sums and writes bf16.  Both launches count as one call.
-// * Length 0 gives zeros.  T need not be a multiple of the chunk: rows at or
-//   past the length are masked.
+// Design, one launch a call:
+// * One thread-block cluster of C blocks per (batch, kv head, chunk of up to
+//   32 query heads of the group).  The cluster splits that sequence's live
+//   rows (length read on the device) into C contiguous ranges of 16-row
+//   tiles; rows at or past the length are never read.  C (1, 2, 4, 8) comes
+//   from the wrapper, sized from the grid (measured: PERF.md).
+// * A block streams its range through a 3-stage cp.async ring of 64-row K
+//   and V tiles; each of its 4 warps takes 16 rows of a tile.  The group's
+//   queries are the M = 16 operand of mma.sync m16n8k16 (zero rows pad the
+//   group to 16 or 32 heads): S = Q K^T over D / 16 k-steps, an fp32 online
+//   softmax (base 2) per warp, then P (rounded to bf16, as the flash kernels
+//   round it) times V into fp32 accumulators, D / 8 n-tiles.  D = 80 is 5
+//   k-steps and 10 n-tiles: no padding, the cache is read as it lies.
+// * Each block merges its 4 warps' (m, l, acc) in warp order in shared
+//   memory; then every block of the cluster combines a slice of the output
+//   from all C blocks' merged partials, read through distributed shared
+//   memory (generic addresses, so a thread's loads are in flight together)
+//   in rank order.  Every sum has a fixed order: the same inputs give the
+//   same bits.
+// * Length 0 gives zeros (l = 0).  T need not be a multiple of any tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "hopper_sm90.cuh"
+#include "mma_sm90.cuh"
+
+using namespace mma_sm90;
+using hopper_sm90::cluster_sync;
 
 namespace {
 
-constexpr int kChunk = 64;      // cache rows per block
-constexpr int kThreads = 128;
-constexpr int kMaxAcc = 32;     // accumulators per thread
-static_assert(kThreads == 2 * kChunk, "the scores loop pairs two lanes per row");
+constexpr int kThreads = 128;    // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 16;        // kv rows of one warp's step; the split's unit
+constexpr int kStageRows = kWarps * kTile;
+constexpr int kStages = 3;
 
 struct Params {
     const bf16* q;
     const bf16* k;
     const bf16* v;
     const int* lengths;
-    float* m_part;              // [B, H, nsplit]
-    float* l_part;              // [B, H, nsplit]
-    float* acc_part;            // [B, H, nsplit, D]
     bf16* out;                  // [B, H, D] contiguous
-    int H, rep, T, nsplit;
+    int H, Hkv, rep, T, chunks; // chunks: blocks' head chunks per kv head
     float scale_log2;
     int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
-
-template <int D>
+// Shared memory of one block: the group's queries, then the K/V ring; after
+// the ring is drained its space holds the warps' partials and the block's
+// merged partial, which the cluster reads.
+template <int D, int MT>
 struct Smem {
-    // K/V row stride in 32-bit words: 2j + half lands each lane of the
-    // scores loop on its own bank
-    static constexpr int LDKW = D / 2 + 2;
-    static size_t bytes(int rep) {
-        return size_t(rep) * D * 4 + size_t(rep) * kChunk * 4 + 2 * size_t(kChunk) * LDKW * 4;
-    }
+    static constexpr int LD = D + 8;        // bf16 row stride: ldmatrix rows on distinct banks
+    static constexpr int R = 16 * MT;       // query rows (heads) of a block
+    static constexpr int Q = 0;
+    static constexpr int RING = Q + R * LD * 2;
+    static constexpr int STAGE = 2 * kStageRows * LD * 2;      // K then V
+    // after the loop, from RING: per warp acc [R][D], m [R], l [R], f [R];
+    // then the merged acc [R][D], m [R], l [R]
+    static constexpr int WACC = RING;
+    static constexpr int WM = WACC + kWarps * R * D * 4;
+    static constexpr int WL = WM + kWarps * R * 4;
+    static constexpr int WF = WL + kWarps * R * 4;
+    static constexpr int MACC = WF + kWarps * R * 4;
+    static constexpr int MM = MACC + R * D * 4;
+    static constexpr int ML = MM + R * 4;
+    static constexpr int END = ML + R * 4;
+    static constexpr int BYTES = END > RING + kStages * STAGE ? END : RING + kStages * STAGE;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(Params p) {
-    using L = Smem<D>;
-    const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-    const int len = min(p.lengths[b], p.T);
-    const int t0 = split * kChunk;
-    if (t0 >= len) return;  // the combine reads only chunks below the length
-    const int n = min(kChunk, len - t0);
-    const int rep = p.rep, tid = threadIdx.x;
+// `p` in this block's shared memory, as the same location in block `rank`
+// of the cluster (a generic address; `p` itself when the cluster is one block)
+__device__ __forceinline__ const float* rank_ptr(const float* p, int rank, int C) {
+    if (C == 1) return p;
+    uint64_t r;
+    asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(p), "r"(rank));
+    return reinterpret_cast<const float*>(r);
+}
 
-    extern __shared__ __align__(16) float smem[];
-    float* q_sh = smem;                                   // [rep][D], pre-scaled
-    float* s_sh = q_sh + rep * D;                         // [rep][kChunk]
-    uint32_t* k_sh = reinterpret_cast<uint32_t*>(s_sh + rep * kChunk);  // [kChunk][LDKW]
-    uint32_t* v_sh = k_sh + kChunk * L::LDKW;
+template <int D, int MT>
+__global__ void __launch_bounds__(kThreads) decode_kernel(Params p) {
+    using M = Smem<D, MT>;
+    constexpr int LD = M::LD, R = M::R, NT = D / 8, VPR = D / 8;
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* qs = reinterpret_cast<bf16*>(smem + M::Q);
 
-    // every load of the chunk is issued into registers before any store to
-    // shared memory, so the loads' latencies overlap
-    constexpr int VPR = D / 8;                       // 16-byte vectors per row
-    constexpr int PER = kChunk * VPR / kThreads;     // per thread, per tensor
+    const int C = gridDim.x, rank = blockIdx.x;          // the cluster spans x
+    const int chunk = blockIdx.y % p.chunks, bg = blockIdx.y / p.chunks;
+    const int g = bg % p.Hkv, b = bg / p.Hkv;
+    const int h0 = chunk * R, nh = min(R, p.rep - h0);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    // the group's queries (rows past nh zero), in the first copy group: issued
+    // before the length is read, so the two loads' latencies overlap
+    const bf16* qg = p.q + b * p.q_sb + (int64_t(g) * p.rep + h0) * p.q_sh;
+    for (int i = tid; i < R * VPR; i += kThreads) {
+        const int r = i / VPR, c = (i % VPR) * 8;
+        cp_async16(qs + r * LD + c, r < nh ? qg + r * p.q_sh + c : qg, r < nh);
+    }
+    const int len = max(0, min(p.lengths[b], p.T));
+    const int ntiles = (len + kTile - 1) / kTile;
+    const int lo = rank * ntiles / C * kTile;
+    const int hi = min(len, (rank + 1) * ntiles / C * kTile);
+    const int nstages = hi > lo ? (hi - lo + kStageRows - 1) / kStageRows : 0;
+
     const bf16* kg = p.k + b * p.k_sb + g * p.k_sh;
     const bf16* vg = p.v + b * p.v_sb + g * p.v_sh;
-    uint4 kbuf[PER], vbuf[PER];
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * kThreads, j = i / VPR, c = (i % VPR) * 8;
-        kbuf[u] = vbuf[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (j < n) {
-            kbuf[u] = *reinterpret_cast<const uint4*>(kg + (t0 + j) * p.k_st + c);
-            vbuf[u] = *reinterpret_cast<const uint4*>(vg + (t0 + j) * p.v_st + c);
+    auto issue = [&](int s) {
+        bf16* ks = reinterpret_cast<bf16*>(smem + M::RING + (s % kStages) * M::STAGE);
+        bf16* vs = ks + kStageRows * LD;
+        for (int i = tid; i < kStageRows * VPR; i += kThreads) {
+            const int j = i / VPR, c = (i % VPR) * 8, row = lo + s * kStageRows + j;
+            const bool ok = row < hi;
+            cp_async16(ks + j * LD + c, ok ? kg + row * p.k_st + c : kg, ok);
+            cp_async16(vs + j * LD + c, ok ? vg + row * p.v_st + c : vg, ok);
         }
-    }
-    const bf16* qg = p.q + b * p.q_sb + int64_t(g) * rep * p.q_sh;
-    for (int i = tid; i < rep * VPR; i += kThreads) {
-        const int r = i / VPR, c = (i % VPR) * 8;
-        const uint4 u = *reinterpret_cast<const uint4*>(qg + r * p.q_sh + c);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    };
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h2[e]);
-            q_sh[r * D + c + 2 * e] = f.x * p.scale_log2;
-            q_sh[r * D + c + 2 * e + 1] = f.y * p.scale_log2;
-        }
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nstages) issue(s);
+        cp_async_commit();
     }
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * kThreads, j = i / VPR, c = (i % VPR) * 8;
-        uint32_t* kd = k_sh + j * L::LDKW + c / 2;
-        uint32_t* vd = v_sh + j * L::LDKW + c / 2;
-        kd[0] = kbuf[u].x; kd[1] = kbuf[u].y; kd[2] = kbuf[u].z; kd[3] = kbuf[u].w;
-        vd[0] = vbuf[u].x; vd[1] = vbuf[u].y; vd[2] = vbuf[u].z; vd[3] = vbuf[u].w;
-    }
-    __syncthreads();
 
-    // scores (base 2): a pair of lanes per cache row, each summing every
-    // other word of the head dim for up to kMaxAcc heads at once (independent
-    // sums), then the pair adds its halves
-    {
-        const int j = tid / 2, hh = tid % 2;
-        const uint32_t* kr = k_sh + j * L::LDKW + hh;
-        for (int r0 = 0; r0 < rep; r0 += kMaxAcc) {
-            float acc[kMaxAcc];
+    float acc[MT][NT][4], m_run[MT][2], l_run[MT][2];
 #pragma unroll
-            for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-            if (j < n) {
-#pragma unroll 4
-                for (int w = 0; w < D / 2; w += 2) {
-                    const float2 kf = __bfloat1622float2(
-                        *reinterpret_cast<const __nv_bfloat162*>(kr + w));
-                    const float* qw = q_sh + r0 * D + 2 * (w + hh);
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-                    for (int a = 0; a < kMaxAcc; ++a) {
-                        if (r0 + a < rep) {
-                            const float2 qf = *reinterpret_cast<const float2*>(qw + a * D);
-                            acc[a] += qf.x * kf.x + qf.y * kf.y;
+        for (int hr = 0; hr < 2; ++hr) {
+            m_run[mt][hr] = -INFINITY;
+            l_run[mt][hr] = 0.f;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+
+    for (int s = 0; s < nstages; ++s) {
+        if (s + kStages - 1 < nstages) issue(s + kStages - 1);
+        cp_async_commit();
+        cp_async_wait<kStages - 1>();
+        __syncthreads();
+        const int row0 = lo + s * kStageRows + warp * kTile;
+        if (row0 < hi) {
+            const bf16* ks = reinterpret_cast<const bf16*>(smem + M::RING + (s % kStages) * M::STAGE);
+            const bf16* vs = ks + kStageRows * LD;
+            // S = Q K^T for the warp's 16 rows: two n-tiles of 8
+            float sc[MT][2][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                uint32_t kb[4];
+                ldmatrix_x4(kb, frag_bt(ks, LD, warp * kTile, 16 * kk, lane));
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    uint32_t qa[4];
+                    ldmatrix_x4(qa, frag_a(qs, LD, 16 * mt, 16 * kk, lane));
+                    mma_bf16(sc[mt][0], qa, kb[0], kb[1]);
+                    mma_bf16(sc[mt][1], qa, kb[2], kb[3]);
+                }
+            }
+            // online softmax per query row (g and g + 8 of each m-tile)
+            uint32_t pa[MT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    float mx = -INFINITY;
+#pragma unroll
+                    for (int j = 0; j < 2; ++j)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int row = row0 + 8 * j + 2 * (lane % 4) + e;
+                            float& x = sc[mt][j][2 * hr + e];
+                            x = row < hi ? x * p.scale_log2 : -INFINITY;
+                            mx = fmaxf(mx, x);
                         }
+                    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+                    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+                    const float m_new = fmaxf(m_run[mt][hr], mx);
+                    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+                    const float alpha = exp2f(m_run[mt][hr] - m_use);
+                    m_run[mt][hr] = m_new;
+                    float sum = 0.f;
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        float r0, r1;
+                        pa[mt][2 * j + hr] = pack_bf16(exp2f(sc[mt][j][2 * hr] - m_use),
+                                                       exp2f(sc[mt][j][2 * hr + 1] - m_use), r0, r1);
+                        sum += r0 + r1;
+                    }
+                    l_run[mt][hr] = l_run[mt][hr] * alpha + sum;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                        acc[mt][nt][2 * hr] *= alpha;
+                        acc[mt][nt][2 * hr + 1] *= alpha;
                     }
                 }
             }
+            // acc += P V: P's C fragment is the A operand (a0 a1 from n-tile 0,
+            // a2 a3 from n-tile 1); V's rows are the k dimension
 #pragma unroll
-            for (int a = 0; a < kMaxAcc; ++a) {
-                acc[a] += __shfl_xor_sync(0xffffffffu, acc[a], 1);
-                if (hh == 0 && r0 + a < rep) s_sh[(r0 + a) * kChunk + j] = j < n ? acc[a] : -INFINITY;
+            for (int pp = 0; pp < D / 16; ++pp) {
+                uint32_t vb[4];
+                ldmatrix_x4_trans(vb, frag_b(vs, LD, warp * kTile, 16 * pp, lane));
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    mma_bf16(acc[mt][2 * pp], pa[mt], vb[0], vb[1]);
+                    mma_bf16(acc[mt][2 * pp + 1], pa[mt], vb[2], vb[3]);
+                }
             }
         }
+        __syncthreads();      // before the buffer is refilled
     }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();          // the ring's space is reused below
 
-    // per-head softmax over the chunk: one warp per head
-    const int warp = tid / 32, lane = tid % 32;
-    const int64_t part = (int64_t(b) * p.H + int64_t(g) * rep) * p.nsplit + split;
-    for (int r = warp; r < rep; r += kThreads / 32) {
-        float* sr = s_sh + r * kChunk;
+    // the warps' partials: acc rows 16 mt + g (+ 8), cols 8 nt + 2 (lane % 4)
+    float* wacc = reinterpret_cast<float*>(smem + M::WACC);
+    float* wm = reinterpret_cast<float*>(smem + M::WM);
+    float* wl = reinterpret_cast<float*>(smem + M::WL);
+    float* wf = reinterpret_cast<float*>(smem + M::WF);
+    float* macc = reinterpret_cast<float*>(smem + M::MACC);
+    float* mm = reinterpret_cast<float*>(smem + M::MM);
+    float* ml = reinterpret_cast<float*>(smem + M::ML);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            const int r = 16 * mt + lane / 4 + 8 * hr;
+            float l = l_run[mt][hr];
+            l += __shfl_xor_sync(0xffffffffu, l, 1);
+            l += __shfl_xor_sync(0xffffffffu, l, 2);
+            if (lane % 4 == 0) {
+                wm[warp * R + r] = m_run[mt][hr];
+                wl[warp * R + r] = l;
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+                *reinterpret_cast<float2*>(wacc + (warp * R + r) * D + 8 * nt + 2 * (lane % 4)) =
+                    make_float2(acc[mt][nt][2 * hr], acc[mt][nt][2 * hr + 1]);
+        }
+    __syncthreads();
+    // the block's merge of its warps, in warp order
+    if (tid < R) {
         float mx = -INFINITY;
-        for (int j = lane; j < kChunk; j += 32) mx = fmaxf(mx, sr[j]);
-        mx = warp_max(mx);  // finite: the chunk holds at least one row
-        float sum = 0.f;
-        for (int j = lane; j < kChunk; j += 32) {
-            const float e = exp2f(sr[j] - mx);
-            sr[j] = e;
-            sum += e;
+        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * R + tid]);
+        float l = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+            const float m = wm[w * R + tid];
+            const float f = m == -INFINITY ? 0.f : exp2f(m - mx);
+            wf[w * R + tid] = f;
+            l += f * wl[w * R + tid];
         }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-            p.m_part[part + int64_t(r) * p.nsplit] = mx;
-            p.l_part[part + int64_t(r) * p.nsplit] = sum;
-        }
+        mm[tid] = mx;
+        ml[tid] = l;
     }
     __syncthreads();
-
-    // acc[r][d] = sum_j p[r][j] v[j][d]; thread owns d and every HG-th head
-    constexpr int HG = kThreads / D;
-    const int d = tid % D, r0 = tid / D;
-    float acc[kMaxAcc];
-#pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-    const bf16* vb = reinterpret_cast<const bf16*>(v_sh) + d;
-    // four rows at a time: rows past n carry p = 0 and v = 0
-    for (int j = 0; j < n; j += 4) {
-        const float v0 = __bfloat162float(vb[(j + 0) * 2 * L::LDKW]);
-        const float v1 = __bfloat162float(vb[(j + 1) * 2 * L::LDKW]);
-        const float v2 = __bfloat162float(vb[(j + 2) * 2 * L::LDKW]);
-        const float v3 = __bfloat162float(vb[(j + 3) * 2 * L::LDKW]);
-#pragma unroll
-        for (int a = 0; a < kMaxAcc; ++a) {
-            const int r = r0 + a * HG;
-            if (r < rep) {
-                const float4 pr = *reinterpret_cast<const float4*>(s_sh + r * kChunk + j);
-                acc[a] += pr.x * v0 + pr.y * v1 + pr.z * v2 + pr.w * v3;
-            }
+    for (int u = tid; u < R * D / 4; u += kThreads) {
+        const int r = u / (D / 4);
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int w = 0; w < kWarps; ++w) {
+            const float f = wf[w * R + r];
+            const float4 x = *reinterpret_cast<const float4*>(wacc + w * R * D + 4 * u);
+            a.x += f * x.x;
+            a.y += f * x.y;
+            a.z += f * x.z;
+            a.w += f * x.w;
         }
+        *reinterpret_cast<float4*>(macc + 4 * u) = a;
     }
-#pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
-        const int r = r0 + a * HG;
-        if (r < rep) p.acc_part[(part + int64_t(r) * p.nsplit) * D + d] = acc[a];
+    if (C > 1) cluster_sync();
+    else __syncthreads();
+
+    // the cluster's combine, every sum in rank order.  Per query row: the
+    // largest m of the C blocks, each block's factor 2^(m_c - max) and the
+    // sum l (the warps' space is free now); then this block's slice of the
+    // output.  Other blocks' partials are read through generic pointers
+    // into their shared memory, so independent loads are in flight at once.
+    float* cf = wacc;                                    // [C][R] factors
+    float* cl = wl;                                      // [R] sums
+    if (tid < nh) {
+        float mx = -INFINITY;
+        for (int c = 0; c < C; ++c) {
+            const float m = *rank_ptr(mm + tid, c, C);
+            cf[c * R + tid] = m;
+            mx = fmaxf(mx, m);
+        }
+        float l = 0.f;
+        for (int c = 0; c < C; ++c) {
+            const float m = cf[c * R + tid];
+            const float f = m == -INFINITY ? 0.f : exp2f(m - mx);
+            cf[c * R + tid] = f;
+            l += f * *rank_ptr(ml + tid, c, C);
+        }
+        cl[tid] = l;
     }
+    __syncthreads();
+    const int units = nh * D / 4;
+    bf16* og = p.out + (int64_t(b) * p.H + int64_t(g) * p.rep + h0) * D;
+    for (int u = rank * units / C + tid; u < (rank + 1) * units / C; u += kThreads) {
+        const int r = u / (D / 4);
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c < C; ++c) {
+            const float f = cf[c * R + r];
+            const float4 x = *reinterpret_cast<const float4*>(rank_ptr(macc + 4 * u, c, C));
+            a.x += f * x.x;
+            a.y += f * x.y;
+            a.z += f * x.z;
+            a.w += f * x.w;
+        }
+        const float inv = cl[r] > 0.f ? 1.f / cl[r] : 0.f;
+        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(a.x * inv, a.y * inv);
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+        uint2 o;
+        o.x = *reinterpret_cast<const uint32_t*>(&lo2);
+        o.y = *reinterpret_cast<const uint32_t*>(&hi2);
+        *reinterpret_cast<uint2*>(og + 4 * u) = o;
+    }
+    if (C > 1) cluster_sync();   // no block leaves while another reads its partials
 }
 
-template <int D>
-__global__ void __launch_bounds__(D) decode_combine_kernel(Params p) {
-    const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-    const int len = min(p.lengths[b], p.T);
-    const int ns = len > 0 ? (len + kChunk - 1) / kChunk : 0;
-    const int64_t base = (int64_t(b) * p.H + h) * p.nsplit;
-    float mx = -INFINITY;
-    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, p.m_part[base + s]);
-    float l = 0.f, acc = 0.f;
-    for (int s = 0; s < ns; ++s) {
-        const float w = exp2f(p.m_part[base + s] - mx);
-        l += w * p.l_part[base + s];
-        acc += w * p.acc_part[(base + s) * D + d];
-    }
-    p.out[(int64_t(b) * p.H + h) * D + d] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
-}
-
-template <int D>
-int launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
-    const int bytes = static_cast<int>(Smem<D>::bytes(p.rep));
-    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<D>,
+template <int D, int MT>
+int launch(const Params& p, int B, int cluster, cudaStream_t stream) {
+    const int bytes = Smem<D, MT>::BYTES;
+    cudaError_t e = cudaFuncSetAttribute(decode_kernel<D, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    decode_split_kernel<D><<<dim3(p.nsplit, Hkv, B), kThreads, bytes, stream>>>(p);
-    e = cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, B * p.Hkv * p.chunks, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, decode_kernel<D, MT>, p);
     if (e != cudaSuccess) return static_cast<int>(e);
-    decode_combine_kernel<D><<<dim3(p.H, B), D, 0, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const Params& p, int B, int cluster, cudaStream_t stream) {
+    return p.rep <= 16 ? launch<D, 1>(p, B, cluster, stream) : launch<D, 2>(p, B, cluster, stream);
 }
 
 }  // namespace
 
-// Rows of the cache each split block covers; the wrapper sizes the partials
-// as [B, H, ceil(T / chunk)] from it.
-extern "C" int decode_attention_chunk() { return kChunk; }
-
 // q [B,H,D] and k/v [B,T,Hkv,D] as strided bf16 views with the last dim
-// contiguous; lengths [B] int32; out [B,H,D] contiguous bf16; partials fp32
-// as above.  strides holds q (batch, head), k (batch, row, head), v (batch,
-// row, head).  The wrapper checks shapes, 16-byte alignment, D in
-// {32, 64, 128} and rep <= 32 * (128 / D).
+// contiguous; lengths [B] int32; out [B,H,D] contiguous bf16.  strides
+// holds q (batch, head), k (batch, row, head), v (batch, row, head).
+// `cluster` (1, 2, 4 or 8) blocks split each sequence's live rows.  The
+// wrapper checks shapes, 16-byte alignment, D in {32, 64, 80, 128} and
+// rep <= 32 * (128 / D).
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* lengths, void* out, void* m_part,
-                                     void* l_part, void* acc_part, int B, int H, int Hkv,
-                                     int T, int D, float scale, const int64_t* strides,
-                                     void* stream) {
+                                     const void* lengths, void* out, int B, int H, int Hkv,
+                                     int T, int D, int cluster, float scale,
+                                     const int64_t* strides, void* stream) {
+    if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
+        return static_cast<int>(cudaErrorInvalidValue);
     Params p;
     p.q = static_cast<const bf16*>(q);
     p.k = static_cast<const bf16*>(k);
     p.v = static_cast<const bf16*>(v);
     p.lengths = static_cast<const int*>(lengths);
-    p.m_part = static_cast<float*>(m_part);
-    p.l_part = static_cast<float*>(l_part);
-    p.acc_part = static_cast<float*>(acc_part);
     p.out = static_cast<bf16*>(out);
     p.H = H;
+    p.Hkv = Hkv;
     p.rep = H / Hkv;
     p.T = T;
-    p.nsplit = (T + kChunk - 1) / kChunk;
+    p.chunks = p.rep <= 16 ? 1 : (p.rep + 31) / 32;
     p.scale_log2 = scale * 1.4426950408889634f;
     p.q_sb = strides[0]; p.q_sh = strides[1];
     p.k_sb = strides[2]; p.k_st = strides[3]; p.k_sh = strides[4];
     p.v_sb = strides[5]; p.v_st = strides[6]; p.v_sh = strides[7];
     if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
-    if (p.nsplit == 0) p.nsplit = 1;  // T == 0: every length clamps to 0
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch<32>(p, B, Hkv, st);
-        case 64: return launch<64>(p, B, Hkv, st);
-        case 128: return launch<128>(p, B, Hkv, st);
+        case 32: return launch_d<32>(p, B, cluster, st);
+        case 64: return launch_d<64>(p, B, cluster, st);
+        case 80: return launch_d<80>(p, B, cluster, st);
+        case 128: return launch_d<128>(p, B, cluster, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -15,6 +15,13 @@ pair sharing one K/V ring; the kernel numbers the items itself, and the card
 tests hold every head and tile against the plain version (rep 1, 3 and 16,
 S not a multiple of 64: tests/test_torch_cuda.py).
 
+Head dim 80 (stablelm-3b) has no kernel of its own: the wrappers zero-pad
+q, k, v, out and dO to 128 columns (`pad_head_dim`), keep the softmax scale
+of the unpadded head dim, and return the first 80 columns of out, dq, dk and
+dv.  The padding is exact: zero columns add nothing to Q K^T, dO V^T or
+rowsum(dO * O), so lse and delta are unchanged and the padded columns of
+every output are zero.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.
 """
@@ -25,11 +32,14 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import attention_bwd_dkv_ref, attention_bwd_dq_ref, attention_with_lse_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
+# head dims taken by zero-padding to the kernels' next one (see the docstring)
+PADDED_HEAD_DIMS = {80: 128}
 _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 8 + (
     _build.FLOAT, _build.PTR, _build.PTR)
 _BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 9 + (
@@ -75,6 +85,12 @@ def _check(name: str, q, k, v, kv_len: int, q_offset: int) -> None:
             f"q_offset {q_offset} (head dim must be one of {HEAD_DIMS})")
 
 
+def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
+    """`x` [..., D] with its last dim zero-padded to `d` columns (`x` itself
+    when D == d)."""
+    return x if x.shape[-1] == d else F.pad(x, (0, d - x.shape[-1]))
+
+
 def _check_like(name: str, x: torch.Tensor, shape, dtype, device) -> None:
     """A [B,H,S,D] view read in vectors, or a contiguous [B,H,S] lse/delta
     read one value at a time."""
@@ -118,6 +134,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_with_lse_ref(q, k, v, scale, causal=causal,
                                       q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_fwd", q, k, v, kv_len, q_offset)
+    dp = PADDED_HEAD_DIMS.get(d, d)
+    if dp != d:       # the cache's rows past kv_len are neither read nor copied
+        out, lse = flash_attention_fwd(*(pad_head_dim(x, dp) for x in
+                                         (q, k[:, :, :kv_len], v[:, :, :kv_len])),
+                                       scale=scale, causal=causal, q_offset=q_offset,
+                                       kv_len=kv_len)
+        return out[..., :d], lse
     out = _empty_like_heads(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_fwd_bf16", _ARGTYPES)
@@ -152,6 +175,12 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_like("out", out, q.shape, torch.bfloat16, q.device)
     _check_like("do", do, q.shape, torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
+    dp = PADDED_HEAD_DIMS.get(d, d)
+    if dp != d:
+        dq, delta = flash_attention_bwd_dq(*(pad_head_dim(x, dp) for x in (q, k, v, out, do)),
+                                           lse, scale=scale, causal=causal,
+                                           q_offset=q_offset, kv_len=kv_len)
+        return dq[..., :d], delta
     dq = _empty_like_heads(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd_dq_bf16", _BWD_ARGTYPES)
@@ -194,6 +223,12 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cluster not in DKV_CLUSTERS:
         raise ValueError(f"flash_attention_bwd_dkv: cluster must be one of "
                          f"{DKV_CLUSTERS}, got {cluster}")
+    dp = PADDED_HEAD_DIMS.get(d, d)
+    if dp != d:
+        dk, dv = flash_attention_bwd_dkv(*(pad_head_dim(x, dp) for x in (q, k, v, do)),
+                                         lse, delta, scale=scale, causal=causal,
+                                         q_offset=q_offset, kv_len=kv_len, cluster=cluster)
+        return dk[..., :d], dv[..., :d]
     dk, dv = _empty_like_heads(k), _empty_like_heads(v)
     fn = _build.function("flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -213,8 +248,14 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, scale: Optional[float] = None,
                         kv_len: Optional[int] = None):
     """(dq, dk, dv): the dq pass, then the dk/dv pass on its delta.  The
     counterpart of the JAX `flash_attention_bwd`, with the same argument
-    order; dk/dv come per kv head."""
+    order; dk/dv come per kv head.  A padded head dim is padded once for
+    both passes."""
+    d = q.shape[-1]
+    dp = PADDED_HEAD_DIMS.get(d, d) if q.is_cuda else d
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    q, k, v, out, do = (pad_head_dim(x, dp) for x in (q, k, v, out, do))
     dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    return dq, dk, dv
+    return dq[..., :d], dk[..., :d], dv[..., :d]

@@ -9,7 +9,7 @@ plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,19 +18,24 @@ from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
              _build.FLOAT, _build.PTR)
-_BWD_ARGTYPES = (_build.PTR,) * 6 + (_build.INT,) * 3 + (_build.FLOAT, _build.PTR)
-# blocks of the backward's first launch, each writing one partial dscale row:
-# two per SM of an H100 (132 SMs)
-_BWD_BLOCKS = 264
+_BWD_ARGTYPES = (_build.PTR,) * 7 + (_build.INT,) * 3 + (_build.FLOAT, _build.PTR)
+# the backward holds a row in the registers of at most 512 threads, two
+# 16-byte vectors of x and of dy each (the widest d_model of the configs)
+MAX_BWD_D = 8192
+# the backward's partial dscale rows: at most one per block the card holds at
+# once, four 512-thread blocks an SM of an H100 (132 SMs); the kernel takes
+# as many blocks as fit
+_BWD_BLOCKS = 4 * 132
+# the backward's grid barrier: two uint32 per (device, stream), zero at first
+# use; each launch leaves the count at zero and advances the generation
+_BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, name: str) -> None:
     d = x.shape[-1]
-    # the backward keeps a [D] fp32 row in shared memory (227 KB a block)
-    if not x.is_contiguous() or scale.shape != (d,) or d % 8 or d > 56 * 1024:
-        raise ValueError(f"{name}: needs contiguous x [..., D] with D % 8 == 0, "
-                         f"D <= 57344, and scale [D]; got {tuple(x.shape)}, "
-                         f"{tuple(scale.shape)}")
+    if not x.is_contiguous() or scale.shape != (d,) or d % 8:
+        raise ValueError(f"{name}: needs contiguous x [..., D] with D % 8 == 0 "
+                         f"and scale [D]; got {tuple(x.shape)}, {tuple(scale.shape)}")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
@@ -57,7 +62,9 @@ rmsnorm.launches = 0
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dy [..., D]; scale [D] -> (dx [..., D], dscale [D]), each in its
-    input's dtype (fp32 math; dscale summed over rows in a fixed order)."""
+    input's dtype (fp32 math; dscale summed over rows in a fixed order).
+    One launch: a cooperative grid whose blocks meet at a grid barrier
+    (`csrc/rmsnorm.cu`)."""
     if not x.is_cuda:
         return rmsnorm_bwd_ref(x, scale, dy, eps)
     d = x.shape[-1]
@@ -67,18 +74,26 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     if dy.shape != x.shape or not dy.is_contiguous():
         raise ValueError(f"rmsnorm_bwd: dy must be contiguous and shaped like x "
                          f"{tuple(x.shape)}; got {tuple(dy.shape)}")
+    if d > MAX_BWD_D:
+        raise ValueError(f"rmsnorm_bwd: D <= {MAX_BWD_D}; got {d}")
     rows = x.numel() // d
     n_part = max(1, min(rows, _BWD_BLOCKS))
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
     partial = torch.empty((n_part, d), dtype=torch.float32, device=x.device)
+    st = _build.stream(x)
+    barrier = _BARRIERS.get((x.device.index, st))
+    if barrier is None:
+        barrier = _BARRIERS[(x.device.index, st)] = torch.zeros(
+            2, dtype=torch.int32, device=x.device)
     fn = _build.function("rmsnorm_bwd_bf16", _BWD_ARGTYPES)
     rc = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dscale.data_ptr(), rows, d, n_part, float(eps),
-            _build.stream(x))
+            partial.data_ptr(), dscale.data_ptr(), barrier.data_ptr(), rows, d, n_part,
+            float(eps), st)
     _build.check(rc, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx, dscale
 
 
 rmsnorm_bwd.launches = 0
+

@@ -37,8 +37,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, a_log, B, C, h0)):
         raise NotImplementedError(
-            "ssd_scan has no backward yet (ROADMAP.md Queue 1 item 8, SSM "
-            "train): call it under torch.no_grad() or inference_mode()")
+            "ssd_scan has no backward yet (ROADMAP.md Queue 1 item 3, SSM "
+            "training): call it under torch.no_grad() or inference_mode()")
     if not x.is_cuda:
         return ssd_scan_ref(x, dt, a_log, B, C, chunk=chunk, h0=h0)
     b, s, h, p = x.shape

@@ -42,19 +42,19 @@ def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid family is not ported yet "
-            "(ROADMAP.md Queue 1 item 8, hybrid, after MoE)")
+            "(ROADMAP.md Queue 1 item 3, hybrid, after MoE)")
     if cfg.family == "ssm" and train:
         raise NotImplementedError(
             f"{cfg.name}: the ssm family serves but does not train yet: the SSD "
-            "scan has no backward (ROADMAP.md Queue 1 item 8, SSM train)")
+            "scan has no backward (ROADMAP.md Queue 1 item 3, SSM training)")
     if cfg.moe is not None or cfg.mla is not None or cfg.mtp:
         raise NotImplementedError(
             f"{cfg.name}: MoE, MLA and MTP are not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+            "(ROADMAP.md Queue 1 item 2)")
     if cfg.frontend is not None or cfg.pos_embed != "none":
         raise NotImplementedError(
             f"{cfg.name}: stub frontends and sinusoidal positions are not "
-            "ported yet (ROADMAP.md Queue 1 item 9)")
+            "ported yet (ROADMAP.md Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------

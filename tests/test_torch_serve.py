@@ -315,9 +315,9 @@ def test_serve_main_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(family="hybrid"), "item 8"),
-    (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "item 7"),
-    (dict(pos_embed="sinusoidal"), "item 9"),
+    (dict(family="hybrid"), "Queue 1 item 3"),
+    (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "Queue 1 item 2"),
+    (dict(pos_embed="sinusoidal"), "Queue 1 item 4"),
 ])
 def test_unported_branches_name_their_roadmap_item(change, item):
     cfg = replace(get_config(ARCH).reduced(), **change)

@@ -187,7 +187,7 @@ def test_ssd_scan_ref_strong_decay_is_finite():
 def test_ssd_scan_raises_on_an_input_that_requires_grad():
     x, dt, a_log, Bm, Cm = (to_tensor(a) for a in _scan_inputs(4, 1, 8, 2, 16, 16))
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3, SSM train"):
         ssd_scan(x, dt, a_log, Bm, Cm, chunk=8)
     with torch.no_grad():
         y, _ = ssd_scan(x, dt, a_log, Bm, Cm, chunk=8)
@@ -446,7 +446,7 @@ def test_mamba2_does_not_train_yet_and_names_its_roadmap_item(model):
     cfg, tp = model["cfg"], model["torch"]["f32"]
     toks = _t(_tokens(13, (B, 9), cfg.vocab_size))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    with pytest.raises(NotImplementedError, match="item 8, SSM train"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3, SSM train"):
         loss_fn(tp, batch, cfg)
-    with pytest.raises(NotImplementedError, match="item 8, SSM train"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3, SSM train"):
         forward(tp, batch, cfg)

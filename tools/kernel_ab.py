@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
-"""Time the flash dq pass and the SSD scan of one source tree on one NVIDIA card.
+"""Time kernels of one source tree on one NVIDIA card, or run its mamba2
+prefill-vs-decode cross-check.
 
-    python3 tools/kernel_ab.py [--src DIR]
+    python3 tools/kernel_ab.py [--src DIR]                    # timings
+    python3 tools/kernel_ab.py [--src DIR] --ssm-cross-check  # the cross-check
+    python3 tools/kernel_ab.py [--src DIR] --make-control OUT # no card needed
 
 Imports `repro_torch` from DIR (default: this checkout's `src`), so that two
 trees, such as a parent commit unpacked into a git-ignored directory and
 this one, can be timed in turns in one call: each builds its own kernels
 into its own `build/`.  The inputs, timer and accuracy measures are
-`chip_smoke.py`'s, at its shapes: the chatglm3-6b train step's attention
-(B 8, H 32, Hkv 2, S 512, D 128, causal), where it times the dq pass, the
-whole flash backward (dq, then dk/dv) and SDPA's backward; and the
-mamba2-130m prefill (4 x 8192 tokens, x/B/C strided as the model passes
-them, zero state), where it times the SSD scan.  For the scan it prints
-the largest error of y and of the final state against the plain version,
-and the relative L2 error of the kernel and of the plain version against
-the fp64 recurrence, with whether the kernel's exceeds
-`chip_smoke.TOL_SSD_REL_L2`, there and at S = 8193 from an N(0, 0.3^2)
-state.  The card's name and power limit come first; then one JSON line.
+`chip_smoke.py`'s, at its shapes:
+
+* the chatglm3-6b train step's attention (B 8, H 32, Hkv 2, S 512, D 128,
+  causal): the dq pass, the whole flash backward (dq, then dk/dv) and SDPA's
+  backward;
+* decode attention at the serve runs' lengths (513-576 of a 1024-row cache):
+  chatglm3-6b's B 4, H 32, Hkv 2, D 128 and, where the tree takes head dim
+  80, stablelm-3b's B 4, H 32, Hkv 32, D 80; at every cluster size where
+  the tree's wrapper takes one;
+* the RMSNorm backward at the train step's [4096, 4096];
+* the mamba2-130m prefill's SSD scan (4 x 8192 tokens, x/B/C strided as the
+  model passes them, zero state), with the largest error of y and of the
+  final state against the plain version, and the relative L2 error of the
+  kernel and of the plain version against the fp64 recurrence, with whether
+  the kernel's exceeds `chip_smoke.TOL_SSD_REL_L2`, there and at S = 8193
+  from an N(0, 0.3^2) state.
+
+`--ssm-cross-check` runs `chip_smoke.py`'s cross_check_ssm instead: full-
+width mamba2-130m (weights seed 0, prompts seed 5), the last logits of an
+8193-token prefill against an 8192-token prefill plus one decode step, as
+max |diff| over max |logit|.  `--make-control OUT` writes a copy of the
+tree's `src` to OUT whose split bf16 operands drop every lo term (hi
+rounded to nearest: plain bf16 operands), the control that the split is
+measured against.  The card's name and power limit come first; then one
+JSON line.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -34,23 +53,57 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
+SPLIT = "void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {"
+DROP_LO = ("\n    {   // control: plain bf16 operands, every lo term dropped\n"
+           "        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);\n"
+           "        hi = *reinterpret_cast<const uint32_t*>(&h);\n"
+           "        lo = 0u;\n"
+           "        return;\n"
+           "    }")
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.abspath(args.src))
+
+def make_control(src: str, out: str) -> None:
+    shutil.copytree(src, out, ignore=shutil.ignore_patterns("__pycache__"))
+    header = os.path.join(out, "repro_torch", "kernels", "csrc", "hopper_sm90.cuh")
+    text = open(header).read()
+    if text.count(SPLIT) != 1:
+        raise SystemExit(f"kernel_ab: {header} has no single split_bf16x2 to mutate")
+    open(header, "w").write(text.replace(SPLIT, SPLIT + DROP_LO))
+
+
+def ssm_cross_check(dev) -> dict:
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.steps import prefill_step, serve_step
+
+    srv = Server(cs.SSM_ARCH, reduced=False, max_len=cs.SSM_PROMPT + 1, device="cuda",
+                 seed=cs.SEED)
+    cfg = srv.cfg
+    prompts = np.random.default_rng(cs.SEED + 5).integers(
+        1, cfg.vocab_size, size=(cs.BATCH, cs.SSM_PROMPT + 1)).astype(np.int32)
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts).long().to(dev)
+        full, _ = prefill_step(srv.params, init_cache(cfg, cs.BATCH, 0, dev),
+                               {"tokens": toks}, cfg)
+        cache = init_cache(cfg, cs.BATCH, 0, dev)
+        _, cache = prefill_step(srv.params, cache, {"tokens": toks[:, :cs.SSM_PROMPT]}, cfg)
+        step, _ = serve_step(srv.params, cache, {"tokens": toks[:, cs.SSM_PROMPT:]},
+                             cs.SSM_PROMPT, cfg)
+        torch.cuda.synchronize()
+    err, scale = float((step - full).abs().max()), float(full.abs().max())
+    return {"cross_check_ssm": {"max_abs_err": err, "logit_absmax": scale,
+                                "rel_err": err / scale, "tol": cs.TOL_CROSS,
+                                "finite": bool(torch.isfinite(full).all()
+                                               and torch.isfinite(step).all())}}
+
+
+def timings(dev) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (flash_attention_bwd, flash_attention_bwd_dq,
-                                     flash_attention_fwd, ssd_scan, ssd_scan_ref)
+    from repro_torch.kernels import (decode_attention, flash_attention_bwd,
+                                     flash_attention_bwd_dq, flash_attention_fwd, rmsnorm_bwd,
+                                     ssd_scan, ssd_scan_ref)
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip(), flush=True)
-    dev = torch.device("cuda")
     rng = np.random.default_rng(cs.SEED)
     randn = cs.bf16_normal(rng, dev)
     scratch = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
@@ -58,7 +111,7 @@ def main() -> int:
     def flush():
         scratch.sum()
 
-    res = {"src": os.path.abspath(args.src)}
+    res = {}
     q, k, v, do = cs.flash_bwd_inputs(randn, cs.TRAIN_B, cs.TRAIN_S, 32, 2, 128)
     out, lse = flash_attention_fwd(q, k, v)
     res["dq_ms"] = cs.time_ms(lambda: flash_attention_bwd_dq(q, k, v, out, do, lse), flush)
@@ -66,12 +119,33 @@ def main() -> int:
     res["sdpa_bwd_ms"] = cs.time_ms(cs.sdpa_backward(q, k, v, do), flush)
     del q, k, v, do, out, lse
 
+    lens = torch.from_numpy(np.random.default_rng(cs.SEED + 10).integers(
+        cs.SERVE_LENGTHS[0], cs.SERVE_LENGTHS[1] + 1, size=cs.BATCH).astype(np.int32)).to(dev)
+    for name, d, hkv in (("chatglm3_6b", 128, 2), ("stablelm_3b", 80, 32)):
+        if d not in decode_kernel.HEAD_DIMS:        # an earlier tree
+            res[f"decode_{name}_ms"] = None
+            continue
+        qd = randn(cs.BATCH, 32, d)
+        kd, vd = (randn(cs.BATCH, cs.MAX_LEN, hkv, d) for _ in range(2))
+        res[f"decode_{name}_ms"] = cs.time_ms(lambda: decode_attention(qd, kd, vd, lens), flush)
+        if hasattr(decode_kernel, "CLUSTERS"):      # every cluster size the tree takes
+            res[f"decode_{name}_cluster_ms"] = {
+                str(c): cs.time_ms(lambda c=c: decode_attention(qd, kd, vd, lens, cluster=c),
+                                   flush) for c in decode_kernel.CLUSTERS}
+    res["decode_lengths"] = lens.tolist()
+    del qd, kd, vd
+
+    x, dy = randn(cs.TRAIN_B * cs.TRAIN_S, 4096, scale=3.0), randn(cs.TRAIN_B * cs.TRAIN_S, 4096)
+    sc = 1.0 + 0.1 * randn(4096)
+    res["rmsnorm_bwd_ms"] = cs.time_ms(lambda: rmsnorm_bwd(x, sc, dy), flush)
+    del x, dy
+
     scfg = get_config(cs.SSM_ARCH)
     ps, ns = scfg.ssm.head_dim, scfg.ssm.d_state
     hs = scfg.ssm.expand * scfg.d_model // ps
     with torch.inference_mode():
-        for name, sl, sc in (("serve", cs.SSM_PROMPT, 0.0), ("tail", cs.SSM_PROMPT + 1, 0.3)):
-            sargs, h0 = cs.ssd_inputs(randn, rng, dev, cs.BATCH, sl, hs, ps, ns, sc)
+        for name, sl, sc0 in (("serve", cs.SSM_PROMPT, 0.0), ("tail", cs.SSM_PROMPT + 1, 0.3)):
+            sargs, h0 = cs.ssd_inputs(randn, rng, dev, cs.BATCH, sl, hs, ps, ns, sc0)
             (y, hf), (ry, rh) = (ssd_scan(*sargs, h0=h0),
                                  ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0))
             rel = cs.ssd_rel_errors(sargs, h0, {"kernel": (y, hf), "plain": (ry, rh)})
@@ -83,6 +157,28 @@ def main() -> int:
             if name == "serve":
                 res["ssd_ms"] = cs.time_ms(lambda: ssd_scan(*sargs, h0=h0), flush)
             del sargs, h0, y, hf, ry, rh
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--ssm-cross-check", action="store_true")
+    ap.add_argument("--make-control", metavar="OUT")
+    args = ap.parse_args()
+    if args.make_control:
+        make_control(args.src, args.make_control)
+        return 0
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    res = {"src": os.path.abspath(args.src)}
+    res.update(ssm_cross_check(dev) if args.ssm_cross_check else timings(dev))
     print(json.dumps(res), flush=True)
     return 0
 

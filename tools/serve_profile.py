@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes, on one NVIDIA card.
 
-    python3 tools/serve_profile.py [--arch mamba2-130m]
+    python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b]
 
-Builds a full-width model (chatglm3-6b by default, or mamba2-130m; random
-weights from seed 0), prefills 4 prompts (512 tokens for chatglm3-6b, 8192
-for mamba2-130m, as `chip_smoke.py` serves them) and decodes 8 tokens, each
+Builds a full-width model (chatglm3-6b by default, mamba2-130m or
+stablelm-3b; random weights from seed 0), prefills 4 prompts (512 tokens,
+8192 for mamba2-130m, as `chip_smoke.py` serves them) and decodes 8 tokens, each
 phase under `torch.profiler`.  For each phase it prints one JSON line: the wall time
 (host clock, synchronised), the device busy time (sum of kernel durations,
 one stream), the device idle share, and the kernels that take the most
@@ -51,7 +51,7 @@ def _phase(name, fn, n_items):
                          "count": e.count} for e in top]}), flush=True)
 
 
-PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192}
+PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512}
 
 
 def main() -> int:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA card.
 
-    python3 tools/train_profile.py
+    python3 tools/train_profile.py [--arch stablelm-3b]
 
 Builds full-width chatglm3-6b (random weights from seed 0, AdamW with bf16
-moments) and runs two train steps of 8 x 512 tokens as warm-up and one for
+moments, as `chip_smoke.py` trains it) or stablelm-3b (fp32 moments) and
+runs two train steps of 8 x 512 tokens as warm-up and one for
 the wall time of a whole step.  Then it profiles the step's two halves
 under `torch.profiler`: the forward and backward (`loss_fn` and
 `torch.autograd.grad`), and the AdamW update.  For each it prints one JSON
@@ -17,6 +18,7 @@ power limit are printed first.
 """
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import os
@@ -31,11 +33,13 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.models import loss_fn  # noqa: E402
 from repro_torch.optim import adamw_update  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 
+MOMENTS = {"chatglm3-6b": torch.bfloat16, "stablelm-3b": torch.float32}
 PORTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm_kernel",
           "rmsnorm_bwd", "ce_fwd", "ce_bwd")
 GEMM = ("nvjet", "gemm", "cutlass", "xmma")
@@ -81,6 +85,9 @@ def _phase(name, fn, **extra):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="chatglm3-6b", choices=sorted(MOMENTS))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -88,9 +95,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     b, s = 8, 512
-    tc = TrainerConfig(arch="chatglm3-6b", reduced=False, global_batch=b, seq_len=s,
-                       steps=1, device="cuda", seed=0, moment_dtype=torch.bfloat16)
-    toks = np.random.default_rng(4).integers(1, 65024, size=(b, s + 1)).astype(np.int32)
+    tc = TrainerConfig(arch=args.arch, reduced=False, global_batch=b, seq_len=s,
+                       steps=1, device="cuda", seed=0, moment_dtype=MOMENTS[args.arch])
+    toks = np.random.default_rng(4).integers(1, get_config(args.arch).vocab_size,
+                                             size=(b, s + 1)).astype(np.int32)
     fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
              "loss_mask": np.ones((b, s), np.float32)}
     tr = Trainer(tc, batches=itertools.repeat(fixed))
@@ -114,7 +122,7 @@ def main() -> int:
         adamw_update(tree_unflatten(params, list(held.pop("grads"))), tr.state["opt"],
                      params, tr.opt_cfg)
 
-    _phase("forward_backward", forward_backward, step_ms_unprofiled=step_ms,
+    _phase("forward_backward", forward_backward, arch=args.arch, step_ms_unprofiled=step_ms,
            loss=float(metrics["loss"]), tokens=b * s)
     _phase("adamw_update", update, n_params=sum(t.numel() for t in tree_leaves(params)))
     return 0
