@@ -9,7 +9,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`;
    for each kernel written with wgmma/TMA (the flash forward, dq and dk/dv
    passes at each head dim, the SSD scan at each state dim), its registers,
-   spills, shared memory and blocks an SM from the `ptxas -v` report, and
+   spills, shared memory and blocks an SM from the `ptxas -v` report (the
+   flash kernels' head dim 80 instances must not spill), and
    the registers and spills of every instance of decode attention and of
    the RMSNorm backward.
 3. kernels — each kernel of the serve and train paths, at the shapes that
@@ -17,8 +18,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    time, the plain version's, one library call's as a yardstick (never used
    by the port), and the least time the card could take (the bound).  The
    flash forward is also timed at the train shape and, with dq and dk/dv,
-   at stablelm-3b's head dim 80 (padded to 128 inside the wrappers; bounds
-   on the unpadded work); the dk/dv pass at every cluster size it takes,
+   at stablelm-3b's head dim 80 (native in the forward and dk/dv, padded to
+   128 inside the dq pass; bounds on the unpadded work); the dk/dv pass at
+   every cluster size it takes,
    the whole flash backward (dq, then dk/dv) beside SDPA's backward.  Decode
    attention runs at the serve paths' own lengths (513-576 of a 1024-row
    cache) for chatglm3-6b and stablelm-3b, at every cluster size; RMSNorm
@@ -229,11 +231,12 @@ def leaf_names(tree, prefix=""):
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
 # ptxas report, dynamic shared memory and blocks an SM, at each value of
 # their template parameter (the head dim D, or the SSD scan's state dim N).
-HEAD_DIM_VALUES = ("D", (32, 64, 128))
+# The forward and dk/dv take head dim 80 natively; the dq pass pads it.
+HEAD_DIM_VALUES = ("D", (32, 64, 80, 128))
 HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", "flash_attention_fwd_smem_bytes",
                    160, HEAD_DIM_VALUES),
                   ("flash_bwd_dq_kernel", "flash_attention_bwd.cu",
-                   "flash_attention_bwd_dq_smem_bytes", 384, HEAD_DIM_VALUES),
+                   "flash_attention_bwd_dq_smem_bytes", 384, ("D", (32, 64, 128))),
                   ("flash_bwd_dkv_kernel", "flash_attention_bwd.cu",
                    "flash_attention_bwd_dkv_smem_bytes", 160, HEAD_DIM_VALUES),
                   ("ssd_scan_kernel", "ssd_scan.cu", "ssd_scan_smem_bytes", 288,
@@ -326,7 +329,12 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
                                                      attention_bwd_dq_ref,
                                                      attention_with_lse_ref)
-    from repro_torch.kernels.flash_attention.kernel import DKV_CLUSTERS, dkv_cluster_size
+    from repro_torch.kernels.flash_attention.kernel import (DKV_CLUSTERS, NATIVE_HEAD_DIMS,
+                                                            dkv_cluster_size)
+
+    def layout80(pass_):
+        """How a flash pass takes head dim 80."""
+        return "native" if 80 in NATIVE_HEAD_DIMS[pass_] else "padded to 128"
     from repro_torch.launch.serve import Server
     from repro_torch.launch.train import Trainer, TrainerConfig
     from repro_torch.models import init_cache, init_model, loss_fn
@@ -350,6 +358,11 @@ def main() -> int:
           "library_dir": str(_build.BUILD_DIR)})
     for entry in hopper_kernel_report(_build) + ptxas_report(_build):
         emit({"phase": "build_kernel", **entry})
+        # the flash kernels' head dim 80 instances hold dk, dv or O in
+        # registers: no spills
+        if (entry["kernel"].startswith("flash_") and entry.get("D") == 80
+                and (entry.get("spill_stores") or entry.get("spill_loads"))):
+            raise AssertionError(f"{entry['kernel']}<80> spills: {entry}")
 
     # -- kernels at the serve path's shapes ------------------------------------
     rng = np.random.default_rng(SEED)
@@ -469,9 +482,9 @@ def main() -> int:
         "bound_ms": bound((2 * qt.numel() + 2 * kt.numel()) * 2 + TRAIN_B * h * s * 4,
                           4 * hd * pairs_t, PEAK_BF16)[0]}
     del qt, kt, vt, out_t, lse_t, ref_t, rlse_t, kte, vte
-    # stablelm-3b's head dim 80 (MHA, 32 heads), zero-padded to 128 inside the
-    # wrapper: its serve prefill (into the 1024-row cache) and its train step;
-    # the bounds count the unpadded work
+    # stablelm-3b's head dim 80 (MHA, 32 heads), native: its serve prefill
+    # (k and v read from the 1024-row cache) and its train step; the bounds
+    # count the unpadded work
     r["head_dim_80"] = {}
     for what, bb, t80 in (("serve", BATCH, MAX_LEN), ("train", TRAIN_B, s)):
         q8 = xrandn(bb, s, h, 80).transpose(1, 2)
@@ -491,7 +504,8 @@ def main() -> int:
                                                                            is_causal=True),
             (2 * q8.numel() + 2 * k8s.numel()) * 2 + bb * h * s * 4, 4 * 80 * pairs8,
             PEAK_BF16, float((o8.float() - r8.float()).abs().max()),
-            shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80})
+            shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80},
+            head_dim_80=layout80("fwd"))
     del q8, k8, v8, o8, l8, r8, rl8, k8s, v8s
     emit({"phase": "kernel", **r,
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "q_offset": 0}})
@@ -596,8 +610,8 @@ def main() -> int:
                                  attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0))
     (dk, dv), (rk, rv) = (flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                           attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0))
-    # stablelm-3b's train step: head dim 80 (padded to 128 inside the
-    # wrappers; the bounds count the unpadded work), MHA
+    # stablelm-3b's train step: head dim 80 (native in dk/dv, padded to 128
+    # inside the dq pass; the bounds count the unpadded work), MHA
     q8, k8, v8, do8 = flash_bwd_inputs(xrandn, b, s, h, h, 80)
     out8, lse8 = flash_attention_fwd(q8, k8, v8)
     (dq8, delta8), (rq8, rdelta8) = (flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8),
@@ -615,7 +629,7 @@ def main() -> int:
                        lambda: attention_bwd_dq_ref(q8, k8, v8, out8, do8, lse8, q_offset=0),
                        sdpa_bwd8, 4 * qb8 + 2 * kvb8 + 2 * b * h * s * 4, 6 * 80 * pairs,
                        PEAK_BF16, float((dq8.float() - rq8.float()).abs().max()),
-                       shape=shape8)
+                       shape=shape8, head_dim_80=layout80("dq"))
     dkv80 = other_shape("flash_attention_bwd_dkv at D 80",
                         max(excess(dk8, rk8, TOL_BF16), excess(dv8, rv8, TOL_BF16)),
                         lambda: flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8),
@@ -624,7 +638,7 @@ def main() -> int:
                         sdpa_bwd8, 2 * qb8 + 4 * kvb8 + 2 * b * h * s * 4, 8 * 80 * pairs,
                         PEAK_BF16, max(float((dk8.float() - rk8.float()).abs().max()),
                                        float((dv8.float() - rv8.float()).abs().max())),
-                        shape=shape8)
+                        shape=shape8, head_dim_80=layout80("dkv"))
     del q8, k8, v8, do8, out8, lse8, dq8, delta8, rq8, rdelta8, dk8, dv8, rk8, rv8, sdpa_bwd8
     sdpa_bwd = sdpa_backward(q, k, v, do)
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each

@@ -6,7 +6,9 @@
 // Bound on an H100: at the serve path's prefill shapes (S = 512, head dim
 // 128) the bytes of q and out and the tensor-core operations are of the same
 // size, about 10 us each; at longer S the operations (4*D per unmasked
-// score) dominate.  The kernel never writes the [S, T] scores or
+// score) dominate.  At stablelm-3b's head dim 80 (MHA) the bytes bound it:
+// q, k, v and out of a B8 x H32 x S512 train step are 84 MB, 25 us at 3.35
+// TB/s, against 11 us of operations.  The kernel never writes the [S, T] scores or
 // probabilities to device memory, so bytes stay at one read of q, k, v and
 // one write of out and lse.  Only `wgmma` reaches the card's full
 // tensor-core rate, so both products run on it.
@@ -29,7 +31,12 @@
 //   entry point.  The maps' row extents are S and kv_len, so TMA zero-fills
 //   rows past either; kv head = q head / rep.
 // * Tiles land in shared memory in the 128-byte (64-byte at D = 32)
-//   swizzled layout that the wgmma descriptors read (hopper_sm90.cuh).  Q is
+//   swizzled layout that the wgmma descriptors read (hopper_sm90.cuh); at
+//   D = 80 a tile is a 64-column slab (128-byte swizzle) and a 16-column
+//   tail slab (32-byte swizzle), two TMA boxes from two tensor maps into one
+//   `full` barrier, so q, k, v and the cache are read as they are, with no
+//   padded copy: the k-steps over D are 4 + 1, and O += P V is an m64n64 and
+//   an m64n16 product into O's 32 + 8 registers a thread.  Q is
 //   read once per item into A registers (ldmatrix on the swizzled tile) and
 //   its buffer goes back to the producer at once.  S = Q K^T is wgmma
 //   m64n64k16 with A from registers and K K-major in shared memory;
@@ -42,10 +49,12 @@
 //   Rows past S are computed on zeros and never stored, so S and kv_len need
 //   not be multiples of the tile (the Pallas grid drops such tails).
 // * O leaves the registers through a 4 x 4 transpose inside each quad of
-//   lanes, as 16-byte stores that fill whole 32-byte sectors.
+//   lanes, as 16-byte stores that fill whole 32-byte sectors (D / 8 chunks
+//   of a row, in pairs: 5 pairs at D = 80).
 // * Occupancy: two blocks an SM (168 registers, ~97 KB of shared memory
-//   each at D = 128), so one block's loads and stores overlap the other's
-//   products.  A 128-row tile of two warpgroups (one block an SM), a 3- or
+//   each at D = 128; 158 and ~62 KB at D = 80, where a third block would
+//   need <= 112 registers), so one block's loads and stores overlap the
+//   other's products.  A 128-row tile of two warpgroups (one block an SM), a 3- or
 //   4-stage ring, 128-row kv tiles, Q read by wgmma from shared memory, a
 //   TMA or shared-memory-staged store of O and an S/PV software pipeline
 //   inside the warpgroup were each measured no faster at the serve and
@@ -108,9 +117,9 @@ __device__ __forceinline__ Item item_of(const Params& p, int w) {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, const Params p) {
+    flash_fwd_kernel(const __grid_constant__ TileMap<D> tq,
+                     const __grid_constant__ TileMap<D> tk,
+                     const __grid_constant__ TileMap<D> tv, const Params p) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     bf16* q_sh = reinterpret_cast<bf16*>(smem);                      // [2][BM x D]
@@ -252,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
             // O += P V
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D>(o, pf[kk], desc_mn<D, BN>(vb, kk), 1);
+            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(o, pf[kk], vb, kk);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(o);
@@ -304,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 template <int D>
 int launch(const void* q, const void* k, const void* v, const Params& p, int Hkv,
            const int64_t* st, cudaStream_t stream) {
-    CUtensorMap tq, tk, tv;
+    TileMap<D> tq, tk, tv;
     int rc = encode_map<D>(&tq, q, p.B, p.H, p.S, st[0], st[1], st[2], BM);
     if (!rc) rc = encode_map<D>(&tk, k, p.B, Hkv, p.kv_len, st[3], st[4], st[5], BN);
     if (!rc) rc = encode_map<D>(&tv, v, p.B, Hkv, p.kv_len, st[6], st[7], st[8], BN);
@@ -334,7 +343,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p, int Hkv
 // last dim is contiguous; lse [B,H,S] contiguous fp32.  strides holds the
 // (batch, head, row) element strides of q, k, v, out in that order.  The
 // wrapper checks shapes, 16-byte alignment (which TMA needs of the data
-// pointers and strides) and D in {32, 64, 128}.
+// pointers and strides) and D in {32, 64, 80, 128}.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* out, void* lse, int B, int H, int Hkv,
                                         int S, int D, int kv_len, int q_offset,
@@ -358,6 +367,7 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
     switch (D) {
         case 32: return launch<32>(q, k, v, p, Hkv, strides, st);
         case 64: return launch<64>(q, k, v, p, Hkv, strides, st);
+        case 80: return launch<80>(q, k, v, p, Hkv, strides, st);
         case 128: return launch<128>(q, k, v, p, Hkv, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -368,6 +378,7 @@ extern "C" int flash_attention_fwd_smem_bytes(int D) {
     switch (D) {
         case 32: return static_cast<int>(Smem<32>::bytes);
         case 64: return static_cast<int>(Smem<64>::bytes);
+        case 80: return static_cast<int>(Smem<80>::bytes);
         case 128: return static_cast<int>(Smem<128>::bytes);
         default: return 0;
     }

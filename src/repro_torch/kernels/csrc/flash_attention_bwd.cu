@@ -11,7 +11,9 @@
 // 2*D operations for each unmasked (row, col) pair, against about 10*D that
 // the gradient needs at least.  The bytes are one read of q, k, v, out, dO
 // and lse and one write of dq, dk, dv: the [S, T] probabilities never
-// reach device memory.
+// reach device memory.  At stablelm-3b's head dim 80 (MHA, B8 x H32 x
+// S512) the bytes bound the dk/dv pass: q, dO read and k, v read and dk, dv
+// written, 127 MB, 38 us at 3.35 TB/s, against 22 us of operations.
 //
 // Design:
 // * The TPU grid carries dq (or dk, dv) across a sequential grid axis in
@@ -71,7 +73,14 @@
 //   dS^T = P^T (dP^T - delta) are computed in registers; lse and delta are
 //   read per column from shared memory.
 // * One dk/dv block an SM: at D = 128 it takes 255 registers (dk, dv 128
-//   fp32 + S^T, dP^T 64) without spills.  An item's products and its
+//   fp32 + S^T, dP^T 64) without spills.  At D = 80 (dk, dv 80) two blocks
+//   an SM would cap it at 168 registers, and it spills; it is compiled for
+//   one, as at D = 128.  At D = 80 its tiles are a 64-column slab and a
+//   16-column tail slab with their own swizzles (hopper_sm90.cuh): the
+//   k-steps of S^T and dP^T over D are 4 + 1, and dV += P^T dO and
+//   dK += dS^T Q are each an m64n64 and an m64n16 product, so q, k, v and
+//   dO are read as they are.  The dq pass has no D = 80 instance: its
+//   wrapper pads to 128.  An item's products and its
 //   exp/dS work run one after the other in the one warpgroup, which is what
 //   holds the pass to a fraction of the bf16 rate; a 3-stage ring beat 2,
 //   and issuing dV += P^T dO before dS^T is ready was slower (PERF.md).
@@ -157,10 +166,10 @@ __device__ __forceinline__ DqItem dq_item(const DqParams& p, int w) {
 
 template <int D>
 __global__ void __launch_bounds__(kDqThreads, 1)
-    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tdo,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, const DqParams p) {
+    flash_bwd_dq_kernel(const __grid_constant__ TileMap<D> tq,
+                        const __grid_constant__ TileMap<D> tdo,
+                        const __grid_constant__ TileMap<D> tk,
+                        const __grid_constant__ TileMap<D> tv, const DqParams p) {
     using L = DqSmem<D>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -454,10 +463,10 @@ struct DkvSmem {
 
 template <int D>
 __global__ void __launch_bounds__(kDkvThreads, 1)
-    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tdo,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv, const DkvParams p) {
+    flash_bwd_dkv_kernel(const __grid_constant__ TileMap<D> tq,
+                         const __grid_constant__ TileMap<D> tdo,
+                         const __grid_constant__ TileMap<D> tk,
+                         const __grid_constant__ TileMap<D> tv, const DkvParams p) {
     using L = DkvSmem<D>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -584,11 +593,9 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             // dV += P^T dO and dK += dS^T Q
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk)
-                wgmma_rs<D>(dv, pf[kk], desc_mn<D, BN>(do_addr, kk), 1);
+            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(dv, pf[kk], do_addr, kk);
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk)
-                wgmma_rs<D>(dk, dsf[kk], desc_mn<D, BN>(q_addr, kk), 1);
+            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(dk, dsf[kk], q_addr, kk);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(dv);
@@ -669,7 +676,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const DqParams& p,
               const int64_t* st, cudaStream_t stream) {
-    CUtensorMap tq, tdo, tk, tv;
+    TileMap<D> tq, tdo, tk, tv;
     int rc = encode_map<D>(&tq, q, p.B, p.H, p.S, st[0], st[1], st[2], BM);
     if (!rc) rc = encode_map<D>(&tdo, dout, p.B, p.H, p.S, st[12], st[13], st[14], BM);
     if (!rc) rc = encode_map<D>(&tk, k, p.B, p.Hkv, p.kv_len, st[3], st[4], st[5], BN);
@@ -697,7 +704,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const DkvParams& p, int B, const int64_t* st, cudaStream_t stream) {
-    CUtensorMap tq, tdo, tk, tv;
+    TileMap<D> tq, tdo, tk, tv;
     int rc = encode_map<D>(&tq, q, B, p.H, p.S, st[0], st[1], st[2], BN);
     if (!rc) rc = encode_map<D>(&tdo, dout, B, p.H, p.S, st[12], st[13], st[14], BN);
     if (!rc) rc = encode_map<D>(&tk, k, B, p.Hkv, p.kv_len, st[3], st[4], st[5], BM);
@@ -732,7 +739,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // delta [B,H,S] contiguous fp32.  strides holds the (batch, head, row)
 // element strides of q, k, v, out, dO, dq, dk, dv in that order.  A pointer
 // the pass does not touch may be null.  The wrapper checks shapes, 16-byte
-// alignment and D in {32, 64, 128}.
+// alignment and D: {32, 64, 128} for the dq pass (the wrapper pads 80 to
+// 128), {32, 64, 80, 128} for dk/dv.
 
 // dq pass: writes dq and delta = rowsum(out * dO).
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -802,6 +810,7 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const 
     switch (D) {
         case 32: return launch_dkv<32>(q, k, v, dout, p, B, strides, st);
         case 64: return launch_dkv<64>(q, k, v, dout, p, B, strides, st);
+        case 80: return launch_dkv<80>(q, k, v, dout, p, B, strides, st);
         case 128: return launch_dkv<128>(q, k, v, dout, p, B, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -812,6 +821,7 @@ extern "C" int flash_attention_bwd_dkv_smem_bytes(int D) {
     switch (D) {
         case 32: return static_cast<int>(DkvSmem<32>::bytes);
         case 64: return static_cast<int>(DkvSmem<64>::bytes);
+        case 80: return static_cast<int>(DkvSmem<80>::bytes);
         case 128: return static_cast<int>(DkvSmem<128>::bytes);
         default: return 0;
     }

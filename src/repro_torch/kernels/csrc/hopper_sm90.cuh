@@ -5,17 +5,24 @@
 // maps (`cuTensorMapEncodeTiled`, looked up with `cudaGetDriverEntryPoint`,
 // so the library links only the CUDA runtime).
 //
-// Tiles in shared memory.  A [R rows x D cols] bf16 tile is stored as D*2/SW
-// slabs of [R][SW bytes], SW = min(2 D, 128): each slab is one TMA box, and
-// TMA writes it in the SW-byte swizzled layout (128B for D = 64, 128; 64B
-// for D = 32; 32B for D = 16) that the wgmma descriptors read.  A slab
-// starts on a 1024-byte boundary, so the swizzle pattern's base offset is 0.
+// Tiles in shared memory.  A [R rows x D cols] bf16 tile is stored as
+// SLABS slabs of [R][SW bytes], SW = min(2 D, 128), then, where D is not a
+// multiple of SW/2 columns (D = 80), one tail slab of [R][2 TAIL bytes]
+// (TAIL = 16 columns at D = 80).  Each slab is one TMA box, written in the
+// swizzled layout of its own width (128B for 64 columns, 64B for 32, 32B for
+// 16) that the wgmma descriptors read; a slab starts on a 1024-byte
+// boundary (R = 64), so the swizzle pattern's base offset is 0.  A tile with
+// a tail is loaded through two tensor maps (`TileMap`), one per box width.
 //   * K-major operand (rows = M or N, cols = K): k-step kk (16 columns) of
 //     rows [r0, r0 + 64) starts at slab (32 kk / SW), byte 32 kk % SW of row
-//     r0; SBO = 8 rows x SW bytes, LBO unused.
+//     r0; SBO = 8 rows x SW bytes, LBO unused.  A k-step in the tail slab
+//     reads it with the tail's swizzle and SBO.
 //   * MN-major operand (rows = K, cols = N): k-step kk starts at row 16 kk
 //     of slab 0; SBO = 8 rows x SW bytes (the next 8 k rows), LBO = the slab
-//     stride (the next SW/2 columns of N).
+//     stride (the next SW/2 columns of N).  One descriptor has one swizzle,
+//     so with a tail a product over all D columns is two (`wgmma_rs_tile`):
+//     the main slabs' columns, then the tail's, into the accumulator's
+//     registers in the same column order.
 // wgmma register layouts (PTX ISA): warp w of the warpgroup holds rows
 // 16 w + g and 16 w + g + 8 (g = lane / 4) of an m64 accumulator; register
 // 4 j + e holds column 8 j + 2 (lane % 4) + (e % 2) of row 16 w + g + 8 (e / 2).
@@ -37,37 +44,64 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The descriptor layout type and TMA swizzle of SW-byte swizzled rows.
+template <int SW>
+struct SwzKind {
+    static_assert(SW == 128 || SW == 64 || SW == 32, "TMA swizzles rows of 128, 64 or 32 bytes");
+    static constexpr uint64_t TYPE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+    static constexpr CUtensorMapSwizzle TMA = SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : SW == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
 // Swizzle geometry of a tile with D bf16 columns.
 template <int D>
 struct Swz {
     static constexpr int SW = D * 2 < 128 ? D * 2 : 128;   // bytes per slab row
     static constexpr int COLS = SW / 2;                     // bf16 columns per slab
     static constexpr int SLABS = D / COLS;
-    static constexpr uint64_t TYPE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // descriptor layout type
-    static constexpr CUtensorMapSwizzle TMA = SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                            : SW == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
+    static constexpr int TAIL = D - SLABS * COLS;           // columns of the tail slab (or 0)
+    static constexpr int SW_T = 2 * TAIL;                   // its bytes per row
+    static constexpr CUtensorMapSwizzle TMA = SwzKind<SW>::TMA;
 };
 
-template <int D>
+// A wgmma shared-memory descriptor of rows swizzled with SW bytes:
+// SBO = 8 rows x SW bytes
+template <int SW>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo_bytes) {
     return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo_bytes >> 4) & 0x3FFF) << 16) |
-           (uint64_t((8 * Swz<D>::SW) >> 4) << 32) | (Swz<D>::TYPE << 62);
+           (uint64_t((8 * SW) >> 4) << 32) | (SwzKind<SW>::TYPE << 62);
 }
 
 // K-major descriptor: rows [r0, r0 + 64) of a tile of R rows, k-step kk
 template <int D, int R>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
-    constexpr int SW = Swz<D>::SW;
+    using G = Swz<D>;
+    constexpr int SW = G::SW;
+    if constexpr (G::TAIL > 0) {
+        constexpr int MAIN = G::SLABS * G::COLS;
+        if (kk * 16 >= MAIN)
+            return make_desc<G::SW_T>(
+                tile + G::SLABS * R * SW + r0 * G::SW_T + (kk * 16 - MAIN) * 2, 16);
+    }
     const uint32_t off = (kk * 32 / SW) * (R * SW) + r0 * SW + (kk * 32) % SW;
-    return make_desc<D>(tile + off, 16);
+    return make_desc<SW>(tile + off, 16);
 }
 
-// MN-major descriptor: k rows [16 kk, 16 kk + 16) of a tile of R rows, all D columns
+// MN-major descriptor: k rows [16 kk, 16 kk + 16) of a tile of R rows, the
+// columns of its main slabs (all D columns when it has no tail)
 template <int D, int R>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
     constexpr int SW = Swz<D>::SW;
-    return make_desc<D>(tile + kk * 16 * SW, R * SW);
+    return make_desc<SW>(tile + kk * 16 * SW, R * SW);
+}
+
+// MN-major descriptor of the tail slab: k rows [16 kk, 16 kk + 16)
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn_tail(uint32_t tile, int kk) {
+    using G = Swz<D>;
+    static_assert(G::TAIL > 0, "desc_mn_tail: the tile has no tail slab");
+    return make_desc<G::SW_T>(tile + G::SLABS * R * G::SW + kk * 16 * G::SW_T, R * G::SW_T);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -155,6 +189,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
     }
 }
 
+// d (m64 x n16, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
+// the accumulator-to-A layout, B in shared memory, MN-major if TB else K-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : HOPPER_SM90_D8
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
 // d (m64 x n32, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
 // the accumulator-to-A layout, B in shared memory, MN-major if TB else K-major
 template <int TB>
@@ -218,22 +266,74 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
+// d (m64 x n80, fp32) = A B (+ d if scale_d): A (64 x 16 bf16) from registers in
+// the accumulator-to-A layout, B in shared memory, MN-major if TB else K-major.
+// The product of the uniform 32-byte route at D = 80 (five 16-column slabs),
+// which tools/kernel_ab.py --make-variant sw32 builds to time against the
+// two-slab tiles
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : HOPPER_SM90_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
 // B MN-major (TB = 1, the default) or K-major (TB = 0)
 template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-    if constexpr (N == 32) wgmma_rs_m64n32<TB>(d, a, desc_b, scale_d);
+    static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128,
+                  "wgmma_rs: n16, 32, 64, 80 or 128");
+    if constexpr (N == 16) wgmma_rs_m64n16<TB>(d, a, desc_b, scale_d);
+    else if constexpr (N == 32) wgmma_rs_m64n32<TB>(d, a, desc_b, scale_d);
     else if constexpr (N == 64) wgmma_rs_m64n64<TB>(d, a, desc_b, scale_d);
+    else if constexpr (N == 80) wgmma_rs_m64n80<TB>(d, a, desc_b, scale_d);
     else wgmma_rs_m64n128<TB>(d, a, desc_b, scale_d);
+}
+
+// d (m64 x nD) += A B, B an MN-major [R x D] tile at `tile`, k rows
+// [16 kk, 16 kk + 16): one product over the main slabs' columns and, where
+// the tile has a tail slab, one over the tail's, into d's last 2 TAIL
+// registers (the accumulator layout's column order)
+template <int D, int R>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint32_t tile, int kk) {
+    using G = Swz<D>;
+    if constexpr (G::TAIL == 0) {
+        wgmma_rs<D>(d, a, desc_mn<D, R>(tile, kk), 1);
+    } else {
+        constexpr int MAIN = G::SLABS * G::COLS;
+        wgmma_rs<MAIN>(*reinterpret_cast<float(*)[MAIN / 2]>(&d[0]), a, desc_mn<D, R>(tile, kk),
+                       1);
+        wgmma_rs<G::TAIL>(*reinterpret_cast<float(*)[G::TAIL / 2]>(&d[MAIN / 2]), a,
+                          desc_mn_tail<D, R>(tile, kk), 1);
+    }
 }
 
 // The shared-memory address of (row, col) of a swizzled tile of R rows:
 // TMA's swizzle XORs the 16-byte chunk index (address bits 4..) with the
-// address bits from 7 up, within each SW-byte row group of 8 (SW / 16 chunks).
+// address bits from 7 up, within each SW-byte row group of 8 (SW / 16
+// chunks); a column of the tail slab with the tail's SW_T.
 template <int D, int R>
 __device__ __forceinline__ uint32_t swz_addr(uint32_t tile, int row, int col) {
-    constexpr int SW = Swz<D>::SW;
-    const uint32_t off = (col / Swz<D>::COLS) * (R * SW) + row * SW + (col % Swz<D>::COLS) * 2;
+    using G = Swz<D>;
+    constexpr int SW = G::SW;
+    if constexpr (G::TAIL > 0) {
+        constexpr int MAIN = G::SLABS * G::COLS;
+        if (col >= MAIN) {
+            const uint32_t off = G::SLABS * R * SW + row * G::SW_T + (col - MAIN) * 2;
+            return tile + (off ^ (((off >> 7) & (G::SW_T / 16 - 1)) << 4));
+        }
+    }
+    const uint32_t off = (col / G::COLS) * (R * SW) + row * SW + (col % G::COLS) * 2;
     return tile + (off ^ (((off >> 7) & (SW / 16 - 1)) << 4));
 }
 
@@ -368,14 +468,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+// The tensor maps of a [D, rows, heads, batch] operand: boxes of SW/2
+// columns for the main slabs and, where the tile has a tail, boxes of TAIL
+// columns with the tail's swizzle.
+template <int D, bool = (Swz<D>::TAIL > 0)>
+struct TileMap {
+    CUtensorMap slabs;
+};
+template <int D>
+struct TileMap<D, true> {
+    CUtensorMap slabs, tail;
+};
+
 // Loads rows [row0, row0 + R) of (head, batch) of a [D, rows, heads, batch]
 // map as its slabs (boxes of SW/2 columns x R rows) into `tile`.
 template <int D, int R>
 __device__ __forceinline__ void tma_load_tile(bf16_t* tile, const CUtensorMap* map,
                                               uint64_t* bar, int row0, int head, int batch) {
+    static_assert(Swz<D>::TAIL == 0, "a tile with a tail slab loads through its TileMap");
 #pragma unroll
     for (int s = 0; s < Swz<D>::SLABS; ++s)
         tma_load_4d(tile + s * R * Swz<D>::COLS, map, bar, s * Swz<D>::COLS, row0, head, batch);
+}
+
+// The same through a TileMap: the main slabs, then the tail slab's box (the
+// caller's expect_tx counts the whole tile, R x D x 2 bytes)
+template <int D, int R>
+__device__ __forceinline__ void tma_load_tile(bf16_t* tile, const TileMap<D>* map,
+                                              uint64_t* bar, int row0, int head, int batch) {
+    using G = Swz<D>;
+#pragma unroll
+    for (int s = 0; s < G::SLABS; ++s)
+        tma_load_4d(tile + s * R * G::COLS, &map->slabs, bar, s * G::COLS, row0, head, batch);
+    if constexpr (G::TAIL > 0)
+        tma_load_4d(tile + G::SLABS * R * G::COLS, &map->tail, bar, G::SLABS * G::COLS, row0,
+                    head, batch);
 }
 
 // ---- clusters ---------------------------------------------------------------
@@ -449,15 +576,23 @@ inline int encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&d
 }
 
 // A [B, heads, rows, D] bf16 view (element strides sb, sh, ss; last dim
-// contiguous) as a 4-D map (D, rows, heads, B) read in boxes of SW/2 columns
-// x box_rows rows, SW-byte swizzled.  Rows at or past `rows` read as zeros.
+// contiguous) as 4-D maps (D, rows, heads, B) read in boxes of SW/2 columns
+// x box_rows rows, SW-byte swizzled, and, for a tile with a tail, of TAIL
+// columns x box_rows rows, SW_T-byte swizzled.  Rows at or past `rows` read
+// as zeros.
 template <int D>
-int encode_map(CUtensorMap* map, const void* base, int B, int heads, int rows, int64_t sb,
+int encode_map(TileMap<D>* map, const void* base, int B, int heads, int rows, int64_t sb,
                int64_t sh, int64_t ss, int box_rows) {
+    using G = Swz<D>;
     const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(rows > 0 ? rows : 1),
                                 cuuint64_t(heads), cuuint64_t(B)};
     const int64_t strides[3] = {ss, sh, sb};
-    return encode_tiled(map, base, dims, strides, Swz<D>::COLS, box_rows, Swz<D>::TMA);
+    int rc = encode_tiled(&map->slabs, base, dims, strides, G::COLS, box_rows, G::TMA);
+    if constexpr (G::TAIL > 0)
+        if (!rc)
+            rc = encode_tiled(&map->tail, base, dims, strides, G::TAIL, box_rows,
+                              SwzKind<G::SW_T>::TMA);
+    return rc;
 }
 
 }  // namespace hopper_sm90

@@ -15,12 +15,16 @@ pair sharing one K/V ring; the kernel numbers the items itself, and the card
 tests hold every head and tile against the plain version (rep 1, 3 and 16,
 S not a multiple of 64: tests/test_torch_cuda.py).
 
-Head dim 80 (stablelm-3b) has no kernel of its own: the wrappers zero-pad
-q, k, v, out and dO to 128 columns (`pad_head_dim`), keep the softmax scale
-of the unpadded head dim, and return the first 80 columns of out, dq, dk and
-dv.  The padding is exact: zero columns add nothing to Q K^T, dO V^T or
-rowsum(dO * O), so lse and delta are unchanged and the padded columns of
-every output are zero.
+Head dim 80 (stablelm-3b): the forward and the dk/dv pass take it
+natively (a tile of 80 columns is a 64-column slab and a 16-column tail
+slab, each with its own swizzle: csrc/hopper_sm90.cuh), reading q, k, v,
+dO and the cache as they are.  The dq pass has no D 80 kernel: inside the
+dq pass, head dim 80 is zero-padded to 128 (`pad_head_dim`: q, k, v, out
+and dO), with the softmax scale of the unpadded head dim, and dq is the
+first 80 columns of the padded result.  The padding is exact: zero columns
+add nothing to Q K^T, dO V^T or rowsum(dO * O), so delta is unchanged and
+the padded columns of dq are zero.  `NATIVE_HEAD_DIMS` says which pass
+takes which head dim as it is.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.
@@ -38,7 +42,9 @@ from .. import _build
 from .ref import attention_bwd_dkv_ref, attention_bwd_dq_ref, attention_with_lse_ref
 
 HEAD_DIMS = (32, 64, 80, 128)
-# head dims taken by zero-padding to the kernels' next one (see the docstring)
+# the head dims each pass's kernel takes as they are; a pass zero-pads any
+# other head dim d of HEAD_DIMS to PADDED_HEAD_DIMS[d] (see the docstring)
+NATIVE_HEAD_DIMS = {"fwd": HEAD_DIMS, "dq": (32, 64, 128), "dkv": HEAD_DIMS}
 PADDED_HEAD_DIMS = {80: 128}
 _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 8 + (
     _build.FLOAT, _build.PTR, _build.PTR)
@@ -134,13 +140,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_with_lse_ref(q, k, v, scale, causal=causal,
                                       q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_fwd", q, k, v, kv_len, q_offset)
-    dp = PADDED_HEAD_DIMS.get(d, d)
-    if dp != d:       # the cache's rows past kv_len are neither read nor copied
-        out, lse = flash_attention_fwd(*(pad_head_dim(x, dp) for x in
-                                         (q, k[:, :, :kv_len], v[:, :, :kv_len])),
-                                       scale=scale, causal=causal, q_offset=q_offset,
-                                       kv_len=kv_len)
-        return out[..., :d], lse
     out = _empty_like_heads(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_fwd_bf16", _ARGTYPES)
@@ -175,8 +174,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_like("out", out, q.shape, torch.bfloat16, q.device)
     _check_like("do", do, q.shape, torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
-    dp = PADDED_HEAD_DIMS.get(d, d)
-    if dp != d:
+    if d not in NATIVE_HEAD_DIMS["dq"]:
+        dp = PADDED_HEAD_DIMS[d]
         dq, delta = flash_attention_bwd_dq(*(pad_head_dim(x, dp) for x in (q, k, v, out, do)),
                                            lse, scale=scale, causal=causal,
                                            q_offset=q_offset, kv_len=kv_len)
@@ -223,12 +222,6 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cluster not in DKV_CLUSTERS:
         raise ValueError(f"flash_attention_bwd_dkv: cluster must be one of "
                          f"{DKV_CLUSTERS}, got {cluster}")
-    dp = PADDED_HEAD_DIMS.get(d, d)
-    if dp != d:
-        dk, dv = flash_attention_bwd_dkv(*(pad_head_dim(x, dp) for x in (q, k, v, do)),
-                                         lse, delta, scale=scale, causal=causal,
-                                         q_offset=q_offset, kv_len=kv_len, cluster=cluster)
-        return dk[..., :d], dv[..., :d]
     dk, dv = _empty_like_heads(k), _empty_like_heads(v)
     fn = _build.function("flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -248,14 +241,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, scale: Optional[float] = None,
                         kv_len: Optional[int] = None):
     """(dq, dk, dv): the dq pass, then the dk/dv pass on its delta.  The
     counterpart of the JAX `flash_attention_bwd`, with the same argument
-    order; dk/dv come per kv head.  A padded head dim is padded once for
-    both passes."""
-    d = q.shape[-1]
-    dp = PADDED_HEAD_DIMS.get(d, d) if q.is_cuda else d
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
+    order; dk/dv come per kv head.  Each pass takes the unpadded tensors
+    (the dq pass pads a head dim it lacks itself)."""
     kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
-    q, k, v, out, do = (pad_head_dim(x, dp) for x in (q, k, v, out, do))
     dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    return dq[..., :d], dk[..., :d], dv[..., :d]
+    return dq, dk, dv

@@ -243,11 +243,28 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len
     (8, 32, 32, 512, 512, 0, 512),      # the stablelm-3b train step's shape
     (4, 32, 32, 512, 1024, 0, 512),     # its serve prefill into the cache
     (2, 4, 2, 100, 256, 40, 140),       # GQA, q_offset, kv_len < T
+    (2, 8, 2, 130, 300, 40, 170),       # rep 4: a chunk of prompt into a longer cache
+    (1, 4, 4, 65, 65, 0, 65),           # MHA, one row past a tile
+    (3, 6, 6, 1, 90, 77, 78),           # one query row at offset 77 of 78 live rows
 ])
-def test_flash_kernels_at_head_dim_80_match_plain(dev, b, h, hkv, s, t, q_offset, kv_len):
-    """Head dim 80 (stablelm-3b): the wrappers pad to 128 and slice; the
-    forward, dq and dk/dv against the plain versions at D 80, one launch
-    each, with the softmax scale of D 80."""
+def test_flash_kernels_at_head_dim_80_match_plain(dev, monkeypatch, b, h, hkv, s, t, q_offset,
+                                                  kv_len):
+    """Head dim 80 (stablelm-3b): the forward and dk/dv kernels take it as
+    it is (their entry points have D 80 instances, and the wrappers make no
+    padded copy); the dq pass pads to 128 and slices.  The three passes
+    against the plain versions at D 80, one launch each, with the softmax
+    scale of D 80."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    smem = {p: _build.function(f"flash_attention_{p}_smem_bytes", (_build.INT,))(80)
+            for p in ("fwd", "bwd_dq", "bwd_dkv")}
+    assert smem["fwd"] > 0 and smem["bwd_dkv"] > 0 and smem["bwd_dq"] == 0
+    assert 80 in fk.NATIVE_HEAD_DIMS["fwd"] and 80 in fk.NATIVE_HEAD_DIMS["dkv"]
+    assert 80 not in fk.NATIVE_HEAD_DIMS["dq"]
+    padded = []
+    pad = fk.pad_head_dim
+    monkeypatch.setattr(fk, "pad_head_dim", lambda x, d: padded.append(x) or pad(x, d))
     rng = np.random.default_rng(19)
     q = _rand(rng, (b, s, h, 80), dev).transpose(1, 2)
     k = _rand(rng, (b, t, hkv, 80), dev).transpose(1, 2)
@@ -257,8 +274,11 @@ def test_flash_kernels_at_head_dim_80_match_plain(dev, b, h, hkv, s, t, q_offset
     before = [w.launches for w in (flash_attention_fwd, flash_attention_bwd_dq,
                                    flash_attention_bwd_dkv)]
     out, lse = flash_attention_fwd(q, k, v, **kw)
+    assert not padded
     dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
+    assert len(padded) == 5                 # q, k, v, out, dO: the dq pass alone
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert len(padded) == 5
     assert [w.launches for w in (flash_attention_fwd, flash_attention_bwd_dq,
                                  flash_attention_bwd_dkv)] == [n + 1 for n in before]
     assert out.shape == dq.shape == q.shape and dk.shape == dv.shape == k.shape
@@ -269,6 +289,8 @@ def test_flash_kernels_at_head_dim_80_match_plain(dev, b, h, hkv, s, t, q_offset
     _close(delta, rdelta, rtol=1e-2, atol=1e-2)
     for got, want in ((out, ref), (dq, rq), (dk, rk), (dv, rv)):
         _close(got, want, **TOL_BF16)
+    if kv_len < t:      # kv rows past kv_len get zero gradients
+        assert not dk[:, :, kv_len:].any() and not dv[:, :, kv_len:].any()
 
 
 def _dkv_inputs(rng, dev, b, h, hkv, s, d):
@@ -294,12 +316,28 @@ def test_flash_dkv_every_cluster_size_matches_plain(dev, cluster, h, hkv):
     _close(dv, rv, **TOL_BF16)
 
 
-@pytest.mark.parametrize("cluster", [None, 8])
-def test_flash_dkv_kernel_is_bitwise_repeatable(dev, cluster):
+@pytest.mark.parametrize("cluster", DKV_CLUSTERS)
+@pytest.mark.parametrize("h,hkv", [(8, 2), (6, 2), (16, 1)])   # rep 4, 3 and 16
+def test_flash_dkv_at_head_dim_80_every_cluster_size_matches_plain(dev, cluster, h, hkv):
+    """The native D 80 dk/dv kernel at rep > 1: each cluster size splits the
+    GQA group and sums it to the plain version's dk/dv, S = 150 (not a
+    multiple of the 64-row tile)."""
+    rng = np.random.default_rng(15)
+    q, k, v, do, lse, delta = _dkv_inputs(rng, dev, 2, h, hkv, 150, 80)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=cluster)
+    rk, rv = attention_bwd_dkv_ref(q, k, v, do, lse, delta, q_offset=0)
+    _close(dk, rk, **TOL_BF16)
+    _close(dv, rv, **TOL_BF16)
+
+
+@pytest.mark.parametrize("d,h,hkv,cluster", [(128, 32, 2, None), (128, 32, 2, 8),
+                                             (80, 32, 32, None), (80, 32, 4, 8)])
+def test_flash_dkv_kernel_is_bitwise_repeatable(dev, d, h, hkv, cluster):
     """The cluster sums its partials in rank order: the same inputs give the
-    same bits."""
+    same bits (head dim 128, and 80: stablelm-3b's MHA and a GQA group of 8
+    over a cluster of 8)."""
     rng = np.random.default_rng(13)
-    args = _dkv_inputs(rng, dev, 2, 32, 2, 512, 128)
+    args = _dkv_inputs(rng, dev, 2, h, hkv, 512, d)
     dk, dv = flash_attention_bwd_dkv(*args, cluster=cluster)
     for _ in range(3):
         dk2, dv2 = flash_attention_bwd_dkv(*args, cluster=cluster)

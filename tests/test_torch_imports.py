@@ -107,7 +107,8 @@ WRAPPERS = {
 }
 
 
-def _args(name, dtype=torch.bfloat16):
+def _args(name, dtype=torch.bfloat16, d=32):
+    """Arguments of each wrapper (`d`: the flash passes' head dim)."""
     g = torch.Generator().manual_seed(0)
 
     def r(*shape, dt=dtype):
@@ -120,12 +121,12 @@ def _args(name, dtype=torch.bfloat16):
     if name == "rmsnorm_bwd":
         return (r(4, 64), r(64), r(4, 64)), {}
     if name == "flash_attention_fwd":
-        return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32)), {}
+        return (r(1, 4, 16, d), r(1, 2, 16, d), r(1, 2, 16, d)), {}
     if name == "flash_attention_bwd_dq":
-        return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32), r(1, 4, 16, 32),
-                r(1, 4, 16, 32), rows(1, 4, 16)), {}
+        return (r(1, 4, 16, d), r(1, 2, 16, d), r(1, 2, 16, d), r(1, 4, 16, d),
+                r(1, 4, 16, d), rows(1, 4, 16)), {}
     if name == "flash_attention_bwd_dkv":
-        return (r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32), r(1, 4, 16, 32),
+        return (r(1, 4, 16, d), r(1, 2, 16, d), r(1, 2, 16, d), r(1, 4, 16, d),
                 rows(1, 4, 16), rows(1, 4, 16)), {}
     if name == "ssd_scan":                  # x, dt, a_log, B, C; h0 given
         return (r(1, 8, 2, 16), rows(1, 8, 2), rows(2), r(1, 8, 16), r(1, 8, 16)), {
@@ -260,6 +261,37 @@ def test_autograd_op_runs_the_kernels_forward_and_backward(name, fake_kernels,
     assert fake_kernels == list(entries)    # forward, then the backward passes in order
     for w in wrappers:
         assert getattr(importlib.import_module(WRAPPERS[w][0]), w).launches == before[w] + 1
+
+
+# head dim 80: the forward and the dk/dv pass hand their kernels the caller's
+# tensors at D 80; the dq pass alone pads, to PADDED_HEAD_DIMS[80]
+_HEAD_DIM_ARG = {"flash_attention_fwd_bf16": 9, "flash_attention_bwd_dq_bf16": 13,
+                 "flash_attention_bwd_dkv_bf16": 13}
+
+
+@pytest.mark.parametrize("name,native", [("flash_attention_fwd", True),
+                                         ("flash_attention_bwd_dq", False),
+                                         ("flash_attention_bwd_dkv", True)])
+def test_head_dim_80_is_padded_by_the_dq_pass_alone(name, native, monkeypatch):
+    from repro_torch.kernels.flash_attention.kernel import NATIVE_HEAD_DIMS, PADDED_HEAD_DIMS
+
+    calls = []
+
+    def function(entry, argtypes):
+        def call(*args):
+            calls.append((entry, args))
+            return 0
+        return call
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    args, kw = _args(name, d=80)
+    getattr(importlib.import_module(_FLASH), name)(*args, **kw)
+    [(entry, cargs)] = calls
+    want = 80 if native else PADDED_HEAD_DIMS[80]
+    assert cargs[_HEAD_DIM_ARG[entry]] == want
+    assert (80 in NATIVE_HEAD_DIMS[name.rsplit("_", 1)[-1]]) == native
+    # native: q's own memory reaches the kernel, no padded copy of it
+    assert (cargs[0] == args[0].data_ptr()) == native
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,13 @@ against the JAX package, on the CPU.
   in interpret mode at D = 80 (S a multiple of the Pallas block), against
   the port's plain versions, at tests/test_kernels.py's tolerances (TOL for
   fp32, TOL_BF16 for bf16).
-* The padding the CUDA wrappers apply at D = 80 (`pad_head_dim`, to 128
-  columns, with the softmax scale of D = 80), on the plain versions: the
-  forward's out and lse, and the backward's dq, delta, dk and dv equal the
-  unpadded ones to fp32 rounding (1e-6), and every padded column is 0.
+* The padding the dq pass's CUDA wrapper applies at D = 80 (`pad_head_dim`,
+  to 128 columns, with the softmax scale of D = 80), on the plain versions:
+  the forward's out and lse, and the backward's dq, delta, dk and dv equal
+  the unpadded ones to fp32 rounding (1e-6), and every padded column is 0;
+  and `flash_attention_bwd` on CPU tensors at D = 80 is the plain backward
+  of the unpadded attention (the forward and dk/dv take D = 80 natively on
+  the card).
 * Reduced stablelm-3b with `reduced(d_head=80)` on both sides (4 layers, d
   128, 4 heads of 80, LayerNorm, quarter rotary), weights from JAX
   `init_model(cfg, PRNGKey(0))` carried across with `from_jax_params`: the
@@ -44,7 +47,7 @@ from repro_torch.kernels import decode_attention, flash_attention_bwd, flash_att
 from repro_torch.kernels.decode_attention.kernel import (CLUSTERS, HEAD_DIMS as DECODE_DIMS,
                                                          cluster_size, head_chunks)
 from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref, attention_bwd_dq_ref,
-                                                 attention_with_lse_ref)
+                                                 attention_bwd_ref, attention_with_lse_ref)
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, PADDED_HEAD_DIMS,
                                                         pad_head_dim)
 from repro_torch.models import decode_step, init_cache, loss_fn, prefill
@@ -169,6 +172,31 @@ def test_padding_head_dim_80_to_128_is_exact(b, h, hkv, s, t, q_offset, kv_len):
         assert not padded[..., 80:].any()
     torch.testing.assert_close(lsep, lse, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(deltap, delta, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,q_offset,kv_len", [
+    (2, 4, 4, 48, 48, 0, 48),       # MHA, as stablelm-3b
+    (1, 6, 2, 20, 64, 30, 50),      # GQA, q_offset, kv_len < T
+])
+def test_flash_backward_at_head_dim_80_on_cpu_is_the_unpadded_plain_backward(
+        b, h, hkv, s, t, q_offset, kv_len):
+    """`flash_attention_bwd` on CPU tensors at D = 80 (the card pads only
+    inside its dq pass) is the plain backward of the unpadded attention:
+    the same values as `attention_bwd_ref`, and autograd's gradient of the
+    plain forward in fp32 (1e-5)."""
+    g = torch.Generator().manual_seed(33)
+    q, do = (torch.randn(b, h, s, 80, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, 80, generator=g) for _ in range(2))
+    kw = dict(q_offset=q_offset, kv_len=kv_len)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for a, want in zip(got, attention_bwd_ref(q, k, v, out, lse, do, **kw)):
+        assert a.shape[-1] == 80
+        torch.testing.assert_close(a, want, rtol=0, atol=0)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_out, _ = attention_with_lse_ref(*leaves, 1.0 / math.sqrt(80), **kw)
+    for a, want in zip(got, torch.autograd.grad(ref_out, leaves, do)):
+        torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ prefill-vs-decode cross-check.
 
     python3 tools/kernel_ab.py [--src DIR]                    # timings
     python3 tools/kernel_ab.py [--src DIR] --ssm-cross-check  # the cross-check
+    python3 tools/kernel_ab.py [--src DIR] --head-dim-80      # D 80 flash passes only
     python3 tools/kernel_ab.py [--src DIR] --make-control OUT # no card needed
+    python3 tools/kernel_ab.py [--src DIR] --make-variant NAME OUT   # no card needed
 
 Imports `repro_torch` from DIR (default: this checkout's `src`), so that two
 trees, such as a parent commit unpacked into a git-ignored directory and
@@ -15,6 +17,10 @@ into its own `build/`.  The inputs, timer and accuracy measures are
 * the chatglm3-6b train step's attention (B 8, H 32, Hkv 2, S 512, D 128,
   causal): the dq pass, the whole flash backward (dq, then dk/dv) and SDPA's
   backward;
+* stablelm-3b's head dim 80 (H 32, MHA, S 512, causal): the forward at the
+  serve prefill (B 4, k and v read from the 1024-row cache) and the train
+  step (B 8), and at the train step the dq and dk/dv passes and the whole
+  backward, as the tree's wrappers take D 80 (padded, or native);
 * decode attention at the serve runs' lengths (513-576 of a 1024-row cache):
   chatglm3-6b's B 4, H 32, Hkv 2, D 128 and, where the tree takes head dim
   80, stablelm-3b's B 4, H 32, Hkv 32, D 80; at every cluster size where
@@ -33,8 +39,9 @@ width mamba2-130m (weights seed 0, prompts seed 5), the last logits of an
 max |diff| over max |logit|.  `--make-control OUT` writes a copy of the
 tree's `src` to OUT whose split bf16 operands drop every lo term (hi
 rounded to nearest: plain bf16 operands), the control that the split is
-measured against.  The card's name and power limit come first; then one
-JSON line.
+measured against.  `--make-variant NAME OUT` writes a copy with one of the
+`VARIANTS` of the flash kernels' head dim 80 design.  The card's name and
+power limit come first; then one JSON line.
 """
 from __future__ import annotations
 
@@ -60,15 +67,37 @@ DROP_LO = ("\n    {   // control: plain bf16 operands, every lo term dropped\n"
            "        lo = 0u;\n"
            "        return;\n"
            "    }")
+# Alternatives to the head dim 80 design of the flash kernels, each one edit
+# of one source (file under csrc/, text, replacement):
+# * sw32: a D 80 tile as five 16-column slabs, all 32-byte swizzled (five
+#   TMA boxes a tile, one m64n80k16 product), in place of a 128-byte
+#   swizzled 64-column slab and a 32-byte swizzled 16-column tail;
+# * dkv-two-blocks: the dk/dv kernel at D 80 compiled for two blocks an SM
+#   (ptxas then caps it at 168 registers, and it spills).
+VARIANTS = {
+    "sw32": ("hopper_sm90.cuh",
+             "static constexpr int SW = D * 2 < 128 ? D * 2 : 128;",
+             "static constexpr int SW = D == 80 ? 32 : D * 2 < 128 ? D * 2 : 128;"),
+    "dkv-two-blocks": ("flash_attention_bwd.cu",
+                       "__launch_bounds__(kDkvThreads, 1)\n    flash_bwd_dkv_kernel(",
+                       "__launch_bounds__(kDkvThreads, D == 80 ? 2 : 1)\n"
+                       "    flash_bwd_dkv_kernel("),
+}
+
+
+def copy_with_edit(src: str, out: str, source: str, text: str, replacement: str) -> None:
+    """A copy of the tree `src` at `out` with `text` in csrc/`source`
+    replaced by `replacement` (it must occur exactly once)."""
+    shutil.copytree(src, out, ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(out, "repro_torch", "kernels", "csrc", source)
+    body = open(path).read()
+    if body.count(text) != 1:
+        raise SystemExit(f"kernel_ab: {path} has no single {text!r} to edit")
+    open(path, "w").write(body.replace(text, replacement))
 
 
 def make_control(src: str, out: str) -> None:
-    shutil.copytree(src, out, ignore=shutil.ignore_patterns("__pycache__"))
-    header = os.path.join(out, "repro_torch", "kernels", "csrc", "hopper_sm90.cuh")
-    text = open(header).read()
-    if text.count(SPLIT) != 1:
-        raise SystemExit(f"kernel_ab: {header} has no single split_bf16x2 to mutate")
-    open(header, "w").write(text.replace(SPLIT, SPLIT + DROP_LO))
+    copy_with_edit(src, out, "hopper_sm90.cuh", SPLIT, SPLIT + DROP_LO)
 
 
 def ssm_cross_check(dev) -> dict:
@@ -97,12 +126,13 @@ def ssm_cross_check(dev) -> dict:
                                                and torch.isfinite(step).all())}}
 
 
-def timings(dev) -> dict:
+def timings(dev, head_dim_80_only: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import (decode_attention, flash_attention_bwd,
-                                     flash_attention_bwd_dq, flash_attention_fwd, rmsnorm_bwd,
-                                     ssd_scan, ssd_scan_ref)
+                                     flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                                     flash_attention_fwd, rmsnorm_bwd, ssd_scan, ssd_scan_ref)
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.kernels.flash_attention import attention_bwd_dkv_ref, attention_with_lse_ref
 
     rng = np.random.default_rng(cs.SEED)
     randn = cs.bf16_normal(rng, dev)
@@ -112,12 +142,47 @@ def timings(dev) -> dict:
         scratch.sum()
 
     res = {}
-    q, k, v, do = cs.flash_bwd_inputs(randn, cs.TRAIN_B, cs.TRAIN_S, 32, 2, 128)
-    out, lse = flash_attention_fwd(q, k, v)
-    res["dq_ms"] = cs.time_ms(lambda: flash_attention_bwd_dq(q, k, v, out, do, lse), flush)
-    res["dq_dkv_ms"] = cs.time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do), flush)
-    res["sdpa_bwd_ms"] = cs.time_ms(cs.sdpa_backward(q, k, v, do), flush)
-    del q, k, v, do, out, lse
+    if not head_dim_80_only:
+        q, k, v, do = cs.flash_bwd_inputs(randn, cs.TRAIN_B, cs.TRAIN_S, 32, 2, 128)
+        out, lse = flash_attention_fwd(q, k, v)
+        res["dq_ms"] = cs.time_ms(lambda: flash_attention_bwd_dq(q, k, v, out, do, lse), flush)
+        res["dq_dkv_ms"] = cs.time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do),
+                                      flush)
+        res["sdpa_bwd_ms"] = cs.time_ms(cs.sdpa_backward(q, k, v, do), flush)
+        del q, k, v, do, out, lse
+
+    # stablelm-3b's head dim 80 (MHA, 32 heads): the forward at the serve
+    # prefill (k, v views of the 1024-row cache, kv_len 512) and train
+    # shapes, and the dq, dk/dv and whole backward passes at the train shape,
+    # whichever way the tree's wrappers take D 80 (padded or native)
+    xrandn = cs.bf16_normal(np.random.default_rng(cs.SEED + 7), dev)
+    s, h = cs.TRAIN_S, 32
+    for what, bb, t80 in (("serve", cs.BATCH, cs.MAX_LEN), ("train", cs.TRAIN_B, s)):
+        q8 = xrandn(bb, s, h, 80).transpose(1, 2)
+        k8, v8 = (xrandn(bb, t80, h, 80).transpose(1, 2) for _ in range(2))
+        res[f"fwd80_{what}_ms"] = cs.time_ms(
+            lambda q8=q8, k8=k8, v8=v8: flash_attention_fwd(q8, k8, v8, kv_len=s), flush)
+    q8, k8, v8, do8 = cs.flash_bwd_inputs(xrandn, cs.TRAIN_B, s, h, h, 80)
+    out8, lse8 = flash_attention_fwd(q8, k8, v8)
+    _, delta8 = flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8)
+    res["dq80_ms"] = cs.time_ms(lambda: flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8),
+                                flush)
+    res["dkv80_ms"] = cs.time_ms(
+        lambda: flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8), flush)
+    res["bwd80_ms"] = cs.time_ms(lambda: flash_attention_bwd(q8, k8, v8, out8, lse8, do8),
+                                 flush)
+    # the forward and dk/dv at the train shape against their plain versions
+    # (> 0: out of chip_smoke.py's tolerance), so a variant is timed only
+    # where it is right
+    ref8, rlse8 = attention_with_lse_ref(q8, k8, v8, q_offset=0)
+    dk8, dv8 = flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8)
+    rk8, rv8 = attention_bwd_dkv_ref(q8, k8, v8, do8, lse8, delta8, q_offset=0)
+    res["head_dim_80_excess_at_tol"] = {
+        "fwd": max(cs.excess(out8, ref8, cs.TOL_BF16), cs.excess(lse8, rlse8, cs.TOL_LSE)),
+        "dkv": max(cs.excess(dk8, rk8, cs.TOL_BF16), cs.excess(dv8, rv8, cs.TOL_BF16))}
+    del q8, k8, v8, do8, out8, lse8, delta8, ref8, rlse8, dk8, dv8, rk8, rv8
+    if head_dim_80_only:
+        return res
 
     lens = torch.from_numpy(np.random.default_rng(cs.SEED + 10).integers(
         cs.SERVE_LENGTHS[0], cs.SERVE_LENGTHS[1] + 1, size=cs.BATCH).astype(np.int32)).to(dev)
@@ -165,9 +230,18 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--ssm-cross-check", action="store_true")
     ap.add_argument("--make-control", metavar="OUT")
+    ap.add_argument("--make-variant", nargs=2, metavar=("NAME", "OUT"))
+    ap.add_argument("--head-dim-80", action="store_true",
+                    help="time only stablelm-3b's head dim 80 flash passes")
     args = ap.parse_args()
     if args.make_control:
         make_control(args.src, args.make_control)
+        return 0
+    if args.make_variant:
+        name, out = args.make_variant
+        if name not in VARIANTS:
+            raise SystemExit(f"kernel_ab: variants are {sorted(VARIANTS)}")
+        copy_with_edit(args.src, out, *VARIANTS[name])
         return 0
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -178,7 +252,8 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
     res = {"src": os.path.abspath(args.src)}
-    res.update(ssm_cross_check(dev) if args.ssm_cross_check else timings(dev))
+    res.update(ssm_cross_check(dev) if args.ssm_cross_check
+               else timings(dev, head_dim_80_only=args.head_dim_80))
     print(json.dumps(res), flush=True)
     return 0
 

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes, on one NVIDIA card.
 
-    python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b]
+    python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b] [--src DIR]
 
 Builds a full-width model (chatglm3-6b by default, mamba2-130m or
 stablelm-3b; random weights from seed 0), prefills 4 prompts (512 tokens,
 8192 for mamba2-130m, as `chip_smoke.py` serves them) and decodes 8 tokens, each
 phase under `torch.profiler`.  For each phase it prints one JSON line: the wall time
 (host clock, synchronised), the device busy time (sum of kernel durations,
-one stream), the device idle share, and the kernels that take the most
-device time.  The card's name and power limit are printed first.
+one stream), the device idle share, the kernels that take the most
+device time, and the copy kernels' launches and device time (any kernel
+whose name holds "copy").  `--src DIR` profiles the `repro_torch` under
+DIR (default: this checkout's `src`).  The card's name and power limit are
+printed first.
 """
 from __future__ import annotations
 
@@ -25,11 +28,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
-
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import init_cache, init_model  # noqa: E402
-from repro_torch.runtime.steps import prefill_step, serve_step  # noqa: E402
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
 def _phase(name, fn, n_items):
@@ -41,12 +40,15 @@ def _phase(name, fn, n_items):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    copies = [e for e in kernels if "copy" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(json.dumps({
         "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
         "kernel_launches": sum(e.count for e in kernels),
         "per_item_wall_ms": wall_ms / n_items,
+        "copies": {"ms": sum(e.self_device_time_total for e in copies) / 1e3,
+                   "count": sum(e.count for e in copies)},
         "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                          "count": e.count} for e in top]}), flush=True)
 
@@ -57,10 +59,16 @@ PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512}
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chatglm3-6b", choices=sorted(PROMPT))
+    ap.add_argument("--src", default=SRC)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.runtime.steps import prefill_step, serve_step
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
@@ -88,7 +96,8 @@ def main() -> int:
                                    s0 + i, cfg)
                 tok = lg[:, -1].argmax(-1)
 
-        print(json.dumps({"arch": args.arch, "batch": b, "prompt": s0}), flush=True)
+        print(json.dumps({"arch": args.arch, "batch": b, "prompt": s0,
+                          "src": os.path.abspath(args.src)}), flush=True)
         _phase("prefill", run_prefill, 1)
         _phase("decode", run_decode, steps)
     return 0

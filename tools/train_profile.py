@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA card.
 
-    python3 tools/train_profile.py [--arch stablelm-3b]
+    python3 tools/train_profile.py [--arch stablelm-3b] [--src DIR]
 
 Builds full-width chatglm3-6b (random weights from seed 0, AdamW with bf16
 moments, as `chip_smoke.py` trains it) or stablelm-3b (fp32 moments) and
@@ -13,8 +13,11 @@ line: the wall time (host clock, synchronised), the device busy time (sum
 of kernel durations, one stream), the device idle share, the kernel
 launches, the device time by group (the ported kernels, cuBLAS GEMMs, the
 rest), the device time of each ported kernel, and the kernels that take the
-most device time.  The card's name and
-power limit are printed first.
+most device time, and the copy kernels' launches and device time (any
+kernel whose name holds "copy": layout changes, padding, slices made
+contiguous).  `--src DIR` profiles the `repro_torch` under DIR (default:
+this checkout's `src`), so two trees can be profiled in one call.  The
+card's name and power limit are printed first.
 """
 from __future__ import annotations
 
@@ -31,14 +34,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
-
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch.train import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.models import loss_fn  # noqa: E402
-from repro_torch.optim import adamw_update  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
-
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 MOMENTS = {"chatglm3-6b": torch.bfloat16, "stablelm-3b": torch.float32}
 PORTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm_kernel",
           "rmsnorm_bwd", "ce_fwd", "ce_bwd")
@@ -74,12 +70,15 @@ def _phase(name, fn, **extra):
             g = ported.setdefault(key, {"ms": 0.0, "count": 0})
             g["ms"] += e.self_device_time_total / 1e3
             g["count"] += e.count
+    copies = [e for e in kernels if "copy" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     print(json.dumps({
         "phase": name, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
         "kernel_launches": sum(e.count for e in kernels), "groups": groups,
         "ported_kernels": ported,
+        "copies": {"ms": sum(e.self_device_time_total for e in copies) / 1e3,
+                   "count": sum(e.count for e in copies)},
         "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                          "count": e.count} for e in top]}), flush=True)
 
@@ -87,10 +86,18 @@ def _phase(name, fn, **extra):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chatglm3-6b", choices=sorted(MOMENTS))
+    ap.add_argument("--src", default=SRC)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import adamw_update
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
@@ -122,7 +129,8 @@ def main() -> int:
         adamw_update(tree_unflatten(params, list(held.pop("grads"))), tr.state["opt"],
                      params, tr.opt_cfg)
 
-    _phase("forward_backward", forward_backward, arch=args.arch, step_ms_unprofiled=step_ms,
+    _phase("forward_backward", forward_backward, arch=args.arch, src=os.path.abspath(args.src),
+           step_ms_unprofiled=step_ms,
            loss=float(metrics["loss"]), tokens=b * s)
     _phase("adamw_update", update, n_params=sum(t.numel() for t in tree_leaves(params)))
     return 0
