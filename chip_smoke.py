@@ -18,10 +18,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    time, the plain version's, one library call's as a yardstick (never used
    by the port), and the least time the card could take (the bound).  The
    flash forward is also timed at the train shape and, with dq and dk/dv,
-   at stablelm-3b's head dim 80 (native in the forward and dk/dv, padded to
-   128 inside the dq pass; bounds on the unpadded work); the dk/dv pass at
-   every cluster size it takes,
-   the whole flash backward (dq, then dk/dv) beside SDPA's backward.  Decode
+   at stablelm-3b's head dim 80 (every pass takes it as it is); the dq pass
+   also at rep 1 (MHA) and head dim 128 on an odd number of q tiles; the
+   dk/dv pass at every cluster size it takes, the whole flash backward (dq,
+   then dk/dv) beside SDPA's backward.  Decode
    attention runs at the serve paths' own lengths (513-576 of a 1024-row
    cache) for chatglm3-6b and stablelm-3b, at every cluster size; RMSNorm
    also at the decode steps' [4, d].  The dq pass, decode attention and the
@@ -231,12 +231,11 @@ def leaf_names(tree, prefix=""):
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
 # ptxas report, dynamic shared memory and blocks an SM, at each value of
 # their template parameter (the head dim D, or the SSD scan's state dim N).
-# The forward and dk/dv take head dim 80 natively; the dq pass pads it.
 HEAD_DIM_VALUES = ("D", (32, 64, 80, 128))
 HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", "flash_attention_fwd_smem_bytes",
                    160, HEAD_DIM_VALUES),
                   ("flash_bwd_dq_kernel", "flash_attention_bwd.cu",
-                   "flash_attention_bwd_dq_smem_bytes", 384, ("D", (32, 64, 128))),
+                   "flash_attention_bwd_dq_smem_bytes", 384, HEAD_DIM_VALUES),
                   ("flash_bwd_dkv_kernel", "flash_attention_bwd.cu",
                    "flash_attention_bwd_dkv_smem_bytes", 160, HEAD_DIM_VALUES),
                   ("ssd_scan_kernel", "ssd_scan.cu", "ssd_scan_smem_bytes", 288,
@@ -329,12 +328,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
                                                      attention_bwd_dq_ref,
                                                      attention_with_lse_ref)
-    from repro_torch.kernels.flash_attention.kernel import (DKV_CLUSTERS, NATIVE_HEAD_DIMS,
-                                                            dkv_cluster_size)
-
-    def layout80(pass_):
-        """How a flash pass takes head dim 80."""
-        return "native" if 80 in NATIVE_HEAD_DIMS[pass_] else "padded to 128"
+    from repro_torch.kernels.flash_attention.kernel import DKV_CLUSTERS, dkv_cluster_size
     from repro_torch.launch.serve import Server
     from repro_torch.launch.train import Trainer, TrainerConfig
     from repro_torch.models import init_cache, init_model, loss_fn
@@ -358,7 +352,7 @@ def main() -> int:
           "library_dir": str(_build.BUILD_DIR)})
     for entry in hopper_kernel_report(_build) + ptxas_report(_build):
         emit({"phase": "build_kernel", **entry})
-        # the flash kernels' head dim 80 instances hold dk, dv or O in
+        # the flash kernels' head dim 80 instances hold dq, dk, dv or O in
         # registers: no spills
         if (entry["kernel"].startswith("flash_") and entry.get("D") == 80
                 and (entry.get("spill_stores") or entry.get("spill_loads"))):
@@ -482,9 +476,8 @@ def main() -> int:
         "bound_ms": bound((2 * qt.numel() + 2 * kt.numel()) * 2 + TRAIN_B * h * s * 4,
                           4 * hd * pairs_t, PEAK_BF16)[0]}
     del qt, kt, vt, out_t, lse_t, ref_t, rlse_t, kte, vte
-    # stablelm-3b's head dim 80 (MHA, 32 heads), native: its serve prefill
-    # (k and v read from the 1024-row cache) and its train step; the bounds
-    # count the unpadded work
+    # stablelm-3b's head dim 80 (MHA, 32 heads): its serve prefill (k and v
+    # read from the 1024-row cache) and its train step
     r["head_dim_80"] = {}
     for what, bb, t80 in (("serve", BATCH, MAX_LEN), ("train", TRAIN_B, s)):
         q8 = xrandn(bb, s, h, 80).transpose(1, 2)
@@ -504,8 +497,7 @@ def main() -> int:
                                                                            is_causal=True),
             (2 * q8.numel() + 2 * k8s.numel()) * 2 + bb * h * s * 4, 4 * 80 * pairs8,
             PEAK_BF16, float((o8.float() - r8.float()).abs().max()),
-            shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80},
-            head_dim_80=layout80("fwd"))
+            shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80})
     del q8, k8, v8, o8, l8, r8, rl8, k8s, v8s
     emit({"phase": "kernel", **r,
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "q_offset": 0}})
@@ -610,8 +602,7 @@ def main() -> int:
                                  attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0))
     (dk, dv), (rk, rv) = (flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                           attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0))
-    # stablelm-3b's train step: head dim 80 (native in dk/dv, padded to 128
-    # inside the dq pass; the bounds count the unpadded work), MHA
+    # stablelm-3b's train step: head dim 80, MHA
     q8, k8, v8, do8 = flash_bwd_inputs(xrandn, b, s, h, h, 80)
     out8, lse8 = flash_attention_fwd(q8, k8, v8)
     (dq8, delta8), (rq8, rdelta8) = (flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8),
@@ -629,7 +620,7 @@ def main() -> int:
                        lambda: attention_bwd_dq_ref(q8, k8, v8, out8, do8, lse8, q_offset=0),
                        sdpa_bwd8, 4 * qb8 + 2 * kvb8 + 2 * b * h * s * 4, 6 * 80 * pairs,
                        PEAK_BF16, float((dq8.float() - rq8.float()).abs().max()),
-                       shape=shape8, head_dim_80=layout80("dq"))
+                       shape=shape8)
     dkv80 = other_shape("flash_attention_bwd_dkv at D 80",
                         max(excess(dk8, rk8, TOL_BF16), excess(dv8, rv8, TOL_BF16)),
                         lambda: flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8),
@@ -638,7 +629,7 @@ def main() -> int:
                         sdpa_bwd8, 2 * qb8 + 4 * kvb8 + 2 * b * h * s * 4, 8 * 80 * pairs,
                         PEAK_BF16, max(float((dk8.float() - rk8.float()).abs().max()),
                                        float((dv8.float() - rv8.float()).abs().max())),
-                        shape=shape8, head_dim_80=layout80("dkv"))
+                        shape=shape8)
     del q8, k8, v8, do8, out8, lse8, dq8, delta8, rq8, rdelta8, dk8, dv8, rk8, rv8, sdpa_bwd8
     sdpa_bwd = sdpa_backward(q, k, v, do)
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each
@@ -661,6 +652,26 @@ def main() -> int:
     r["bitwise_repeatable"] = True
     r["head_dim_80"] = dq80
     del dq2, delta2
+    # rep 1 (MHA) at head dim 128 on an odd number of q tiles (7): a block's
+    # two warpgroups take two adjacent q tiles of a head, and the last item
+    # of each head holds tile 0 alone
+    s1 = 7 * 64
+    q1, k1, v1, do1 = flash_bwd_inputs(xrandn, BATCH, s1, h, h, hd)
+    out1, lse1 = flash_attention_fwd(q1, k1, v1)
+    (dq1, delta1), (rq1, rdelta1) = (flash_attention_bwd_dq(q1, k1, v1, out1, do1, lse1),
+                                     attention_bwd_dq_ref(q1, k1, v1, out1, do1, lse1,
+                                                          q_offset=0))
+    torch.cuda.synchronize()
+    pairs1 = BATCH * h * s1 * (s1 + 1) // 2
+    r["rep1_odd_q_tiles"] = other_shape(
+        "flash_attention_bwd_dq at rep 1, D 128, 7 q tiles",
+        max(excess(dq1, rq1, TOL_BF16), excess(delta1, rdelta1, TOL_LSE)),
+        lambda: flash_attention_bwd_dq(q1, k1, v1, out1, do1, lse1),
+        lambda: attention_bwd_dq_ref(q1, k1, v1, out1, do1, lse1, q_offset=0),
+        sdpa_backward(q1, k1, v1, do1), 6 * q1.numel() * 2 + 2 * BATCH * h * s1 * 4,
+        6 * hd * pairs1, PEAK_BF16, float((dq1.float() - rq1.float()).abs().max()),
+        shape={"B": BATCH, "H": h, "Hkv": h, "S": s1, "D": hd, "causal": True})
+    del q1, k1, v1, do1, out1, lse1, dq1, delta1, rq1, rdelta1
     # the whole backward as the train step runs it (dq, then dk/dv), beside
     # SDPA's backward, timed here
     r["flash_attention_bwd"] = {

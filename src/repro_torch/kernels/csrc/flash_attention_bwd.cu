@@ -20,21 +20,26 @@
 //   VMEM.  Here each becomes a loop inside one block, so the accumulator
 //   stays in registers.
 // * dq pass: a persistent grid, one block an SM, each walking work items
-//   (64-row q tile, two query heads of one GQA group), the q tiles with the
-//   most kv tiles first.  A block is two consumer warpgroups, one per head,
-//   and a producer warpgroup of which one warp loads (384 threads; its
-//   registers go to the consumers with setmaxnreg, 40 against 232 a
-//   thread).  The producer TMA-loads each item's Q and dO tiles of both
-//   heads into one of two item buffers, ahead of the consumers, and the kv
-//   tiles up to the causal limit of the tile's last row into a 3-stage K
-//   ring and a 2-stage V ring that both
+//   heavy-first (the items with the most kv tiles first).  A block is two
+//   consumer warpgroups and a producer warpgroup of which one warp loads
+//   (384 threads; its registers go to the consumers with setmaxnreg, 40
+//   against 232 a thread).  An item gives each consumer warpgroup a slot,
+//   a 64-row q tile of one head: at rep >= 2 one tile of two query heads
+//   of a GQA group; at rep 1 (MHA) two adjacent tiles of one head, rows
+//   [q0, q0 + 128), so that neither warpgroup idles there.  The producer
+//   TMA-loads both slots' Q and dO tiles into one of two item buffers,
+//   ahead of the consumers, and the kv tiles up to the causal limit of the
+//   item's last row into a 3-stage K ring and a 2-stage V ring that both
 //   warpgroups read (K_t is read until dQ's product of tile t, V_t only by
-//   dP's): the group's K/V is fetched once for two heads.  Its lanes copy
+//   dP's): the K/V is fetched once for two heads, or for 128 q rows.  At
+//   rep 1 the warpgroup of the earlier rows waits on and releases the kv
+//   tiles past its causal limit without computing them.  Its lanes copy
 //   the item's lse, which TMA cannot take.  Each buffer and stage has a
 //   `full` mbarrier (TMA's byte count) and an `empty` one (one arrival per
 //   consumer warp).  A warpgroup computes delta = rowsum(out * dO) from the
 //   dO tile in shared memory and one read of out (issued before the tile's
-//   wait), runs S = Q K^T and dP = dO V^T on wgmma m64n64k16 (both operands
+//   wait; lane c of a quad takes the row's 16-byte chunks c, c + 4, ...),
+//   runs S = Q K^T and dP = dO V^T on wgmma m64n64k16 (both operands
 //   K-major), P = 2^(S scale - lse) on the special-function unit (masked
 //   entries by selecting the exponent -inf) and dS in registers, then
 //   dQ += dS K on wgmma m64nDk16 with dS from registers in the accumulator
@@ -44,7 +49,9 @@
 //   the same inputs give the same bits.  Measured no faster (PERF.md):
 //   288 threads without setmaxnreg (168 registers, spills), the two
 //   warpgroups taking turns on the tensor cores, the next item's out read
-//   one item ahead, delta computed by extra producer warps.
+//   one item ahead, delta computed by extra producer warps; at rep 1, one
+//   tile an item with the second warpgroup idle (`tools/kernel_ab.py
+//   --make-variant dq-head-pairs`).
 // * dk/dv pass: a cluster of C blocks (C = 1, 2, 4 or 8, chosen by the
 //   wrapper) per (64-row kv tile, kv head, batch).  Block `rank` of the
 //   cluster owns query heads [rank rep / C, (rank + 1) rep / C) of the GQA
@@ -79,8 +86,9 @@
 //   16-column tail slab with their own swizzles (hopper_sm90.cuh): the
 //   k-steps of S^T and dP^T over D are 4 + 1, and dV += P^T dO and
 //   dK += dS^T Q are each an m64n64 and an m64n16 product, so q, k, v and
-//   dO are read as they are.  The dq pass has no D = 80 instance: its
-//   wrapper pads to 128.  An item's products and its
+//   dO are read as they are.  The dq pass takes D = 80 the same way: 4 + 1
+//   k-steps for S and dP, and dQ += dS K as an m64n64 and an m64n16
+//   product.  An item's products and its
 //   exp/dS work run one after the other in the one warpgroup, which is what
 //   holds the pass to a fraction of the bf16 rate; a 3-stage ring beat 2,
 //   and issuing dV += P^T dO before dS^T is ready was slower (PERF.md).
@@ -131,7 +139,7 @@ struct DqParams {
 template <int D>
 struct DqSmem {
     static constexpr int TILE = BM * D * 2;              // one [64 x D] bf16 tile
-    static constexpr int ITEM = 4 * TILE;                // q and dO of an item's two heads
+    static constexpr int ITEM = 4 * TILE;                // q and dO of an item's two slots
     static constexpr int k_off = 2 * ITEM;               // after the two item buffers
     static constexpr int v_off = k_off + kDqKStages * TILE;
     static constexpr int rows_off = v_off + kDqVStages * TILE;   // [2 items] lse [2][64]
@@ -140,27 +148,52 @@ struct DqSmem {
         bar_off + (4 + 2 * kDqKStages + 2 * kDqVStages) * 8 + 1024;   // + alignment
 };
 
-// Work item w: a 64-row q tile of two query heads of one GQA group (one
-// when the group's size is odd and the pair is its last), the q tiles with
-// the most kv tiles first; neighbouring items are pairs of one group.  The
-// card tests (tests/test_torch_cuda.py::test_flash_bwd_kernels_match_plain)
-// hold every head and tile of this order against the plain version: rep 1,
-// 3 and 16, S not a multiple of 64, an offset into a longer cache.
+// Work items.  At rep >= 2 an item is a 64-row q tile of two query heads of
+// one GQA group (one when the group's size is odd and the pair is its
+// last), warpgroup wg taking head 2 pair + wg.  At rep 1 (MHA) it is two
+// adjacent 64-row q tiles of one head, rows [q0, q0 + 128), warpgroup wg
+// taking rows q0 + 64 wg; the tiles pair from the last one down, so when
+// n_qt is odd the last item holds tile 0 alone (in warpgroup 1).  Either
+// way both warpgroups read one K/V ring.  The items with the most kv tiles
+// come first; neighbouring items share a kv group.  The wrapper's
+// `dq_items` mirrors this numbering, and the card tests
+// (tests/test_torch_cuda.py::test_flash_bwd_kernels_match_plain) hold every
+// head and tile of it against the plain version: rep 1 with n_qt odd, 3
+// and 16, S not a multiple of 64, an offset into a longer cache.
+__host__ __device__ __forceinline__ bool dq_tile_pairs(int rep) { return rep == 1; }
+
+// items of a launch: (q tiles / tiles an item) x B x Hkv x (head slots / 2)
+__host__ __device__ __forceinline__ int dq_work(int n_qt, int B, int Hkv, int rep) {
+    return dq_tile_pairs(rep) ? (n_qt + 1) / 2 * B * Hkv : n_qt * B * Hkv * ((rep + 1) / 2);
+}
+
 struct DqItem {
-    int b, hk, pair, q0, n_tiles;
+    int b, hk, n_tiles;     // kv tiles up to the causal limit of the item's last row
+    int h[2], q0[2];        // warpgroup wg's head (-1: none) and first q row
 };
 
+// kv tiles that q rows [q0, q0 + 64) see
+__device__ __forceinline__ int dq_kv_tiles(const DqParams& p, int q0) {
+    int kv_end = p.kv_len;
+    if (p.causal) kv_end = min(kv_end, p.q_offset + min(q0 + BM, p.S));
+    return kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+}
+
 __device__ __forceinline__ DqItem dq_item(const DqParams& p, int w) {
-    const int n_pairs = (p.rep + 1) / 2, per_qt = p.B * p.Hkv * n_pairs;
+    const bool tiles2 = dq_tile_pairs(p.rep);
+    const int n_pairs = tiles2 ? 1 : (p.rep + 1) / 2, per = p.B * p.Hkv * n_pairs;
+    const int qt_last = p.n_qt - 1 - (tiles2 ? 2 : 1) * (w / per);
+    const int r = w % per, pair = r % n_pairs;
     DqItem it;
-    it.q0 = (p.n_qt - 1 - w / per_qt) * BM;
-    const int r = w % per_qt;
-    it.pair = r % n_pairs;
     it.hk = (r / n_pairs) % p.Hkv;
     it.b = r / (n_pairs * p.Hkv);
-    int kv_end = p.kv_len;
-    if (p.causal) kv_end = min(kv_end, p.q_offset + min(it.q0 + BM, p.S));
-    it.n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+#pragma unroll
+    for (int wg = 0; wg < 2; ++wg) {
+        const int hg = tiles2 ? 0 : 2 * pair + wg, qt = tiles2 ? qt_last - 1 + wg : qt_last;
+        it.h[wg] = hg < p.rep && qt >= 0 ? it.hk * p.rep + hg : -1;
+        it.q0[wg] = qt * BM;
+    }
+    it.n_tiles = dq_kv_tiles(p, qt_last * BM);
     return it;
 }
 
@@ -181,7 +214,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     uint64_t* v_full = k_empty + kDqKStages;                             // [kDqVStages]
     uint64_t* v_empty = v_full + kDqVStages;                             // [kDqVStages]
 
-    const int n_work = p.n_qt * p.B * p.Hkv * ((p.rep + 1) / 2);
+    const int n_work = dq_work(p.n_qt, p.B, p.Hkv, p.rep);
     const int tid = threadIdx.x, lane = tid % 32;
     if (tid == 0) {
         for (int i = 0; i < 2; ++i) {
@@ -205,26 +238,29 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         if (tid >= 256 + 32) return;
         for (int w = blockIdx.x, j = 0, n = 0; w < n_work; w += gridDim.x, ++j) {
             const DqItem it = dq_item(p, w);
-            const int qb = j & 1, h0 = it.hk * p.rep + 2 * it.pair;
-            const int nh = min(2, p.rep - 2 * it.pair);
+            const int qb = j & 1;
+            const int ns = (it.h[0] >= 0) + (it.h[1] >= 0);
             unsigned char* buf = smem + qb * L::ITEM;
-            float* lse_sh = rows_sh + qb * 2 * BM;      // [2 heads][64]
+            float* lse_sh = rows_sh + qb * 2 * BM;      // [2 slots][64]
             if (j >= 2) mbar_wait(&q_empty[qb], ((j >> 1) - 1) & 1);
-            // q and dO of both heads by TMA, their lse by the lanes, then the
-            // item's K and V tiles
+            // q and dO of both warpgroups' slots by TMA, their lse by the
+            // lanes, then the item's K and V tiles
             if (lane == 0) {
-                mbar_expect_tx(&q_full[qb], 2 * nh * L::TILE);
-                for (int g = 0; g < nh; ++g) {
+                mbar_expect_tx(&q_full[qb], 2 * ns * L::TILE);
+#pragma unroll
+                for (int g = 0; g < 2; ++g) {
+                    if (it.h[g] < 0) continue;
                     tma_load_tile<D, BM>(reinterpret_cast<bf16*>(buf + 2 * g * L::TILE), &tq,
-                                         &q_full[qb], it.q0, h0 + g, it.b);
+                                         &q_full[qb], it.q0[g], it.h[g], it.b);
                     tma_load_tile<D, BM>(reinterpret_cast<bf16*>(buf + (2 * g + 1) * L::TILE),
-                                         &tdo, &q_full[qb], it.q0, h0 + g, it.b);
+                                         &tdo, &q_full[qb], it.q0[g], it.h[g], it.b);
                 }
             }
             for (int i = lane; i < 2 * BM; i += 32) {
-                const int g = i / BM, row = it.q0 + i % BM;
-                lse_sh[i] = g < nh && row < p.S
-                    ? p.lse[(int64_t(it.b) * p.H + h0 + g) * p.S + row] * kLog2e : 0.f;
+                const int g = i / BM, h = g ? it.h[1] : it.h[0];
+                const int row = (g ? it.q0[1] : it.q0[0]) + i % BM;
+                lse_sh[i] = h >= 0 && row < p.S
+                    ? p.lse[(int64_t(it.b) * p.H + h) * p.S + row] * kLog2e : 0.f;
             }
             mbar_arrive(&q_full[qb]);
             for (int t = 0; t < it.n_tiles; ++t, ++n) {
@@ -247,48 +283,53 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         return;
     }
 
-    // consumer warpgroup wg: head 2 pair + wg of the item's group, q rows
-    // [q0, q0 + 64); this thread's rows are g and g + 8 of its warp's 16
+    // consumer warpgroup wg: its slot's head and q rows [q0, q0 + 64); this
+    // thread's rows are g and g + 8 of its warp's 16
     setmaxnreg_inc<kDqConsumerRegs>();
     const int wg = tid / 128, warp = (tid % 128) / 32;
     const int g = lane / 4, c = lane % 4;
-    constexpr int QV = D / 32;          // 16-byte vectors of a quarter row
+    // a row's 16-byte chunks: lane c of the quad takes chunks c, c + 4, ...
+    constexpr int NCH = D / 8, QV = (NCH + 3) / 4;
     const uint32_t k_base = smem_u32(smem + L::k_off), v_base = smem_u32(smem + L::v_off);
     int n = 0;                          // K/V tiles consumed so far, over all items
     for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
         const DqItem it = dq_item(p, w);
-        const int qb = j & 1, hg = 2 * it.pair + wg;
-        const bool active = hg < p.rep;     // an odd group's last pair has one head
-        const int h = it.hk * p.rep + hg;
+        const int qb = j & 1, h = wg ? it.h[1] : it.h[0], q0 = wg ? it.q0[1] : it.q0[0];
+        const bool active = h >= 0;     // an odd group's last pair has one head;
+                                        // an odd n_qt's last tile pair one tile
+        // the kv tiles of this slot's rows: a suffix of the item's tiles that
+        // lies past the causal limit is waited on and released, not computed
+        const int n_own = active ? dq_kv_tiles(p, q0) : 0;
         const uint32_t q_addr = smem_u32(smem + qb * L::ITEM + 2 * wg * L::TILE);
         const uint32_t do_addr = q_addr + L::TILE;
         const float* lse_sh = rows_sh + qb * 2 * BM + wg * BM;
 
         // delta = rowsum(out * dO) in fp32: out read now, ahead of the tile's
-        // arrival; dO from the tile in shared memory; a quarter row a lane
+        // arrival; dO from the tile in shared memory
         int lim[2];
         uint4 ov[2][QV];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-            const int row = it.q0 + warp * 16 + g + 8 * hr;
+            const int row = q0 + warp * 16 + g + 8 * hr;
             const bool ok = active && row < p.S;
             lim[hr] = !ok ? 0 : p.causal ? min(p.kv_len, p.q_offset + row + 1) : p.kv_len;
-            const bf16* orow =
-                p.o + it.b * p.o_sb + h * p.o_sh + int64_t(row) * p.o_ss + c * (D / 4);
+            const bf16* orow = p.o + it.b * p.o_sb + max(h, 0) * p.o_sh + int64_t(row) * p.o_ss;
 #pragma unroll
             for (int k = 0; k < QV; ++k)
-                ov[hr][k] = ok ? *reinterpret_cast<const uint4*>(orow + 8 * k)
-                               : make_uint4(0u, 0u, 0u, 0u);
+                ov[hr][k] = ok && 4 * k + c < NCH
+                    ? *reinterpret_cast<const uint4*>(orow + 8 * (4 * k + c))
+                    : make_uint4(0u, 0u, 0u, 0u);
         }
         mbar_wait(&q_full[qb], (j >> 1) & 1);
         float lse2[2], dlt[2];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-            const int rr = warp * 16 + g + 8 * hr, row = it.q0 + rr;
+            const int rr = warp * 16 + g + 8 * hr, row = q0 + rr;
             float acc = 0.f;
 #pragma unroll
             for (int k = 0; k < QV; ++k) {
-                const uint4 du = lds_u4(swz_addr<D, BM>(do_addr, rr, c * (D / 4) + 8 * k));
+                if (4 * k + c >= NCH) continue;
+                const uint4 du = lds_u4(swz_addr<D, BM>(do_addr, rr, 8 * (4 * k + c)));
                 const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&ov[hr][k]);
                 const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&du);
 #pragma unroll
@@ -339,13 +380,13 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         };
         if (it.n_tiles > 0) {
             wait_kv(0);
-            if (active) {
+            if (n_own > 0) {
                 issue_s_dp(0);
                 wgmma_commit();
             }
         }
         for (int t = 0; t < it.n_tiles; ++t) {
-            if (active) {
+            if (t <= n_own) {
                 // S, dP of tile t (and dQ of tile t - 1) are done
                 wgmma_wait<0>();
                 fence_regs(sc);
@@ -355,7 +396,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
             }
             release(&v_empty[(n + t) % kDqVStages]);
             if (t > 0) release(&k_empty[(n + t - 1) % kDqKStages]);
-            if (!active) {
+            if (t >= n_own) {           // past this slot's rows, or no slot
                 if (t + 1 < it.n_tiles) wait_kv(t + 1);
                 continue;
             }
@@ -384,17 +425,16 @@ __global__ void __launch_bounds__(kDqThreads, 1)
             wgmma_fence();
             const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TILE;
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk)
-                wgmma_rs<D>(acc, dsf[kk], desc_mn<D, BN>(k_addr, kk), 1);
+            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(acc, dsf[kk], k_addr, kk);
             if (t + 1 < it.n_tiles) {
                 wait_kv(t + 1);
-                issue_s_dp(t + 1);
+                if (t + 1 < n_own) issue_s_dp(t + 1);
             }
             wgmma_commit();
             fence_regs(dsf);
         }
         if (it.n_tiles > 0) {
-            if (active) {
+            if (n_own == it.n_tiles) {  // dQ of the last tile (else waited above)
                 wgmma_wait<0>();
                 fence_regs(acc);
                 fence_regs(dsf);
@@ -409,7 +449,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         // forward stores O): lane c stores 16-byte chunk dt0 + c / 2 of row
         // g + 8 (c % 2), two full 32-byte sectors of a row an instruction
         const int odd = c & 1, hi = c & 2;
-        const int row = it.q0 + warp * 16 + g + 8 * odd;
+        const int row = q0 + warp * 16 + g + 8 * odd;
         bf16* drow = p.dq + it.b * p.dq_sb + h * p.dq_sh + int64_t(row) * p.dq_ss;
 #pragma unroll
         for (int dt0 = 0; dt0 < D / 8; dt0 += 2) {
@@ -695,7 +735,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dq_kernel<D>,
                                                            kDqThreads, bytes)) != cudaSuccess)
         return static_cast<int>(e);
-    const int n_work = p.n_qt * p.B * p.Hkv * ((p.rep + 1) / 2);
+    const int n_work = dq_work(p.n_qt, p.B, p.Hkv, p.rep);
     const int grid = max(1, min(n_work, sms * max(per_sm, 1)));
     flash_bwd_dq_kernel<D><<<grid, kDqThreads, bytes, stream>>>(tq, tdo, tk, tv, p);
     return static_cast<int>(cudaGetLastError());
@@ -739,8 +779,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // delta [B,H,S] contiguous fp32.  strides holds the (batch, head, row)
 // element strides of q, k, v, out, dO, dq, dk, dv in that order.  A pointer
 // the pass does not touch may be null.  The wrapper checks shapes, 16-byte
-// alignment and D: {32, 64, 128} for the dq pass (the wrapper pads 80 to
-// 128), {32, 64, 80, 128} for dk/dv.
+// alignment and D: one of {32, 64, 80, 128}.
 
 // dq pass: writes dq and delta = rowsum(out * dO).
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -772,6 +811,7 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const v
     switch (D) {
         case 32: return launch_dq<32>(q, k, v, dout, p, strides, st);
         case 64: return launch_dq<64>(q, k, v, dout, p, strides, st);
+        case 80: return launch_dq<80>(q, k, v, dout, p, strides, st);
         case 128: return launch_dq<128>(q, k, v, dout, p, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -832,6 +872,7 @@ extern "C" int flash_attention_bwd_dq_smem_bytes(int D) {
     switch (D) {
         case 32: return static_cast<int>(DqSmem<32>::bytes);
         case 64: return static_cast<int>(DqSmem<64>::bytes);
+        case 80: return static_cast<int>(DqSmem<80>::bytes);
         case 128: return static_cast<int>(DqSmem<128>::bytes);
         default: return 0;
     }

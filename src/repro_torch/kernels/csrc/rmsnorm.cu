@@ -7,14 +7,26 @@
 // against 4 bytes moved (read x, write y, both bf16), some 70x below the
 // card's ratio of operations to bytes.
 //
-// Design: one block per row, so a row's sum of squares never leaves the SM.
-// Each thread moves 8 bf16 values per 16-byte load.  The sum of squares is
-// kept in fp32 and reduced with warp shuffles, then across warps through
-// shared memory.  The second pass reads the row again to scale it; a row is
-// at most a few tens of KB and was just read by the same block, so that
-// read is served from L1/L2, and device memory sees each byte about once.
+// Design: one row a group of G threads (a multiple of 32), each thread
+// holding V 16-byte vectors of the row in registers, so each row is read
+// from device memory once and all of its loads are issued at once.  A
+// thread issues its slice of `scale` together with its slice of the row.
+// The sum of squares is kept in fp32, reduced with warp shuffles, then
+// across the group's warps through shared memory and a named barrier of
+// the group (not a barrier of the whole block).  Where there are no more
+// rows than SMs (the decode steps' 4) V = 1 and a block holds one group:
+// each row is spread over d / 8 threads on its own SM, so the launch is one
+// memory round trip, the reduction and the store.  At many rows V = 4 (at
+// d 4096: 128 threads a row, four rows a block of 512, two blocks and 64 KB
+// of loads in flight an SM): fewer threads a row make the reduction
+// across warps shorter than at V = 1 or 2 with the same bytes in flight.
 // The products follow the JAX order, (x * r) * scale, in fp32, and the
-// output is rounded to bf16 once.
+// output is rounded to bf16 once.  Measured slower (PERF.md): one block of 256
+// threads per row reading the row twice with `scale` loaded after the
+// reduction (at the decode steps' rows); a persistent grid of 512-thread
+// row groups with the next row's loads in flight (at many rows); V = 1, 2
+// and 8 at many rows (`tools/kernel_ab.py --make-variant rms-one-vector`,
+// `rms-two-vectors`, `rms-eight-vectors`).
 //
 // Backward (no TPU kernel: JAX differentiates the jnp reference with XLA;
 // the port writes one so that a CUDA tensor never takes the plain path).
@@ -41,67 +53,81 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+constexpr int kFwdThreads = 512;    // at most, a block of the forward
+constexpr int kFwdMaxGroups = 8;    // row groups of a block (named barriers 1..8)
+constexpr int kFwdManyRowsVec = 4;  // vectors a thread where rows outnumber the SMs
+
+// vectors k G + lg, k < V, of a row (zeros past the row's nvec)
+template <int V>
+__device__ __forceinline__ void load_vecs(const uint4* src, int nvec, int lg, int G,
+                                          uint4 (&v)[V]) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const int i = k * G + lg;
+        v[k] = i < nvec ? src[i] : make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// One row a group of G threads; 4, 3, 2 or 1 blocks of 512 threads an SM
+// at V = 1, 2, 4, 8 (32, 40, 64, 128 registers a thread)
+template <int V>
+__global__ void __launch_bounds__(kFwdThreads, V == 1 ? 4 : V == 2 ? 3 : V == 4 ? 2 : 1)
 rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ scale,
-               __nv_bfloat16* __restrict__ out, int d, float eps) {
-    const int row = blockIdx.x;
-    const int nvec = d / 8;
-    const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * d);
-    const uint4* sr = reinterpret_cast<const uint4*>(scale);
-    uint4* orow = reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * d);
-
+               __nv_bfloat16* __restrict__ out, int rows, int d, int G, float eps) {
+    __shared__ float red[kFwdThreads / 32];          // the group's warp sums
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int grp = tid / G, lg = tid % G, R = blockDim.x / G;
+    const int nvec = d / 8, row = blockIdx.x * R + grp;
+    if (row >= rows) return;                         // the whole group
+    // the row's x and this thread's slice of scale, issued together
+    uint4 xv[V], sv[V];
+    load_vecs<V>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * d), nvec, lg, G,
+                 xv);
+    load_vecs<V>(reinterpret_cast<const uint4*>(scale), nvec, lg, G, sv);
     float ss = 0.f;
-    for (int i = threadIdx.x; i < nvec; i += kThreads) {
-        uint4 u = xr[i];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&xv[k]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            float2 f = __bfloat1622float2(h[j]);
+            const float2 f = __bfloat1622float2(h[j]);
             ss += f.x * f.x + f.y * f.y;
         }
     }
-    __shared__ float partial[kThreads / 32];
-    __shared__ float inv_rms;
     ss = warp_sum(ss);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane == 0) partial[warp] = ss;
-    __syncthreads();
-    if (warp == 0) {
-        float v = lane < kThreads / 32 ? partial[lane] : 0.f;
-        v = warp_sum(v);
-        if (lane == 0) inv_rms = rsqrtf(v / static_cast<float>(d) + eps);
+    if (G > 32) {                                    // across the group's warps
+        if (lane == 0) red[warp] = ss;
+        named_sync(1 + grp, G);
+        ss = 0.f;
+        for (int w = grp * (G / 32); w < (grp + 1) * (G / 32); ++w) ss += red[w];
     }
-    __syncthreads();
-    const float r = inv_rms;
-
-    for (int i = threadIdx.x; i < nvec; i += kThreads) {
-        uint4 u = xr[i];
-        uint4 s = sr[i];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-        const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&s);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    uint4* orow = reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const int i = k * G + lg;
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&xv[k]);
+        const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&sv[k]);
         uint4 o;
         __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            float2 f = __bfloat1622float2(h[j]);
-            float2 w = __bfloat1622float2(g[j]);
+            const float2 f = __bfloat1622float2(h[j]), w = __bfloat1622float2(g[j]);
             y[j] = __floats2bfloat162_rn((f.x * r) * w.x, (f.y * r) * w.y);
         }
-        orow[i] = o;
+        if (i < nvec) orow[i] = o;
     }
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 constexpr int kBwdThreads = 512;
@@ -133,19 +159,6 @@ __device__ __forceinline__ void grid_barrier(unsigned* bar) {
     __syncthreads();
 }
 
-__device__ __forceinline__ void load_row(const uint4* xr, const uint4* gr, int nvec, int lg,
-                                         int G, uint4 (&xv)[kVec], uint4 (&gv)[kVec]) {
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-        const int i = k * G + lg;
-        xv[k] = gv[k] = make_uint4(0u, 0u, 0u, 0u);
-        if (i < nvec) {
-            xv[k] = xr[i];
-            gv[k] = gr[i];
-        }
-    }
-}
-
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ scale,
@@ -162,28 +175,26 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
 
     uint4 sv[kVec];
     float acc[kVec][8];
-    {
-        const uint4* sr = reinterpret_cast<const uint4*>(scale);
+    load_vecs<kVec>(reinterpret_cast<const uint4*>(scale), nvec, lg, G, sv);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-            const int i = k * G + lg;
-            sv[k] = i < nvec ? sr[i] : make_uint4(0u, 0u, 0u, 0u);
+    for (int k = 0; k < kVec; ++k)
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
-        }
-    }
+        for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
     int row = blockIdx.x * R + grp;
     uint4 xc[kVec], gc[kVec];
-    if (row < rows)
-        load_row(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * d),
-                 reinterpret_cast<const uint4*>(dy + static_cast<int64_t>(row) * d), nvec, lg,
-                 G, xc, gc);
+    if (row < rows) {
+        load_vecs<kVec>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * d), nvec,
+                        lg, G, xc);
+        load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + static_cast<int64_t>(row) * d), nvec,
+                        lg, G, gc);
+    }
     for (int it = 0; row < rows; ++it, row += stride) {
         uint4 xn[kVec], gn[kVec];
-        if (row + stride < rows)        // the next row's loads, in flight meanwhile
-            load_row(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row + stride) * d),
-                     reinterpret_cast<const uint4*>(dy + static_cast<int64_t>(row + stride) * d),
-                     nvec, lg, G, xn, gn);
+        if (row + stride < rows) {      // the next row's loads, in flight meanwhile
+            const int64_t next = static_cast<int64_t>(row + stride) * d;
+            load_vecs<kVec>(reinterpret_cast<const uint4*>(x + next), nvec, lg, G, xn);
+            load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + next), nvec, lg, G, gn);
+        }
         float ss = 0.f, sd = 0.f;                    // sum x^2, sum dy s x
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
@@ -277,6 +288,31 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
+// The forward's geometry: V 16-byte vectors a thread, G threads a row group
+// (a multiple of 32, G V 8 >= d), R groups a block.  Where there are no
+// more rows than SMs, V = 1 and R = 1: each row is spread over as many
+// threads as it has vectors, one block a row.  Else V is the power of two
+// up to kFwdManyRowsVec that leaves the fewest lanes idle (the larger on a
+// tie), and R = 512 / G (at most 8).  Either way V is doubled (to 8 at
+// most) while a row would need more than 512 threads.
+struct FwdShape {
+    int V, G, R;
+};
+int fwd_group(int nvec, int V) { return ((nvec + V - 1) / V + 31) / 32 * 32; }
+FwdShape fwd_shape(int rows, int d, int sms) {
+    const int nvec = d / 8;
+    const bool few = rows <= sms;
+    FwdShape f;
+    f.V = 1;
+    for (int v = 2; !few && v <= kFwdManyRowsVec; v *= 2)
+        if (fwd_group(nvec, v) * v <= fwd_group(nvec, f.V) * f.V) f.V = v;
+    while (f.V < 8 && fwd_group(nvec, f.V) > kFwdThreads) f.V *= 2;
+    f.G = fwd_group(nvec, f.V);
+    f.R = few ? 1 : kFwdThreads / f.G < kFwdMaxGroups ? kFwdThreads / f.G : kFwdMaxGroups;
+    f.R = f.R > 0 ? f.R : 1;
+    return f;
+}
+
 // threads a row: a power of two from 32 to 512 with G * kVec * 8 >= d
 int bwd_group(int d) {
     int g = 32;
@@ -292,15 +328,27 @@ int bwd_smem(int d) {
 
 }  // namespace
 
-// x, out: [rows, d] contiguous bf16; scale: [d] bf16; d % 8 == 0 and all
-// three pointers 16-byte aligned (the wrapper checks both).
+// x, out: [rows, d] contiguous bf16; scale: [d] bf16; d % 8 == 0,
+// d <= 32768 and all three pointers 16-byte aligned (the wrapper checks).
 extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
                             int rows, int d, float eps, void* stream) {
-    if (rows > 0) {
-        rmsnorm_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(scale),
-            static_cast<__nv_bfloat16*>(out), d, eps);
+    if (rows <= 0) return static_cast<int>(cudaGetLastError());
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const FwdShape f = fwd_shape(rows, d, sms);
+    if (f.G > kFwdThreads) return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = (rows + f.R - 1) / f.R, threads = f.R * f.G;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+    const __nv_bfloat16* sp = static_cast<const __nv_bfloat16*>(scale);
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+    switch (f.V) {
+        case 1: rmsnorm_kernel<1><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps); break;
+        case 2: rmsnorm_kernel<2><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps); break;
+        case 4: rmsnorm_kernel<4><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps); break;
+        default: rmsnorm_kernel<8><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -10,21 +10,18 @@ dk/dv pass splits each kv tile's GQA group over a cluster of blocks
 (`dkv_cluster_size`, `dkv_heads`) and sums their fp32 partials through
 distributed shared memory in a fixed order, so no per-head buffer is
 written and the same inputs give the same bits.  The dq pass is a persistent
-grid walking (q tile, pair of heads of a GQA group) items heavy-first, the
-pair sharing one K/V ring; the kernel numbers the items itself, and the card
-tests hold every head and tile against the plain version (rep 1, 3 and 16,
-S not a multiple of 64: tests/test_torch_cuda.py).
+grid walking work items heavy-first, each giving its two consumer
+warpgroups a 64-row q tile apiece, both reading one K/V ring: at rep >= 2 a
+tile of two query heads of a GQA group, at rep 1 (MHA) two adjacent tiles
+of one head.  The kernel numbers the items itself; `dq_items` mirrors that
+numbering, and the card tests hold every head and tile against the plain
+version (rep 1 with an odd number of q tiles, 3 and 16, S not a multiple of
+64: tests/test_torch_cuda.py).
 
-Head dim 80 (stablelm-3b): the forward and the dk/dv pass take it
-natively (a tile of 80 columns is a 64-column slab and a 16-column tail
-slab, each with its own swizzle: csrc/hopper_sm90.cuh), reading q, k, v,
-dO and the cache as they are.  The dq pass has no D 80 kernel: inside the
-dq pass, head dim 80 is zero-padded to 128 (`pad_head_dim`: q, k, v, out
-and dO), with the softmax scale of the unpadded head dim, and dq is the
-first 80 columns of the padded result.  The padding is exact: zero columns
-add nothing to Q K^T, dO V^T or rowsum(dO * O), so delta is unchanged and
-the padded columns of dq are zero.  `NATIVE_HEAD_DIMS` says which pass
-takes which head dim as it is.
+Head dim 80 (stablelm-3b): every pass takes each of `HEAD_DIMS` as it is.
+A tile of 80 columns is a 64-column slab and a 16-column tail slab, each
+with its own swizzle (csrc/hopper_sm90.cuh), so q, k, v, out, dO and the
+cache are read as they are, with no padded copy.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.
@@ -33,19 +30,14 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
 from .ref import attention_bwd_dkv_ref, attention_bwd_dq_ref, attention_with_lse_ref
 
-HEAD_DIMS = (32, 64, 80, 128)
-# the head dims each pass's kernel takes as they are; a pass zero-pads any
-# other head dim d of HEAD_DIMS to PADDED_HEAD_DIMS[d] (see the docstring)
-NATIVE_HEAD_DIMS = {"fwd": HEAD_DIMS, "dq": (32, 64, 128), "dkv": HEAD_DIMS}
-PADDED_HEAD_DIMS = {80: 128}
+HEAD_DIMS = (32, 64, 80, 128)      # every pass's kernel takes each of them
 _ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 8 + (
     _build.FLOAT, _build.PTR, _build.PTR)
 _BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 9 + (
@@ -53,7 +45,7 @@ _BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 9 + (
 _DKV_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 10 + (
     _build.FLOAT, _build.PTR, _build.PTR)
 DKV_CLUSTERS = (1, 2, 4, 8)
-_KV_TILE = 64               # kv rows of one dk/dv block (csrc/flash_attention_bwd.cu)
+_TILE = 64                  # rows of every tile of csrc/flash_attention_bwd.cu
 _SMS = 132                  # SMs of an H100 (and H200) SXM
 
 
@@ -78,6 +70,46 @@ def dkv_heads(rep: int, cluster: int, rank: int) -> range:
     return range(rank * rep // cluster, (rank + 1) * rep // cluster)
 
 
+class DqItem(NamedTuple):
+    """A dq work item: batch, its two warpgroups' (head, q tile) slots
+    (None: the warpgroup idles), and the kv tiles the item streams."""
+    b: int
+    slots: Tuple[Optional[Tuple[int, int]], Optional[Tuple[int, int]]]
+    n_tiles: int
+
+
+def dq_items(b: int, h: int, hkv: int, s: int, *, kv_len: Optional[int] = None,
+             q_offset: int = 0, causal: bool = True) -> List[DqItem]:
+    """The dq pass's work items in the kernel's order (`dq_item` in
+    csrc/flash_attention_bwd.cu numbers them the same way).  At rep = h /
+    hkv >= 2 an item is a q tile of two query heads of one GQA group (the
+    second slot empty for an odd group's last pair); at rep 1 two adjacent
+    q tiles of one head, paired from the last tile down (the first slot
+    empty for tile 0 when the number of tiles is odd).  Items with the most
+    kv tiles come first."""
+    rep, n_qt = h // hkv, -(-s // _TILE)
+    kv_len = s if kv_len is None else kv_len
+
+    def kv_tiles(q0: int) -> int:
+        end = min(kv_len, q_offset + min(q0 + _TILE, s)) if causal else kv_len
+        return -(-end // _TILE) if end > 0 else 0
+
+    tiles2 = rep == 1
+    n_pairs = 1 if tiles2 else (rep + 1) // 2
+    per = b * hkv * n_pairs
+    items = []
+    for w in range((n_qt + 1) // 2 * b * hkv if tiles2 else n_qt * per):
+        qt_last = n_qt - 1 - (2 if tiles2 else 1) * (w // per)
+        r = w % per
+        pair, hk, bb = r % n_pairs, (r // n_pairs) % hkv, r // (n_pairs * hkv)
+        slots = []
+        for wg in range(2):
+            hg, qt = (0, qt_last - 1 + wg) if tiles2 else (2 * pair + wg, qt_last)
+            slots.append((hk * rep + hg, qt) if hg < rep and qt >= 0 else None)
+        items.append(DqItem(bb, tuple(slots), kv_tiles(qt_last * _TILE)))
+    return items
+
+
 def _check(name: str, q, k, v, kv_len: int, q_offset: int) -> None:
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -89,12 +121,6 @@ def _check(name: str, q, k, v, kv_len: int, q_offset: int) -> None:
             f"{name}: unsupported shapes q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}, "
             f"q_offset {q_offset} (head dim must be one of {HEAD_DIMS})")
-
-
-def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
-    """`x` [..., D] with its last dim zero-padded to `d` columns (`x` itself
-    when D == d)."""
-    return x if x.shape[-1] == d else F.pad(x, (0, d - x.shape[-1]))
 
 
 def _check_like(name: str, x: torch.Tensor, shape, dtype, device) -> None:
@@ -174,12 +200,6 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_like("out", out, q.shape, torch.bfloat16, q.device)
     _check_like("do", do, q.shape, torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
-    if d not in NATIVE_HEAD_DIMS["dq"]:
-        dp = PADDED_HEAD_DIMS[d]
-        dq, delta = flash_attention_bwd_dq(*(pad_head_dim(x, dp) for x in (q, k, v, out, do)),
-                                           lse, scale=scale, causal=causal,
-                                           q_offset=q_offset, kv_len=kv_len)
-        return dq[..., :d], delta
     dq = _empty_like_heads(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd_dq_bf16", _BWD_ARGTYPES)
@@ -218,7 +238,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
     _check_like("delta", delta, (b, h, s), torch.float32, q.device)
     if cluster is None:
-        cluster = dkv_cluster_size(h // hkv, b * hkv * -(-t // _KV_TILE))
+        cluster = dkv_cluster_size(h // hkv, b * hkv * -(-t // _TILE))
     if cluster not in DKV_CLUSTERS:
         raise ValueError(f"flash_attention_bwd_dkv: cluster must be one of "
                          f"{DKV_CLUSTERS}, got {cluster}")
@@ -241,8 +261,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, scale: Optional[float] = None,
                         kv_len: Optional[int] = None):
     """(dq, dk, dv): the dq pass, then the dk/dv pass on its delta.  The
     counterpart of the JAX `flash_attention_bwd`, with the same argument
-    order; dk/dv come per kv head.  Each pass takes the unpadded tensors
-    (the dq pass pads a head dim it lacks itself)."""
+    order; dk/dv come per kv head."""
     kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)

@@ -19,6 +19,9 @@ from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 _ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
              _build.FLOAT, _build.PTR)
 _BWD_ARGTYPES = (_build.PTR,) * 7 + (_build.INT,) * 3 + (_build.FLOAT, _build.PTR)
+# the forward holds a row in the registers of at most 512 threads, at most
+# eight 16-byte vectors each
+MAX_D = 32768
 # the backward holds a row in the registers of at most 512 threads, two
 # 16-byte vectors of x and of dy each (the widest d_model of the configs)
 MAX_BWD_D = 8192
@@ -47,6 +50,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
     _build.require(x, "x", torch.bfloat16, x.device)
     _build.require(scale, "scale", torch.bfloat16, x.device)
     _check(x, scale, "rmsnorm")
+    if d > MAX_D:
+        raise ValueError(f"rmsnorm: D <= {MAX_D}; got {d}")
     out = torch.empty_like(x)
     fn = _build.function("rmsnorm_bf16", _ARGTYPES)
     rc = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d,

@@ -52,7 +52,11 @@ def _close(a, b, **tol):
                                b.detach().float().cpu().numpy(), **tol)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (4, 32, 128), (3, 4096), (2048, 4096)])
+@pytest.mark.parametrize("shape", [(8, 128), (4, 32, 128), (3, 4096), (2048, 4096),
+                                   (4, 768), (4, 2560), (4096, 4096),
+                                   (1061, 4096),     # not a multiple of the persistent grid
+                                   (333, 136), (5, 8192), (3, 16384), (300, 16384),
+                                   (2, 32768), (7, 8)])
 def test_rmsnorm_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(0)
     x = _rand(rng, shape, dev, 3.0)
@@ -154,6 +158,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     wide = torch.ones(2, 16384, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):           # the backward holds a row in registers
         rmsnorm_bwd(wide, wide[0], wide)
+    wider = torch.ones(2, 32776, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):           # and the forward too
+        rmsnorm(wider, wider[0])
     q = torch.randn(1, 2, 16, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q)          # head dim 48 has no kernel
@@ -216,6 +223,11 @@ def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
     (2, 4, 4, 100, 100, 128, 0, 100, True),    # MHA (rep 1), S = 100
     (1, 4, 2, 200, 200, 32, 0, 200, True),     # D 32, S = 200
     (2, 6, 2, 100, 256, 64, 40, 140, True),    # kv_len < T, q_offset 40
+    (2, 4, 4, 130, 130, 80, 0, 130, True),     # rep 1, D 80, 3 q tiles: a lone tile
+    (2, 4, 4, 130, 130, 128, 0, 130, True),    # rep 1, D 128, 3 q tiles
+    (2, 6, 6, 130, 300, 80, 40, 170, True),    # rep 1, D 80, offset into a longer cache
+    (1, 4, 4, 320, 320, 80, 0, 320, False),    # rep 1, D 80, full attention, 5 q tiles
+    (2, 8, 2, 100, 256, 80, 40, 140, True),    # rep 4, D 80, kv_len < T
 ])
 def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(6)
@@ -249,22 +261,27 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len
 ])
 def test_flash_kernels_at_head_dim_80_match_plain(dev, monkeypatch, b, h, hkv, s, t, q_offset,
                                                   kv_len):
-    """Head dim 80 (stablelm-3b): the forward and dk/dv kernels take it as
-    it is (their entry points have D 80 instances, and the wrappers make no
-    padded copy); the dq pass pads to 128 and slices.  The three passes
-    against the plain versions at D 80, one launch each, with the softmax
-    scale of D 80."""
+    """Head dim 80 (stablelm-3b): the forward, dq and dk/dv kernels take it
+    as it is (their entry points have D 80 instances, and each wrapper
+    hands its kernel head dim 80 and the caller's q, no padded copy).  The
+    three passes against the plain versions at D 80, one launch each, with
+    the softmax scale of D 80."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import kernel as fk
 
     smem = {p: _build.function(f"flash_attention_{p}_smem_bytes", (_build.INT,))(80)
             for p in ("fwd", "bwd_dq", "bwd_dkv")}
-    assert smem["fwd"] > 0 and smem["bwd_dkv"] > 0 and smem["bwd_dq"] == 0
-    assert 80 in fk.NATIVE_HEAD_DIMS["fwd"] and 80 in fk.NATIVE_HEAD_DIMS["dkv"]
-    assert 80 not in fk.NATIVE_HEAD_DIMS["dq"]
-    padded = []
-    pad = fk.pad_head_dim
-    monkeypatch.setattr(fk, "pad_head_dim", lambda x, d: padded.append(x) or pad(x, d))
+    assert all(v > 0 for v in smem.values())
+    calls = []                          # (entry, q pointer, head dim) of each kernel call
+    function = _build.function
+
+    def recording(entry, argtypes):
+        fn = function(entry, argtypes)
+
+        def call(*args):
+            calls.append((entry, args[0], args[9 if entry.endswith("fwd_bf16") else 13]))
+            return fn(*args)
+        return call
+    monkeypatch.setattr(_build, "function", recording)
     rng = np.random.default_rng(19)
     q = _rand(rng, (b, s, h, 80), dev).transpose(1, 2)
     k = _rand(rng, (b, t, hkv, 80), dev).transpose(1, 2)
@@ -274,13 +291,12 @@ def test_flash_kernels_at_head_dim_80_match_plain(dev, monkeypatch, b, h, hkv, s
     before = [w.launches for w in (flash_attention_fwd, flash_attention_bwd_dq,
                                    flash_attention_bwd_dkv)]
     out, lse = flash_attention_fwd(q, k, v, **kw)
-    assert not padded
     dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, **kw)
-    assert len(padded) == 5                 # q, k, v, out, dO: the dq pass alone
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    assert len(padded) == 5
     assert [w.launches for w in (flash_attention_fwd, flash_attention_bwd_dq,
                                  flash_attention_bwd_dkv)] == [n + 1 for n in before]
+    assert [(e, ptr, d) for e, ptr, d in calls] == [
+        (f"flash_attention_{p}_bf16", q.data_ptr(), 80) for p in ("fwd", "bwd_dq", "bwd_dkv")]
     assert out.shape == dq.shape == q.shape and dk.shape == dv.shape == k.shape
     ref, ref_lse = attention_with_lse_ref(q, k, v, **kw)
     rq, rdelta = attention_bwd_dq_ref(q, k, v, out, do, lse, **kw)
@@ -344,11 +360,13 @@ def test_flash_dkv_kernel_is_bitwise_repeatable(dev, d, h, hkv, cluster):
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
-def test_flash_dq_kernel_is_bitwise_repeatable(dev):
+@pytest.mark.parametrize("d,hkv", [(128, 2), (80, 32)])     # chatglm3-6b's GQA, stablelm-3b's MHA
+def test_flash_dq_kernel_is_bitwise_repeatable(dev, d, hkv):
     """The dq pass writes each dq row from one warpgroup's registers, with no
-    atomics: the same inputs give the same bits, and the same delta."""
+    atomics: the same inputs give the same bits, and the same delta (at rep
+    1 the two warpgroups of a block take two q tiles of one head)."""
     rng = np.random.default_rng(14)
-    b, h, hkv, s, d = 8, 32, 2, 512, 128
+    b, h, s = 8, 32, 512
     q = _rand(rng, (b, s, h, d), dev).transpose(1, 2)
     k = _rand(rng, (b, s, hkv, d), dev).transpose(1, 2)
     v = _rand(rng, (b, s, hkv, d), dev).transpose(1, 2)

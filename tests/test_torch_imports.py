@@ -263,17 +263,18 @@ def test_autograd_op_runs_the_kernels_forward_and_backward(name, fake_kernels,
         assert getattr(importlib.import_module(WRAPPERS[w][0]), w).launches == before[w] + 1
 
 
-# head dim 80: the forward and the dk/dv pass hand their kernels the caller's
-# tensors at D 80; the dq pass alone pads, to PADDED_HEAD_DIMS[80]
+# head dim 80: every flash pass hands its kernel the caller's tensors at D 80
 _HEAD_DIM_ARG = {"flash_attention_fwd_bf16": 9, "flash_attention_bwd_dq_bf16": 13,
                  "flash_attention_bwd_dkv_bf16": 13}
 
 
-@pytest.mark.parametrize("name,native", [("flash_attention_fwd", True),
-                                         ("flash_attention_bwd_dq", False),
-                                         ("flash_attention_bwd_dkv", True)])
-def test_head_dim_80_is_padded_by_the_dq_pass_alone(name, native, monkeypatch):
-    from repro_torch.kernels.flash_attention.kernel import NATIVE_HEAD_DIMS, PADDED_HEAD_DIMS
+@pytest.mark.parametrize("name", ["flash_attention_fwd", "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv"])
+def test_head_dim_80_is_padded_by_the_dq_pass_alone(name, monkeypatch):
+    """Every flash pass hands its kernel D 80 as it is, the dq pass too
+    (the name dates from when the dq pass alone padded it to 128): one
+    kernel call, head dim 80, and the caller's q, not a padded copy."""
+    from repro_torch.kernels.flash_attention import kernel as fk
 
     calls = []
 
@@ -287,11 +288,8 @@ def test_head_dim_80_is_padded_by_the_dq_pass_alone(name, native, monkeypatch):
     args, kw = _args(name, d=80)
     getattr(importlib.import_module(_FLASH), name)(*args, **kw)
     [(entry, cargs)] = calls
-    want = 80 if native else PADDED_HEAD_DIMS[80]
-    assert cargs[_HEAD_DIM_ARG[entry]] == want
-    assert (80 in NATIVE_HEAD_DIMS[name.rsplit("_", 1)[-1]]) == native
-    # native: q's own memory reaches the kernel, no padded copy of it
-    assert (cargs[0] == args[0].data_ptr()) == native
+    assert 80 in fk.HEAD_DIMS and cargs[_HEAD_DIM_ARG[entry]] == 80
+    assert cargs[0] == args[0].data_ptr()
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,12 @@ against the JAX package, on the CPU.
   in interpret mode at D = 80 (S a multiple of the Pallas block), against
   the port's plain versions, at tests/test_kernels.py's tolerances (TOL for
   fp32, TOL_BF16 for bf16).
-* The padding the dq pass's CUDA wrapper applies at D = 80 (`pad_head_dim`,
-  to 128 columns, with the softmax scale of D = 80), on the plain versions:
-  the forward's out and lse, and the backward's dq, delta, dk and dv equal
-  the unpadded ones to fp32 rounding (1e-6), and every padded column is 0;
-  and `flash_attention_bwd` on CPU tensors at D = 80 is the plain backward
-  of the unpadded attention (the forward and dk/dv take D = 80 natively on
-  the card).
+* The dq pass's work items (`dq_items`, the mirror of the kernel's
+  numbering, which at rep 1 gives each of a block's two warpgroups one of
+  two adjacent q tiles of a head): every (batch, head, q tile) once, the
+  items with the most kv tiles first; and `flash_attention_bwd` on CPU
+  tensors at D = 80 is the plain backward of the attention (every pass
+  takes D = 80 natively on the card).
 * Reduced stablelm-3b with `reduced(d_head=80)` on both sides (4 layers, d
   128, 4 heads of 80, LayerNorm, quarter rotary), weights from JAX
   `init_model(cfg, PRNGKey(0))` carried across with `from_jax_params`: the
@@ -48,8 +47,7 @@ from repro_torch.kernels.decode_attention.kernel import (CLUSTERS, HEAD_DIMS as 
                                                          cluster_size, head_chunks)
 from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref, attention_bwd_dq_ref,
                                                  attention_bwd_ref, attention_with_lse_ref)
-from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, PADDED_HEAD_DIMS,
-                                                        pad_head_dim)
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, dq_items
 from repro_torch.models import decode_step, init_cache, loss_fn, prefill
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -85,7 +83,6 @@ def test_stablelm_config_is_jax_and_its_head_dim_is_taken():
     assert tc.head_dim == jc.head_dim == 80
     assert asdict(tc.reduced(d_head=80)) == asdict(jc.reduced(d_head=80))
     assert 80 in HEAD_DIMS and 80 in DECODE_DIMS and 48 not in HEAD_DIMS
-    assert PADDED_HEAD_DIMS[80] in HEAD_DIMS and PADDED_HEAD_DIMS[80] not in PADDED_HEAD_DIMS
 
 
 @pytest.mark.parametrize("items,want", [(8, 8), (128, 1), (132, 1), (16, 4), (33, 2), (1, 8)])
@@ -143,35 +140,50 @@ def test_pallas_decode_at_d80_matches_plain(b, h, hkv, t, bkv, dt):
 
 
 # ---------------------------------------------------------------------------
-# the wrappers' padding, on the plain versions
+# the dq pass's work items, and the backward at D = 80 on the plain versions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,h,hkv,s,t,q_offset,kv_len", [
-    (2, 4, 4, 48, 48, 0, 48),       # MHA, as stablelm-3b
-    (1, 6, 2, 20, 64, 30, 50),      # GQA, q_offset, kv_len < T
+@pytest.mark.parametrize("rep", [1, 2, 3, 16])
+@pytest.mark.parametrize("b,s,q_offset,kv_len,causal", [
+    (2, 256, 0, None, True),        # 4 q tiles
+    (2, 130, 0, None, True),        # 3 q tiles: at rep 1 one item holds a lone tile
+    (1, 200, 40, 230, True),        # an offset into a longer cache, kv_len < offset + S
+    (1, 330, 0, None, False),       # full attention, 6 q tiles
 ])
-def test_padding_head_dim_80_to_128_is_exact(b, h, hkv, s, t, q_offset, kv_len):
-    """Zero columns add nothing to Q K^T, dO V^T or rowsum(dO * O): with the
-    scale of D = 80, the padded forward and backward give the unpadded
-    results in their first 80 columns and zeros in the rest."""
-    g = torch.Generator().manual_seed(32)
-    q, do = (torch.randn(b, h, s, 80, generator=g) for _ in range(2))
-    k, v = (torch.randn(b, hkv, t, 80, generator=g) for _ in range(2))
-    dp, scale = PADDED_HEAD_DIMS[80], 1.0 / math.sqrt(80)
-    kw = dict(q_offset=q_offset, kv_len=kv_len)
-    qp, kp, vp, dop = (pad_head_dim(x, dp) for x in (q, k, v, do))
-    assert qp.shape[-1] == 128 and pad_head_dim(q, 80) is q
-    out, lse = attention_with_lse_ref(q, k, v, scale, **kw)
-    outp, lsep = attention_with_lse_ref(qp, kp, vp, scale, **kw)
-    dq, delta = attention_bwd_dq_ref(q, k, v, out, do, lse, scale, **kw)
-    dqp, deltap = attention_bwd_dq_ref(qp, kp, vp, outp, dop, lsep, scale, **kw)
-    dk, dv = attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale, **kw)
-    dkp, dvp = attention_bwd_dkv_ref(qp, kp, vp, dop, lsep, deltap, scale, **kw)
-    for small, padded in ((out, outp), (dq, dqp), (dk, dkp), (dv, dvp)):
-        torch.testing.assert_close(padded[..., :80], small, rtol=1e-6, atol=1e-6)
-        assert not padded[..., 80:].any()
-    torch.testing.assert_close(lsep, lse, rtol=1e-6, atol=1e-6)
-    torch.testing.assert_close(deltap, delta, rtol=1e-6, atol=1e-6)
+def test_dq_items_cover_every_head_and_tile_heavy_first(rep, b, s, q_offset, kv_len, causal):
+    """`dq_items` (the kernel's numbering of the dq work items): every
+    (batch, head, q tile) appears in exactly one slot; at rep 1 an item's
+    slots are adjacent tiles of one head (the lone tile 0 of an odd tile
+    count in the second slot); at rep >= 2 one tile of two neighbouring
+    heads of one GQA group; each item streams exactly the kv tiles its
+    slots' rows see; and n_tiles never increases along the order."""
+    hkv = 2 if rep < 16 else 1
+    h, n_qt = rep * hkv, -(-s // 64)
+    kv_len_ = s if kv_len is None else kv_len
+    items = dq_items(b, h, hkv, s, kv_len=kv_len, q_offset=q_offset, causal=causal)
+
+    def kv_tiles(qt):                   # the kv tiles rows [64 qt, 64 qt + 64) see
+        end = min(kv_len_, q_offset + min(64 * qt + 64, s)) if causal else kv_len_
+        return -(-end // 64)
+
+    seen = [(it.b, *slot) for it in items for slot in it.slots if slot is not None]
+    assert sorted(seen) == [(bb, hh, qt) for bb in range(b) for hh in range(h)
+                            for qt in range(n_qt)]
+    for it in items:
+        first, second = it.slots
+        if rep == 1 and first is None:
+            assert second[1] == 0 and n_qt % 2
+        elif rep == 1:
+            assert first[0] == second[0] and first[1] + 1 == second[1]
+        elif second is not None:
+            assert (second[0], second[1]) == (first[0] + 1, first[1])
+            assert second[0] // rep == first[0] // rep
+        assert it.n_tiles == max(kv_tiles(slot[1]) for slot in it.slots if slot is not None)
+    assert all(a.n_tiles >= z.n_tiles for a, z in zip(items, items[1:]))
+    # at rep 1 a warpgroup idles in at most one item per (batch, head)
+    idle = [it for it in items if None in it.slots]
+    assert len(idle) == (b * h * (n_qt % 2) if rep == 1 else
+                         b * hkv * n_qt * (rep % 2))
 
 
 @pytest.mark.parametrize("b,h,hkv,s,t,q_offset,kv_len", [
@@ -180,10 +192,10 @@ def test_padding_head_dim_80_to_128_is_exact(b, h, hkv, s, t, q_offset, kv_len):
 ])
 def test_flash_backward_at_head_dim_80_on_cpu_is_the_unpadded_plain_backward(
         b, h, hkv, s, t, q_offset, kv_len):
-    """`flash_attention_bwd` on CPU tensors at D = 80 (the card pads only
-    inside its dq pass) is the plain backward of the unpadded attention:
-    the same values as `attention_bwd_ref`, and autograd's gradient of the
-    plain forward in fp32 (1e-5)."""
+    """`flash_attention_bwd` on CPU tensors at D = 80 (on the card every
+    pass takes D = 80 as it is) is the plain backward of the attention, of
+    80 columns: the same values as `attention_bwd_ref`, and autograd's
+    gradient of the plain forward in fp32 (1e-5)."""
     g = torch.Generator().manual_seed(33)
     q, do = (torch.randn(b, h, s, 80, generator=g) for _ in range(2))
     k, v = (torch.randn(b, hkv, t, 80, generator=g) for _ in range(2))

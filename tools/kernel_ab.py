@@ -4,7 +4,7 @@ prefill-vs-decode cross-check.
 
     python3 tools/kernel_ab.py [--src DIR]                    # timings
     python3 tools/kernel_ab.py [--src DIR] --ssm-cross-check  # the cross-check
-    python3 tools/kernel_ab.py [--src DIR] --head-dim-80      # D 80 flash passes only
+    python3 tools/kernel_ab.py [--src DIR] --groups G [G ...] # some of GROUPS only
     python3 tools/kernel_ab.py [--src DIR] --make-control OUT # no card needed
     python3 tools/kernel_ab.py [--src DIR] --make-variant NAME OUT   # no card needed
 
@@ -14,19 +14,24 @@ this one, can be timed in turns in one call: each builds its own kernels
 into its own `build/`.  The inputs, timer and accuracy measures are
 `chip_smoke.py`'s, at its shapes:
 
-* the chatglm3-6b train step's attention (B 8, H 32, Hkv 2, S 512, D 128,
-  causal): the dq pass, the whole flash backward (dq, then dk/dv) and SDPA's
-  backward;
-* stablelm-3b's head dim 80 (H 32, MHA, S 512, causal): the forward at the
-  serve prefill (B 4, k and v read from the 1024-row cache) and the train
-  step (B 8), and at the train step the dq and dk/dv passes and the whole
-  backward, as the tree's wrappers take D 80 (padded, or native);
-* decode attention at the serve runs' lengths (513-576 of a 1024-row cache):
+* `flash128`: the chatglm3-6b train step's attention (B 8, H 32, Hkv 2, S
+  512, D 128, causal): the dq pass, the whole flash backward (dq, then
+  dk/dv) and SDPA's backward; and the dq pass at rep 1 (H 32 = Hkv) of the
+  same shape;
+* `head_dim_80`: stablelm-3b's head dim 80 (H 32, MHA, S 512, causal): the
+  forward at the serve prefill (B 4, k and v read from the 1024-row cache)
+  and the train step (B 8), and at the train step the dq and dk/dv passes
+  and the whole backward, as the tree's wrappers take D 80 (padded, or
+  native), each checked against its plain version;
+* `rmsnorm`: the RMSNorm forward at the serve prefill's [2048, 4096], the
+  train step's [4096, 4096] and the decode steps' [4, 4096] and [4, 768],
+  each checked against its plain version at `chip_smoke.TOL_RMSNORM`, and
+  the RMSNorm backward at the train step's [4096, 4096];
+* `decode`: decode attention at the serve runs' lengths (513-576 of a 1024-row cache):
   chatglm3-6b's B 4, H 32, Hkv 2, D 128 and, where the tree takes head dim
   80, stablelm-3b's B 4, H 32, Hkv 32, D 80; at every cluster size where
   the tree's wrapper takes one;
-* the RMSNorm backward at the train step's [4096, 4096];
-* the mamba2-130m prefill's SSD scan (4 x 8192 tokens, x/B/C strided as the
+* `ssd`: the mamba2-130m prefill's SSD scan (4 x 8192 tokens, x/B/C strided as the
   model passes them, zero state), with the largest error of y and of the
   final state against the plain version, and the relative L2 error of the
   kernel and of the plain version against the fp64 recurrence, with whether
@@ -40,7 +45,7 @@ max |diff| over max |logit|.  `--make-control OUT` writes a copy of the
 tree's `src` to OUT whose split bf16 operands drop every lo term (hi
 rounded to nearest: plain bf16 operands), the control that the split is
 measured against.  `--make-variant NAME OUT` writes a copy with one of the
-`VARIANTS` of the flash kernels' head dim 80 design.  The card's name and
+`VARIANTS`, another design of one kernel.  The card's name and
 power limit come first; then one JSON line.
 """
 from __future__ import annotations
@@ -67,13 +72,18 @@ DROP_LO = ("\n    {   // control: plain bf16 operands, every lo term dropped\n"
            "        lo = 0u;\n"
            "        return;\n"
            "    }")
-# Alternatives to the head dim 80 design of the flash kernels, each one edit
-# of one source (file under csrc/, text, replacement):
+# Alternatives to a kernel's design, each one edit of one source (file
+# under csrc/, text, replacement):
 # * sw32: a D 80 tile as five 16-column slabs, all 32-byte swizzled (five
 #   TMA boxes a tile, one m64n80k16 product), in place of a 128-byte
 #   swizzled 64-column slab and a 32-byte swizzled 16-column tail;
 # * dkv-two-blocks: the dk/dv kernel at D 80 compiled for two blocks an SM
-#   (ptxas then caps it at 168 registers, and it spills).
+#   (ptxas then caps it at 168 registers, and it spills);
+# * dq-head-pairs: the dq pass's items at rep 1 as at rep >= 2, one q tile
+#   of a pair of heads, so at rep 1 the second warpgroup idles;
+# * rms-one-vector, rms-two-vectors, rms-eight-vectors: the RMSNorm forward
+#   at many rows with one, two or eight 16-byte vectors a thread (512, 256
+#   or 64 threads a row at d 4096) in place of four.
 VARIANTS = {
     "sw32": ("hopper_sm90.cuh",
              "static constexpr int SW = D * 2 < 128 ? D * 2 : 128;",
@@ -82,7 +92,17 @@ VARIANTS = {
                        "__launch_bounds__(kDkvThreads, 1)\n    flash_bwd_dkv_kernel(",
                        "__launch_bounds__(kDkvThreads, D == 80 ? 2 : 1)\n"
                        "    flash_bwd_dkv_kernel("),
+    "dq-head-pairs": ("flash_attention_bwd.cu",
+                      "bool dq_tile_pairs(int rep) { return rep == 1; }",
+                      "bool dq_tile_pairs(int rep) { return rep < 0; }"),
+    "rms-one-vector": ("rmsnorm.cu", "constexpr int kFwdManyRowsVec = 4;",
+                       "constexpr int kFwdManyRowsVec = 1;"),
+    "rms-two-vectors": ("rmsnorm.cu", "constexpr int kFwdManyRowsVec = 4;",
+                        "constexpr int kFwdManyRowsVec = 2;"),
+    "rms-eight-vectors": ("rmsnorm.cu", "constexpr int kFwdManyRowsVec = 4;",
+                          "constexpr int kFwdManyRowsVec = 8;"),
 }
+GROUPS = ("flash128", "head_dim_80", "rmsnorm", "decode", "ssd")
 
 
 def copy_with_edit(src: str, out: str, source: str, text: str, replacement: str) -> None:
@@ -126,13 +146,16 @@ def ssm_cross_check(dev) -> dict:
                                                and torch.isfinite(step).all())}}
 
 
-def timings(dev, head_dim_80_only: bool = False) -> dict:
+def timings(dev, groups=GROUPS) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import (decode_attention, flash_attention_bwd,
                                      flash_attention_bwd_dkv, flash_attention_bwd_dq,
-                                     flash_attention_fwd, rmsnorm_bwd, ssd_scan, ssd_scan_ref)
+                                     flash_attention_fwd, rmsnorm, rmsnorm_bwd, rmsnorm_ref,
+                                     ssd_scan, ssd_scan_ref)
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
-    from repro_torch.kernels.flash_attention import attention_bwd_dkv_ref, attention_with_lse_ref
+    from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
+                                                     attention_bwd_dq_ref,
+                                                     attention_with_lse_ref)
 
     rng = np.random.default_rng(cs.SEED)
     randn = cs.bf16_normal(rng, dev)
@@ -142,86 +165,105 @@ def timings(dev, head_dim_80_only: bool = False) -> dict:
         scratch.sum()
 
     res = {}
-    if not head_dim_80_only:
-        q, k, v, do = cs.flash_bwd_inputs(randn, cs.TRAIN_B, cs.TRAIN_S, 32, 2, 128)
-        out, lse = flash_attention_fwd(q, k, v)
-        res["dq_ms"] = cs.time_ms(lambda: flash_attention_bwd_dq(q, k, v, out, do, lse), flush)
-        res["dq_dkv_ms"] = cs.time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do),
-                                      flush)
-        res["sdpa_bwd_ms"] = cs.time_ms(cs.sdpa_backward(q, k, v, do), flush)
-        del q, k, v, do, out, lse
+    if "flash128" in groups:
+        for name, hkv in (("", 2), ("_mha", 32)):
+            q, k, v, do = cs.flash_bwd_inputs(randn, cs.TRAIN_B, cs.TRAIN_S, 32, hkv, 128)
+            out, lse = flash_attention_fwd(q, k, v)
+            res[f"dq{name}_ms"] = cs.time_ms(
+                lambda: flash_attention_bwd_dq(q, k, v, out, do, lse), flush)
+            if not name:
+                res["dq_dkv_ms"] = cs.time_ms(
+                    lambda: flash_attention_bwd(q, k, v, out, lse, do), flush)
+                res["sdpa_bwd_ms"] = cs.time_ms(cs.sdpa_backward(q, k, v, do), flush)
+            del q, k, v, do, out, lse
 
     # stablelm-3b's head dim 80 (MHA, 32 heads): the forward at the serve
     # prefill (k, v views of the 1024-row cache, kv_len 512) and train
     # shapes, and the dq, dk/dv and whole backward passes at the train shape,
     # whichever way the tree's wrappers take D 80 (padded or native)
-    xrandn = cs.bf16_normal(np.random.default_rng(cs.SEED + 7), dev)
-    s, h = cs.TRAIN_S, 32
-    for what, bb, t80 in (("serve", cs.BATCH, cs.MAX_LEN), ("train", cs.TRAIN_B, s)):
-        q8 = xrandn(bb, s, h, 80).transpose(1, 2)
-        k8, v8 = (xrandn(bb, t80, h, 80).transpose(1, 2) for _ in range(2))
-        res[f"fwd80_{what}_ms"] = cs.time_ms(
-            lambda q8=q8, k8=k8, v8=v8: flash_attention_fwd(q8, k8, v8, kv_len=s), flush)
-    q8, k8, v8, do8 = cs.flash_bwd_inputs(xrandn, cs.TRAIN_B, s, h, h, 80)
-    out8, lse8 = flash_attention_fwd(q8, k8, v8)
-    _, delta8 = flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8)
-    res["dq80_ms"] = cs.time_ms(lambda: flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8),
-                                flush)
-    res["dkv80_ms"] = cs.time_ms(
-        lambda: flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8), flush)
-    res["bwd80_ms"] = cs.time_ms(lambda: flash_attention_bwd(q8, k8, v8, out8, lse8, do8),
-                                 flush)
-    # the forward and dk/dv at the train shape against their plain versions
-    # (> 0: out of chip_smoke.py's tolerance), so a variant is timed only
-    # where it is right
-    ref8, rlse8 = attention_with_lse_ref(q8, k8, v8, q_offset=0)
-    dk8, dv8 = flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8)
-    rk8, rv8 = attention_bwd_dkv_ref(q8, k8, v8, do8, lse8, delta8, q_offset=0)
-    res["head_dim_80_excess_at_tol"] = {
-        "fwd": max(cs.excess(out8, ref8, cs.TOL_BF16), cs.excess(lse8, rlse8, cs.TOL_LSE)),
-        "dkv": max(cs.excess(dk8, rk8, cs.TOL_BF16), cs.excess(dv8, rv8, cs.TOL_BF16))}
-    del q8, k8, v8, do8, out8, lse8, delta8, ref8, rlse8, dk8, dv8, rk8, rv8
-    if head_dim_80_only:
-        return res
+    if "head_dim_80" in groups:
+        xrandn = cs.bf16_normal(np.random.default_rng(cs.SEED + 7), dev)
+        s, h = cs.TRAIN_S, 32
+        for what, bb, t80 in (("serve", cs.BATCH, cs.MAX_LEN), ("train", cs.TRAIN_B, s)):
+            q8 = xrandn(bb, s, h, 80).transpose(1, 2)
+            k8, v8 = (xrandn(bb, t80, h, 80).transpose(1, 2) for _ in range(2))
+            res[f"fwd80_{what}_ms"] = cs.time_ms(
+                lambda q8=q8, k8=k8, v8=v8: flash_attention_fwd(q8, k8, v8, kv_len=s), flush)
+        q8, k8, v8, do8 = cs.flash_bwd_inputs(xrandn, cs.TRAIN_B, s, h, h, 80)
+        out8, lse8 = flash_attention_fwd(q8, k8, v8)
+        dq8, delta8 = flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8)
+        res["dq80_ms"] = cs.time_ms(
+            lambda: flash_attention_bwd_dq(q8, k8, v8, out8, do8, lse8), flush)
+        res["dkv80_ms"] = cs.time_ms(
+            lambda: flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8), flush)
+        res["bwd80_ms"] = cs.time_ms(
+            lambda: flash_attention_bwd(q8, k8, v8, out8, lse8, do8), flush)
+        # each pass at the train shape against its plain version (> 0: out of
+        # chip_smoke.py's tolerance), so a variant is timed only where it is
+        # right
+        ref8, rlse8 = attention_with_lse_ref(q8, k8, v8, q_offset=0)
+        rq8, rdelta8 = attention_bwd_dq_ref(q8, k8, v8, out8, do8, lse8, q_offset=0)
+        dk8, dv8 = flash_attention_bwd_dkv(q8, k8, v8, do8, lse8, delta8)
+        rk8, rv8 = attention_bwd_dkv_ref(q8, k8, v8, do8, lse8, delta8, q_offset=0)
+        res["head_dim_80_excess_at_tol"] = {
+            "fwd": max(cs.excess(out8, ref8, cs.TOL_BF16), cs.excess(lse8, rlse8, cs.TOL_LSE)),
+            "dq": max(cs.excess(dq8, rq8, cs.TOL_BF16),
+                      cs.excess(delta8, rdelta8, cs.TOL_LSE)),
+            "dkv": max(cs.excess(dk8, rk8, cs.TOL_BF16), cs.excess(dv8, rv8, cs.TOL_BF16))}
+        del q8, k8, v8, do8, out8, lse8, dq8, delta8, ref8, rlse8, rq8, rdelta8
+        del dk8, dv8, rk8, rv8
 
-    lens = torch.from_numpy(np.random.default_rng(cs.SEED + 10).integers(
-        cs.SERVE_LENGTHS[0], cs.SERVE_LENGTHS[1] + 1, size=cs.BATCH).astype(np.int32)).to(dev)
-    for name, d, hkv in (("chatglm3_6b", 128, 2), ("stablelm_3b", 80, 32)):
-        if d not in decode_kernel.HEAD_DIMS:        # an earlier tree
-            res[f"decode_{name}_ms"] = None
-            continue
-        qd = randn(cs.BATCH, 32, d)
-        kd, vd = (randn(cs.BATCH, cs.MAX_LEN, hkv, d) for _ in range(2))
-        res[f"decode_{name}_ms"] = cs.time_ms(lambda: decode_attention(qd, kd, vd, lens), flush)
-        if hasattr(decode_kernel, "CLUSTERS"):      # every cluster size the tree takes
-            res[f"decode_{name}_cluster_ms"] = {
-                str(c): cs.time_ms(lambda c=c: decode_attention(qd, kd, vd, lens, cluster=c),
-                                   flush) for c in decode_kernel.CLUSTERS}
-    res["decode_lengths"] = lens.tolist()
-    del qd, kd, vd
+    if "rmsnorm" in groups:
+        nrng = cs.bf16_normal(np.random.default_rng(cs.SEED + 11), dev)
+        for rows, d in ((cs.BATCH * cs.PROMPT, 4096), (cs.TRAIN_B * cs.TRAIN_S, 4096),
+                        (cs.BATCH, 4096), (cs.BATCH, 768)):
+            x, sc = nrng(rows, d, scale=3.0), 1.0 + 0.1 * nrng(d)
+            res[f"rmsnorm_{rows}x{d}"] = {
+                "ms": cs.time_ms(lambda x=x, sc=sc: rmsnorm(x, sc), flush),
+                "excess_at_tol": cs.excess(rmsnorm(x, sc), rmsnorm_ref(x, sc),
+                                           cs.TOL_RMSNORM)}
+        x, dy = randn(cs.TRAIN_B * cs.TRAIN_S, 4096, scale=3.0), randn(cs.TRAIN_B * cs.TRAIN_S,
+                                                                       4096)
+        sc = 1.0 + 0.1 * randn(4096)
+        res["rmsnorm_bwd_ms"] = cs.time_ms(lambda: rmsnorm_bwd(x, sc, dy), flush)
+        del x, dy
 
-    x, dy = randn(cs.TRAIN_B * cs.TRAIN_S, 4096, scale=3.0), randn(cs.TRAIN_B * cs.TRAIN_S, 4096)
-    sc = 1.0 + 0.1 * randn(4096)
-    res["rmsnorm_bwd_ms"] = cs.time_ms(lambda: rmsnorm_bwd(x, sc, dy), flush)
-    del x, dy
+    if "decode" in groups:
+        lens = torch.from_numpy(np.random.default_rng(cs.SEED + 10).integers(
+            cs.SERVE_LENGTHS[0], cs.SERVE_LENGTHS[1] + 1, size=cs.BATCH).astype(np.int32)).to(dev)
+        for name, d, hkv in (("chatglm3_6b", 128, 2), ("stablelm_3b", 80, 32)):
+            if d not in decode_kernel.HEAD_DIMS:        # an earlier tree
+                res[f"decode_{name}_ms"] = None
+                continue
+            qd = randn(cs.BATCH, 32, d)
+            kd, vd = (randn(cs.BATCH, cs.MAX_LEN, hkv, d) for _ in range(2))
+            res[f"decode_{name}_ms"] = cs.time_ms(lambda: decode_attention(qd, kd, vd, lens),
+                                                  flush)
+            if hasattr(decode_kernel, "CLUSTERS"):      # every cluster size the tree takes
+                res[f"decode_{name}_cluster_ms"] = {
+                    str(c): cs.time_ms(lambda c=c: decode_attention(qd, kd, vd, lens, cluster=c),
+                                       flush) for c in decode_kernel.CLUSTERS}
+            del qd, kd, vd
+        res["decode_lengths"] = lens.tolist()
 
-    scfg = get_config(cs.SSM_ARCH)
-    ps, ns = scfg.ssm.head_dim, scfg.ssm.d_state
-    hs = scfg.ssm.expand * scfg.d_model // ps
-    with torch.inference_mode():
-        for name, sl, sc0 in (("serve", cs.SSM_PROMPT, 0.0), ("tail", cs.SSM_PROMPT + 1, 0.3)):
-            sargs, h0 = cs.ssd_inputs(randn, rng, dev, cs.BATCH, sl, hs, ps, ns, sc0)
-            (y, hf), (ry, rh) = (ssd_scan(*sargs, h0=h0),
-                                 ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0))
-            rel = cs.ssd_rel_errors(sargs, h0, {"kernel": (y, hf), "plain": (ry, rh)})
-            res[f"ssd_{name}"] = {
-                "y_max_abs_err": float((y - ry).abs().max()),
-                "h_final_max_abs_err": float((hf - rh).abs().max()),
-                "rel_l2_vs_fp64": rel,
-                "over_tol_rel_l2": max(rel["kernel"].values()) > cs.TOL_SSD_REL_L2}
-            if name == "serve":
-                res["ssd_ms"] = cs.time_ms(lambda: ssd_scan(*sargs, h0=h0), flush)
-            del sargs, h0, y, hf, ry, rh
+    if "ssd" in groups:
+        scfg = get_config(cs.SSM_ARCH)
+        ps, ns = scfg.ssm.head_dim, scfg.ssm.d_state
+        hs = scfg.ssm.expand * scfg.d_model // ps
+        with torch.inference_mode():
+            for name, sl, sc0 in (("serve", cs.SSM_PROMPT, 0.0), ("tail", cs.SSM_PROMPT + 1, 0.3)):
+                sargs, h0 = cs.ssd_inputs(randn, rng, dev, cs.BATCH, sl, hs, ps, ns, sc0)
+                (y, hf), (ry, rh) = (ssd_scan(*sargs, h0=h0),
+                                     ssd_scan_ref(*sargs, chunk=scfg.ssm.chunk, h0=h0))
+                rel = cs.ssd_rel_errors(sargs, h0, {"kernel": (y, hf), "plain": (ry, rh)})
+                res[f"ssd_{name}"] = {
+                    "y_max_abs_err": float((y - ry).abs().max()),
+                    "h_final_max_abs_err": float((hf - rh).abs().max()),
+                    "rel_l2_vs_fp64": rel,
+                    "over_tol_rel_l2": max(rel["kernel"].values()) > cs.TOL_SSD_REL_L2}
+                if name == "serve":
+                    res["ssd_ms"] = cs.time_ms(lambda: ssd_scan(*sargs, h0=h0), flush)
+                del sargs, h0, y, hf, ry, rh
     return res
 
 
@@ -231,8 +273,8 @@ def main() -> int:
     ap.add_argument("--ssm-cross-check", action="store_true")
     ap.add_argument("--make-control", metavar="OUT")
     ap.add_argument("--make-variant", nargs=2, metavar=("NAME", "OUT"))
-    ap.add_argument("--head-dim-80", action="store_true",
-                    help="time only stablelm-3b's head dim 80 flash passes")
+    ap.add_argument("--groups", nargs="+", choices=GROUPS, default=list(GROUPS),
+                    help="what to time (default: all)")
     args = ap.parse_args()
     if args.make_control:
         make_control(args.src, args.make_control)
@@ -253,7 +295,7 @@ def main() -> int:
     dev = torch.device("cuda")
     res = {"src": os.path.abspath(args.src)}
     res.update(ssm_cross_check(dev) if args.ssm_cross_check
-               else timings(dev, head_dim_80_only=args.head_dim_80))
+               else timings(dev, groups=args.groups))
     print(json.dumps(res), flush=True)
     return 0
 
