@@ -24,7 +24,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    then dk/dv) beside SDPA's backward.  Decode
    attention runs at the serve paths' own lengths (513-576 of a 1024-row
    cache) for chatglm3-6b and stablelm-3b, at every cluster size; RMSNorm
-   also at the decode steps' [4, d].  The dq pass, decode attention and the
+   also at the decode steps' [4, d], and at deepseek-v2-lite-16b's shapes
+   (d 2048, and kv_norm's 512 columns of each 576-column row, read at that
+   pitch).  The dq pass, decode attention and the
    RMSNorm backward's dscale are checked bitwise repeatable; the SSD scan's
    y and final state at the serve shape and at an 8193-token tail from a
    nonzero state, against the plain version and, by relative L2 error,
@@ -35,6 +37,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (mamba2: 8192) tokens and generate 64 through `Server.generate`, every
    kernel's launch count checked; after each, cross_check(_ssm, _stablelm)
    holds a prefill of one token more against the prefill plus one decode.
+   serve_moe — full-width deepseek-v2-lite-16b (27 layers, d 2048, MLA, 64
+   routed experts top-6 + 2 shared, the first layer dense; 15.7 B params),
+   4 x 512 prompt tokens + 64 through the same `serve`: the RMSNorm kernel
+   is its one kernel (MLA's absorbed attention and the MoE stay plain torch,
+   as JAX's jnp); cross_check_moe with capacity_factor = n_experts / top_k
+   and, for the gate, each MoE layer's selection in the decode step pinned
+   to the prefill's (the unpinned error and the near-tie flips beside it).
 5. train_check — one loss and every gradient of reduced chatglm3-6b on the
    card (kernels) against the same weights and batch on the CPU (plain
    versions).
@@ -54,11 +63,13 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -103,6 +114,9 @@ SSD_CHUNK = 64           # the SSD-scan kernel's chunk (csrc/ssd_scan.cu)
 LM_ARCH, LM_TRAIN_STEPS = "stablelm-3b", 4
 # decode attention's lengths in the serve runs: cache_pos + 1, 513 to 576
 SERVE_LENGTHS = (PROMPT + 1, PROMPT + NEW)
+# the serve_moe phase: deepseek-v2-lite-16b, MLA (kv_norm reads 512 of each
+# 576-column row of its projection) and capacity-routed MoE
+MOE_ARCH = "deepseek-v2-lite-16b"
 
 
 def emit(obj) -> None:
@@ -217,6 +231,153 @@ def ssd_rel_errors(args, h0, outs) -> dict:
     y64, h64 = ssd_scan_f64(*args, h0=h0)
     return {name: {"y": rel_l2(y, y64), "h_final": rel_l2(hf, h64)}
             for name, (y, hf) in outs.items()}
+
+
+def mla_moe_serve_bound(cfg, params, batch, prompt) -> dict:
+    """The least time of an MLA + MoE model's serve steps as the port
+    computes them.  Prefill of batch x prompt tokens: the bf16 products
+    (MLA projections, every expert at its capacity, the shared experts, the
+    dense prefix layers, the head on the last token) over the bf16 peak plus
+    the fp32 ones (the absorbed attention over every (row, column) of the
+    prompt's cache rows, the router) over the fp32 peak, the two run one
+    after the other; or the weight bytes over the memory rate, if larger.
+    A decode step runs every expert (capacity >= 1), so it reads every
+    weight but the token-embedding table: bytes over the memory rate."""
+    m, mo = cfg.mla, cfg.moe
+    h, d, t = cfg.n_heads, cfg.d_model, batch * prompt
+    qk, r = m.qk_nope_dim + m.qk_rope_dim, m.kv_lora_rank
+    ff = mo.d_expert_ff or cfg.d_ff
+    cap = int(max(1, math.ceil(t * mo.top_k / mo.n_experts * mo.capacity_factor)))
+    q_proj = (d * m.q_lora_rank + m.q_lora_rank * h * qk) if m.q_lora_rank else d * h * qk
+    proj = 2 * t * (q_proj + d * (r + m.qk_rope_dim) + h * m.v_head_dim * d)
+    attn = 2 * batch * h * prompt * (m.qk_nope_dim * r + prompt * (2 * r + m.qk_rope_dim)
+                                     + r * m.v_head_dim)
+    n_prefix = mo.n_dense_prefix
+    n_moe = cfg.n_layers - n_prefix
+    bf16 = (cfg.n_layers * proj + n_moe * 6 * d * ff * (mo.n_experts * cap + t * mo.n_shared)
+            + n_prefix * 6 * t * d * cfg.d_ff + 2 * batch * d * cfg.vocab_size)
+    f32 = cfg.n_layers * attn + n_moe * 2 * t * d * mo.n_experts
+    from repro_torch.tree import tree_leaves
+
+    weights = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    read = weights - params["embed"]["tok"].numel() * params["embed"]["tok"].element_size()
+    ops_ms = (bf16 / PEAK_BF16 + f32 / PEAK_F32) * 1e3
+    return {"prefill_capacity": cap, "prefill_tflop_bf16": bf16 / 1e12,
+            "prefill_tflop_fp32": f32 / 1e12, "weights_gb": weights / 1e9,
+            "prefill_bound_ms": max(ops_ms, weights / PEAK_BYTES * 1e3),
+            "prefill_bound_by": "operations" if ops_ms >= weights / PEAK_BYTES * 1e3 else "bytes",
+            "decode_step_bound_ms": read / PEAK_BYTES * 1e3, "decode_bound_by": "bytes"}
+
+
+class RouteRecorder:
+    """While installed (`with`), stands in for `layers.moe_route`: records
+    each call's top_idx and the gap between the k-th and (k+1)-th largest
+    selection scores of each token; with `pin` set (one top_idx a call) it
+    selects those experts instead, weighted by the call's own scores as
+    `moe_route` weighs them."""
+
+    def __init__(self, layers):
+        self.layers, self.real = layers, layers.moe_route
+        self.calls, self.pin = [], None
+
+    def __enter__(self):
+        self.layers.moe_route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.real
+
+    def __call__(self, p, xt, cfg):
+        scores, top_idx, top_w = self.real(p, xt, cfg)
+        mo = cfg.moe
+        sel = scores + p["router_bias"] if mo.router == "sigmoid" else scores
+        if self.pin is not None:
+            top_idx = self.pin[len(self.calls)].to(top_idx.device)
+            top_w = torch.gather(scores, 1, top_idx)
+            if mo.router == "sigmoid":
+                top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
+            top_w = top_w * mo.router_scale
+        top = torch.sort(sel.float(), dim=-1, descending=True).values
+        self.calls.append({"idx": top_idx.cpu(),
+                           "gap": (top[:, mo.top_k - 1] - top[:, mo.top_k]).cpu()})
+        return scores, top_idx, top_w
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def route_flips(a_calls, b_calls, rows_a=None) -> list:
+    """The tokens whose experts differ between two recorded runs, call by
+    call (MoE layer by layer), with the gap of each side; `rows_a` picks the
+    tokens of the first run that the second run's tokens are."""
+    out = []
+    for layer, (a, b) in enumerate(zip(a_calls, b_calls)):
+        ia, ga = ((a["idx"], a["gap"]) if rows_a is None
+                  else (a["idx"][rows_a], a["gap"][rows_a]))
+        for tok in range(ia.shape[0]):
+            if set(ia[tok].tolist()) != set(b["idx"][tok].tolist()):
+                out.append({"layer": layer, "token": tok,
+                            "experts_a": sorted(ia[tok].tolist()),
+                            "experts_b": sorted(b["idx"][tok].tolist()),
+                            "gap_a": float(ga[tok]), "gap_b": float(b["gap"][tok])})
+    return out
+
+
+def moe_cross_check(srv, prompts, dev, cache_len) -> dict:
+    """cross_check for an MoE model: the last logits of a prefill of every
+    prompt token against a prefill of all but the last plus one decode step.
+
+    Every expert gets room for every route (capacity_factor n_experts /
+    top_k, as tests/test_arch_smoke.py gives the JAX model for the same
+    equivalence): at the served 1.25 a 4-token decode step has capacity
+    ceil(4 * 6 / 64 * 1.25) = 1 and drops routes by design.  Even so the
+    decode step's hidden states differ from the prefill's by rounding, and a
+    token whose k-th and (k+1)-th selection scores nearly tie may take the
+    other expert: such a flip moves the logits by that expert's whole share.
+    So the decode step runs twice: as served ("unpinned"), and with each
+    MoE layer's selection pinned to the prefill's for the same token
+    ("pinned", its own scores as weights), which leaves every difference
+    but the flips.  Both are returned, with the flips and their gaps."""
+    from repro_torch.models import init_cache, layers
+    from repro_torch.runtime.steps import prefill_step, serve_step
+
+    mo = srv.cfg.moe
+    cfg = replace(srv.cfg, moe=replace(mo, capacity_factor=mo.n_experts / mo.top_k))
+    b, s = prompts.shape[0], prompts.shape[1] - 1
+    last = torch.arange(b) * (s + 1) + s                   # the last token's rows
+    with torch.inference_mode(), RouteRecorder(layers) as rec:
+        toks = torch.from_numpy(prompts).long().to(dev)
+        full, _ = prefill_step(srv.params, init_cache(cfg, b, cache_len, dev),
+                               {"tokens": toks}, cfg)
+        r_full = rec.take()
+        cache = init_cache(cfg, b, cache_len, dev)
+        prefill_step(srv.params, cache, {"tokens": toks[:, :s]}, cfg)
+        rec.take()
+        step, _ = serve_step(srv.params, cache, {"tokens": toks[:, s:]}, s, cfg)
+        r_step = rec.take()
+        # the same step again (it rewrites cache row s with the same values)
+        rec.pin = [c["idx"][last] for c in r_full]
+        pinned, _ = serve_step(srv.params, cache, {"tokens": toks[:, s:]}, s, cfg)
+        rec.pin = None
+        torch.cuda.synchronize()
+    scale = float(full.abs().max())
+    flips = route_flips(r_full, r_step, rows_a=last)
+    return {"arch": cfg.name, "prompt": s, "capacity_factor": cfg.moe.capacity_factor,
+            "finite": bool(torch.isfinite(full).all() and torch.isfinite(step).all()
+                           and torch.isfinite(pinned).all()),
+            "unpinned": {"max_abs_err": float((step - full).abs().max()), "logit_absmax": scale,
+                         "rel_err": float((step - full).abs().max()) / scale},
+            "pinned": {"max_abs_err": float((pinned - full).abs().max()), "logit_absmax": scale,
+                       "rel_err": float((pinned - full).abs().max()) / scale},
+            "tol": TOL_CROSS, "gated": "pinned",
+            "routes": len(r_full) * b, "route_flips": len(flips),
+            "largest_flip_gap": max([max(f["gap_a"], f["gap_b"]) for f in flips], default=None),
+            "flips": flips,
+            "note": "capacity_factor n_experts / top_k: at the served factor a 4-token decode "
+                    "step has capacity 1 and drops routes by design; the gate holds the decode "
+                    "step with each layer's selection pinned to the prefill's, since a "
+                    "near-tie flip moves the logits by a whole expert's share"}
 
 
 def leaf_names(tree, prefix=""):
@@ -426,6 +587,23 @@ def main() -> int:
             lambda xd=xd, sd=sd, dd=dd: F.rms_norm(xd, (dd,), sd, 1e-6),
             2 * xd.numel() * 2 + dd * 2, 4 * xd.numel(), PEAK_F32,
             float((od.float() - rd.float()).abs().max()))
+    # deepseek-v2-lite-16b's norms (serve_moe: 5,330 launches): d 2048, and
+    # kv_norm's [rows, 512] read in place from rows 576 apart, at its prefill's
+    # 2048 rows and its decode steps' 4; own generator, as above
+    mrandn = bf16_normal(np.random.default_rng(SEED + 12), dev)
+    r["deepseek_v2_lite_shapes"] = {}
+    for rows_, dd, pitch in ((BATCH * PROMPT, 2048, 2048), (BATCH * PROMPT, 512, 576),
+                             (BATCH, 2048, 2048), (BATCH, 512, 576)):
+        xd, sd = mrandn(rows_, pitch, scale=3.0)[:, :dd], 1.0 + 0.1 * mrandn(dd)
+        od, rd = rmsnorm(xd, sd), rmsnorm_ref(xd, sd)
+        torch.cuda.synchronize()
+        name = f"{rows_}x{dd}" + (f"_pitch{pitch}" if pitch != dd else "")
+        r["deepseek_v2_lite_shapes"][name] = other_shape(
+            f"rmsnorm [{rows_}, {dd}] at pitch {pitch}", excess(od, rd, TOL_RMSNORM),
+            lambda xd=xd, sd=sd: rmsnorm(xd, sd), lambda xd=xd, sd=sd: rmsnorm_ref(xd, sd),
+            lambda xd=xd, sd=sd, dd=dd: F.rms_norm(xd, (dd,), sd, 1e-6),
+            2 * xd.numel() * 2 + dd * 2, 4 * xd.numel(), PEAK_F32,
+            float((od.float() - rd.float()).abs().max()), pitch=pitch)
     emit({"phase": "kernel", **r, "shape": [BATCH * PROMPT, d]})
 
     # flash forward: one layer's prefill attention, q from the cache layout
@@ -918,6 +1096,26 @@ def main() -> int:
         lambda c: {"flash_attention_fwd": c.n_layers, "decode_attention": c.n_layers * NEW},
         lambda p: (p[:1, :16], 2))
     cross_check("cross_check_stablelm", srv, prompts, MAX_LEN)
+    del srv
+    torch.cuda.empty_cache()
+
+    # deepseek-v2-lite-16b: 31.4 GB of bf16 weights, alone on the card (every
+    # earlier model freed); the norms are its one kernel: attn_norm, kv_norm
+    # (at its row pitch) and ffn_norm a layer, final_norm, every step.  The
+    # warm-up is at the served shape: the prefill's expert products are
+    # [64, 240, ...] (capacity 240), the decode steps' [64, 1, ...].
+    srv, prompts, by_path["serve_moe"] = serve(
+        "serve_moe", MOE_ARCH, PROMPT, MAX_LEN, SEED + 11,
+        lambda c: {"rmsnorm": (3 * c.n_layers + 1) * (1 + NEW)},
+        lambda p: (p[:, :PROMPT], 1))
+    emit({"phase": "serve_moe_bound", "batch": BATCH, "prompt": PROMPT,
+          **mla_moe_serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
+    rec = moe_cross_check(srv, prompts, dev, MAX_LEN)
+    emit({"phase": "cross_check_moe", **rec})
+    if not (rec["finite"] and rec["pinned"]["max_abs_err"]
+            <= TOL_CROSS * rec["pinned"]["logit_absmax"]):
+        raise AssertionError(f"cross_check_moe: prefill+decode disagrees with prefill, the "
+                             f"selection pinned: {rec['pinned']} (tol {TOL_CROSS})")
     del srv
     torch.cuda.empty_cache()
 

@@ -4,12 +4,14 @@
 example `jax.tree_util.tree_map(np.asarray, params)`), so this module itself
 imports no JAX; `to_jax_params` gives the port's params (or grads) back as
 such numpy dicts.  Leaf names and einsum layouts are kept (`wq` [d,H,dh],
-`wo` [H,dh,d], the Mamba2 `in_proj` [d,in], `conv_w` [W,C], ...); the
-stacked `[L, ...]` leaves of `params["blocks"]` become one param dict per
-layer and back, for the dense and the ssm families; fp32 leaves (the SSM's
-`A_log`, `D`, `dt_bias`) stay fp32, and a tied embedding is the one `tok`
-leaf.  bf16 crosses as its bits,
-through an `int16` view.
+`wo` [H,dh,d], the Mamba2 `in_proj` [d,in], `conv_w` [W,C], the MoE
+experts' `wi_gate` [E,d,ff], ...); the stacked `[L, ...]` leaves of
+`params["blocks"]` become one param dict per layer and back, for the dense,
+moe and ssm families.  The MoE family's dense `prefix` layers and
+deepseek-v3's `mtp` head are unstacked in JAX too, and cross as they are.
+fp32 leaves (the SSM's `A_log`, `D`, `dt_bias`, the MoE `router` and
+`router_bias`) stay fp32, and a tied embedding is the one `tok` leaf.  bf16
+crosses as its bits, through an `int16` view.
 """
 from __future__ import annotations
 
@@ -31,20 +33,23 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+_UNSTACKED = ("embed", "final_norm", "prefix", "mtp")
+
+
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"
                     ) -> Dict[str, Any]:
-    """JAX dense-decoder or Mamba2 params (numpy leaves) -> the port's
+    """JAX dense-decoder, MoE or Mamba2 params (numpy leaves) -> the port's
     params."""
-    extra = set(tree) - {"embed", "final_norm", "blocks"}
+    extra = set(tree) - {"blocks", *_UNSTACKED}
     if extra or cfg.family == "hybrid":
         raise NotImplementedError(f"{cfg.name}: params {sorted(extra) or ['blocks']} "
                                   "belong to families the port does not serve yet")
+    out = {k: tree_map(lambda a: to_tensor(a, device), tree[k])
+           for k in _UNSTACKED if k in tree}
     stacked = tree_map(lambda a: to_tensor(a, device), tree["blocks"])
-    blocks = [tree_map(lambda t, i=i: t[i].clone(), stacked)
-              for i in range(cfg.n_layers)]
-    return {"embed": tree_map(lambda a: to_tensor(a, device), tree["embed"]),
-            "final_norm": tree_map(lambda a: to_tensor(a, device), tree["final_norm"]),
-            "blocks": blocks}
+    out["blocks"] = [tree_map(lambda t, i=i: t[i].clone(), stacked)
+                     for i in range(cfg.n_layers - len(tree.get("prefix", [])))]
+    return out
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -58,12 +63,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """The port's dense-decoder or Mamba2 params (or grads) -> the JAX
-    layout, as numpy: the per-layer dicts restacked to `[L, ...]` leaves."""
+    """The port's dense-decoder, MoE or Mamba2 params (or grads) -> the JAX
+    layout, as numpy: the per-layer dicts of `blocks` restacked to `[L, ...]`
+    leaves, `prefix` and `mtp` as they are."""
     blocks = params["blocks"]
-    if len(blocks) != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: {len(blocks)} blocks, config has {cfg.n_layers}")
-    stacked = tree_map(lambda *ts: np.stack([to_numpy(t) for t in ts]), *blocks)
-    return {"embed": tree_map(to_numpy, params["embed"]),
-            "final_norm": tree_map(to_numpy, params["final_norm"]),
-            "blocks": stacked}
+    n = cfg.n_layers - len(params.get("prefix", []))
+    if len(blocks) != n:
+        raise ValueError(f"{cfg.name}: {len(blocks)} blocks, config has {n}")
+    out = {k: tree_map(to_numpy, params[k]) for k in _UNSTACKED if k in params}
+    out["blocks"] = tree_map(lambda *ts: np.stack([to_numpy(t) for t in ts]), *blocks)
+    return out

@@ -21,7 +21,9 @@
 // of loads in flight an SM): fewer threads a row make the reduction
 // across warps shorter than at V = 1 or 2 with the same bytes in flight.
 // The products follow the JAX order, (x * r) * scale, in fp32, and the
-// output is rounded to bf16 once.  Measured slower (PERF.md): one block of 256
+// output is rounded to bf16 once.  The input rows may lie at a pitch wider
+// than d (MLA's kv_norm reads the first 512 columns of each 576-column
+// projection row in place); the output is contiguous.  Measured slower (PERF.md): one block of 256
 // threads per row reading the row twice with `scale` loaded after the
 // reduction (at the decode steps' rows); a persistent grid of 512-thread
 // row groups with the next row's loads in flight (at many rows); V = 1, 2
@@ -84,7 +86,8 @@ template <int V>
 __global__ void __launch_bounds__(kFwdThreads, V == 1 ? 4 : V == 2 ? 3 : V == 4 ? 2 : 1)
 rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ scale,
-               __nv_bfloat16* __restrict__ out, int rows, int d, int G, float eps) {
+               __nv_bfloat16* __restrict__ out, int rows, int d, int pitch, int G,
+               float eps) {
     __shared__ float red[kFwdThreads / 32];          // the group's warp sums
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int grp = tid / G, lg = tid % G, R = blockDim.x / G;
@@ -92,8 +95,8 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
     if (row >= rows) return;                         // the whole group
     // the row's x and this thread's slice of scale, issued together
     uint4 xv[V], sv[V];
-    load_vecs<V>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * d), nvec, lg, G,
-                 xv);
+    load_vecs<V>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * pitch), nvec, lg,
+                 G, xv);
     load_vecs<V>(reinterpret_cast<const uint4*>(scale), nvec, lg, G, sv);
     float ss = 0.f;
 #pragma unroll
@@ -328,28 +331,31 @@ int bwd_smem(int d) {
 
 }  // namespace
 
-// x, out: [rows, d] contiguous bf16; scale: [d] bf16; d % 8 == 0,
-// d <= 32768 and all three pointers 16-byte aligned (the wrapper checks).
+// x: [rows, d] bf16 rows at a pitch of `pitch` elements (pitch >= d,
+// pitch % 8 == 0); out: [rows, d] contiguous bf16; scale: [d] bf16;
+// d % 8 == 0, d <= 32768 and all three pointers 16-byte aligned (the
+// wrapper checks).
 extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
-                            int rows, int d, float eps, void* stream) {
+                            int rows, int d, int pitch, float eps, void* stream) {
     if (rows <= 0) return static_cast<int>(cudaGetLastError());
     int dev = 0, sms = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
     const FwdShape f = fwd_shape(rows, d, sms);
-    if (f.G > kFwdThreads) return static_cast<int>(cudaErrorInvalidValue);
+    if (f.G > kFwdThreads || pitch < d || pitch % 8)
+        return static_cast<int>(cudaErrorInvalidValue);
     const int blocks = (rows + f.R - 1) / f.R, threads = f.R * f.G;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
     const __nv_bfloat16* sp = static_cast<const __nv_bfloat16*>(scale);
     __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-    switch (f.V) {
-        case 1: rmsnorm_kernel<1><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps); break;
-        case 2: rmsnorm_kernel<2><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps); break;
-        case 4: rmsnorm_kernel<4><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps); break;
-        default: rmsnorm_kernel<8><<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, f.G, eps);
-    }
+    void (*kern)(const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, int, int, int, int,
+                 float) = rmsnorm_kernel<8>;
+    if (f.V == 1) kern = rmsnorm_kernel<1>;
+    else if (f.V == 2) kern = rmsnorm_kernel<2>;
+    else if (f.V == 4) kern = rmsnorm_kernel<4>;
+    kern<<<blocks, threads, 0, st>>>(xp, sp, op, rows, d, pitch, f.G, eps);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,6 +6,11 @@
 reference) and gives the gradients of both inputs.  A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.
 `<wrapper>.launches` counts kernel launches.
+
+The forward reads its rows in place at any uniform pitch (`row_pitch`): a
+slice of the first D columns of wider rows, such as MLA's `kv_norm` input
+(512 of each 576-column projection row), takes one launch and no copy.  Its
+output, and every tensor of the backward, is contiguous.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 from .. import _build
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-_ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
+_ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
              _build.FLOAT, _build.PTR)
 _BWD_ARGTYPES = (_build.PTR,) * 7 + (_build.INT,) * 3 + (_build.FLOAT, _build.PTR)
 # the forward holds a row in the registers of at most 512 threads, at most
@@ -34,27 +39,52 @@ _BWD_BLOCKS = 4 * 132
 _BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, name: str) -> None:
+def _check(x: torch.Tensor, scale: torch.Tensor, name: str, *, contiguous: bool) -> None:
     d = x.shape[-1]
-    if not x.is_contiguous() or scale.shape != (d,) or d % 8:
-        raise ValueError(f"{name}: needs contiguous x [..., D] with D % 8 == 0 "
-                         f"and scale [D]; got {tuple(x.shape)}, {tuple(scale.shape)}")
+    if (contiguous and not x.is_contiguous()) or scale.shape != (d,) or d % 8:
+        raise ValueError(f"{name}: needs {'contiguous ' if contiguous else ''}x [..., D] "
+                         f"with D % 8 == 0 and scale [D]; got {tuple(x.shape)}, "
+                         f"{tuple(scale.shape)}")
+
+
+def row_pitch(x: torch.Tensor) -> int:
+    """The elements from one row of x [..., D] to the next, read as [rows,
+    D]: x's leading dims must step over its rows at one uniform pitch >= D
+    (the first D columns of wider rows qualify, a transpose does not)."""
+    if x.is_contiguous():
+        return x.shape[-1]
+    pitch, span = None, 1
+    for size, st in reversed(list(zip(x.shape[:-1], x.stride()[:-1]))):
+        if size == 1:
+            continue
+        if pitch is None:
+            pitch = st
+        elif st != pitch * span:
+            raise ValueError(f"rmsnorm: x's rows {tuple(x.shape)} (strides {x.stride()}) "
+                             "are not at one uniform pitch")
+        span *= size
+    pitch = x.shape[-1] if pitch is None else pitch
+    if pitch < x.shape[-1]:
+        raise ValueError(f"rmsnorm: rows overlap (pitch {pitch} < D {x.shape[-1]})")
+    return pitch
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
-    """x [..., D]; scale [D] -> [..., D] in x's dtype (fp32 math)."""
+    """x [..., D], its rows at any uniform pitch; scale [D] -> contiguous
+    [..., D] in x's dtype (fp32 math)."""
     if not x.is_cuda:
         return rmsnorm_ref(x, scale, eps)
     d = x.shape[-1]
     _build.require(x, "x", torch.bfloat16, x.device)
     _build.require(scale, "scale", torch.bfloat16, x.device)
-    _check(x, scale, "rmsnorm")
+    _check(x, scale, "rmsnorm", contiguous=False)
     if d > MAX_D:
         raise ValueError(f"rmsnorm: D <= {MAX_D}; got {d}")
-    out = torch.empty_like(x)
+    pitch = row_pitch(x)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     fn = _build.function("rmsnorm_bf16", _ARGTYPES)
-    rc = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d,
+    rc = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d, pitch,
             float(eps), _build.stream(x))
     _build.check(rc, "rmsnorm")
     rmsnorm.launches += 1
@@ -75,7 +105,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     d = x.shape[-1]
     for name, t in (("x", x), ("scale", scale), ("dy", dy)):
         _build.require(t, name, torch.bfloat16, x.device)
-    _check(x, scale, "rmsnorm_bwd")
+    _check(x, scale, "rmsnorm_bwd", contiguous=True)
     if dy.shape != x.shape or not dy.is_contiguous():
         raise ValueError(f"rmsnorm_bwd: dy must be contiguous and shaped like x "
                          f"{tuple(x.shape)}; got {tuple(dy.shape)}")

@@ -7,6 +7,8 @@ import torch
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
                 ) -> torch.Tensor:
+    """x [..., D] (any strides, such as a slice of wider rows); scale [D]
+    -> [..., D] in x's dtype."""
     xf = x.float()
     ms = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

@@ -12,14 +12,17 @@ loss, the cross-entropy go through the CUDA kernels on a CUDA tensor, and
 through their plain versions on a CPU tensor (see `repro_torch.kernels`);
 on the train path through autograd ops whose backward runs the backward
 kernels.  The LayerNorm stays plain torch, as JAX computes it in jnp.
-The activation-sharding constraints of `repro.context` are single-device
-no-ops and have no counterpart here; MLA, MoE and the `embeds` frontends
-are not ported yet (ROADMAP.md).
+MLA's absorbed attention and the MoE router, dispatch, expert products and
+combine stay plain torch too: JAX computes them in jnp, with no Pallas
+kernel.  MLA serves only (its expanded, no-cache branch is the train path,
+not ported yet).  The activation-sharding constraints of `repro.context`
+are single-device no-ops and have no counterpart here; the `embeds`
+frontends are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -191,6 +194,91 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek V2/V3), the serve path
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    p: Params = {}
+    if m.q_lora_rank:
+        p["wq_a"] = _dense_init(gen, (d, m.q_lora_rank), d, device)
+        p["q_norm"] = torch.ones(m.q_lora_rank, dtype=torch.bfloat16, device=device)
+        p["wq_b"] = _dense_init(gen, (m.q_lora_rank, h, qk), m.q_lora_rank, device)
+    else:
+        p["wq"] = _dense_init(gen, (d, h, qk), d, device)
+    p["wkv_a"] = _dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), d, device)
+    p["kv_norm"] = torch.ones(m.kv_lora_rank, dtype=torch.bfloat16, device=device)
+    p["wk_b"] = _dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_dim), m.kv_lora_rank, device)
+    p["wv_b"] = _dense_init(gen, (m.kv_lora_rank, h, m.v_head_dim), m.kv_lora_rank, device)
+    p["wo"] = _dense_init(gen, (h, m.v_head_dim, d), h * m.v_head_dim, device)
+    return p
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        cq = apply_norm({"scale": p["q_norm"]}, cq)
+        q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
+            kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+            cache_pos: Optional[int] = None):
+    """MLA attention against the latent cache ({"ckv": [B, T, kv_lora],
+    "krope": [B, T, rope]}: one layer's bf16 slices), for the prefill and
+    the decode step alike: x's latent and rotary keys are written into the
+    cache at `cache_pos` IN PLACE, then attention runs ABSORBED in the
+    latent space in fp32, as JAX's cache branch computes it.  The einsums
+    read the first cache_pos + s rows; JAX reads all T, whose masked rows
+    weigh exactly 0.  Returns (y, kv_cache)."""
+    if kv_cache is None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA's expanded (no-cache) branch is the train path, not "
+            "ported yet (ROADMAP.md Queue 1 item 1, MoE training)")
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+
+    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    # the norm reads the latent columns in place, rows at the projection's pitch
+    ckv = apply_norm({"scale": p["kv_norm"]}, ckv_full[..., :m.kv_lora_rank])
+    k_rope = apply_rope(ckv_full[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)[..., 0, :]
+
+    s = x.shape[1]
+    kv_len = cache_pos + s
+    cc, cr = kv_cache["ckv"], kv_cache["krope"]
+    cc[:, cache_pos:kv_len] = ckv.to(cc.dtype)
+    cr[:, cache_pos:kv_len] = k_rope.to(cr.dtype)
+    ccf, crf = cc[:, :kv_len].float(), cr[:, :kv_len].float()
+    # absorption: q' = W_uk^T q_nope lives in the latent space
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(), p["wk_b"].float())
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, ccf)
+              + torch.einsum("bshk,btk->bhst", q_rope.float(), crf)) * scale
+    t_idx = torch.arange(kv_len, device=x.device)
+    q_idx = cache_pos + torch.arange(s, device=x.device)
+    w = torch.softmax(scores.masked_fill(t_idx[None, :] > q_idx[:, None], -1e30), dim=-1)
+    lat = torch.einsum("bhst,btr->bshr", w, ccf)
+    out = torch.einsum("bshr,rhk->bshk", lat, p["wv_b"].float())
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    return y, kv_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                   device) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    return {"ckv": _zeros((n_layers, batch, max_len, m.kv_lora_rank), device),
+            "krope": _zeros((n_layers, batch, max_len, m.qk_rope_dim), device)}
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -213,6 +301,112 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = F.silu(torch.einsum("bsd,df->bsf", x, p["wi_gate"]).float())
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"]).float()
     return torch.einsum("bsf,fd->bsd", (g * u).to(x.dtype), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based top-k)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    mo = cfg.moe
+    d, e = cfg.d_model, mo.n_experts
+    ff = mo.d_expert_ff or cfg.d_ff
+    p = {"router": _dense_init(gen, (d, e), d, device, dtype=torch.float32),
+         "wi_gate": _dense_init(gen, (e, d, ff), d, device),
+         "wi_up": _dense_init(gen, (e, d, ff), d, device),
+         "wo": _dense_init(gen, (e, ff, d), ff, device)}
+    if mo.router == "sigmoid":
+        p["router_bias"] = _zeros((e,), device, torch.float32)
+    if mo.n_shared:
+        p["shared"] = init_mlp(cfg, gen, device, d_ff=ff * mo.n_shared)
+    return p
+
+
+def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xt [t, d] -> (scores [t, e] fp32, top_idx [t, k] int64, top_w [t, k]
+    fp32): the router of `apply_moe`.  The sigmoid router (deepseek-v3)
+    selects by score + `router_bias` and weighs by the renormalised scores;
+    both scale the weights by `router_scale`."""
+    mo = cfg.moe
+    logits = xt.float() @ p["router"]
+    if mo.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel_scores = scores + p["router_bias"]     # bias for load balance only
+    else:
+        scores = torch.softmax(logits, dim=-1)
+        sel_scores = scores
+    # jax.lax.top_k's order: largest first, the lower index first among equal
+    # scores; a stable descending sort promises it, torch.topk does not
+    top_idx = torch.sort(sel_scores, dim=-1, descending=True, stable=True).indices
+    top_idx = top_idx[:, :mo.top_k]
+    top_w = torch.gather(scores, 1, top_idx)
+    if mo.router == "sigmoid":
+        top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
+    return scores, top_idx, top_w * mo.router_scale
+
+
+def moe_slots(top_idx: torch.Tensor, n_experts: int, capacity: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """top_idx [t, k] -> (counts [e] int64, keep [t, k] bool, pos [t, k]
+    int64): each route's position in its expert's buffer, by a stable sort
+    of the flat expert ids (token-major, then j), as JAX numbers them.  A
+    route past `capacity` is dropped (keep False) and its pos clipped to
+    capacity - 1.  No step reads a count back to the host."""
+    flat_e = top_idx.reshape(-1)
+    n = flat_e.numel()
+    counts = torch.zeros(n_experts, dtype=torch.long, device=flat_e.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    order = torch.argsort(flat_e, stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, dtype=order.dtype, device=order.device))
+    pos_flat = ranks - (torch.cumsum(counts, 0) - counts)[flat_e]
+    keep = (pos_flat < capacity).reshape(top_idx.shape)
+    return counts, keep, pos_flat.clamp(0, capacity - 1).reshape(top_idx.shape)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE, as JAX's `apply_moe`.  Returns (y, aux).
+
+    Every expert runs on its [capacity, d] buffer (batched products), so a
+    decode step computes all experts.  The buffer is built by one gather:
+    each kept route owns a distinct (expert, slot), which holds its token's
+    row; a slot no route keeps holds zeros.  That is the buffer of JAX's k
+    scatter-adds, where a dropped route adds a zero row at slot capacity - 1.
+    The combine sums the k weighted rows in fp32 in j order."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    t, e, k = b * s, mo.n_experts, mo.top_k
+    xt = x.reshape(t, d)
+    scores, top_idx, top_w = moe_route(p, xt, cfg)
+    capacity = int(max(1, math.ceil(t * k / e * mo.capacity_factor)))
+    counts, keep, pos = moe_slots(top_idx, e, capacity)
+    # load-balancing aux loss (switch-style)
+    aux = (counts.float() / t * scores.mean(0)).sum() * e / k
+
+    # dispatch: the token of every (expert, slot), t (a zero row) where none;
+    # dropped routes write to one spare slot past the end, which is discarded
+    slot = top_idx * capacity + pos                                # [t, k]
+    tok = torch.arange(t, device=x.device)[:, None].expand(t, k)
+    src = torch.full((e * capacity + 1,), t, dtype=torch.long, device=x.device)
+    src.scatter_(0, torch.where(keep, slot, e * capacity).reshape(-1), tok.reshape(-1))
+    buf = torch.cat([xt, xt.new_zeros(1, d)])[src[:-1]].view(e, capacity, d)
+
+    # expert FFNs: [e, c, d] x [e, d, f]; silu in fp32, product kept bf16
+    g = F.silu(torch.bmm(buf, p["wi_gate"]).float()).to(xt.dtype)
+    u = torch.bmm(buf, p["wi_up"])
+    eo = torch.bmm(g * u, p["wo"])
+
+    # combine: the k rows of each token, weighted, summed in fp32 in j order
+    w = (top_w * keep).float()
+    rows = eo.reshape(e * capacity, d)[slot].float() * w[..., None]     # [t, k, d]
+    y = rows[:, 0]
+    for j in range(1, k):
+        y = y + rows[:, j]
+    if mo.n_shared:
+        y = y + apply_mlp(p["shared"], xt[None], cfg)[0].float()
+    return y.reshape(b, s, d).to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------

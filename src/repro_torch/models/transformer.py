@@ -1,14 +1,16 @@
 """Model assembly of the port: the dense transformer decoder's train and
-serve paths, and the serve path of the pure Mamba2 (ssm) stack.
+serve paths, the serve path of the MoE family (MLA attention, capacity-
+routed MoE, the dense prefix layers, the MTP head's params), and the serve
+path of the pure Mamba2 (ssm) stack.
 
-Counterpart of `repro/models/transformer.py`.  Ported so far: the dense
-branch of `init_model`, `init_cache` and `forward`, `_apply_tf_layer`
-without MoE, `_chunked_ce`, `loss_fn` (without MTP), and `_model_step`,
-`_serve_tf`, `prefill` and `decode_step`; for the ssm family
-`_init_ssm_layer`, `_apply_ssm_layer` and the ssm branches of
-`init_model`, `init_cache` and `_model_step` (serving only: `forward` and
-`loss_fn` on ssm wait for an SSD backward).  Layers are kept as a list of
-per-layer param dicts (`params["blocks"][i]`) where JAX stacks them for
+Counterpart of `repro/models/transformer.py`.  Ported so far: `init_model`,
+`init_cache`, `_layer_is_moe`, `_init_tf_layer`, `_apply_tf_layer`,
+`_model_step`, `_serve_tf`, `prefill` and `decode_step` for the dense, moe
+and ssm families, and the dense `forward`, `_chunked_ce` and `loss_fn`
+(`forward` and `loss_fn` on moe, MLA or MTP wait for the MoE training
+slice, and on ssm for an SSD backward).  Layers are kept as a list of
+per-layer param dicts (`params["blocks"][i]`, and the MoE family's dense
+`params["prefix"][i]`, as JAX names them) where JAX stacks the blocks for
 `lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
 becomes `torch.utils.checkpoint` (non-reentrant): around each layer when
 `cfg.remat == "layer"`, and around each cross-entropy chunk always.
@@ -19,8 +21,8 @@ Public entry points (used by runtime/launch):
   prefill(params, batch, cfg, cache)           -> (logits_last, cache)
   decode_step(params, batch, cfg, cache, pos)  -> (logits, cache)
   init_cache(cfg, batch, max_len, device)      -> cache
-The cache (KV, or the ssm conv and scan states) is updated in place and
-returned.
+The cache (KV, MLA's latent and rotary keys, or the ssm conv and scan
+states) is updated in place and returned.
 """
 from __future__ import annotations
 
@@ -47,10 +49,10 @@ def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the ssm family serves but does not train yet: the SSD "
             "scan has no backward (ROADMAP.md Queue 1 item 3, SSM training)")
-    if cfg.moe is not None or cfg.mla is not None or cfg.mtp:
+    if train and (cfg.moe is not None or cfg.mla is not None or cfg.mtp):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and MTP are not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
+            f"{cfg.name}: MoE, MLA and MTP serve but do not train yet "
+            "(ROADMAP.md Queue 1 item 1, MoE training)")
     if cfg.frontend is not None or cfg.pos_embed != "none":
         raise NotImplementedError(
             f"{cfg.name}: stub frontends and sinusoidal positions are not "
@@ -61,21 +63,37 @@ def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
 # per-layer init/apply
 # ---------------------------------------------------------------------------
 
-def _init_tf_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+def _layer_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    mo = cfg.moe
+    if mo is None or layer_idx < mo.n_dense_prefix:
+        return False
+    return (layer_idx - mo.n_dense_prefix) % mo.layer_period == 0
+
+
+def _init_tf_layer(cfg: ModelConfig, gen: torch.Generator, device, *,
+                   moe: bool = False) -> Params:
     return {"attn_norm": L.init_norm(cfg, device),
-            "attn": L.init_attention(cfg, gen, device),
+            "attn": (L.init_mla(cfg, gen, device) if cfg.mla is not None
+                     else L.init_attention(cfg, gen, device)),
             "ffn_norm": L.init_norm(cfg, device),
-            "ffn": L.init_mlp(cfg, gen, device)}
+            "ffn": L.init_moe(cfg, gen, device) if moe else L.init_mlp(cfg, gen, device)}
 
 
 def _apply_tf_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
-                    *, cache=None, cache_pos=None):
+                    *, moe: bool = False, cache=None, cache_pos=None):
+    """-> (h, new_cache, aux): aux is the MoE load-balancing loss, None
+    after a dense FFN."""
     attn_in = L.apply_norm(p["attn_norm"], h)
-    y, new_cache = L.attention_fwd(p["attn"], attn_in, cfg, positions,
-                                   kv_cache=cache, cache_pos=cache_pos)
+    attn = L.mla_fwd if cfg.mla is not None else L.attention_fwd
+    y, new_cache = attn(p["attn"], attn_in, cfg, positions, kv_cache=cache,
+                        cache_pos=cache_pos)
     h = h + y
     ffn_in = L.apply_norm(p["ffn_norm"], h)
-    return h + L.apply_mlp(p["ffn"], ffn_in, cfg), new_cache
+    if moe:
+        y, aux = L.apply_moe(p["ffn"], ffn_in, cfg)
+    else:
+        y, aux = L.apply_mlp(p["ffn"], ffn_in, cfg), None
+    return h + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -97,12 +115,24 @@ def _apply_ssm_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, *, state=None
 
 def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Random weights with the JAX init's distributions, drawn on `device`
-    from `gen` (the numbers differ from `jax.random`'s)."""
+    from `gen` (the numbers differ from `jax.random`'s).  The MoE family
+    keeps its dense prefix layers in `prefix`, the rest in `blocks`, and
+    deepseek-v3's multi-token-prediction head in `mtp`, as JAX names them."""
     _require_ported(cfg)
-    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_tf_layer
-    return {"embed": L.init_embed(cfg, gen, device),
-            "final_norm": L.init_norm(cfg, device),
-            "blocks": [init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]}
+    params: Params = {"embed": L.init_embed(cfg, gen, device),
+                      "final_norm": L.init_norm(cfg, device)}
+    if cfg.family == "ssm":
+        params["blocks"] = [_init_ssm_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
+        return params
+    n_prefix = cfg.moe.n_dense_prefix if cfg.moe else 0
+    if n_prefix:
+        params["prefix"] = [_init_tf_layer(cfg, gen, device) for _ in range(n_prefix)]
+    params["blocks"] = [_init_tf_layer(cfg, gen, device, moe=_layer_is_moe(cfg, i))
+                        for i in range(n_prefix, cfg.n_layers)]
+    if cfg.mtp:      # deepseek-v3's multi-token-prediction head (its loss: later)
+        params["mtp"] = {"layer": _init_tf_layer(cfg, gen, device),
+                         "norm": L.init_norm(cfg, device)}
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -175,12 +205,16 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, Any]:
-    """KV cache [L,B,max_len,Hkv,dh]; for ssm the conv and scan states
+    """KV cache {"kv": {"k", "v"}} [L,B,max_len,Hkv,dh]; with MLA the latent
+    cache {"mla": {"ckv": [L,B,max_len,kv_lora], "krope": [L,B,max_len,rope]}}
+    (the dense prefix layers' slots first); for ssm the conv and scan states
     ({"ssm_state": {"conv": [L,B,W-1,C] bf16, "ssm": [L,B,H,P,N] fp32}}),
     whose size does not depend on max_len."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return {"ssm_state": S.init_ssm_state(cfg, batch, cfg.n_layers, device)}
+    if cfg.mla is not None:
+        return {"mla": L.init_mla_cache(cfg, batch, max_len, cfg.n_layers, device)}
     return {"kv": L.init_kv_cache(cfg, batch, max_len, cfg.n_layers, device)}
 
 
@@ -195,8 +229,9 @@ def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     else:
         s = h.shape[1]
         positions = cache_pos + torch.arange(s, device=h.device)
-        h, nc = _serve_tf(params, h, cfg, cache["kv"], cache_pos, positions)
-        new_cache = {"kv": nc}
+        key = "mla" if cfg.mla is not None else "kv"
+        h, nc = _serve_tf(params, h, cfg, cache[key], cache_pos, positions)
+        new_cache = {key: nc}
     h = L.apply_norm(params["final_norm"], h)
     logits = L.lm_logits(params["embed"], h[:, -1:], cfg)
     return logits, new_cache
@@ -214,12 +249,15 @@ def _serve_ssm(params, h, cfg, states):
 
 
 def _serve_tf(params, h, cfg, cache, cache_pos, positions):
-    """Transformer serve path: every layer reads and writes its slice of
-    the stacked [L, ...] cache in place."""
-    for i, lp in enumerate(params["blocks"]):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _ = _apply_tf_layer(cfg, lp, h, positions, cache=layer_cache,
-                               cache_pos=cache_pos)
+    """Transformer serve path: the dense prefix layers, then the blocks
+    (MoE FFNs when the config has MoE); every layer reads and writes its
+    slice of the stacked [L, ...] cache in place, the prefix's slots first."""
+    layers = ([(lp, False) for lp in params.get("prefix", [])]
+              + [(lp, cfg.moe is not None) for lp in params["blocks"]])
+    for i, (lp, moe) in enumerate(layers):
+        layer_cache = {name: c[i] for name, c in cache.items()}
+        h, _, _ = _apply_tf_layer(cfg, lp, h, positions, moe=moe, cache=layer_cache,
+                                  cache_pos=cache_pos)
     return h, cache
 
 

@@ -67,6 +67,25 @@ def test_rmsnorm_kernel_matches_plain(dev, shape):
     _close(out, rmsnorm_ref(x, sc), rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("rows,d,pitch", [(2048, 512, 576), (4, 512, 576), (1, 512, 576),
+                                           (300, 64, 80), (9, 4096, 4104)])
+def test_rmsnorm_kernel_reads_rows_at_a_pitch(dev, rows, d, pitch):
+    """The first d columns of rows `pitch` apart (MLA's kv_norm: 512 of each
+    576-column projection row), read in place: one launch, a contiguous
+    output, the plain version's values."""
+    rng = np.random.default_rng(1)
+    full = _rand(rng, (rows, pitch), dev, 3.0)
+    x = full[:, :d]
+    sc = 1.0 + 0.1 * _rand(rng, (d,), dev)
+    before = rmsnorm.launches
+    out = rmsnorm(x, sc)
+    assert rmsnorm.launches == before + 1 and out.is_contiguous()
+    _close(out, rmsnorm_ref(x, sc), rtol=1e-2, atol=1e-2)
+    if rows >= 4:        # as the model passes it: [B, S, 512] of a [B, S, 576] projection
+        x3 = full[: rows - rows % 4].view(4, -1, pitch)[..., :d]
+        _close(rmsnorm(x3, sc), rmsnorm_ref(x3, sc), rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.parametrize("b,h,hkv,s,t,d,q_offset,kv_len,causal", [
     (2, 4, 2, 128, 128, 64, 0, 128, True),     # GQA, whole tiles
     (1, 8, 1, 100, 100, 128, 0, 100, True),    # MQA, S not a multiple of 64
@@ -495,6 +514,73 @@ def test_reduced_stablelm_head_dim_80_on_card_matches_cpu(dev):
             _rel_close(lg, lc, 3e-2)
     assert {k: v for k, v in launches().items() if v} == {
         "flash_attention_fwd": n, "decode_attention": 8 * n}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v3-671b"])
+def test_reduced_deepseek_server_on_card_matches_cpu(dev, arch, monkeypatch):
+    """Reduced deepseek-v2-lite-16b (softmax router) and deepseek-v3-671b
+    (sigmoid router, q-LoRA) served on the card (the RMSNorm kernel, kv_norm
+    at its row pitch; MLA and MoE plain torch, as JAX's jnp) against the same
+    weights on the CPU: prefill and 8 decode steps, then the launch counts
+    of Server.generate: every norm of every step, and no other kernel.
+
+    cuBLAS and the CPU round the bf16 products at other places, so the
+    router's inputs differ by rounding, and a token whose k-th and (k+1)-th
+    selection scores nearly tie may take the other expert on one side; that
+    flip moves the logits by the expert's whole share (one flip, at a gap of
+    1.1e-3, read a relative L2 error of 7 %: tools/moe_routing_check.py).
+    So the CPU run takes the card's selection, weighted by its own scores,
+    and its own selection may differ only where the gap is below NEAR_TIE.
+    The logits are held at a relative L2 error <= 3e-2, as the mamba2 and
+    stablelm-3b servers' (single logits move by up to 0.039)."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import decode_step, init_cache, layers, prefill
+
+    near_tie = 1e-2
+    real_route, picks, flips = layers.moe_route, [], []
+
+    def route(p, xt, cfg):
+        scores, top_idx, top_w = real_route(p, xt, cfg)
+        if xt.is_cuda:                      # the card runs each step first
+            picks.append(top_idx.cpu())
+            return scores, top_idx, top_w
+        pin, mo = picks.pop(0), cfg.moe
+        sel = scores + p["router_bias"] if mo.router == "sigmoid" else scores
+        top = torch.sort(sel, dim=-1, descending=True).values
+        gap = top[:, mo.top_k - 1] - top[:, mo.top_k]
+        for t in range(pin.shape[0]):
+            if set(pin[t].tolist()) != set(top_idx[t].tolist()):
+                flips.append(float(gap[t]))
+        top_w = torch.gather(scores, 1, pin)
+        if mo.router == "sigmoid":
+            top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
+        return scores, pin, top_w * mo.router_scale
+
+    gpu = Server(arch, max_len=64, device=dev, seed=3)
+    cpu_params = _map(gpu.params, lambda t: t.cpu())
+    cfg = gpu.cfg
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 48)))
+    monkeypatch.setattr(layers, "moe_route", route)
+    with torch.inference_mode():
+        lg, cg = prefill(gpu.params, {"tokens": toks[:, :40].to(dev)}, cfg,
+                         init_cache(cfg, 2, 64, dev))
+        lc, cc = prefill(cpu_params, {"tokens": toks[:, :40]}, cfg,
+                         init_cache(cfg, 2, 64, "cpu"))
+        _rel_close(lg, lc, 3e-2)
+        for i in range(40, 48):
+            lg, cg = decode_step(gpu.params, {"tokens": toks[:, i:i + 1].to(dev)}, cfg, cg, i)
+            lc, cc = decode_step(cpu_params, {"tokens": toks[:, i:i + 1]}, cfg, cc, i)
+            _rel_close(lg, lc, 3e-2)
+    monkeypatch.undo()
+    assert not picks and all(g < near_tie for g in flips), flips
+    reset_launches()
+    out = gpu.generate(toks.numpy()[:, :16], 8)
+    assert out["finite"]
+    # attn_norm, kv_norm, ffn_norm a layer (and q_norm with q-LoRA), final_norm
+    per_layer = 4 if cfg.mla.q_lora_rank else 3
+    assert {k: v for k, v in launches().items() if v} == {
+        "rmsnorm": (per_layer * cfg.n_layers + 1) * 9}
 
 
 def _ssd_inputs(rng, dev, b, s, h, p, n, *, strong=False, strided=False, h0=False):

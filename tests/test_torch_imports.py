@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.cross_entropy.ops",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.ssd_scan.kernel",
-            "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.configs.deepseek_v3_671b"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -38,7 +38,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_params, to_tensor
 from repro_torch.launch.serve import Server, main
-from repro_torch.models import decode_step, init_cache, init_model, prefill
+from repro_torch.models import decode_step, forward, init_cache, init_model, loss_fn, prefill
 from repro_torch.models import layers as TL
 
 ARCH = "chatglm3-6b"
@@ -316,11 +316,24 @@ def test_serve_main_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("change,item", [
     (dict(family="hybrid"), "Queue 1 item 3"),
-    (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "Queue 1 item 2"),
+    (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "Queue 1 item 1, MoE training"),
+    (dict(mla=tbase.MLAConfig(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
+                              v_head_dim=32)), "Queue 1 item 1, MoE training"),
+    (dict(mtp=True), "Queue 1 item 1, MoE training"),
     (dict(pos_embed="sinusoidal"), "Queue 1 item 4"),
 ])
 def test_unported_branches_name_their_roadmap_item(change, item):
+    """Hybrid and sinusoidal positions are refused at init; MoE, MLA and MTP
+    serve (tests/test_torch_moe.py) and refuse to train."""
     cfg = replace(get_config(ARCH).reduced(), **change)
+    if "MoE training" in item:
+        params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        init_cache(cfg, 1, 8, "cpu")
+        toks = torch.zeros((1, 8), dtype=torch.long)
+        for fn in (forward, loss_fn):
+            with pytest.raises(NotImplementedError, match=item):
+                fn(params, {"tokens": toks, "labels": toks}, cfg)
+        return
     with pytest.raises(NotImplementedError, match=item):
         init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match=item):

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
 """Where the time of the port's serve path goes, on one NVIDIA card.
 
-    python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b] [--src DIR]
+    python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b |
+                                    deepseek-v2-lite-16b] [--src DIR]
 
-Builds a full-width model (chatglm3-6b by default, mamba2-130m or
-stablelm-3b; random weights from seed 0), prefills 4 prompts (512 tokens,
-8192 for mamba2-130m, as `chip_smoke.py` serves them) and decodes 8 tokens, each
-phase under `torch.profiler`.  For each phase it prints one JSON line: the wall time
-(host clock, synchronised), the device busy time (sum of kernel durations,
-one stream), the device idle share, the kernels that take the most
-device time, and the copy kernels' launches and device time (any kernel
-whose name holds "copy").  `--src DIR` profiles the `repro_torch` under
-DIR (default: this checkout's `src`).  The card's name and power limit are
-printed first.
+Builds a full-width model (chatglm3-6b by default, mamba2-130m, stablelm-3b
+or deepseek-v2-lite-16b; random weights from seed 0), prefills 4 prompts
+(512 tokens, 8192 for mamba2-130m, as `chip_smoke.py` serves them) and
+decodes 8 tokens, each phase under `torch.profiler`.  For each phase it
+prints one JSON line: the wall time (host clock, synchronised), the device
+busy time (sum of kernel durations, one stream), the device idle share, the
+kernels that take the most device time, and the copy kernels' launches and
+device time (any kernel whose name holds "copy").  For the moe family the
+line also splits the device time of the MoE layers (`apply_moe`): the
+expert products (its batched matmuls), their silu, the router, the slot
+numbering, the shared experts, and the rest: the dispatch gather, the
+combine, the aux loss and the casts and gate product around the silu; and
+gives MLA's (`mla_fwd`).  Each of those functions runs inside
+a `record_function` range for the profile; the device time of a range
+sums the kernels of every op it called.  `--src DIR` profiles the
+`repro_torch` under DIR (default: this checkout's `src`).  The card's name
+and power limit are printed first.
 """
 from __future__ import annotations
 
@@ -31,17 +39,59 @@ from torch.profiler import ProfilerActivity, profile
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
-def _phase(name, fn, n_items):
+# the functions of `models/layers.py` each run inside a range of their name
+SCOPES = ("apply_moe", "moe_route", "moe_slots", "apply_mlp", "mla_fwd")
+
+
+def _scope(mod, names) -> None:
+    """Wrap each `mod.<name>` in a `record_function` range of that name."""
+    for n in names:
+        def wrapped(*a, _fn=getattr(mod, n), _n=n, **k):
+            with torch.profiler.record_function(_n):
+                return _fn(*a, **k)
+        setattr(mod, n, wrapped)
+
+
+def _device_ms(ev) -> float:
+    """Device ms of the kernels an op launched, its children's included.  A
+    range's own span on the device, which the profiler lists beside the
+    kernels under the range's name, is left out."""
+    return (sum(k.duration for k in ev.kernels if k.name not in SCOPES) / 1e3
+            + sum(_device_ms(ch) for ch in ev.cpu_children))
+
+
+def _moe_split(prof) -> dict:
+    """Device ms of the MoE layers and their parts, and of MLA attention."""
+    parts = ("expert_products", "expert_silu", "router", "slots", "shared_experts")
+    ms = dict.fromkeys(("moe", *parts, "dispatch_combine_and_rest", "mla"), 0.0)
+    part = {"aten::bmm": "expert_products", "aten::silu": "expert_silu",
+            "moe_route": "router", "moe_slots": "slots", "apply_mlp": "shared_experts"}
+    for ev in prof.events():
+        if ev.name == "mla_fwd":
+            ms["mla"] += _device_ms(ev)
+        if ev.name != "apply_moe":
+            continue
+        ms["moe"] += _device_ms(ev)
+        for ch in ev.cpu_children:
+            if ch.name in part:
+                ms[part[ch.name]] += _device_ms(ch)
+    ms["dispatch_combine_and_rest"] = ms["moe"] - sum(ms[k] for k in parts)
+    return ms
+
+
+def _phase(name, fn, n_items, moe=False):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in SCOPES]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     copies = [e for e in kernels if "copy" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    split = {"moe_split_ms": _moe_split(prof)} if moe else {}
     print(json.dumps({
         "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
@@ -50,10 +100,11 @@ def _phase(name, fn, n_items):
         "copies": {"ms": sum(e.self_device_time_total for e in copies) / 1e3,
                    "count": sum(e.count for e in copies)},
         "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                         "count": e.count} for e in top]}), flush=True)
+                         "count": e.count} for e in top], **split}), flush=True)
 
 
-PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512}
+PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512,
+          "deepseek-v2-lite-16b": 512}
 
 
 def main() -> int:
@@ -67,6 +118,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_model
+    from repro_torch.models import layers
     from repro_torch.runtime.steps import prefill_step, serve_step
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -74,6 +126,9 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    moe = cfg.moe is not None
+    if moe:
+        _scope(layers, SCOPES)
     b, s0, steps, seed = 4, PROMPT[args.arch], 8, 0
     max_len = 2 * s0
     with torch.inference_mode():
@@ -98,8 +153,8 @@ def main() -> int:
 
         print(json.dumps({"arch": args.arch, "batch": b, "prompt": s0,
                           "src": os.path.abspath(args.src)}), flush=True)
-        _phase("prefill", run_prefill, 1)
-        _phase("decode", run_decode, steps)
+        _phase("prefill", run_prefill, 1, moe)
+        _phase("decode", run_decode, steps, moe)
     return 0
 
 
