@@ -30,7 +30,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    RMSNorm backward's dscale are checked bitwise repeatable; the SSD scan's
    y and final state at the serve shape and at an 8193-token tail from a
    nonzero state, against the plain version and, by relative L2 error,
-   against an fp64 recurrence.
+   against an fp64 recurrence.  The SSD scan's backward (no TPU
+   counterpart) at mamba2-130m's train shape (8 x 2048 tokens) and at a
+   2049-token tail from a nonzero state with a gradient on the final
+   state: every gradient against the plain version, against fp64 autograd
+   of the plain scan by relative L2 error, and bitwise repeatable.
 4. serve, serve_ssm, serve_stablelm — full-width chatglm3-6b (28 layers, d
    4096), mamba2-130m (24 layers, d 768) and stablelm-3b (32 layers, d
    2560, head dim 80), random weights from a seed, serve 4 prompts of 512
@@ -43,16 +47,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    is its one kernel (MLA's absorbed attention and the MoE stay plain torch,
    as JAX's jnp); cross_check_moe with capacity_factor = n_experts / top_k
    and, for the gate, each MoE layer's selection in the decode step pinned
-   to the prefill's (the unpinned error and the near-tie flips beside it).
-5. train_check — one loss and every gradient of reduced chatglm3-6b on the
-   card (kernels) against the same weights and batch on the CPU (plain
-   versions).
+   to the prefill's (the unpinned error and the near-tie flips beside it;
+   every flip's top-k gaps must be below NEAR_TIE).
+5. train_check, train_check_ssm — one loss and every gradient of reduced
+   chatglm3-6b (64 tokens) and of reduced mamba2-130m (192 tokens, three of
+   the SSD kernels' chunks) on the card (kernels) against the same weights
+   and batch on the CPU (plain versions); beside the gate, each side against
+   the same weights in fp32 on the CPU (the bf16 model's own rounding).
 6. train, train_stablelm — full-width chatglm3-6b trains 8 steps and
    stablelm-3b 4 steps of batch 8 x 512 tokens through `Trainer.run` (remat
    per layer, 8 cross-entropy chunks, AdamW; chatglm3-6b with bf16 moments,
    the one cut, as its fp32-moment state alone is 74.9 GB; stablelm-3b with
    the Trainer's default fp32 moments), on one fixed batch; every loss
    finite, the last below the first, every launch count per step checked.
+   train_ssm — full-width mamba2-130m (24 layers, d 768, 24 SSD heads of
+   dim 64, d_state 128, tied embeddings; 129 M params), nothing cut: 8
+   steps of batch 8 x 2048 tokens (the Mamba-2 paper's training context),
+   fp32 moments, the same checks.
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -95,6 +106,15 @@ TOL_GRAD = 3e-2          # train_check: relative error of the loss and of all gr
 # the limit sits between their readings and those of the same products
 # without the lo terms (plain bf16 operands), both recorded in PERF.md
 TOL_SSD_REL_L2 = 1e-4
+# the SSD scan's gradients: relative L2 error against fp64 autograd of the
+# plain scan (chunk 256).  dx, dB and dC are bf16 outputs, whose rounding
+# alone reads ~1.5e-3: they are held to the fp64 gradient rounded to bf16
+# (both numbers are printed)
+TOL_SSD_BWD_REL_L2 = 1e-3
+# a routing flip between two paths is a near-tie only if the k-th and
+# (k+1)-th selection scores of the token are closer than this on both sides
+# (tests/test_torch_cuda.py's near_tie)
+NEAR_TIE = 1e-2
 # prefill(513) against prefill(512) + decode(1): max |diff| over the
 # logits' largest magnitude, the bound tests/test_torch_serve.py holds the
 # reduced model to (the elementwise 3e-2 bound fails at full width; see
@@ -110,6 +130,9 @@ TRAIN_CUT = ["adamw moment_dtype bf16 (fp32 state is 74.9 GB)"]
 # the serve_ssm phase: mamba2-130m at 4 prompts x 8192 tokens, 64 new
 SSM_ARCH, SSM_PROMPT = "mamba2-130m", 8192
 SSD_CHUNK = 64           # the SSD-scan kernel's chunk (csrc/ssd_scan.cu)
+# the train_ssm phase: mamba2-130m at 8 x 2048 tokens (the Mamba-2 paper's
+# training context, arXiv:2405.21060), 8 steps
+SSM_TRAIN_S, SSM_TRAIN_STEPS = 2048, 8
 # the serve_stablelm and train_stablelm phases: stablelm-3b, head dim 80
 LM_ARCH, LM_TRAIN_STEPS = "stablelm-3b", 4
 # decode attention's lengths in the serve runs: cache_pos + 1, 513 to 576
@@ -233,6 +256,44 @@ def ssd_rel_errors(args, h0, outs) -> dict:
             for name, (y, hf) in outs.items()}
 
 
+def ssd_grads_f64(scan_ref, args, h0, dy, dh_final, chunk=256):
+    """The SSD scan's gradients (x, dt, a_log, B, C and h0 when given) by
+    fp64 autograd of its plain version `scan_ref` at `chunk`: an oracle
+    that shares no code with the backward kernel or its plain version."""
+    leaves = [t.detach().double().requires_grad_(True) for t in args]
+    h0l = None if h0 is None else h0.detach().double().requires_grad_(True)
+    y, hf = scan_ref(*leaves, chunk=chunk, h0=h0l)
+    loss = (y * dy.double()).sum()
+    if dh_final is not None:
+        loss = loss + (hf * dh_final.double()).sum()
+    return torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
+
+
+def ssd_bwd_work(b, s, h, p, n, chunk=SSD_CHUNK) -> tuple:
+    """(bytes, tensor-core operations, fp32 operations) the SSD scan's
+    backward needs.  Bytes: x, dy, B, C, dt read and dx, dB, dC, ddt written
+    once.  Operations: the products of `ssd_scan_bwd_ref`'s formulas, the
+    intra-chunk ones over the causal pairs j <= i only (T = L(L+1)/2 per
+    chunk), two operations a multiply-add.  Per (batch, head, chunk): dy u^T
+    and att^T dy (T P each), the E-weighted sums of C and of B for dB and dC
+    (T N each), and the chunk's state update, its chain share, G B_j, u^T G
+    and H^T dy (L P N each); per (batch, chunk) C B^T (T N).
+    The tensor-core count is that of bf16 operands with every fp32 operand
+    split into hi + lo, as the forward kernel runs its products: fp32 x fp32
+    three products (dy u^T, att^T dy, u^T G, H^T dy), fp32 x bf16 two (the
+    E-weighted sums against C and B, the state update and chain share
+    against B and C, G B_j), bf16 x bf16 one (C B^T).  The fp32 count is
+    each product once, as fp32 CUDA cores run it: the yardstick of the
+    kernel's fp32 design."""
+    nc = -(-s // chunk)
+    tri, lpn = chunk * (chunk + 1) // 2, chunk * p * n
+    nbytes = b * s * h * p * (2 + 2 + 4) + 4 * b * s * n * 2 + 2 * b * s * h * 4 + 2 * h * 4
+    cbt = b * nc * tri * n
+    tc_macs = b * h * nc * (tri * (3 * p + 3 * p + 2 * n + 2 * n) + lpn * (2 + 2 + 2 + 3 + 3)) + cbt
+    f32_macs = b * h * nc * (tri * (2 * p + 2 * n) + 5 * lpn) + cbt
+    return nbytes, 2 * tc_macs, 2 * f32_macs
+
+
 def mla_moe_serve_bound(cfg, params, batch, prompt) -> dict:
     """The least time of an MLA + MoE model's serve steps as the port
     computes them.  Prefill of batch x prompt tokens: the bf16 products
@@ -324,6 +385,13 @@ def route_flips(a_calls, b_calls, rows_a=None) -> list:
     return out
 
 
+def wide_flips(flips, near_tie=NEAR_TIE) -> list:
+    """The flips of `route_flips` that are not near-ties: a gap of either
+    side at or above `near_tie`.  A routing fault, not rounding, moves such
+    a token to other experts."""
+    return [f for f in flips if max(f["gap_a"], f["gap_b"]) >= near_tie]
+
+
 def moe_cross_check(srv, prompts, dev, cache_len) -> dict:
     """cross_check for an MoE model: the last logits of a prefill of every
     prompt token against a prefill of all but the last plus one decode step.
@@ -373,11 +441,33 @@ def moe_cross_check(srv, prompts, dev, cache_len) -> dict:
             "tol": TOL_CROSS, "gated": "pinned",
             "routes": len(r_full) * b, "route_flips": len(flips),
             "largest_flip_gap": max([max(f["gap_a"], f["gap_b"]) for f in flips], default=None),
-            "flips": flips,
+            "near_tie": NEAR_TIE, "wide_flips": len(wide_flips(flips)), "flips": flips,
             "note": "capacity_factor n_experts / top_k: at the served factor a 4-token decode "
                     "step has capacity 1 and drops routes by design; the gate holds the decode "
                     "step with each layer's selection pinned to the prefill's, since a "
                     "near-tie flip moves the logits by a whole expert's share"}
+
+
+def model_flops(cfg, n_params, batch, seq, chunk=SSD_CHUNK) -> float:
+    """Model FLOPs of one train step (forward and backward, no recompute):
+    6 x the parameters a token's products read x tokens, plus the
+    sequence mixing.  Dense: every parameter but the token-embedding table
+    (a gather), plus causal attention at 4 D flops per unmasked (row,
+    column) pair forward, 3x with the backward.  ssm (tied embeddings, so
+    the table is the head's matrix and counts): the SSD products as
+    `ssd_chunked` runs them at `chunk`-row chunks, per (batch, chunk) C B^T
+    (L L N) and per head att (x dt) (L L P), the chunk state and the
+    inter-chunk output (L N P each), 3x with the backward."""
+    tokens = batch * seq
+    if cfg.family == "ssm":
+        p, n = cfg.ssm.head_dim, cfg.ssm.d_state
+        h = cfg.ssm.expand * cfg.d_model // p
+        nc = -(-seq // chunk)
+        macs = batch * nc * (chunk * chunk * n + h * (chunk * chunk * p + 2 * chunk * n * p))
+        return 6 * n_params * tokens + 3 * 2 * macs * cfg.n_layers
+    pairs = batch * cfg.n_heads * seq * (seq + 1) // 2
+    return (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+            + 12 * cfg.head_dim * pairs * cfg.n_layers)
 
 
 def leaf_names(tree, prefix=""):
@@ -449,7 +539,9 @@ def hopper_kernel_report(build) -> list:
 # Kernels of plain CUDA (mma.sync, cp.async): registers and spills of each
 # instance (template arguments named), from the `ptxas -v` report.
 PTXAS_KERNELS = (("decode_kernel", "decode_attention.cu", ("D", "MT")),
-                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ()))
+                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ()),
+                 ("ssd_bwd_states_kernel", "ssd_scan_bwd.cu", ("P", "N")),
+                 ("ssd_bwd_grads_kernel", "ssd_scan_bwd.cu", ("P", "N")))
 
 
 def ptxas_report(build) -> list:
@@ -481,7 +573,8 @@ def main() -> int:
                                      flash_attention_bwd_dq,
                                      flash_attention_fwd, fused_ce, fused_ce_bwd,
                                      launches, reset_launches, rmsnorm, rmsnorm_bwd,
-                                     rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan, ssd_scan_ref)
+                                     rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan, ssd_scan_bwd,
+                                     ssd_scan_bwd_ref, ssd_scan_ref)
     from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
     from repro_torch.kernels.decode_attention.kernel import CLUSTERS as DECODE_CLUSTERS
     from repro_torch.kernels.decode_attention.kernel import cluster_size as decode_cluster_size
@@ -1000,7 +1093,88 @@ def main() -> int:
                          "h_final_max_abs_err": float((thf - rth).abs().max()),
                          "rel_l2_vs_fp64": rel["tail"],
                          "excess_at_tol": tail_over}})
-    del sargs, h0, y, hf, ry, rh, targs, th0, ty, thf, rty, rth, scratch
+    del sargs, h0, y, hf, ry, rh, targs, th0, ty, thf, rty, rth
+    torch.cuda.empty_cache()
+
+    # SSD scan backward: one layer's scan gradient in mamba2-130m's train step
+    # (8 x 2048 tokens, x, B and C slices of one conv output, from no state,
+    # no gradient on the final state), and a tail: S = 2049 from a nonzero
+    # state with a gradient on the final state.  Every gradient against the
+    # plain version, against fp64 autograd of the plain scan, and bitwise
+    # repeatable; its own generator leaves the other rows' inputs as they were
+    t_bwd = time.perf_counter()
+    brng = np.random.default_rng(SEED + 13)
+    brandn = bf16_normal(brng, dev)
+    names = ("dx", "ddt", "da_log", "dB", "dC", "dh0")
+    checks = {}
+    for what, s_, h0_scale, with_dhf in (("train", SSM_TRAIN_S, 0.0, False),
+                                         ("tail", SSM_TRAIN_S + 1, 0.3, True)):
+        bargs, bh0 = ssd_inputs(brandn, brng, dev, TRAIN_B, s_, hs, ps, ns, h0_scale)
+        bh0 = bh0 if h0_scale else None
+        bdy = torch.from_numpy(brng.standard_normal((TRAIN_B, s_, hs, ps),
+                                                    dtype=np.float32)).to(dev)
+        bdhf = (torch.from_numpy(brng.standard_normal((TRAIN_B, hs, ps, ns), dtype=np.float32))
+                .to(dev) if with_dhf else None)
+        got = ssd_scan_bwd(*bargs, bh0, bdy, bdhf)
+        # the plain version at the kernel's 64-row chunks: at 256 its own fp32
+        # error in ddt, where the exponents' gradients cancel over a longer
+        # chunk, is ~3x the kernel's (both against fp64), and elementwise
+        # TOL_BF16 sees it at the rows where ddt is near 0
+        want = ssd_scan_bwd_ref(*bargs, bh0, bdy, bdhf, chunk=SSD_CHUNK)
+        exact = ssd_grads_f64(ssd_scan_ref, bargs, bh0, bdy, bdhf, chunk=scfg.ssm.chunk)
+        torch.cuda.synchronize()
+        pairs = [(nm, g, w, e) for nm, g, w, e in zip(names, got, want, exact) if g is not None]
+        over = max(excess(g, w, TOL_BF16) for _, g, w, _ in pairs)
+        finite = all(bool(torch.isfinite(g.float()).all()) for _, g, _, _ in pairs)
+        # bf16 outputs against the fp64 gradient rounded to bf16; fp32 ones
+        # against the fp64 gradient itself
+        rel = {nm: rel_l2(g, e.to(g.dtype)) for nm, g, _, e in pairs}
+        rel_raw = {nm: rel_l2(g, e) for nm, g, _, e in pairs if g.dtype == torch.bfloat16}
+        floor = {nm: rel_l2(e.to(g.dtype), e) for nm, g, _, e in pairs
+                 if g.dtype == torch.bfloat16}
+        for _ in range(2):      # every sum in a fixed order: the same bits
+            again = ssd_scan_bwd(*bargs, bh0, bdy, bdhf)
+            if not all(torch.equal(a, g) for a, g in zip(again, got) if g is not None):
+                raise AssertionError(f"ssd_scan_bwd ({what}) is not bitwise repeatable")
+        if not (finite and over <= 0 and max(rel.values()) <= TOL_SSD_BWD_REL_L2):
+            raise AssertionError(f"ssd_scan_bwd ({what}): excess over TOL_BF16 against the "
+                                 f"plain version {over}, finite {finite}, relative L2 against "
+                                 f"fp64 {rel} (tol {TOL_SSD_BWD_REL_L2})")
+        checks[what] = {
+            "S": s_, "h0": "N(0, 0.3^2)" if h0_scale else None,
+            "dh_final": "N(0, 1)" if with_dhf else None, "excess_at_tol": over,
+            "max_abs_err": {nm: float((g.float() - w.float()).abs().max())
+                            for nm, g, w, _ in pairs},
+            "rel_l2_vs_fp64": rel, "bf16_rel_l2_vs_unrounded_fp64": rel_raw,
+            "bf16_rounding_floor": floor, "bitwise_repeatable": True}
+        if what == "train":
+            nbytes, tc_ops, f32_ops = ssd_bwd_work(TRAIN_B, s_, hs, ps, ns)
+            r = kernel_row("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                           "none (JAX differentiates src/repro/models/ssm.py:83 ssd_chunked "
+                           "with XLA)", over,
+                           lambda a=bargs, d=bdy: ssd_scan_bwd(*a, None, d, None),
+                           lambda a=bargs, d=bdy: ssd_scan_bwd_ref(*a, None, d, None,
+                                                                   chunk=SSD_CHUNK),
+                           None,      # no single PyTorch call computes the scan's gradient
+                           nbytes=nbytes, flops=tc_ops, peak=PEAK_BF16)
+            r["max_abs_err"] = max(checks[what]["max_abs_err"].values())
+            shape = {"B": TRAIN_B, "S": s_, "H": hs, "P": ps, "N": ns,
+                     "x_strides": list(bargs[0].stride()), "kernel_chunk": SSD_CHUNK}
+        del bargs, bh0, bdy, bdhf, got, want, exact, pairs, again
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", **r, "tol": TOL_BF16, "shape": shape,
+          "cuda_launches_per_call": ["ssd_bwd_states_kernel", "ssd_bwd_chain_kernel",
+                                     "ssd_bwd_grads_kernel", "ssd_bwd_reduce_kernel"],
+          "bound_type": "bf16 tensor cores (split operands)", "gflop_bf16": tc_ops / 1e9,
+          "gbytes": nbytes / 1e9,
+          "fp32_yardstick": dict(zip(("ms", "by"), bound(nbytes, f32_ops, PEAK_F32)),
+                                 gflop=f32_ops / 1e9),
+          "rel_l2_vs_fp64": checks["train"]["rel_l2_vs_fp64"],
+          "tol_rel_l2": TOL_SSD_BWD_REL_L2, "fp64_reference": "autograd of ssd_scan_ref, chunk "
+          f"{scfg.ssm.chunk}", "plain_chunk": SSD_CHUNK, "train_check": checks["train"],
+          "tail_check": checks["tail"],
+          "bitwise_repeatable": True, "seconds": time.perf_counter() - t_bwd})
+    del scratch
     torch.cuda.empty_cache()
 
     # -- the serve paths: Server.generate, launch counts, then prefill(S + 1)
@@ -1116,62 +1290,89 @@ def main() -> int:
             <= TOL_CROSS * rec["pinned"]["logit_absmax"]):
         raise AssertionError(f"cross_check_moe: prefill+decode disagrees with prefill, the "
                              f"selection pinned: {rec['pinned']} (tol {TOL_CROSS})")
+    if rec["wide_flips"]:
+        raise AssertionError(f"cross_check_moe: {rec['wide_flips']} routes flipped at a top-k "
+                             f"gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}")
     del srv
     torch.cuda.empty_cache()
 
-    # -- train_check: reduced chatglm3-6b, loss and every gradient, card vs CPU
-    small = get_config(ARCH).reduced()
-    with torch.no_grad():
-        sp = init_model(small, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
-    sp_cpu = tree_map(lambda t: t.cpu(), sp)
-    toks = np.random.default_rng(SEED + 3).integers(0, small.vocab_size, (2, 65))
-    smask = np.ones((2, 64), np.float32)
-    smask[1, 40:] = 0.0                       # padding, as pack_batch makes it
-    res = {}
-    for where, params in (("cuda", sp), ("cpu", sp_cpu)):
-        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
-        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(where),
-                 "labels": torch.from_numpy(toks[:, 1:]).to(where),
-                 "loss_mask": torch.from_numpy(smask).to(where)}
-        loss, _ = loss_fn(params, batch, small)
-        res[where] = [loss.detach().cpu()] + [
-            gr.float().cpu() for gr in torch.autograd.grad(loss, leaves)]
-    names = leaf_names(sp)
-    (loss_c, *g_c), (loss_p, *g_p) = res["cuda"], res["cpu"]
-    # The bf16 kernels round P and dS where the plain versions keep fp32.
-    # Gate on the loss and on the relative L2 error of all gradients taken
-    # together; per leaf it is reported, not gated: the key-bias gradient's
-    # unrotated half is exactly 0 (softmax ignores a shift shared by all
-    # keys), so that leaf is rounding noise on both sides.
-    rel_loss = float((loss_c - loss_p).abs() / loss_p.abs())
-    rel_all = float(torch.cat([(a - b).flatten() for a, b in zip(g_c, g_p)]).norm()
-                    / torch.cat([b.flatten() for b in g_p]).norm())
-    rel_leaf = {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
-                for nm, a, b in zip(names, g_c, g_p)}
-    worst = sorted(rel_leaf, key=rel_leaf.get, reverse=True)[:4]
-    emit({"phase": "train_check", "arch": ARCH, "reduced": True,
-          "loss_cuda": float(loss_c), "loss_cpu": float(loss_p), "rel_err_loss": rel_loss,
-          "n_grads": len(g_p), "rel_l2_all_grads": rel_all,
-          "worst_leaf_rel_l2": {nm: rel_leaf[nm] for nm in worst}, "tol": TOL_GRAD})
-    if not (rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD):
-        raise AssertionError(f"reduced train step on the card disagrees with the CPU: "
-                             f"loss {rel_loss}, gradients {rel_all} (relative) > {TOL_GRAD}")
-    del sp, sp_cpu, res, g_c, g_p
+    # -- train_check(_ssm): reduced chatglm3-6b and mamba2-130m, loss and every
+    # gradient, card vs CPU
+    def train_check(phase, arch, seed, seq=64):
+        t0 = time.perf_counter()
+        small = get_config(arch).reduced()
+        with torch.no_grad():
+            sp = init_model(small, torch.Generator(device=dev).manual_seed(seed), dev)
+        sp_cpu = tree_map(lambda t: t.cpu(), sp)
+        toks = np.random.default_rng(seed + 1).integers(0, small.vocab_size, (2, seq + 1))
+        smask = np.ones((2, seq), np.float32)
+        smask[1, 40:] = 0.0                       # padding, as pack_batch makes it
+        res = {}
+        # the witness: the same weights in fp32 on the CPU, the model without
+        # its bf16 roundings
+        for where, params in (("cuda", sp), ("cpu", sp_cpu),
+                              ("cpu_fp32", tree_map(lambda t: t.detach().float(), sp_cpu))):
+            dv = where.split("_")[0]
+            leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dv),
+                     "labels": torch.from_numpy(toks[:, 1:]).to(dv),
+                     "loss_mask": torch.from_numpy(smask).to(dv)}
+            loss, _ = loss_fn(params, batch, small)
+            res[where] = [loss.detach().float().cpu()] + [
+                gr.float().cpu() for gr in torch.autograd.grad(loss, leaves)]
+        names = leaf_names(sp)
+
+        def rel_errs(got, want):
+            (loss_g, *g_g), (loss_w, *g_w) = got, want
+            return (float((loss_g - loss_w).abs() / loss_w.abs()),
+                    float(torch.cat([(a - b).flatten() for a, b in zip(g_g, g_w)]).norm()
+                          / torch.cat([b.flatten() for b in g_w]).norm()),
+                    {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
+                     for nm, a, b in zip(names, g_g, g_w)})
+        # The bf16 kernels round P and dS where the plain versions keep fp32.
+        # Gate on the loss and on the relative L2 error of all gradients taken
+        # together; per leaf it is reported, not gated: the key-bias gradient's
+        # unrotated half is exactly 0 (softmax ignores a shift shared by all
+        # keys), so that leaf is rounding noise on both sides.  Beside it, how
+        # far each bf16 side is from the fp32 model: the size of the bf16
+        # model's own rounding, which the card's error should not exceed.
+        rel_loss, rel_all, rel_leaf = rel_errs(res["cuda"], res["cpu"])
+        worst = sorted(rel_leaf, key=rel_leaf.get, reverse=True)[:4]
+        witness = {}
+        for side in ("cuda", "cpu"):
+            w_loss, w_all, w_leaf = rel_errs(res[side], res["cpu_fp32"])
+            witness[f"{side}_bf16_vs_cpu_fp32"] = {
+                "rel_err_loss": w_loss, "rel_l2_all_grads": w_all,
+                "worst_leaf_rel_l2": {nm: w_leaf[nm] for nm in worst}}
+        emit({"phase": phase, "arch": arch, "reduced": True, "batch": 2, "seq": seq,
+              "loss_cuda": float(res["cuda"][0]), "loss_cpu": float(res["cpu"][0]),
+              "rel_err_loss": rel_loss, "n_grads": len(names), "rel_l2_all_grads": rel_all,
+              "worst_leaf_rel_l2": {nm: rel_leaf[nm] for nm in worst}, "tol": TOL_GRAD,
+              "witness_fp32_params": witness, "seconds": time.perf_counter() - t0})
+        if not (rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD):
+            raise AssertionError(f"{phase}: reduced {arch} on the card disagrees with the CPU: "
+                                 f"loss {rel_loss}, gradients {rel_all} (relative) > {TOL_GRAD}")
+
+    train_check("train_check", ARCH, SEED + 2)
+    # 192 tokens: three of the SSD kernels' 64-row chunks, so the backward's
+    # state chain and the gradients entering each chunk from later ones run
+    train_check("train_check_ssm", SSM_ARCH, SEED + 14, seq=3 * SSD_CHUNK)
 
     # -- the train paths: Trainer.run on one fixed batch ------------------------
-    def train(phase, arch, steps, moment_dtype, cut, want, batch_seed):
-        """Full-width `arch` trains `steps` steps of TRAIN_B x TRAIN_S tokens
+    def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S):
+        """Full-width `arch` trains `steps` steps of TRAIN_B x `seq` tokens
         (remat per layer, CE_CHUNKS cross-entropy chunks, AdamW) on one fixed
         batch, repeated: a learnable target.  Every loss finite, the last
         below the first, every launch count per step `want`(cfg)."""
-        tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=TRAIN_S,
+        t_phase = time.perf_counter()
+        tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
                            moment_dtype=moment_dtype)
         cfg = get_config(arch)
         toks = np.random.default_rng(batch_seed).integers(
-            1, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+            1, cfg.vocab_size, size=(TRAIN_B, seq + 1)).astype(np.int32)
         fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                 "loss_mask": np.ones((TRAIN_B, TRAIN_S), np.float32)}
+                 "loss_mask": np.ones((TRAIN_B, seq), np.float32)}
         t0 = time.perf_counter()
         tr = Trainer(tc, batches=itertools.repeat(fixed))
         tr.init_state()
@@ -1185,17 +1386,11 @@ def main() -> int:
         got = launches()
         per_step = {name: 0 for name in got}
         per_step.update(want(cfg))
-        tokens = TRAIN_B * TRAIN_S
-        # 6 N tokens (N without the token-embedding gather) plus causal
-        # attention (4 D flops per unmasked pair forward, 3x with the
-        # backward), no recompute
-        pairs = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
-        flops = (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
-                 + 12 * cfg.head_dim * pairs * cfg.n_layers)
+        flops = model_flops(cfg, n_params, TRAIN_B, seq)
         losses = out["losses"]
         emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "head_dim": cfg.head_dim, "n_params": n_params, "global_batch": TRAIN_B,
-              "seq_len": TRAIN_S, "steps": steps, "remat": cfg.remat, "ce_chunks": CE_CHUNKS,
+              "seq_len": seq, "steps": steps, "remat": cfg.remat, "ce_chunks": CE_CHUNKS,
               "moment_dtype": str(moment_dtype).split(".")[-1], "reduced": cut,
               "init_s": init_s, "losses": losses, "step_ms": out["step_s"] * 1e3,
               "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
@@ -1203,7 +1398,8 @@ def main() -> int:
               "model_tflops_per_step": flops / 1e12,
               "model_tflops_per_s": flops / out["step_s"] / 1e12,
               "launches_per_step": {k: v / steps for k, v in got.items()},
-              "expected_launches_per_step": per_step})
+              "expected_launches_per_step": per_step,
+              "seconds": time.perf_counter() - t_phase})
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite loss in the {phase} run: {losses}")
         if not losses[-1] < losses[0]:
@@ -1227,6 +1423,15 @@ def main() -> int:
     by_path["train_stablelm"] = train(
         "train_stablelm", LM_ARCH, LM_TRAIN_STEPS, torch.float32, [], attention_per_step,
         SEED + 9)
+    # mamba2-130m: 8 x 2048 tokens, the Trainer's default fp32 moments; per
+    # layer the norm and the gated out_norm, each recomputed, and the scan
+    # (forward, recompute, backward)
+    by_path["train_ssm"] = train(
+        "train_ssm", SSM_ARCH, SSM_TRAIN_STEPS, torch.float32, [],
+        lambda c: {"rmsnorm": 4 * c.n_layers + 1, "rmsnorm_bwd": 2 * c.n_layers + 1,
+                   "ssd_scan": 2 * c.n_layers, "ssd_scan_bwd": c.n_layers,
+                   "fused_ce": 2 * CE_CHUNKS, "fused_ce_bwd": CE_CHUNKS}, SEED + 15,
+        seq=SSM_TRAIN_S)
 
     for row in rows:
         row["launches_by_path"] = {p: cnt[row["name"]] for p, cnt in by_path.items()}

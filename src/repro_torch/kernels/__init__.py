@@ -10,8 +10,8 @@ raises.
 
 Ported: rmsnorm (forward and backward), flash attention (forward, and the
 backward's dq and dk/dv passes), decode attention, fused cross-entropy
-(forward and backward), and the SSD scan (forward; its backward comes with
-the SSM train path, ROADMAP.md).
+(forward and backward), and the SSD scan (forward, and its backward, which
+has no TPU counterpart).
 """
 from .cross_entropy import ce_bwd_ref, ce_ref, ce_rows_ref, fused_ce, fused_ce_bwd, fused_ce_op
 from .decode_attention import decode_attention, decode_attention_ref
@@ -19,10 +19,11 @@ from .flash_attention import (attention_bwd_ref, attention_ref, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd, lse_ref)
 from .rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_op, rmsnorm_ref
-from .ssd_scan import ssd_scan, ssd_scan_ref
+from .ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_op, ssd_scan_ref
 
 WRAPPERS = (rmsnorm, rmsnorm_bwd, flash_attention_fwd, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv, decode_attention, fused_ce, fused_ce_bwd, ssd_scan)
+            flash_attention_bwd_dkv, decode_attention, fused_ce, fused_ce_bwd, ssd_scan,
+            ssd_scan_bwd)
 
 
 def reset_launches() -> None:
@@ -39,4 +40,5 @@ __all__ = ["WRAPPERS", "attention_bwd_ref", "attention_ref", "ce_bwd_ref", "ce_r
            "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_fwd", "fused_ce", "fused_ce_bwd", "fused_ce_op", "launches",
            "lse_ref", "reset_launches", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_ref",
-           "rmsnorm_op", "rmsnorm_ref", "ssd_scan", "ssd_scan_ref"]
+           "rmsnorm_op", "rmsnorm_ref", "ssd_scan", "ssd_scan_bwd", "ssd_scan_bwd_ref",
+           "ssd_scan_op", "ssd_scan_ref"]

@@ -1,15 +1,20 @@
-"""Mamba2 SSD chunked scan: the wrapper of the CUDA kernel in
-`csrc/ssd_scan.cu`.
+"""Mamba2 SSD chunked scan: the wrappers of the CUDA kernels in
+`csrc/ssd_scan.cu` (forward) and `csrc/ssd_scan_bwd.cu` (backward).
 
-Counterpart of `repro/kernels/ssd_scan/kernel.py::ssd_scan`, computing the
-function of `repro/models/ssm.py::ssd_chunked`: it starts from a state `h0`
-and takes any sequence length, and returns y in fp32, as the model adds
-D x to it in fp32.  The kernel's chunk length is its own (64 rows); `chunk`
-is that of the plain version.  There is no backward yet: under grad mode an
-input that requires grad is an error, not a silently gradient-less output.
+`ssd_scan` is the counterpart of `repro/kernels/ssd_scan/kernel.py::ssd_scan`,
+computing the function of `repro/models/ssm.py::ssd_chunked`: it starts from
+a state `h0` and takes any sequence length, and returns y in fp32, as the
+model adds D x to it in fp32.  Under grad mode it refuses an input that
+requires grad (a silently gradient-less output would be wrong): the
+differentiable scan is `ops.py::ssd_scan_op`.  `ssd_scan_bwd` computes the
+gradients of the scan (no TPU counterpart: JAX differentiates the jnp scan).
+The kernels' chunk length is their own (64 rows); `chunk` is that of the
+plain versions.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `ssd_scan.launches` counts kernel launches.
+raises.  `ssd_scan.launches` and `ssd_scan_bwd.launches` count calls that
+launch (the backward makes four CUDA launches a call: states, chain, grads,
+reduce).
 """
 from __future__ import annotations
 
@@ -19,10 +24,11 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 HEAD_DIMS = (16, 32, 64)            # P
 STATE_DIMS = (16, 32, 64, 128)      # N
+KERNEL_CHUNK = 64                   # rows a chunk in both kernels
 _ARGTYPES = (_build.PTR,) * 9 + (_build.INT,) * 5 + (_build.PTR,)
 
 
@@ -37,28 +43,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, a_log, B, C, h0)):
         raise NotImplementedError(
-            "ssd_scan has no backward yet (ROADMAP.md Queue 1 item 3, SSM "
-            "training): call it under torch.no_grad() or inference_mode()")
+            "ssd_scan does not differentiate: call ssd_scan_op (the autograd op "
+            "whose backward is ssd_scan_bwd), or this under torch.no_grad()")
     if not x.is_cuda:
         return ssd_scan_ref(x, dt, a_log, B, C, chunk=chunk, h0=h0)
     b, s, h, p = x.shape
     n = B.shape[-1]
     dev = x.device
-    for name, t in (("x", x), ("B", B), ("C", C)):
-        _build.require(t, name, torch.bfloat16, dev)
-    for name, t in (("dt", dt), ("a_log", a_log)):
-        _build.require(t, name, torch.float32, dev, vector=False)
-    if h0 is not None:
-        _build.require(h0, "h0", torch.float32, dev, vector=False)
-    if (s < 1 or p not in HEAD_DIMS or n not in STATE_DIMS
-            or dt.shape != (b, s, h) or a_log.shape != (h,)
-            or B.shape != (b, s, n) or C.shape != B.shape
-            or (h0 is not None and h0.shape != (b, h, p, n))):
-        raise ValueError(
-            f"ssd_scan: unsupported shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
-            f"a_log {tuple(a_log.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
-            f"h0 {None if h0 is None else tuple(h0.shape)} (S >= 1, head dim P one "
-            f"of {HEAD_DIMS}, state dim N one of {STATE_DIMS})")
+    _check("ssd_scan", x, dt, a_log, B, C, h0=h0)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     h_final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 7)(*x.stride()[:3], *B.stride()[:2], *C.stride()[:2])
@@ -72,3 +64,75 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+def _check(name, x, dt, a_log, B, C, **states) -> None:
+    """Raise unless the kernels take these tensors: x, B and C bf16 views
+    whose last dim is contiguous, the rest fp32 and contiguous, P in
+    HEAD_DIMS, N in STATE_DIMS, S >= 1.  `states` are [B,H,P,N] or None."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dev = x.device
+    for nm, t in (("x", x), ("B", B), ("C", C)):
+        _build.require(t, nm, torch.bfloat16, dev)
+    for nm, t in (("dt", dt), ("a_log", a_log)):
+        _build.require(t, nm, torch.float32, dev, vector=False)
+    for nm, t in states.items():
+        if t is not None:
+            _build.require(t, nm, torch.float32, dev, vector=False)
+    if (s < 1 or p not in HEAD_DIMS or n not in STATE_DIMS
+            or dt.shape != (b, s, h) or a_log.shape != (h,)
+            or B.shape != (b, s, n) or C.shape != B.shape
+            or any(t is not None and t.shape != (b, h, p, n) for t in states.values())):
+        raise ValueError(
+            f"{name}: unsupported shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+            f"a_log {tuple(a_log.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
+            + ", ".join(f"{k} {None if t is None else tuple(t.shape)}"
+                        for k, t in states.items())
+            + f" (S >= 1, head dim P one of {HEAD_DIMS}, state dim N one of {STATE_DIMS})")
+
+
+_BWD_ARGTYPES = (_build.PTR,) * 16 + (_build.INT,) * 5 + (_build.PTR,)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, h0: Optional[torch.Tensor],
+                 dy: torch.Tensor, dh_final: Optional[torch.Tensor], *, chunk: int = 256):
+    """The gradients of `ssd_scan` at (x, dt, a_log, B, C, h0), given dy
+    [B,S,H,P] fp32 on y and dh_final [B,H,P,N] fp32 (or None: zeros) on the
+    final state -> (dx bf16, ddt fp32, da_log fp32, dB bf16, dC bf16, dh0
+    fp32 or None when h0 is None), as `ssd_scan_bwd_ref`.  The inputs are
+    those `ssd_scan` takes; dy and dh_final are contiguous.  Deterministic:
+    the sums over heads, batches and chunks run in a fixed order."""
+    if not x.is_cuda:
+        return ssd_scan_bwd_ref(x, dt, a_log, B, C, h0, dy, dh_final, chunk=chunk)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dev = x.device
+    _check("ssd_scan_bwd", x, dt, a_log, B, C, h0=h0, dh_final=dh_final)
+    _build.require(dy, "dy", torch.float32, dev, vector=False)
+    if dy.shape != x.shape:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} is not x's {tuple(x.shape)}")
+    dx = torch.empty((b, s, h, p), dtype=torch.bfloat16, device=dev)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    da_log = torch.empty((h,), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, n), dtype=torch.bfloat16, device=dev)
+    dC = torch.empty((b, s, n), dtype=torch.bfloat16, device=dev)
+    dh0 = None if h0 is None else torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    nc = -(-s // KERNEL_CHUNK)
+    ws = torch.empty(2 * b * h * nc * (p * n + KERNEL_CHUNK * n + 1), dtype=torch.float32,
+                     device=dev)
+    strides = (ctypes.c_int64 * 7)(*x.stride()[:3], *B.stride()[:2], *C.stride()[:2])
+    fn = _build.function("ssd_scan_bwd", _BWD_ARGTYPES)
+    rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(), C.data_ptr(),
+            0 if h0 is None else h0.data_ptr(), dy.data_ptr(),
+            0 if dh_final is None else dh_final.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            da_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            0 if dh0 is None else dh0.data_ptr(), ws.data_ptr(), strides, b, s, h, p, n,
+            _build.stream(x))
+    _build.check(rc, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da_log, dB, dC, dh0
+
+
+ssd_scan_bwd.launches = 0

@@ -2,16 +2,19 @@
 
 `Trainer.run` takes a batch, runs `runtime/steps.py::train_step` (the
 model's loss through the kernels, autograd back through their backward
-kernels, AdamW) and logs, for `steps` steps.  Batches come from any
-iterable of numpy batch dicts in the format `repro.data.DataPipeline`
-yields (tokens, labels, loss_mask), or else from an in-memory corpus
-(synthesised as the JAX Trainer does when none is given) through the
-port's sampler and `pack_batch`.  Reading the corpus from BuffetFS and
-checkpointing to it wait for a later slice (ROADMAP.md).  Runs on `cuda`
-unless the config says `device="cpu"`.
+kernels, AdamW) and logs, for `steps` steps.  It is the same for every
+family `loss_fn` trains: the dense decoders and the Mamba2 (ssm) stack.
+Batches come from any iterable of numpy batch dicts in the format
+`repro.data.DataPipeline` yields (tokens, labels, loss_mask), or else from
+an in-memory corpus (synthesised as the JAX Trainer does when none is
+given) through the port's sampler and `pack_batch`.  Reading the corpus
+from BuffetFS and checkpointing to it wait for a later slice (ROADMAP.md).
+Runs on `cuda` unless the config says `device="cpu"`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
         --steps 20 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --full \\
+        --steps 8 --batch 8 --seq 2048
 """
 from __future__ import annotations
 

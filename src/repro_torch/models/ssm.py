@@ -1,13 +1,16 @@
-"""Mamba2 (SSD) layer of the port: the serve path.
+"""Mamba2 (SSD) layer of the port: the serve and train paths.
 
 Counterpart of `repro/models/ssm.py`, with the same names and layouts.  A
-prompt (s > 1, or no state) goes through the SSD-scan kernel
-(`repro_torch.kernels.ssd_scan`), started from the cache's state; one
-decode token (s == 1 with a state) runs the O(1) recurrence
+prompt or a training sequence (s > 1, or no state) goes through the SSD
+scan's autograd op (`repro_torch.kernels.ssd_scan.ssd_scan_op`: the scan
+kernel forward, its backward kernel under autograd), started from the
+cache's state when there is one; one decode token (s == 1 with a state)
+runs the O(1) recurrence
     h_t = a_t * h_{t-1} + (dt_t x_t) outer B_t ;  y_t = C_t . h_t + D x_t
 in plain torch, as JAX leaves it to XLA.  The JAX `prefill` runs that
-recurrence over the whole prompt; the scan computes the same function
-chunk by chunk.  The gated `out_norm` is the RMSNorm kernel.
+recurrence over the whole prompt, and JAX trains through `ssd_chunked`;
+the scan computes the same function chunk by chunk.  The gated `out_norm`
+is the RMSNorm kernel.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SSMConfig
-from ..kernels.ssd_scan import ssd_scan
+from ..kernels.ssd_scan import ssd_scan_op
 from .layers import _dense_init, apply_norm
 
 Params = Dict[str, torch.Tensor]
@@ -117,9 +120,9 @@ def ssm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                 state["ssm"])
         y = y[:, None]
     else:
-        y, h_last = ssd_scan(xh, dt, p["A_log"], B, C,
-                             chunk=min(cfg.ssm.chunk, s),
-                             h0=None if state is None else state["ssm"])
+        y, h_last = ssd_scan_op(xh, dt, p["A_log"], B, C,
+                                chunk=min(cfg.ssm.chunk, s),
+                                h0=None if state is None else state["ssm"])
 
     y = y + xh.float() * p["D"][..., None]
     y = y.reshape(bsz, s, di)

@@ -1,14 +1,14 @@
-"""Model assembly of the port: the dense transformer decoder's train and
-serve paths, the serve path of the MoE family (MLA attention, capacity-
-routed MoE, the dense prefix layers, the MTP head's params), and the serve
-path of the pure Mamba2 (ssm) stack.
+"""Model assembly of the port: the train and serve paths of the dense
+transformer decoder and of the pure Mamba2 (ssm) stack, and the serve path
+of the MoE family (MLA attention, capacity-routed MoE, the dense prefix
+layers, the MTP head's params).
 
 Counterpart of `repro/models/transformer.py`.  Ported so far: `init_model`,
 `init_cache`, `_layer_is_moe`, `_init_tf_layer`, `_apply_tf_layer`,
 `_model_step`, `_serve_tf`, `prefill` and `decode_step` for the dense, moe
-and ssm families, and the dense `forward`, `_chunked_ce` and `loss_fn`
-(`forward` and `loss_fn` on moe, MLA or MTP wait for the MoE training
-slice, and on ssm for an SSD backward).  Layers are kept as a list of
+and ssm families, and `forward`, `_chunked_ce` and `loss_fn` for the dense
+and ssm families (on moe, MLA or MTP they wait for the MoE training slice;
+ssm has no MTP branch, as in JAX).  Layers are kept as a list of
 per-layer param dicts (`params["blocks"][i]`, and the MoE family's dense
 `params["prefix"][i]`, as JAX names them) where JAX stacks the blocks for
 `lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
@@ -45,10 +45,6 @@ def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the hybrid family is not ported yet "
             "(ROADMAP.md Queue 1 item 3, hybrid, after MoE)")
-    if cfg.family == "ssm" and train:
-        raise NotImplementedError(
-            f"{cfg.name}: the ssm family serves but does not train yet: the SSD "
-            "scan has no backward (ROADMAP.md Queue 1 item 3, SSM training)")
     if train and (cfg.moe is not None or cfg.mla is not None or cfg.mtp):
         raise NotImplementedError(
             f"{cfg.name}: MoE, MLA and MTP serve but do not train yet "
@@ -141,14 +137,19 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward; returns (hidden [B,S,D], aux_loss)."""
+    """Full-sequence forward; returns (hidden [B,S,D], aux_loss).  The ssm
+    stack runs each layer from no state, as JAX's forward does."""
     _require_ported(cfg, train=True)
     h = L.embed_tokens(params["embed"], batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)   # no MoE yet
 
-    def body(hh, lp):
-        return _apply_tf_layer(cfg, lp, hh, positions)[0]
+    if cfg.family == "ssm":
+        def body(hh, lp):
+            return _apply_ssm_layer(cfg, lp, hh)[0]
+    else:
+        def body(hh, lp):
+            return _apply_tf_layer(cfg, lp, hh, positions)[0]
 
     for lp in params["blocks"]:
         # activation checkpointing: backward recomputes each layer from its

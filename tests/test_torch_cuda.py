@@ -10,7 +10,11 @@ TOL_BF16, the RMSNorm gradients at TOL_BF16 for dx and at 2e-2 relative to
 the largest |dscale| for dscale (a sum over thousands of rows, taken in
 another order than the plain version's).  The SSD scan's y and final state
 (fp32 outputs of fp32 sums taken in another order and chunking than the
-plain version's) at TOL_BF16.
+plain version's) at TOL_BF16, and so every gradient of its backward (bf16
+dx, dB, dC; fp32 ddt, da_log, dh0) against the plain version at the
+kernel's chunk; da_log, a sum over every row of a head, relative to its
+largest |value|; at the train shapes every gradient also within 1e-3
+relative L2 of fp64 autograd.
 """
 import numpy as np
 import pytest
@@ -20,12 +24,13 @@ from repro_torch.kernels import (decode_attention, decode_attention_ref,
                                  flash_attention_bwd_dkv, flash_attention_bwd_dq,
                                  flash_attention_fwd, fused_ce, fused_ce_bwd, rmsnorm,
                                  rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref, ssd_scan,
-                                 ssd_scan_ref)
+                                 ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
 from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref, attention_bwd_dq_ref,
                                                  attention_with_lse_ref)
 from repro_torch.kernels.decode_attention.kernel import CLUSTERS as DECODE_CLUSTERS
 from repro_torch.kernels.flash_attention.kernel import DKV_CLUSTERS
+from repro_torch.kernels.ssd_scan.kernel import KERNEL_CHUNK
 
 TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 
@@ -397,7 +402,8 @@ def test_flash_dq_kernel_is_bitwise_repeatable(dev, d, hkv):
         assert torch.equal(dq2, dq) and torch.equal(delta2, delta)
 
 
-@pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512)])
+@pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512),
+                                 (512, 50280)])     # mamba2-130m's vocab, one of 8 CE chunks
 def test_fused_ce_kernels_match_plain(dev, r, v):
     rng = np.random.default_rng(7)
     logits = _rand(rng, (r, v), dev, 2.0)
@@ -456,7 +462,8 @@ def test_reduced_train_step_on_card_matches_cpu(dev):
     assert launches() == {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
                           "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
                           "flash_attention_bwd_dkv": n, "decode_attention": 0,
-                          "fused_ce": 2 * c, "fused_ce_bwd": c, "ssd_scan": 0}
+                          "fused_ce": 2 * c, "fused_ce_bwd": c, "ssd_scan": 0,
+                          "ssd_scan_bwd": 0}
     for a, b in zip(tree_leaves(states["cuda"]["params"]),
                     tree_leaves(states["cpu"]["params"])):
         _close(a, b, **TOL_BF16)
@@ -659,7 +666,7 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(dev):
         ssd_scan(x, dt, a_log, Bm[..., :96], Cm[..., :96])
     with pytest.raises(TypeError):
         ssd_scan(x.float(), dt, a_log, Bm, Cm)
-    with pytest.raises(NotImplementedError):        # no backward yet
+    with pytest.raises(NotImplementedError):        # differentiable only as ssd_scan_op
         ssd_scan(x, dt.requires_grad_(True), a_log, Bm, Cm)
 
 
@@ -710,3 +717,186 @@ def _map(tree, fn):
     if isinstance(tree, list):
         return [_map(v, fn) for v in tree]
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# the SSM train path: the SSD scan's backward, the RMSNorm backward at
+# mamba2-130m's widths, a reduced mamba2 train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(16384, 768), (16384, 1536)])
+def test_rmsnorm_bwd_kernel_at_mamba2_widths_matches_plain(dev, shape):
+    """mamba2-130m's train step: the block norm (d 768) and the gated
+    out_norm (d_inner 1536) over 8 x 2048 rows."""
+    rng = np.random.default_rng(12)
+    x, dy = _rand(rng, shape, dev, 3.0), _rand(rng, shape, dev)
+    sc = 1.0 + 0.1 * _rand(rng, (shape[1],), dev)
+    before = rmsnorm_bwd.launches
+    dx, dsc = rmsnorm_bwd(x, sc, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    rdx, rdsc = rmsnorm_bwd_ref(x, sc, dy)
+    _close(dx, rdx, **TOL_BF16)
+    _close(dsc, rdsc, rtol=0, atol=2e-2 * float(rdsc.float().abs().max()))
+
+
+def _ssd_bwd_case(rng, dev, b, s, h, p, n, case):
+    x, dt, a_log, Bm, Cm, h0 = _ssd_inputs(rng, dev, b, s, h, p, n, strong="strong" in case,
+                                           strided="strided" in case, h0="h0" in case)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p), dtype=np.float32)).to(dev)
+    dhf = (torch.from_numpy(rng.standard_normal((b, h, p, n), dtype=np.float32)).to(dev)
+           if "dhf" in case else None)
+    return (x, dt, a_log, Bm, Cm, h0, dy, dhf)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,case", [
+    (2, 256, 4, 16, 16, "plain"),
+    (2, 256, 4, 32, 32, "h0_dhf"),
+    (1, 512, 3, 64, 128, "plain"),
+    (2, 300, 4, 64, 128, "h0_dhf"),          # S = 300: a 44-row tail chunk
+    (2, 130, 6, 64, 128, "strided_dhf"),     # the model's slices of one conv output
+    (1, 256, 4, 64, 128, "strong_h0_dhf"),   # a_log = log 16, dt up to 3
+    (2, 1, 3, 64, 128, "h0_dhf"),            # one row
+    (2, 63, 3, 32, 64, "plain"),
+    (2, 65, 3, 16, 32, "strong_h0_dhf"),
+    (8, 2048, 24, 64, 128, "strided"),       # mamba2-130m's train step
+    (2, 2049, 24, 64, 128, "strided_h0_dhf"),  # its tail, from a state
+])
+def test_ssd_scan_bwd_kernel_matches_plain(dev, b, s, h, p, n, case):
+    """The plain version at the kernel's 64-row chunks, the comparison
+    chip_smoke.py makes (at longer chunks the plain version's own fp32 error
+    in ddt, where the exponents' gradients cancel, is larger than the
+    kernel's); at mamba2-130m's train shapes also every gradient against fp64
+    autograd of the plain scan, by relative L2 <= 1e-3."""
+    rng = np.random.default_rng(13)
+    args = _ssd_bwd_case(rng, dev, b, s, h, p, n, case)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*args)
+    assert ssd_scan_bwd.launches == before + 1
+    want = ssd_scan_bwd_ref(*args, chunk=KERNEL_CHUNK)
+    assert (got[5] is None) == (args[5] is None)
+    for name, g, w, t in zip(("dx", "ddt", "da_log", "dB", "dC", "dh0"), got, want,
+                             (args[0], args[1], args[2], args[3], args[4], args[5])):
+        if t is None:
+            continue
+        assert g.dtype == t.dtype and g.shape == t.shape and g.is_contiguous(), name
+        assert torch.isfinite(g.float()).all(), name
+        if name == "da_log":
+            _close(g, w, rtol=0, atol=3e-2 * float(w.abs().max()))
+        else:
+            _close(g, w, **TOL_BF16)
+    if s >= 2048:
+        for name, g, e in zip(("dx", "ddt", "da_log", "dB", "dC", "dh0"), got,
+                              _ssd_grads_f64(*args)):
+            if g is not None:
+                rel = _rel_l2(g, e.to(g.dtype))      # a bf16 output against fp64 in bf16
+                assert rel <= 1e-3, f"{name}: relative L2 {rel} against fp64"
+
+
+def _ssd_grads_f64(x, dt, a_log, Bm, Cm, h0, dy, dhf):
+    """The scan's gradients by fp64 autograd of `ssd_scan_ref` at chunk 256
+    (dh0 None without h0), as chip_smoke.py's `ssd_grads_f64`."""
+    leaves = [t.detach().double().requires_grad_(True) for t in (x, dt, a_log, Bm, Cm)]
+    h0l = None if h0 is None else h0.detach().double().requires_grad_(True)
+    y, hf = ssd_scan_ref(*leaves, chunk=256, h0=h0l)
+    loss = (y * dy.double()).sum()
+    if dhf is not None:
+        loss = loss + (hf * dhf.double()).sum()
+    grads = torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
+    return list(grads) + ([None] if h0l is None else [])
+
+
+def _rel_l2(got, want) -> float:
+    want = want.double()
+    return float(torch.linalg.vector_norm(got.double() - want) / torch.linalg.vector_norm(want))
+
+
+def test_ssd_scan_bwd_kernel_is_bitwise_repeatable(dev):
+    """The sums over heads (dB, dC), over batches and chunks (da_log) and
+    along each chunk run in a fixed order, with no atomics."""
+    rng = np.random.default_rng(14)
+    args = _ssd_bwd_case(rng, dev, 8, 2048, 24, 64, 128, "strided_h0_dhf")
+    got = ssd_scan_bwd(*args)
+    for _ in range(2):
+        again = ssd_scan_bwd(*args)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_ssd_scan_bwd_refuses_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(15)
+    x, dt, a_log, Bm, Cm, h0, dy, dhf = _ssd_bwd_case(rng, dev, 1, 64, 2, 64, 128, "h0_dhf")
+    with pytest.raises(ValueError):                 # head dim 48
+        ssd_scan_bwd(x[..., :48], dt, a_log, Bm, Cm, None, dy[..., :48].contiguous(), None)
+    with pytest.raises(ValueError):                 # d_state 96
+        ssd_scan_bwd(x, dt, a_log, Bm[..., :96], Cm[..., :96], None, dy, None)
+    with pytest.raises(TypeError):
+        ssd_scan_bwd(x.float(), dt, a_log, Bm, Cm, None, dy, None)
+    with pytest.raises(TypeError):                  # dy in bf16
+        ssd_scan_bwd(x, dt, a_log, Bm, Cm, None, dy.bfloat16(), None)
+    with pytest.raises(ValueError):                 # dy not contiguous
+        ssd_scan_bwd(x, dt, a_log, Bm, Cm, None, dy.transpose(1, 2).contiguous().transpose(1, 2),
+                     None)
+    with pytest.raises(ValueError):                 # dh_final of another shape
+        ssd_scan_bwd(x, dt, a_log, Bm, Cm, h0, dy, dhf[..., :64])
+
+
+def test_ssd_scan_op_on_card_runs_both_kernels(dev):
+    from repro_torch.kernels import ssd_scan_op
+    rng = np.random.default_rng(16)
+    x, dt, a_log, Bm, Cm, h0, dy, _ = _ssd_bwd_case(rng, dev, 2, 200, 4, 64, 128, "strided_h0")
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, a_log, Bm, Cm, h0)]
+    n_f, n_b = ssd_scan.launches, ssd_scan_bwd.launches
+    y, _ = ssd_scan_op(*leaves[:5], chunk=256, h0=leaves[5])
+    grads = torch.autograd.grad((y * dy).sum(), leaves)
+    assert ssd_scan.launches == n_f + 1 and ssd_scan_bwd.launches == n_b + 1
+    want = ssd_scan_bwd_ref(x, dt, a_log, Bm, Cm, h0, dy, None, chunk=256)
+    for g, w, t in zip(grads, want, leaves):
+        assert g.dtype == t.dtype
+        _close(g, w, rtol=3e-2, atol=3e-2 * max(1.0, float(w.float().abs().max())))
+
+
+def test_reduced_mamba2_train_step_on_card_matches_cpu(dev):
+    """One train step of reduced mamba2-130m on the card (kernels) against
+    the same weights and batch on the CPU (plain versions): the loss and
+    all gradients by relative L2 error <= 3e-2 (the gate of chip_smoke.py's
+    train_check_ssm; per leaf a bf16 value one ulp apart moves single
+    leaves, tests/test_torch_ssm_train.py), the launch counts of the step,
+    and the updated params by relative L2 error."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import make_train_state, train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mamba2-130m").reduced()
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(17), dev)
+    rng = np.random.default_rng(18)
+    toks = rng.integers(0, cfg.vocab_size, (2, 193))    # three of the kernels' 64-row chunks
+    mask = np.ones((2, 192), np.float32)
+    mask[1, 40:] = 0
+    batches = {d.type: {"tokens": torch.from_numpy(toks[:, :-1]).to(d),
+                        "labels": torch.from_numpy(toks[:, 1:]).to(d),
+                        "loss_mask": torch.from_numpy(mask).to(d)}
+               for d in (dev, torch.device("cpu"))}
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    states = {"cuda": make_train_state(cfg, opt_cfg, params=params),
+              "cpu": make_train_state(cfg, opt_cfg, params=_map(
+                  params, lambda t: t.detach().cpu().clone()))}
+    grads = {}
+    for d, st in states.items():
+        loss, _ = loss_fn(st["params"], batches[d], cfg)
+        grads[d] = (loss, torch.autograd.grad(loss, tree_leaves(st["params"])))
+    _close(grads["cuda"][0], grads["cpu"][0], **TOL_BF16)
+    _rel_close(torch.cat([g.float().flatten() for g in grads["cuda"][1]]),
+               torch.cat([g.float().flatten() for g in grads["cpu"][1]]), 3e-2)
+    reset_launches()
+    for d, st in states.items():
+        train_step(st, batches[d], cfg, opt_cfg)
+    n, c = cfg.n_layers, 8
+    assert {k: v for k, v in launches().items() if v} == {
+        "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1, "ssd_scan": 2 * n, "ssd_scan_bwd": n,
+        "fused_ce": 2 * c, "fused_ce_bwd": c}
+    _rel_close(torch.cat([t.float().flatten() for t in tree_leaves(states["cuda"]["params"])]),
+               torch.cat([t.float().flatten() for t in tree_leaves(states["cpu"]["params"])]),
+               3e-2)

@@ -46,6 +46,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.cross_entropy.ops",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.ssd_scan.kernel",
+            "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
             "repro_torch.configs.deepseek_v2_lite_16b",
             "repro_torch.configs.deepseek_v3_671b"} <= set(mods)
@@ -106,6 +107,7 @@ WRAPPERS = {
     "fused_ce": (_CE, "ce_rows_ref", "ce_fwd_bf16"),
     "fused_ce_bwd": (_CE, "ce_bwd_ref", "ce_bwd_bf16"),
     "ssd_scan": ("repro_torch.kernels.ssd_scan.kernel", "ssd_scan_ref", "ssd_scan_fwd"),
+    "ssd_scan_bwd": ("repro_torch.kernels.ssd_scan.kernel", "ssd_scan_bwd_ref", "ssd_scan_bwd"),
 }
 
 
@@ -133,6 +135,9 @@ def _args(name, dtype=torch.bfloat16, d=32):
     if name == "ssd_scan":                  # x, dt, a_log, B, C; h0 given
         return (r(1, 8, 2, 16), rows(1, 8, 2), rows(2), r(1, 8, 16), r(1, 8, 16)), {
             "h0": rows(1, 2, 16, 16)}
+    if name == "ssd_scan_bwd":              # x, dt, a_log, B, C, h0, dy, dh_final
+        return (r(1, 8, 2, 16), rows(1, 8, 2), rows(2), r(1, 8, 16), r(1, 8, 16),
+                rows(1, 2, 16, 16), rows(1, 8, 2, 16), rows(1, 2, 16, 16)), {}
     labels = _cuda_like(torch.tensor([3, 0, 63, 7]))
     if name == "fused_ce":
         return (r(4, 64), labels, rows(4)), {}
@@ -225,6 +230,8 @@ OPS = {
                          "flash_attention_bwd_dkv_bf16")),
     "fused_ce_op": ("repro_torch.kernels.cross_entropy.ops", ("fused_ce", "fused_ce_bwd"),
                     ("ce_fwd_bf16", "ce_bwd_bf16")),
+    "ssd_scan_op": ("repro_torch.kernels.ssd_scan.ops", ("ssd_scan", "ssd_scan_bwd"),
+                    ("ssd_scan_fwd", "ssd_scan_bwd")),
 }
 
 
@@ -237,6 +244,9 @@ def _op_args(name):
         return r(4, 64), r(64)
     if name == "flash_attention":
         return r(1, 4, 16, 32), r(1, 2, 16, 32), r(1, 2, 16, 32)
+    if name == "ssd_scan_op":               # x, dt, a_log, B, C: every input differentiable
+        return (r(1, 8, 2, 16), r(1, 8, 2).float().detach().requires_grad_(True),
+                r(2).float().detach().requires_grad_(True), r(1, 8, 16), r(1, 8, 16))
     return r(4, 64), torch.tensor([3, 0, 63, 7]), torch.ones(4)
 
 
@@ -256,6 +266,7 @@ def test_autograd_op_runs_the_kernels_forward_and_backward(name, fake_kernels,
     args = _op_args(name)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     out = op(*args)
+    out = out[0] if isinstance(out, tuple) else out     # the SSD scan's y (h_final unused)
     inputs = [a for a in args if a.requires_grad]
     grads = torch.autograd.grad(out, inputs, torch.ones_like(out))
     monkeypatch.undo()

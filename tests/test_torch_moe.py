@@ -440,3 +440,36 @@ def test_rmsnorm_wrapper_refuses_rows_at_no_uniform_pitch():
     with pytest.raises(ValueError, match="uniform pitch"):
         rms_kernel.row_pitch(x)
     assert rms_kernel.row_pitch(x[:, :1]) == 3 * 576
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's cross_check_moe: flips are allowed only at near-ties
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("gap,wide", [(2e-2, True), (1.5e-2, True), (5e-3, False),
+                                      (2.5e-3, False)])
+def test_cross_check_moe_fails_a_flip_at_a_wide_gap(gap, wide):
+    """Two recorded runs of one MoE layer, 3 tokens of top-2 routes: token 1
+    takes experts {1, 3} in one and {1, 2} in the other, its 2nd and 3rd
+    scores `gap` apart in one run (half of it in the other).  `route_flips`
+    finds that one flip; `wide_flips`, whose non-empty result fails the
+    chip_smoke.py gate, holds it iff a gap reaches NEAR_TIE (1e-2)."""
+    cs = _chip_smoke()
+    idx = torch.tensor([[0, 1], [1, 3], [2, 0]])
+    a = {"idx": idx, "gap": torch.tensor([0.3, gap / 2, 0.2])}
+    b = {"idx": torch.tensor([[1, 0], [2, 1], [2, 0]]), "gap": torch.tensor([0.3, gap, 0.2])}
+    flips = cs.route_flips([a], [b])
+    assert [(f["layer"], f["token"]) for f in flips] == [(0, 1)]
+    assert cs.NEAR_TIE == 1e-2
+    assert bool(cs.wide_flips(flips)) == wide
+    assert cs.wide_flips(cs.route_flips([a], [a])) == []

@@ -54,8 +54,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_params, to_jax_params, to_tensor
 from repro_torch.kernels import ssd_scan, ssd_scan_ref
 from repro_torch.launch.serve import Server, main
-from repro_torch.models import (decode_step, forward, init_cache, init_model, loss_fn,
-                                prefill)
+from repro_torch.models import decode_step, init_cache, init_model, prefill
 from repro_torch.models import ssm as TS
 
 ARCH = "mamba2-130m"
@@ -187,7 +186,7 @@ def test_ssd_scan_ref_strong_decay_is_finite():
 def test_ssd_scan_raises_on_an_input_that_requires_grad():
     x, dt, a_log, Bm, Cm = (to_tensor(a) for a in _scan_inputs(4, 1, 8, 2, 16, 16))
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3, SSM train"):
+    with pytest.raises(NotImplementedError, match="ssd_scan_op"):
         ssd_scan(x, dt, a_log, Bm, Cm, chunk=8)
     with torch.no_grad():
         y, _ = ssd_scan(x, dt, a_log, Bm, Cm, chunk=8)
@@ -440,13 +439,3 @@ def test_server_mamba2_defaults_to_cuda_and_raises_without_it():
         pytest.skip("this machine has a card: the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Server(ARCH)
-
-
-def test_mamba2_does_not_train_yet_and_names_its_roadmap_item(model):
-    cfg, tp = model["cfg"], model["torch"]["f32"]
-    toks = _t(_tokens(13, (B, 9), cfg.vocab_size))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3, SSM train"):
-        loss_fn(tp, batch, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3, SSM train"):
-        forward(tp, batch, cfg)

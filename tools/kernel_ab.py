@@ -36,7 +36,11 @@ into its own `build/`.  The inputs, timer and accuracy measures are
   final state against the plain version, and the relative L2 error of the
   kernel and of the plain version against the fp64 recurrence, with whether
   the kernel's exceeds `chip_smoke.TOL_SSD_REL_L2`, there and at S = 8193
-  from an N(0, 0.3^2) state.
+  from an N(0, 0.3^2) state;
+* `ssd_bwd`: the SSD scan's backward at mamba2-130m's train step (8 x 2048
+  tokens, strided as the model passes them, no state, as `chip_smoke.py`'s
+  row), with its excess over `chip_smoke.TOL_BF16` against the plain
+  version at the kernel's 64-row chunks (skipped in a tree without it).
 
 `--ssm-cross-check` runs `chip_smoke.py`'s cross_check_ssm instead: full-
 width mamba2-130m (weights seed 0, prompts seed 5), the last logits of an
@@ -83,7 +87,9 @@ DROP_LO = ("\n    {   // control: plain bf16 operands, every lo term dropped\n"
 #   of a pair of heads, so at rep 1 the second warpgroup idles;
 # * rms-one-vector, rms-two-vectors, rms-eight-vectors: the RMSNorm forward
 #   at many rows with one, two or eight 16-byte vectors a thread (512, 256
-#   or 64 threads a row at d 4096) in place of four.
+#   or 64 threads a row at d 4096) in place of four;
+# * ssd-chain-serial: the SSD backward's state chain with one chunk's load
+#   in flight a thread (each chunk waits its load) in place of sixteen.
 VARIANTS = {
     "sw32": ("hopper_sm90.cuh",
              "static constexpr int SW = D * 2 < 128 ? D * 2 : 128;",
@@ -101,8 +107,10 @@ VARIANTS = {
                         "constexpr int kFwdManyRowsVec = 2;"),
     "rms-eight-vectors": ("rmsnorm.cu", "constexpr int kFwdManyRowsVec = 4;",
                           "constexpr int kFwdManyRowsVec = 8;"),
+    "ssd-chain-serial": ("ssd_scan_bwd.cu", "constexpr int kChain = 16;",
+                         "constexpr int kChain = 1;"),
 }
-GROUPS = ("flash128", "head_dim_80", "rmsnorm", "decode", "ssd")
+GROUPS = ("flash128", "head_dim_80", "rmsnorm", "decode", "ssd", "ssd_bwd")
 
 
 def copy_with_edit(src: str, out: str, source: str, text: str, replacement: str) -> None:
@@ -264,6 +272,25 @@ def timings(dev, groups=GROUPS) -> dict:
                 if name == "serve":
                     res["ssd_ms"] = cs.time_ms(lambda: ssd_scan(*sargs, h0=h0), flush)
                 del sargs, h0, y, hf, ry, rh
+
+    if "ssd_bwd" in groups:
+        from repro_torch import kernels
+        if hasattr(kernels, "ssd_scan_bwd"):
+            scfg = get_config(cs.SSM_ARCH)
+            ps, ns = scfg.ssm.head_dim, scfg.ssm.d_state
+            hs = scfg.ssm.expand * scfg.d_model // ps
+            brng = np.random.default_rng(cs.SEED + 13)
+            bargs, _ = cs.ssd_inputs(cs.bf16_normal(brng, dev), brng, dev, cs.TRAIN_B,
+                                     cs.SSM_TRAIN_S, hs, ps, ns, 0.0)
+            bdy = torch.from_numpy(brng.standard_normal((cs.TRAIN_B, cs.SSM_TRAIN_S, hs, ps),
+                                                        dtype=np.float32)).to(dev)
+            got = kernels.ssd_scan_bwd(*bargs, None, bdy, None)
+            want = kernels.ssd_scan_bwd_ref(*bargs, None, bdy, None, chunk=cs.SSD_CHUNK)
+            res["ssd_bwd"] = {
+                "ms": cs.time_ms(lambda: kernels.ssd_scan_bwd(*bargs, None, bdy, None), flush),
+                "excess_at_tol": max(cs.excess(g, w, cs.TOL_BF16)
+                                     for g, w in zip(got, want) if g is not None)}
+            del bargs, bdy, got, want
     return res
 
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA card.
 
-    python3 tools/train_profile.py [--arch stablelm-3b] [--src DIR]
+    python3 tools/train_profile.py [--arch stablelm-3b | mamba2-130m] [--src DIR]
 
 Builds full-width chatglm3-6b (random weights from seed 0, AdamW with bf16
-moments, as `chip_smoke.py` trains it) or stablelm-3b (fp32 moments) and
-runs two train steps of 8 x 512 tokens as warm-up and one for
-the wall time of a whole step.  Then it profiles the step's two halves
+moments, as `chip_smoke.py` trains it), stablelm-3b or mamba2-130m (fp32
+moments) and runs two train steps as warm-up and one for the wall time of
+a whole step, at `chip_smoke.py`'s train shapes (8 x 512 tokens; mamba2-130m
+8 x 2048).  Then it profiles the step's two halves
 under `torch.profiler`: the forward and backward (`loss_fn` and
 `torch.autograd.grad`), and the AdamW update.  For each it prints one JSON
 line: the wall time (host clock, synchronised), the device busy time (sum
@@ -35,9 +36,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
-MOMENTS = {"chatglm3-6b": torch.bfloat16, "stablelm-3b": torch.float32}
+MOMENTS = {"chatglm3-6b": torch.bfloat16, "stablelm-3b": torch.float32,
+           "mamba2-130m": torch.float32}
+SEQ = {"chatglm3-6b": 512, "stablelm-3b": 512, "mamba2-130m": 2048}
 PORTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm_kernel",
-          "rmsnorm_bwd", "ce_fwd", "ce_bwd")
+          "rmsnorm_bwd", "ce_fwd", "ce_bwd", "ssd_scan_kernel", "ssd_bwd")
 GEMM = ("nvjet", "gemm", "cutlass", "xmma")
 
 
@@ -101,7 +104,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    b, s = 8, 512
+    b, s = 8, SEQ[args.arch]
     tc = TrainerConfig(arch=args.arch, reduced=False, global_batch=b, seq_len=s,
                        steps=1, device="cuda", seed=0, moment_dtype=MOMENTS[args.arch])
     toks = np.random.default_rng(4).integers(1, get_config(args.arch).vocab_size,
