@@ -8,11 +8,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`;
    for each kernel written with wgmma/TMA (the flash forward, dq and dk/dv
-   passes at each head dim, the SSD scan at each state dim), its registers,
-   spills, shared memory and blocks an SM from the `ptxas -v` report (the
-   flash kernels' head dim 80 instances must not spill), and
-   the registers and spills of every instance of decode attention and of
-   the RMSNorm backward.
+   passes at each head dim, the SSD scan at each state dim, the SSD
+   backward's walkers and gradient pass at each head and state dim), its
+   registers, spills, shared memory and blocks an SM from the `ptxas -v`
+   report (the flash kernels' head dim 80 instances and the SSD backward's
+   P 64, N 128 ones must not spill), and the registers and spills of every
+   instance of decode attention and of the RMSNorm backward.
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
    time, the plain version's, one library call's as a yardstick (never used
@@ -279,17 +280,17 @@ def ssd_bwd_work(b, s, h, p, n, chunk=SSD_CHUNK) -> tuple:
     (T N each), and the chunk's state update, its chain share, G B_j, u^T G
     and H^T dy (L P N each); per (batch, chunk) C B^T (T N).
     The tensor-core count is that of bf16 operands with every fp32 operand
-    split into hi + lo, as the forward kernel runs its products: fp32 x fp32
-    three products (dy u^T, att^T dy, u^T G, H^T dy), fp32 x bf16 two (the
-    E-weighted sums against C and B, the state update and chain share
-    against B and C, G B_j), bf16 x bf16 one (C B^T).  The fp32 count is
-    each product once, as fp32 CUDA cores run it: the yardstick of the
-    kernel's fp32 design."""
+    split into hi + lo, as the kernels run their products: fp32 x fp32
+    three products (att^T dy, H^T dy), fp32 x bf16 two (the E-weighted sums
+    against C and B, the state update and chain share against B and C,
+    G B_j, and dy u^T and u^T G, whose u = dt x is the exact bf16 x scaled
+    by a row's dt), bf16 x bf16 one (C B^T).  The fp32 count is each
+    product once, as fp32 CUDA cores would run it: a yardstick."""
     nc = -(-s // chunk)
     tri, lpn = chunk * (chunk + 1) // 2, chunk * p * n
     nbytes = b * s * h * p * (2 + 2 + 4) + 4 * b * s * n * 2 + 2 * b * s * h * 4 + 2 * h * 4
     cbt = b * nc * tri * n
-    tc_macs = b * h * nc * (tri * (3 * p + 3 * p + 2 * n + 2 * n) + lpn * (2 + 2 + 2 + 3 + 3)) + cbt
+    tc_macs = b * h * nc * (tri * (2 * p + 3 * p + 2 * n + 2 * n) + lpn * (2 + 2 + 2 + 2 + 3)) + cbt
     f32_macs = b * h * nc * (tri * (2 * p + 2 * n) + 5 * lpn) + cbt
     return nbytes, 2 * tc_macs, 2 * f32_macs
 
@@ -481,16 +482,23 @@ def leaf_names(tree, prefix=""):
 
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
 # ptxas report, dynamic shared memory and blocks an SM, at each value of
-# their template parameter (the head dim D, or the SSD scan's state dim N).
-HEAD_DIM_VALUES = ("D", (32, 64, 80, 128))
-HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", "flash_attention_fwd_smem_bytes",
+# their template parameters (the head dim D, the SSD scan's state dim N, the
+# SSD backward's head dim P and state dim N).  Each names its entry point
+# for the shared memory and the arguments that come before the parameters.
+HEAD_DIM_VALUES = (("D",), ((32,), (64,), (80,), (128,)))
+SSD_BWD_VALUES = (("P", "N"), tuple((p, n) for p in (16, 32, 64) for n in (16, 32, 64, 128)))
+HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", ("flash_attention_fwd_smem_bytes",),
                    160, HEAD_DIM_VALUES),
                   ("flash_bwd_dq_kernel", "flash_attention_bwd.cu",
-                   "flash_attention_bwd_dq_smem_bytes", 384, HEAD_DIM_VALUES),
+                   ("flash_attention_bwd_dq_smem_bytes",), 384, HEAD_DIM_VALUES),
                   ("flash_bwd_dkv_kernel", "flash_attention_bwd.cu",
-                   "flash_attention_bwd_dkv_smem_bytes", 160, HEAD_DIM_VALUES),
-                  ("ssd_scan_kernel", "ssd_scan.cu", "ssd_scan_smem_bytes", 288,
-                   ("N", (16, 32, 64, 128))))
+                   ("flash_attention_bwd_dkv_smem_bytes",), 160, HEAD_DIM_VALUES),
+                  ("ssd_scan_kernel", "ssd_scan.cu", ("ssd_scan_smem_bytes",), 288,
+                   (("N",), ((16,), (32,), (64,), (128,)))),
+                  ("ssd_bwd_walk_kernel", "ssd_scan_bwd.cu", ("ssd_scan_bwd_smem_bytes", 0), 160,
+                   SSD_BWD_VALUES),
+                  ("ssd_bwd_grads_kernel", "ssd_scan_bwd.cu", ("ssd_scan_bwd_smem_bytes", 1), 512,
+                   SSD_BWD_VALUES))
 
 
 def ptxas_entries(text: str) -> dict:
@@ -517,31 +525,44 @@ def ptxas_entries(text: str) -> dict:
 
 def hopper_kernel_report(build) -> list:
     rows = []
-    for kernel, source, smem_fn, threads, (param, values) in HOPPER_KERNELS:
+    for kernel, source, (smem_fn, *lead), threads, (params, values) in HOPPER_KERNELS:
         entries = ptxas_entries((build.BUILD_DIR / f"{source}.log").read_text())
-        smem_of = build.function(smem_fn, (build.INT,))
-        for d in values:
-            name = next(n for n in entries if f"{kernel}ILi{d}E" in n)
+        smem_of = build.function(smem_fn, (build.INT,) * (len(lead) + len(params)))
+        for vals in values:
+            tag = kernel + "I" + "".join(f"Li{v}E" for v in vals) + "E"
+            name = next(n for n in entries if tag in n)
             e = entries[name]
-            smem = smem_of(d)
+            smem = smem_of(*lead, *vals)
             # registers are allocated per warp in units of 256; 1 KB of
             # shared memory a block is reserved; 228 KB an SM
             per_warp = -(-e["registers"] * 32 // 256) * 256
             by_regs = 65536 // (per_warp * -(-threads // 32))
             by_smem = 233472 // (smem + 1024)
-            rows.append({"kernel": kernel, "source": source, param: d, "threads": threads,
-                         **e, "dynamic_smem_bytes": smem, "blocks_per_sm_by_registers": by_regs,
+            rows.append({"kernel": kernel, "source": source, **dict(zip(params, vals)),
+                         "threads": threads, **e, "dynamic_smem_bytes": smem,
+                         "blocks_per_sm_by_registers": by_regs,
                          "blocks_per_sm_by_smem": by_smem,
                          "blocks_per_sm": min(by_regs, by_smem)})
     return rows
 
 
+def check_no_spills(entry: dict) -> None:
+    """Raise if `entry` (a row of the ptxas reports) is an instance that
+    must not spill: the flash kernels' head dim 80 ones, which hold dq, dk,
+    dv or O in registers, and the SSD backward's at mamba2-130m's P 64, N
+    128, which hold the states and the dB, dC sums."""
+    if not (entry.get("spill_stores") or entry.get("spill_loads")):
+        return
+    if entry["kernel"].startswith("flash_") and entry.get("D") == 80:
+        raise AssertionError(f"{entry['kernel']}<80> spills: {entry}")
+    if entry["kernel"].startswith("ssd_bwd_") and (entry.get("P"), entry.get("N")) == (64, 128):
+        raise AssertionError(f"{entry['kernel']}<64, 128> spills: {entry}")
+
+
 # Kernels of plain CUDA (mma.sync, cp.async): registers and spills of each
 # instance (template arguments named), from the `ptxas -v` report.
 PTXAS_KERNELS = (("decode_kernel", "decode_attention.cu", ("D", "MT")),
-                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ()),
-                 ("ssd_bwd_states_kernel", "ssd_scan_bwd.cu", ("P", "N")),
-                 ("ssd_bwd_grads_kernel", "ssd_scan_bwd.cu", ("P", "N")))
+                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ()))
 
 
 def ptxas_report(build) -> list:
@@ -606,11 +627,7 @@ def main() -> int:
           "library_dir": str(_build.BUILD_DIR)})
     for entry in hopper_kernel_report(_build) + ptxas_report(_build):
         emit({"phase": "build_kernel", **entry})
-        # the flash kernels' head dim 80 instances hold dq, dk, dv or O in
-        # registers: no spills
-        if (entry["kernel"].startswith("flash_") and entry.get("D") == 80
-                and (entry.get("spill_stores") or entry.get("spill_loads"))):
-            raise AssertionError(f"{entry['kernel']}<80> spills: {entry}")
+        check_no_spills(entry)
 
     # -- kernels at the serve path's shapes ------------------------------------
     rng = np.random.default_rng(SEED)
@@ -1163,8 +1180,8 @@ def main() -> int:
         del bargs, bh0, bdy, bdhf, got, want, exact, pairs, again
         torch.cuda.empty_cache()
     emit({"phase": "kernel", **r, "tol": TOL_BF16, "shape": shape,
-          "cuda_launches_per_call": ["ssd_bwd_states_kernel", "ssd_bwd_chain_kernel",
-                                     "ssd_bwd_grads_kernel", "ssd_bwd_reduce_kernel"],
+          "cuda_launches_per_call": ["ssd_bwd_walk_kernel", "ssd_bwd_grads_kernel",
+                                     "ssd_bwd_da_kernel"],
           "bound_type": "bf16 tensor cores (split operands)", "gflop_bf16": tc_ops / 1e9,
           "gbytes": nbytes / 1e9,
           "fp32_yardstick": dict(zip(("ms", "by"), bound(nbytes, f32_ops, PEAK_F32)),

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the flash-attention and SSD-scan kernels, as
 // inline PTX: shared-memory matrix descriptors and the bf16 `wgmma` products
-// the kernels issue, `mbarrier` rings, 4-D TMA tile loads, cluster ranks and
-// distributed shared memory, and the host-side encoding of the TMA tensor
+// the kernels issue, `mbarrier` rings, 4-D TMA tile loads, 1-D bulk copies
+// between device and shared memory, cluster ranks and distributed shared
+// memory, and the host-side encoding of the TMA tensor
 // maps (`cuTensorMapEncodeTiled`, looked up with `cudaGetDriverEntryPoint`,
 // so the library links only the CUDA runtime).
 //
@@ -406,6 +407,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_sync(int id, int threads) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// arrives at hardware barrier `id` without waiting for it: the shared-memory
+// writes before it are visible to the threads that `named_sync` on it
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // moves registers between warpgroups: every warp of the warpgroup executes
 // it, and the block's total stays within the register file.  ptxas gives
@@ -466,6 +472,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
         "r"(c3)
         : "memory");
+}
+
+// `bytes` (a multiple of 16) copied as they are from device memory at `src`
+// to shared memory at `dst` (both 16-byte aligned); completion is reported
+// to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) copied from shared memory at `src` to device
+// memory at `dst` (both 16-byte aligned), asynchronously: the shared-memory
+// writes before it need fence_proxy_async and a barrier among the writers;
+// `bulk_commit` closes a group of such stores, `bulk_wait_read<n>` waits
+// until at most n groups still read their shared memory, `bulk_wait<n>`
+// until at most n groups are still writing.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The tensor maps of a [D, rows, heads, batch] operand: boxes of SW/2

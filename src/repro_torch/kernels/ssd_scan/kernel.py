@@ -13,8 +13,8 @@ plain versions.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `ssd_scan.launches` and `ssd_scan_bwd.launches` count calls that
-launch (the backward makes four CUDA launches a call: states, chain, grads,
-reduce).
+launch (the backward makes three CUDA launches a call: the state walkers, the
+gradients, da_log's sum).
 """
 from __future__ import annotations
 
@@ -119,9 +119,11 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     dB = torch.empty((b, s, n), dtype=torch.bfloat16, device=dev)
     dC = torch.empty((b, s, n), dtype=torch.bfloat16, device=dev)
     dh0 = None if h0 is None else torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    # the walkers' images of each chunk's entering state, of the gradient on
+    # its leaving state and of its dy (bf16 hi + lo each), and da_log's shares
     nc = -(-s // KERNEL_CHUNK)
-    ws = torch.empty(2 * b * h * nc * (p * n + KERNEL_CHUNK * n + 1), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty(b * h * nc * (2 * p * n + KERNEL_CHUNK * p) + b * nc * h,
+                     dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 7)(*x.stride()[:3], *B.stride()[:2], *C.stride()[:2])
     fn = _build.function("ssd_scan_bwd", _BWD_ARGTYPES)
     rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(), C.data_ptr(),

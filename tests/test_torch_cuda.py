@@ -760,13 +760,28 @@ def _ssd_bwd_case(rng, dev, b, s, h, p, n, case):
     (2, 65, 3, 16, 32, "strong_h0_dhf"),
     (8, 2048, 24, 64, 128, "strided"),       # mamba2-130m's train step
     (2, 2049, 24, 64, 128, "strided_h0_dhf"),  # its tail, from a state
+    # the other (P, N) the wrapper takes, with and without h0 and dh_final
+    (1, 200, 3, 16, 64, "strided_h0_dhf"),
+    (2, 130, 4, 16, 128, "plain"),
+    (2, 100, 3, 32, 16, "h0_dhf"),
+    (1, 257, 2, 32, 128, "strided"),
+    (2, 70, 3, 64, 16, "strided_h0_dhf"),
+    (2, 192, 2, 64, 32, "h0"),               # h0 alone
+    (2, 129, 3, 64, 64, "dhf"),              # dh_final alone
+    (2, 1, 2, 16, 16, "strided_h0_dhf"),     # one row at the smallest P and N
+    # many heads: the sum over heads in order and the walkers' chunk loop
+    (1, 320, 24, 64, 128, "strided_h0_dhf"),
+    (2, 40, 24, 32, 64, "plain"),            # one chunk shorter than 64 rows
 ])
 def test_ssd_scan_bwd_kernel_matches_plain(dev, b, s, h, p, n, case):
     """The plain version at the kernel's 64-row chunks, the comparison
     chip_smoke.py makes (at longer chunks the plain version's own fp32 error
     in ddt, where the exponents' gradients cancel, is larger than the
     kernel's); at mamba2-130m's train shapes also every gradient against fp64
-    autograd of the plain scan, by relative L2 <= 1e-3."""
+    autograd of the plain scan, by relative L2 <= 1e-3.  The cases cover
+    every (P, N) the wrapper takes, S < 64, S = 1 and S not a multiple of
+    64, h0 and dh_final both given, both absent or one of them, strided x,
+    B and C, and 24 heads over several chunks."""
     rng = np.random.default_rng(13)
     args = _ssd_bwd_case(rng, dev, b, s, h, p, n, case)
     before = ssd_scan_bwd.launches

@@ -40,7 +40,11 @@ into its own `build/`.  The inputs, timer and accuracy measures are
 * `ssd_bwd`: the SSD scan's backward at mamba2-130m's train step (8 x 2048
   tokens, strided as the model passes them, no state, as `chip_smoke.py`'s
   row), with its excess over `chip_smoke.TOL_BF16` against the plain
-  version at the kernel's 64-row chunks (skipped in a tree without it).
+  version at the kernel's 64-row chunks, every gradient's relative L2 error
+  against fp64 autograd of the plain scan (bf16 outputs against the fp64
+  gradient rounded to bf16, as `chip_smoke.py`), and the device time of
+  each of its CUDA kernels a call under `torch.profiler` (skipped in a tree
+  without it).
 
 `--ssm-cross-check` runs `chip_smoke.py`'s cross_check_ssm instead: full-
 width mamba2-130m (weights seed 0, prompts seed 5), the last logits of an
@@ -48,7 +52,9 @@ width mamba2-130m (weights seed 0, prompts seed 5), the last logits of an
 max |diff| over max |logit|.  `--make-control OUT` writes a copy of the
 tree's `src` to OUT whose split bf16 operands drop every lo term (hi
 rounded to nearest: plain bf16 operands), the control that the split is
-measured against.  `--make-variant NAME OUT` writes a copy with one of the
+measured against: every split of the SSD scan's forward and backward goes
+through `split_bf16x2` in `csrc/hopper_sm90.cuh`, the one function the copy
+edits (the backward's state and dy images then carry no lo plane).  `--make-variant NAME OUT` writes a copy with one of the
 `VARIANTS`, another design of one kernel.  The card's name and
 power limit come first; then one JSON line.
 """
@@ -87,9 +93,7 @@ DROP_LO = ("\n    {   // control: plain bf16 operands, every lo term dropped\n"
 #   of a pair of heads, so at rep 1 the second warpgroup idles;
 # * rms-one-vector, rms-two-vectors, rms-eight-vectors: the RMSNorm forward
 #   at many rows with one, two or eight 16-byte vectors a thread (512, 256
-#   or 64 threads a row at d 4096) in place of four;
-# * ssd-chain-serial: the SSD backward's state chain with one chunk's load
-#   in flight a thread (each chunk waits its load) in place of sixteen.
+#   or 64 threads a row at d 4096) in place of four.
 VARIANTS = {
     "sw32": ("hopper_sm90.cuh",
              "static constexpr int SW = D * 2 < 128 ? D * 2 : 128;",
@@ -107,8 +111,6 @@ VARIANTS = {
                         "constexpr int kFwdManyRowsVec = 2;"),
     "rms-eight-vectors": ("rmsnorm.cu", "constexpr int kFwdManyRowsVec = 4;",
                           "constexpr int kFwdManyRowsVec = 8;"),
-    "ssd-chain-serial": ("ssd_scan_bwd.cu", "constexpr int kChain = 16;",
-                         "constexpr int kChain = 1;"),
 }
 GROUPS = ("flash128", "head_dim_80", "rmsnorm", "decode", "ssd", "ssd_bwd")
 
@@ -152,6 +154,26 @@ def ssm_cross_check(dev) -> dict:
                                 "rel_err": err / scale, "tol": cs.TOL_CROSS,
                                 "finite": bool(torch.isfinite(full).all()
                                                and torch.isfinite(step).all())}}
+
+
+def ssd_bwd_split(fn, calls: int = 5) -> dict:
+    """The device time of each CUDA kernel that `fn` (one SSD backward call)
+    launches, in ms a call, from `torch.profiler` over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if "ssd_bwd" in ev.key:
+            name = ev.key.split("ssd_bwd", 1)[1].split("<")[0].split("(")[0]
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+            out["ssd_bwd" + name] = us / 1e3 / calls
+    return out
 
 
 def timings(dev, groups=GROUPS) -> dict:
@@ -286,11 +308,18 @@ def timings(dev, groups=GROUPS) -> dict:
                                                         dtype=np.float32)).to(dev)
             got = kernels.ssd_scan_bwd(*bargs, None, bdy, None)
             want = kernels.ssd_scan_bwd_ref(*bargs, None, bdy, None, chunk=cs.SSD_CHUNK)
+            exact = cs.ssd_grads_f64(kernels.ssd_scan_ref, bargs, None, bdy, None,
+                                     chunk=scfg.ssm.chunk)
+            names = ("dx", "ddt", "da_log", "dB", "dC")
             res["ssd_bwd"] = {
                 "ms": cs.time_ms(lambda: kernels.ssd_scan_bwd(*bargs, None, bdy, None), flush),
                 "excess_at_tol": max(cs.excess(g, w, cs.TOL_BF16)
-                                     for g, w in zip(got, want) if g is not None)}
-            del bargs, bdy, got, want
+                                     for g, w in zip(got, want) if g is not None),
+                "rel_l2_vs_fp64": {nm: cs.rel_l2(g, e.to(g.dtype))
+                                   for nm, g, e in zip(names, got, exact)},
+                "kernel_ms_per_call": ssd_bwd_split(
+                    lambda: kernels.ssd_scan_bwd(*bargs, None, bdy, None))}
+            del bargs, bdy, got, want, exact
     return res
 
 
