@@ -8,12 +8,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — nvcc builds the kernels from `src/repro_torch/kernels/csrc`;
    for each kernel written with wgmma/TMA (the flash forward, dq and dk/dv
-   passes at each head dim, the SSD scan at each state dim, the SSD
-   backward's walkers and gradient pass at each head and state dim), its
-   registers, spills, shared memory and blocks an SM from the `ptxas -v`
-   report (the flash kernels' head dim 80 instances and the SSD backward's
-   P 64, N 128 ones must not spill), and the registers and spills of every
-   instance of decode attention and of the RMSNorm backward.
+   passes at each (q/k, v) head dim pair, the SSD scan at each state dim,
+   the SSD backward's walkers and gradient pass at each head and state dim),
+   its registers, spills, shared memory and blocks an SM from the `ptxas -v`
+   report (the flash kernels' head dim 80 and <192, 128> instances and the
+   SSD backward's P 64, N 128 ones must not spill), and the registers and
+   spills of every instance of decode attention and of the RMSNorm backward.
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
    time, the plain version's, one library call's as a yardstick (never used
@@ -27,8 +27,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    cache) for chatglm3-6b and stablelm-3b, at every cluster size; RMSNorm
    also at the decode steps' [4, d], and at deepseek-v2-lite-16b's shapes
    (d 2048, and kv_norm's 512 columns of each 576-column row, read at that
-   pitch).  The dq pass, decode attention and the
-   RMSNorm backward's dscale are checked bitwise repeatable; the SSD scan's
+   pitch), and the RMSNorm backward at its d 2048 and at kv_norm's [4096,
+   512] rows of pitch 576; the fused CE and its backward also at its vocab
+   102400 ([512, 102400], one of 8 chunks).  The three flash passes at q/k
+   head dim 192 and v head dim 128 (deepseek-v2-lite-16b's MLA, MHA, 8 x 16
+   heads x 512, and a 200-row tail), each against its plain version,
+   bitwise repeatable, timed beside SDPA and bound by causal pairs.  The dq
+   pass, decode attention and the RMSNorm backward (at every shape) are
+   checked bitwise repeatable; the SSD scan's
    y and final state at the serve shape and at an 8193-token tail from a
    nonzero state, against the plain version and, by relative L2 error,
    against an fp64 recurrence.  The SSD scan's backward (no TPU
@@ -50,11 +56,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and, for the gate, each MoE layer's selection in the decode step pinned
    to the prefill's (the unpinned error and the near-tie flips beside it;
    every flip's top-k gaps must be below NEAR_TIE).
-5. train_check, train_check_ssm — one loss and every gradient of reduced
-   chatglm3-6b (64 tokens) and of reduced mamba2-130m (192 tokens, three of
-   the SSD kernels' chunks) on the card (kernels) against the same weights
-   and batch on the CPU (plain versions); beside the gate, each side against
-   the same weights in fp32 on the CPU (the bf16 model's own rounding).
+5. train_check, train_check_ssm, train_check_moe — one loss and every
+   gradient of reduced chatglm3-6b (64 tokens), of reduced mamba2-130m (192
+   tokens, three of the SSD kernels' chunks) and of reduced
+   deepseek-v2-lite-16b with MLA at the full head dims (192 tokens, three
+   flash tiles; the CPU's routing pinned to the card's, flips reported and
+   failed at a gap >= NEAR_TIE; an unpinned CPU forward's flips beside,
+   each wide one with the flips upstream of it) on the card (kernels)
+   against the same weights and batch on the CPU (plain versions), all by
+   one function, `train_check`; beside the gate, each side against the same
+   weights in fp32 on the CPU (the bf16 model's own rounding).
 6. train, train_stablelm — full-width chatglm3-6b trains 8 steps and
    stablelm-3b 4 steps of batch 8 x 512 tokens through `Trainer.run` (remat
    per layer, 8 cross-entropy chunks, AdamW; chatglm3-6b with bf16 moments,
@@ -64,7 +75,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    train_ssm — full-width mamba2-130m (24 layers, d 768, 24 SSD heads of
    dim 64, d_state 128, tied embeddings; 129 M params), nothing cut: 8
    steps of batch 8 x 2048 tokens (the Mamba-2 paper's training context),
-   fp32 moments, the same checks.
+   fp32 moments, the same checks.  train_moe — deepseek-v2-lite-16b at
+   full width, cut to its first 6 of 27 layers (the dense layer and 5 MoE
+   layers, ~3.42 B params), fp32 moments: 8 steps of 8 x 512 tokens, the
+   same checks (MLA's expanded branch through the <192, 128> flash kernels,
+   kv_norm's backward at its row pitch, the CE at vocab 102400).
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -141,6 +156,14 @@ SERVE_LENGTHS = (PROMPT + 1, PROMPT + NEW)
 # the serve_moe phase: deepseek-v2-lite-16b, MLA (kv_norm reads 512 of each
 # 576-column row of its projection) and capacity-routed MoE
 MOE_ARCH = "deepseek-v2-lite-16b"
+# MLA's expanded (train) branch attends at q/k head dim 128 + 64 against v
+# head dim 128, MHA over 16 heads; FLASH_TILE: the flash kernels' 64-row tile
+MLA_DQK, MLA_DV, MLA_HEADS, FLASH_TILE = 192, 128, 16, 64
+# the train_moe phase: the dense layer and 5 MoE layers of the 27 (~3.42 B
+# params; fp32 moments, ~41 GB of state, fit one card), 8 steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 8
+MOE_TRAIN_CUT = ["n_layers 6 of 27: the dense layer + 5 MoE layers (the full model's "
+                 "15.7 B params and their fp32 AdamW state, ~188 GB, do not fit 80 GB)"]
 
 
 def emit(obj) -> None:
@@ -209,6 +232,92 @@ def sdpa_backward(q, k, v, do):
     ke, ve = (t.repeat_interleave(rep, dim=1).detach().requires_grad_(True) for t in (k, v))
     return grad_fn(F.scaled_dot_product_attention(qe, ke, ve, is_causal=True),
                    (qe, ke, ve), do)
+
+
+def mla_flash_inputs(randn, b, s, h=MLA_HEADS):
+    """q, k [B, H, S, 192] and v, dO [B, H, S, 128] bf16: [B, H, S, D] views
+    of [B, S, H, D] tensors, as MLA's expanded branch passes them (MHA)."""
+    q, k = (randn(b, s, h, MLA_DQK).transpose(1, 2) for _ in range(2))
+    v, do = (randn(b, s, h, MLA_DV).transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+def mla_flash_check(q, k, v, do) -> dict:
+    """The three flash passes at q/k head dim 192 and v head dim 128 (causal,
+    q_offset 0), each against its plain version on the same inputs: the
+    excess over TOL_BF16 (TOL_LSE for lse and delta; > 0 fails), the largest
+    |error|, and whether two more launches repeat its bits.  chip_smoke's
+    kernel rows and tests/test_torch_cuda.py hold the passes by this one
+    rule."""
+    from repro_torch.kernels import (flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import (attention_bwd_dkv_ref,
+                                                     attention_bwd_dq_ref,
+                                                     attention_with_lse_ref)
+    out, lse = flash_attention_fwd(q, k, v)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    ref, rlse = attention_with_lse_ref(q, k, v, q_offset=0)
+    rq, rdelta = attention_bwd_dq_ref(q, k, v, out, do, lse, q_offset=0)
+    rk, rv = attention_bwd_dkv_ref(q, k, v, do, lse, rdelta, q_offset=0)
+    torch.cuda.synchronize()
+    shapes_ok = (out.shape == q.shape[:3] + v.shape[3:] and dq.shape == q.shape
+                 and dk.shape == k.shape and dv.shape == v.shape)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+    repeat = {"fwd": True, "dq": True, "dkv": True}
+    for _ in range(2):
+        o2, l2 = flash_attention_fwd(q, k, v)
+        q2, d2 = flash_attention_bwd_dq(q, k, v, out, do, lse)
+        k2, v2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        repeat["fwd"] &= torch.equal(o2, out) and torch.equal(l2, lse)
+        repeat["dq"] &= torch.equal(q2, dq) and torch.equal(d2, delta)
+        repeat["dkv"] &= torch.equal(k2, dk) and torch.equal(v2, dv)
+    return {"shapes_ok": bool(shapes_ok),
+            "excess": {"fwd": max(excess(out, ref, TOL_BF16), excess(lse, rlse, TOL_LSE)),
+                       "dq": max(excess(dq, rq, TOL_BF16), excess(delta, rdelta, TOL_LSE)),
+                       "dkv": max(excess(dk, rk, TOL_BF16), excess(dv, rv, TOL_BF16))},
+            "max_abs_err": {"fwd": err(out, ref), "dq": err(dq, rq),
+                            "dkv": max(err(dk, rk), err(dv, rv))},
+            "bitwise_repeatable": repeat}
+
+
+def mla_flash_work(b, s, h=MLA_HEADS) -> dict:
+    """(bytes, operations) of each flash pass at <192, 128>, causal, by the
+    causal pairs P = B H S (S + 1) / 2: forward 2 P (192 + 128), dq 2 P
+    (2 x 192 + 128), dk/dv 2 P (2 x 192 + 2 x 128); bytes each input read
+    once, each output written once (q, k, dq, dk 192 columns; v, out, dO, dv
+    128; lse, delta fp32)."""
+    rows, pairs = b * h * s, b * h * s * (s + 1) // 2
+    dqk, dv = MLA_DQK, MLA_DV
+    return {"fwd": (rows * ((2 * dqk + 2 * dv) * 2 + 4), 2 * pairs * (dqk + dv)),
+            "dq": (rows * ((3 * dqk + 3 * dv) * 2 + 8), 2 * pairs * (2 * dqk + dv)),
+            "dkv": (rows * ((3 * dqk + 3 * dv) * 2 + 8), 2 * pairs * (2 * dqk + 2 * dv))}
+
+
+def sdpa_any_backend(q, k, v, do):
+    """(backend name, forward callable, backward callable) of causal SDPA on
+    q, k, v whose head dims may differ (v's from q's): the first of PyTorch's
+    flash, cuDNN, memory-efficient and math backends that takes the inputs,
+    probed by a forward and backward under `sdpa_kernel`.  A yardstick for
+    the kernel rows only; the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        try:        # a backend that does not take these shapes raises
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                torch.autograd.grad(out, leaves, do, retain_graph=True)
+        except RuntimeError:
+            continue
+
+        def fwd(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return backend.name, fwd, grad_fn(out, leaves, do)
+    raise AssertionError("no SDPA backend takes these inputs")
 
 
 def ssd_inputs(randn, rng, dev, batch, s, h, p, n, h0_scale):
@@ -333,9 +442,10 @@ def mla_moe_serve_bound(cfg, params, batch, prompt) -> dict:
 
 class RouteRecorder:
     """While installed (`with`), stands in for `layers.moe_route`: records
-    each call's top_idx and the gap between the k-th and (k+1)-th largest
-    selection scores of each token; with `pin` set (one top_idx a call) it
-    selects those experts instead, weighted by the call's own scores as
+    each call's top_idx ("idx"), the gap between the k-th and (k+1)-th
+    largest selection scores of each token ("gap") and the call's own
+    selection ("own"); with `pin` set (one top_idx a call) it selects those
+    experts instead ("idx"), weighted by the call's own scores as
     `moe_route` weighs them."""
 
     def __init__(self, layers):
@@ -351,6 +461,7 @@ class RouteRecorder:
 
     def __call__(self, p, xt, cfg):
         scores, top_idx, top_w = self.real(p, xt, cfg)
+        own = top_idx.cpu()
         mo = cfg.moe
         sel = scores + p["router_bias"] if mo.router == "sigmoid" else scores
         if self.pin is not None:
@@ -360,8 +471,8 @@ class RouteRecorder:
                 top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-9)
             top_w = top_w * mo.router_scale
         top = torch.sort(sel.float(), dim=-1, descending=True).values
-        self.calls.append({"idx": top_idx.cpu(),
-                           "gap": (top[:, mo.top_k - 1] - top[:, mo.top_k]).cpu()})
+        self.calls.append({"idx": top_idx.cpu(), "own": own,
+                           "gap": (top[:, mo.top_k - 1] - top[:, mo.top_k]).detach().cpu()})
         return scores, top_idx, top_w
 
     def take(self) -> list:
@@ -460,6 +571,8 @@ def model_flops(cfg, n_params, batch, seq, chunk=SSD_CHUNK) -> float:
     (L L N) and per head att (x dt) (L L P), the chunk state and the
     inter-chunk output (L N P each), 3x with the backward."""
     tokens = batch * seq
+    if cfg.family == "moe":
+        return moe_model_flops(cfg, batch, seq)
     if cfg.family == "ssm":
         p, n = cfg.ssm.head_dim, cfg.ssm.d_state
         h = cfg.ssm.expand * cfg.d_model // p
@@ -471,6 +584,29 @@ def model_flops(cfg, n_params, batch, seq, chunk=SSD_CHUNK) -> float:
             + 12 * cfg.head_dim * pairs * cfg.n_layers)
 
 
+def moe_model_flops(cfg, batch, seq) -> float:
+    """Model FLOPs of one train step of an MLA + MoE model (forward and
+    backward, no recompute): 6 x the params a token's products read x
+    tokens, plus causal attention.  A token reads, in every layer, MLA's
+    projections (wq, wkv_a, wk_b, wv_b, wo), and in the dense prefix layers
+    the dense FFN, in the MoE layers the router, top_k routed experts and
+    the shared experts; then the untied head; not the embedding table (a
+    gather) nor the norms.  Attention: 2 (q/k head dim + v head dim) per
+    unmasked (row, column) pair a head forward, 3x with the backward."""
+    m, mo, d, h = cfg.mla, cfg.moe, cfg.d_model, cfg.n_heads
+    qk, ff = m.qk_nope_dim + m.qk_rope_dim, mo.d_expert_ff or cfg.d_ff
+    q_proj = (d * m.q_lora_rank + m.q_lora_rank * h * qk) if m.q_lora_rank else d * h * qk
+    mla = (q_proj + d * (m.kv_lora_rank + m.qk_rope_dim)
+           + m.kv_lora_rank * h * (m.qk_nope_dim + m.v_head_dim) + h * m.v_head_dim * d)
+    n_prefix = min(mo.n_dense_prefix, cfg.n_layers)
+    n_moe = cfg.n_layers - n_prefix
+    active = (cfg.n_layers * mla + n_prefix * 3 * d * cfg.d_ff
+              + n_moe * (d * mo.n_experts + 3 * d * ff * (mo.top_k + mo.n_shared))
+              + (0 if cfg.tie_embeddings else d * cfg.vocab_size))
+    pairs = batch * h * seq * (seq + 1) // 2
+    return 6 * active * batch * seq + 3 * 2 * (qk + m.v_head_dim) * pairs * cfg.n_layers
+
+
 def leaf_names(tree, prefix=""):
     """Dotted names of a param tree's leaves, in `tree_leaves` order."""
     if isinstance(tree, dict):
@@ -480,12 +616,156 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
+def grad_rel_errors(got, want, names):
+    """(relative error of the loss, relative L2 error of all gradients taken
+    together, {leaf: relative L2 error}) of [loss, *grads] lists."""
+    (loss_g, *g_g), (loss_w, *g_w) = got, want
+    return (float((loss_g - loss_w).abs() / loss_w.abs()),
+            float(torch.cat([(a - b).flatten() for a, b in zip(g_g, g_w)]).norm()
+                  / torch.cat([b.flatten() for b in g_w]).norm()),
+            {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
+             for nm, a, b in zip(names, g_g, g_w)})
+
+
+def moe_small_config():
+    """Reduced deepseek-v2-lite-16b (4 layers, the first dense, d 128, 4
+    heads, 8 experts top-2) with MLA at the full model's head dims (qk_nope
+    128, qk_rope 64, v 128; kv_lora 64), so its attention runs the flash
+    kernels' <192, 128> instances."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLAConfig
+    return get_config(MOE_ARCH).reduced(mla=MLAConfig(
+        kv_lora_rank=64, q_lora_rank=0, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128))
+
+
+def capacity_changes(a_calls, b_calls, cfg, tokens) -> list:
+    """The tokens of two recorded runs that select the same experts but keep
+    other routes: `moe_slots` numbers each expert's routes token-major and
+    drops those past its capacity, so a flip moves later tokens' routes past
+    it or back under it.  Call by call, as `route_flips`."""
+    from repro_torch.models.layers import moe_slots
+    mo = cfg.moe
+    cap = int(max(1, math.ceil(tokens * mo.top_k / mo.n_experts * mo.capacity_factor)))
+    out = []
+    for layer, (a, b) in enumerate(zip(a_calls, b_calls)):
+        ka, kb = (moe_slots(c["idx"], mo.n_experts, cap)[1] for c in (a, b))
+        for tok in range(ka.shape[0]):
+            ia, ib = a["idx"][tok], b["idx"][tok]
+            kept_a, kept_b = sorted(ia[ka[tok]].tolist()), sorted(ib[kb[tok]].tolist())
+            if set(ia.tolist()) == set(ib.tolist()) and kept_a != kept_b:
+                out.append({"layer": layer, "token": tok, "kept_a": kept_a, "kept_b": kept_b})
+    return out
+
+
+def upstream_of(flip, changes, seq) -> list:
+    """The changes (flips, capacity changes) that can have moved `flip`'s
+    token: in an earlier MoE layer, in the same sequence, at the same or an
+    earlier position (causal attention).  Tokens are rows of the flattened
+    [batch, seq]."""
+    row, pos = divmod(flip["token"], seq)
+    return [f for f in changes if f["layer"] < flip["layer"]
+            and f["token"] // seq == row and f["token"] % seq <= pos]
+
+
+def train_check(dev, cfg, seed, seq=64, row1_len=40) -> dict:
+    """One loss and every gradient of the reduced `cfg` at batch 2 x `seq`
+    tokens (the second row padded after `row1_len`, as pack_batch makes it)
+    on `dev` (kernels) against the same weights and batch on the CPU (plain
+    versions).  Beside it each side against the same weights in fp32 on the
+    CPU: the bf16 model's own rounding.
+
+    For an MoE model each MoE layer's selection on the CPU is pinned to the
+    card's, call by call (the remat recompute included), weighted by the
+    CPU's own scores: the inputs of every layer are then the card's choice,
+    so where the CPU's own selection in that run differs, the token is a
+    flip of that layer alone, reported with the top-k gap of each side.  An
+    unpinned CPU forward is reported beside it, not gated: there a flip
+    changes the inputs of every later layer, so each flip at a gap >=
+    NEAR_TIE is listed with what moved upstream of it (`upstream_of`): the
+    flips, and the tokens whose routes past an expert's capacity changed
+    (`capacity_changes`).
+    A model without MoE makes no route calls and reports no flips.
+
+    The record's "ok" holds the gate: loss and all gradients within
+    TOL_GRAD (relative), no flip of the pinned run at a gap >= NEAR_TIE."""
+    from repro_torch.models import init_model, layers, loss_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sp = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sp_cpu = tree_map(lambda t: t.detach().cpu(), sp)
+    toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (2, seq + 1))
+    smask = np.ones((2, seq), np.float32)
+    smask[1, row1_len:] = 0.0
+
+    def batch_on(where):
+        return {"tokens": torch.from_numpy(toks[:, :-1]).to(where),
+                "labels": torch.from_numpy(toks[:, 1:]).to(where),
+                "loss_mask": torch.from_numpy(smask).to(where)}
+
+    res, routes = {}, {}
+    with RouteRecorder(layers) as rec:
+        for side, where, params, pin in (
+                ("cuda", dev, sp, None), ("cpu", "cpu", sp_cpu, "cuda"),
+                ("cpu_fp32", "cpu", tree_map(lambda t: t.detach().float(), sp_cpu), "cuda")):
+            leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+            rec.pin = None if pin is None else [c["idx"] for c in routes[pin]]
+            loss, _ = loss_fn(params, batch_on(where), cfg)
+            res[side] = [loss.detach().float().cpu()] + [
+                g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+            routes[side] = rec.take()
+        rec.pin = None
+        with torch.no_grad():          # the forward's calls only: no recompute
+            loss_fn(sp_cpu, batch_on("cpu"), cfg)
+        unpinned = rec.take()
+    names = leaf_names(sp)
+    # The bf16 kernels round P and dS where the plain versions keep fp32.
+    # Gate on the loss and on the relative L2 error of all gradients taken
+    # together; per leaf it is reported, not gated: the key-bias gradient's
+    # unrotated half is exactly 0 (softmax ignores a shift shared by all
+    # keys), so that leaf is rounding noise on both sides.
+    rel_loss, rel_all, rel_leaf = grad_rel_errors(res["cuda"], res["cpu"], names)
+    worst = sorted(rel_leaf, key=rel_leaf.get, reverse=True)[:4]
+    witness = {}
+    for side in ("cuda", "cpu"):
+        w_loss, w_all, w_leaf = grad_rel_errors(res[side], res["cpu_fp32"], names)
+        witness[f"{side}_bf16_vs_cpu_fp32"] = {
+            "rel_err_loss": w_loss, "rel_l2_all_grads": w_all,
+            "worst_leaf_rel_l2": {nm: w_leaf[nm] for nm in worst}}
+    flips = route_flips(routes["cuda"], [{"idx": c["own"], "gap": c["gap"]}
+                                         for c in routes["cpu"]])
+    wide = wide_flips(flips)
+    free = route_flips(routes["cuda"][:len(unpinned)], unpinned)
+    moved = free + (capacity_changes(routes["cuda"], unpinned, cfg, 2 * seq) if cfg.moe else [])
+    free_wide = [{**f, "upstream": upstream_of(f, moved, seq)} for f in wide_flips(free)]
+    return {"arch": cfg.name, "reduced": True, "batch": 2, "seq": seq,
+            "loss_cuda": float(res["cuda"][0]), "loss_cpu": float(res["cpu"][0]),
+            "rel_err_loss": rel_loss, "n_grads": len(names), "rel_l2_all_grads": rel_all,
+            "worst_leaf_rel_l2": {nm: rel_leaf[nm] for nm in worst}, "tol": TOL_GRAD,
+            "moe_route_calls": len(routes["cuda"]),
+            "routes": sum(int(c["idx"].numel()) for c in routes["cuda"]),
+            "gated": "cpu pinned to the card's selection" if routes["cuda"] else "no routing",
+            "route_flips": len(flips),
+            "largest_flip_gap": max([max(f["gap_a"], f["gap_b"]) for f in flips], default=None),
+            "near_tie": NEAR_TIE, "wide_flips": len(wide), "flips": flips,
+            "unpinned_forward": {
+                "route_flips": len(free),
+                "largest_flip_gap": max([max(f["gap_a"], f["gap_b"]) for f in free],
+                                        default=None),
+                "capacity_changes": len(moved) - len(free),
+                "wide_flips": free_wide,
+                "wide_flips_with_nothing_upstream": sum(not f["upstream"] for f in free_wide)},
+            "witness_fp32_params": witness, "seconds": time.perf_counter() - t0,
+            "ok": bool(rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD and not wide)}
+
+
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
 # ptxas report, dynamic shared memory and blocks an SM, at each value of
 # their template parameters (the head dim D, the SSD scan's state dim N, the
 # SSD backward's head dim P and state dim N).  Each names its entry point
 # for the shared memory and the arguments that come before the parameters.
-HEAD_DIM_VALUES = (("D",), ((32,), (64,), (80,), (128,)))
+HEAD_DIM_VALUES = (("D", "DV"), ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128)))
 SSD_BWD_VALUES = (("P", "N"), tuple((p, n) for p in (16, 32, 64) for n in (16, 32, 64, 128)))
 HOPPER_KERNELS = (("flash_fwd_kernel", "flash_attention.cu", ("flash_attention_fwd_smem_bytes",),
                    160, HEAD_DIM_VALUES),
@@ -548,13 +828,15 @@ def hopper_kernel_report(build) -> list:
 
 def check_no_spills(entry: dict) -> None:
     """Raise if `entry` (a row of the ptxas reports) is an instance that
-    must not spill: the flash kernels' head dim 80 ones, which hold dq, dk,
-    dv or O in registers, and the SSD backward's at mamba2-130m's P 64, N
-    128, which hold the states and the dB, dC sums."""
+    must not spill: the flash kernels' head dim 80 ones and their q/k head
+    dim 192, v head dim 128 ones (MLA), which hold dq, dk, dv or O in
+    registers, and the SSD backward's at mamba2-130m's P 64, N 128, which
+    hold the states and the dB, dC sums."""
     if not (entry.get("spill_stores") or entry.get("spill_loads")):
         return
-    if entry["kernel"].startswith("flash_") and entry.get("D") == 80:
-        raise AssertionError(f"{entry['kernel']}<80> spills: {entry}")
+    if entry["kernel"].startswith("flash_") and (entry.get("D"), entry.get("DV")) in (
+            (80, 80), (MLA_DQK, MLA_DV)):
+        raise AssertionError(f"{entry['kernel']}<{entry['D']}, {entry['DV']}> spills: {entry}")
     if entry["kernel"].startswith("ssd_bwd_") and (entry.get("P"), entry.get("N")) == (64, 128):
         raise AssertionError(f"{entry['kernel']}<64, 128> spills: {entry}")
 
@@ -606,9 +888,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.kernel import DKV_CLUSTERS, dkv_cluster_size
     from repro_torch.launch.serve import Server
     from repro_torch.launch.train import Trainer, TrainerConfig
-    from repro_torch.models import init_cache, init_model, loss_fn
+    from repro_torch.models import init_cache
     from repro_torch.runtime.steps import prefill_step, serve_step
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -878,6 +1160,54 @@ def main() -> int:
             raise AssertionError("rmsnorm_bwd is not bitwise repeatable")
     r["bitwise_repeatable"] = True
     del dx2, dsc2
+    # kv_norm's backward in deepseek-v2-lite-16b's train step: x the first 512
+    # of each 576-column row, read at that pitch, [8 x 512, 512]; own
+    # generator.  Its ~12.6 MB take 0.0038 ms at 3.35 TB/s, under the timer's
+    # 5.54 us floor: no share of the bound is read from it
+    krandn = bf16_normal(np.random.default_rng(SEED + 17), dev)
+    xk, sk = krandn(rows_t, 576, scale=3.0)[:, :512], 1.0 + 0.1 * krandn(512)
+    dyk = krandn(rows_t, 512)
+    (dxk, dsk), (rdxk, rdsk) = rmsnorm_bwd(xk, sk, dyk), rmsnorm_bwd_ref(xk, sk, dyk)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        dxk2, dsk2 = rmsnorm_bwd(xk, sk, dyk)
+        if not (torch.equal(dxk2, dxk) and torch.equal(dsk2, dsk)):
+            raise AssertionError("rmsnorm_bwd at pitch 576 is not bitwise repeatable")
+    xkl, skl = xk.detach().requires_grad_(True), sk.detach().requires_grad_(True)
+    r["kv_norm_pitch576"] = other_shape(
+        "rmsnorm_bwd [4096, 512] at pitch 576",
+        max(excess(dxk, rdxk, TOL_BF16), float((dsk.float() - rdsk.float()).abs().max())
+            - TOL_DSCALE * float(rdsk.float().abs().max())),
+        lambda: rmsnorm_bwd(xk, sk, dyk), lambda: rmsnorm_bwd_ref(xk, sk, dyk),
+        grad_fn(F.rms_norm(xkl, (512,), skl, 1e-6), (xkl, skl), dyk),
+        3 * xk.numel() * 2 + 2 * 512 * 2, 10 * xk.numel(), PEAK_F32,
+        float((dxk.float() - rdxk.float()).abs().max()), shape=[rows_t, 512], pitch=576,
+        dscale_max_abs_err=float((dsk.float() - rdsk.float()).abs().max()),
+        bitwise_repeatable=True, bound_note="near the timer's 5.54 us floor: no ratio claimed")
+    del xk, sk, dyk, dxk, dsk, rdxk, rdsk, dxk2, dsk2, xkl, skl
+    # attn_norm's and ffn_norm's backward in deepseek-v2-lite-16b's train
+    # step: d 2048, [8 x 512, 2048]; own generator
+    drandn = bf16_normal(np.random.default_rng(SEED + 20), dev)
+    x2, s2 = drandn(rows_t, 2048, scale=3.0), 1.0 + 0.1 * drandn(2048)
+    dy2 = drandn(rows_t, 2048)
+    (dx2_, ds2_), (rdx2, rds2) = rmsnorm_bwd(x2, s2, dy2), rmsnorm_bwd_ref(x2, s2, dy2)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        dx2b, ds2b = rmsnorm_bwd(x2, s2, dy2)
+        if not (torch.equal(dx2b, dx2_) and torch.equal(ds2b, ds2_)):
+            raise AssertionError("rmsnorm_bwd at d 2048 is not bitwise repeatable")
+    x2l, s2l = x2.detach().requires_grad_(True), s2.detach().requires_grad_(True)
+    r["deepseek_v2_lite_d2048"] = other_shape(
+        "rmsnorm_bwd [4096, 2048]",
+        max(excess(dx2_, rdx2, TOL_BF16), float((ds2_.float() - rds2.float()).abs().max())
+            - TOL_DSCALE * float(rds2.float().abs().max())),
+        lambda: rmsnorm_bwd(x2, s2, dy2), lambda: rmsnorm_bwd_ref(x2, s2, dy2),
+        grad_fn(F.rms_norm(x2l, (2048,), s2l, 1e-6), (x2l, s2l), dy2),
+        3 * x2.numel() * 2 + 2 * 2048 * 2, 10 * x2.numel(), PEAK_F32,
+        float((dx2_.float() - rdx2.float()).abs().max()), shape=[rows_t, 2048],
+        dscale_max_abs_err=float((ds2_.float() - rds2.float()).abs().max()),
+        bitwise_repeatable=True)
+    del x2, s2, dy2, dx2_, ds2_, rdx2, rds2, dx2b, ds2b, x2l, s2l
     emit({"phase": "kernel", **r, "shape": [rows_t, d],
           "dscale_max_abs_err": float((dsc.float() - rdsc.float()).abs().max())})
     del x, dy, dx, dsc, rdx, rdsc, xl, scl
@@ -998,6 +1328,60 @@ def main() -> int:
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
     del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, sdpa_bwd
 
+    # MLA's expanded branch (train_moe): the <192, 128> instances of the three
+    # passes at q, k [8, 16, 512, 192], v [8, 16, 512, 128] (MHA, causal),
+    # each held to its plain version and bitwise repeatable (mla_flash_check),
+    # timed beside SDPA, the bound by causal pairs (mla_flash_work); and a
+    # tail at S 200, checked.  Nested in the three flash rows.
+    t_mla = time.perf_counter()
+    mrandn = bf16_normal(np.random.default_rng(SEED + 16), dev)
+    checks = {}
+    for s_ in (200, TRAIN_S):
+        margs = mla_flash_inputs(mrandn, TRAIN_B, s_)
+        chk = mla_flash_check(*margs)
+        if not (chk["shapes_ok"] and all(e <= 0 for e in chk["excess"].values())
+                and all(chk["bitwise_repeatable"].values())):
+            raise AssertionError(f"flash <{MLA_DQK}, {MLA_DV}> at S {s_}: {chk}")
+        checks[s_] = chk
+    q, k, v, do = margs
+    out, lse = flash_attention_fwd(q, k, v)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse)
+    backend, sdpa_fwd, sdpa_bwd = sdpa_any_backend(q, k, v, do)
+    work = mla_flash_work(TRAIN_B, TRAIN_S)
+    passes = {
+        "flash_attention_fwd": ("fwd", lambda: flash_attention_fwd(q, k, v),
+                                lambda: attention_with_lse_ref(q, k, v, q_offset=0), sdpa_fwd),
+        "flash_attention_bwd_dq": ("dq", lambda: flash_attention_bwd_dq(q, k, v, out, do, lse),
+                                   lambda: attention_bwd_dq_ref(q, k, v, out, do, lse,
+                                                                q_offset=0), sdpa_bwd),
+        "flash_attention_bwd_dkv": ("dkv",
+                                    lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                                    lambda: attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                                  q_offset=0), sdpa_bwd)}
+    mla_rows = {}
+    for name, (key, kern, plain, lib) in passes.items():
+        nbytes, flops = work[key]
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+        mla_rows[name] = {
+            "shape": {"B": TRAIN_B, "H": MLA_HEADS, "Hkv": MLA_HEADS, "S": TRAIN_S,
+                      "D": MLA_DQK, "DV": MLA_DV, "causal": True},
+            "max_abs_err": checks[TRAIN_S]["max_abs_err"][key],
+            "excess_at_tol": checks[TRAIN_S]["excess"][key], "bitwise_repeatable": True,
+            "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+            "library_ms": time_ms(lib, flush),
+            "library": f"SDPA ({backend} backend)"
+                       + (", dq+dk+dv in one backward" if key != "fwd" else ""),
+            "bound_ms": b_ms, "bound_by": b_by, "gbytes": nbytes / 1e9, "gflop": flops / 1e9,
+            "causal_pairs": TRAIN_B * MLA_HEADS * TRAIN_S * (TRAIN_S + 1) // 2,
+            "tail_S200": {"excess_at_tol": checks[200]["excess"][key],
+                          "max_abs_err": checks[200]["max_abs_err"][key],
+                          "bitwise_repeatable": True}}
+        next(row for row in rows if row["name"] == name)["dqk192_dv128"] = mla_rows[name]
+    emit({"phase": "kernel_mla_flash", "instances": mla_rows, "sdpa_backend": backend,
+          "seconds": time.perf_counter() - t_mla})
+    del q, k, v, do, out, lse, dq, delta, margs, sdpa_fwd, sdpa_bwd, passes
+    torch.cuda.empty_cache()
+
     # fused cross-entropy: one of the train step's 8 chunks, [8 x 64, 65024]
     vocab = get_config(ARCH).vocab_size
     rows_c = TRAIN_B * TRAIN_S // CE_CHUNKS
@@ -1020,7 +1404,35 @@ def main() -> int:
                    nbytes=logits.numel() * 2 + rowsb + rows_c * 8,
                    flops=4 * logits.numel(), peak=PEAK_F32)
     r["max_abs_err"] = float((nll - rn).abs().max())
+    # deepseek-v2-lite-16b's vocab (train_moe): one of its 8 chunks, [512,
+    # 102400], 100 whole 1024-column blocks where 65024 ends in half of one;
+    # own generator.  Its backward is checked here and nested in its row below
+    vrng = np.random.default_rng(SEED + 21)
+    vrandn = bf16_normal(vrng, dev)
+    vocab_v = get_config(MOE_ARCH).vocab_size
+    lv = vrandn(rows_c, vocab_v, scale=2.0)
+    lab_v = torch.from_numpy(vrng.integers(0, vocab_v, rows_c)).to(dev)
+    mask_v = torch.from_numpy((vrng.random(rows_c) > 0.1).astype(np.float32)).to(dev)
+    (nv, lsv), (rnv, rlv) = fused_ce(lv, lab_v, mask_v), ce_rows_ref(lv, lab_v, mask_v)
+    dlv, rdlv = fused_ce_bwd(lv, lab_v, mask_v, lsv, g), ce_bwd_ref(lv, lab_v, mask_v, rlv, g)
+    torch.cuda.synchronize()
+    r["deepseek_v2_lite_vocab"] = other_shape(
+        f"fused_ce [{rows_c}, {vocab_v}]", max(excess(nv, rnv, TOL_CE), excess(lsv, rlv, TOL_CE)),
+        lambda: fused_ce(lv, lab_v, mask_v), lambda: ce_rows_ref(lv, lab_v, mask_v),
+        lambda: (F.cross_entropy(lv, lab_v, reduction="none") * mask_v).sum(),
+        lv.numel() * 2 + rowsb + rows_c * 8, 4 * lv.numel(), PEAK_F32,
+        float((nv - rnv).abs().max()), shape=[rows_c, vocab_v],
+        lse_max_abs_err=float((lsv - rlv).abs().max()))
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
+    lvl = lv.detach().requires_grad_(True)
+    ce_bwd_v = other_shape(
+        f"fused_ce_bwd [{rows_c}, {vocab_v}]", excess(dlv, rdlv, TOL_BF16),
+        lambda: fused_ce_bwd(lv, lab_v, mask_v, lsv, g),
+        lambda: ce_bwd_ref(lv, lab_v, mask_v, rlv, g),
+        grad_fn((F.cross_entropy(lvl, lab_v, reduction="none") * mask_v).sum(), (lvl,), None),
+        2 * lv.numel() * 2 + rowsb + rows_c * 8, 4 * lv.numel(), PEAK_F32,
+        float((dlv.float() - rdlv.float()).abs().max()), shape=[rows_c, vocab_v])
+    del lv, lab_v, mask_v, nv, lsv, rnv, rlv, dlv, rdlv, lvl
     r = kernel_row("fused_ce_bwd", "src/repro_torch/kernels/csrc/cross_entropy.cu",
                    "none (JAX differentiates src/repro/kernels/cross_entropy/ref.py:5)",
                    excess(dl, rdl, TOL_BF16),
@@ -1030,6 +1442,7 @@ def main() -> int:
                    nbytes=2 * logits.numel() * 2 + rowsb + rows_c * 8,
                    flops=4 * logits.numel(), peak=PEAK_F32)
     r["max_abs_err"] = float((dl.float() - rdl.float()).abs().max())
+    r["deepseek_v2_lite_vocab"] = ce_bwd_v
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
     del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv
 
@@ -1313,78 +1726,37 @@ def main() -> int:
     del srv
     torch.cuda.empty_cache()
 
-    # -- train_check(_ssm): reduced chatglm3-6b and mamba2-130m, loss and every
-    # gradient, card vs CPU
-    def train_check(phase, arch, seed, seq=64):
-        t0 = time.perf_counter()
-        small = get_config(arch).reduced()
-        with torch.no_grad():
-            sp = init_model(small, torch.Generator(device=dev).manual_seed(seed), dev)
-        sp_cpu = tree_map(lambda t: t.cpu(), sp)
-        toks = np.random.default_rng(seed + 1).integers(0, small.vocab_size, (2, seq + 1))
-        smask = np.ones((2, seq), np.float32)
-        smask[1, 40:] = 0.0                       # padding, as pack_batch makes it
-        res = {}
-        # the witness: the same weights in fp32 on the CPU, the model without
-        # its bf16 roundings
-        for where, params in (("cuda", sp), ("cpu", sp_cpu),
-                              ("cpu_fp32", tree_map(lambda t: t.detach().float(), sp_cpu))):
-            dv = where.split("_")[0]
-            leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
-            batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dv),
-                     "labels": torch.from_numpy(toks[:, 1:]).to(dv),
-                     "loss_mask": torch.from_numpy(smask).to(dv)}
-            loss, _ = loss_fn(params, batch, small)
-            res[where] = [loss.detach().float().cpu()] + [
-                gr.float().cpu() for gr in torch.autograd.grad(loss, leaves)]
-        names = leaf_names(sp)
-
-        def rel_errs(got, want):
-            (loss_g, *g_g), (loss_w, *g_w) = got, want
-            return (float((loss_g - loss_w).abs() / loss_w.abs()),
-                    float(torch.cat([(a - b).flatten() for a, b in zip(g_g, g_w)]).norm()
-                          / torch.cat([b.flatten() for b in g_w]).norm()),
-                    {nm: float((a - b).norm() / max(float(b.norm()), 1e-12))
-                     for nm, a, b in zip(names, g_g, g_w)})
-        # The bf16 kernels round P and dS where the plain versions keep fp32.
-        # Gate on the loss and on the relative L2 error of all gradients taken
-        # together; per leaf it is reported, not gated: the key-bias gradient's
-        # unrotated half is exactly 0 (softmax ignores a shift shared by all
-        # keys), so that leaf is rounding noise on both sides.  Beside it, how
-        # far each bf16 side is from the fp32 model: the size of the bf16
-        # model's own rounding, which the card's error should not exceed.
-        rel_loss, rel_all, rel_leaf = rel_errs(res["cuda"], res["cpu"])
-        worst = sorted(rel_leaf, key=rel_leaf.get, reverse=True)[:4]
-        witness = {}
-        for side in ("cuda", "cpu"):
-            w_loss, w_all, w_leaf = rel_errs(res[side], res["cpu_fp32"])
-            witness[f"{side}_bf16_vs_cpu_fp32"] = {
-                "rel_err_loss": w_loss, "rel_l2_all_grads": w_all,
-                "worst_leaf_rel_l2": {nm: w_leaf[nm] for nm in worst}}
-        emit({"phase": phase, "arch": arch, "reduced": True, "batch": 2, "seq": seq,
-              "loss_cuda": float(res["cuda"][0]), "loss_cpu": float(res["cpu"][0]),
-              "rel_err_loss": rel_loss, "n_grads": len(names), "rel_l2_all_grads": rel_all,
-              "worst_leaf_rel_l2": {nm: rel_leaf[nm] for nm in worst}, "tol": TOL_GRAD,
-              "witness_fp32_params": witness, "seconds": time.perf_counter() - t0})
-        if not (rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD):
-            raise AssertionError(f"{phase}: reduced {arch} on the card disagrees with the CPU: "
-                                 f"loss {rel_loss}, gradients {rel_all} (relative) > {TOL_GRAD}")
-
-    train_check("train_check", ARCH, SEED + 2)
-    # 192 tokens: three of the SSD kernels' 64-row chunks, so the backward's
-    # state chain and the gradients entering each chunk from later ones run
-    train_check("train_check_ssm", SSM_ARCH, SEED + 14, seq=3 * SSD_CHUNK)
+    # -- train_check(_ssm, _moe): reduced chatglm3-6b, mamba2-130m and
+    # deepseek-v2-lite-16b, loss and every gradient, card vs CPU
+    for phase, cfg_, seed_, seq_, row1_len in (
+            ("train_check", get_config(ARCH).reduced(), SEED + 2, 64, 40),
+            # 192 tokens: three of the SSD kernels' 64-row chunks, so the
+            # backward's state chain and the gradients entering each chunk run
+            ("train_check_ssm", get_config(SSM_ARCH).reduced(), SEED + 14, 3 * SSD_CHUNK, 40),
+            # MLA at full head dims (the <192, 128> flash kernels), 192 tokens
+            # (three 64-row tiles), the CPU's routing pinned to the card's
+            ("train_check_moe", moe_small_config(), SEED + 18, 3 * FLASH_TILE,
+             3 * FLASH_TILE - 40)):
+        rec = train_check(dev, cfg_, seed_, seq_, row1_len)
+        emit({"phase": phase, **rec})
+        if not rec["ok"]:
+            raise AssertionError(
+                f"{phase}: reduced {rec['arch']} on the card disagrees with the CPU: loss "
+                f"{rec['rel_err_loss']}, gradients {rec['rel_l2_all_grads']} (relative, tol "
+                f"{TOL_GRAD}); flips at a gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}")
 
     # -- the train paths: Trainer.run on one fixed batch ------------------------
-    def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S):
-        """Full-width `arch` trains `steps` steps of TRAIN_B x `seq` tokens
-        (remat per layer, CE_CHUNKS cross-entropy chunks, AdamW) on one fixed
-        batch, repeated: a learnable target.  Every loss finite, the last
-        below the first, every launch count per step `want`(cfg)."""
+    def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S,
+              n_layers=None):
+        """Full-width `arch` (its first `n_layers` layers when given) trains
+        `steps` steps of TRAIN_B x `seq` tokens (remat per layer, CE_CHUNKS
+        cross-entropy chunks, AdamW) on one fixed batch, repeated: a
+        learnable target.  Every loss finite, the last below the first,
+        every launch count per step `want`(cfg)."""
         t_phase = time.perf_counter()
         tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
-                           moment_dtype=moment_dtype)
+                           moment_dtype=moment_dtype, n_layers=n_layers)
         cfg = get_config(arch)
         toks = np.random.default_rng(batch_seed).integers(
             1, cfg.vocab_size, size=(TRAIN_B, seq + 1)).astype(np.int32)
@@ -1392,6 +1764,7 @@ def main() -> int:
                  "loss_mask": np.ones((TRAIN_B, seq), np.float32)}
         t0 = time.perf_counter()
         tr = Trainer(tc, batches=itertools.repeat(fixed))
+        cfg = tr.cfg
         tr.init_state()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
@@ -1449,12 +1822,22 @@ def main() -> int:
                    "ssd_scan": 2 * c.n_layers, "ssd_scan_bwd": c.n_layers,
                    "fused_ce": 2 * CE_CHUNKS, "fused_ce_bwd": CE_CHUNKS}, SEED + 15,
         seq=SSM_TRAIN_S)
+    # deepseek-v2-lite-16b: the dense layer and 5 MoE layers at full width,
+    # fp32 moments; per layer attn_norm, kv_norm (at its row pitch) and
+    # ffn_norm, each recomputed, and the three flash passes at <192, 128>
+    by_path["train_moe"] = train(
+        "train_moe", MOE_ARCH, MOE_TRAIN_STEPS, torch.float32, MOE_TRAIN_CUT,
+        lambda c: {"rmsnorm": 6 * c.n_layers + 1, "rmsnorm_bwd": 3 * c.n_layers + 1,
+                   **attention_per_step(c)}, SEED + 19, n_layers=MOE_TRAIN_LAYERS)
 
     for row in rows:
         row["launches_by_path"] = {p: cnt[row["name"]] for p, cnt in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']}: no launch on the main paths")
+        if "dqk192_dv128" in row:       # MLA's expanded branch runs in train_moe alone
+            row["dqk192_dv128"]["launches_by_path"] = {
+                "train_moe": by_path["train_moe"][row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

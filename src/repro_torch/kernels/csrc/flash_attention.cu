@@ -59,6 +59,14 @@
 //   TMA or shared-memory-staged store of O and an S/PV software pipeline
 //   inside the warpgroup were each measured no faster at the serve and
 //   train shapes (PERF.md).  lse is returned in fp32 for the backward pass.
+// * q/k head dim D and v head dim DV may differ: MLA's expanded branch
+//   attends over [nope | rope] keys at D = 192 (three 64-column slabs, each
+//   the 128-byte swizzled slab D = 128 uses twice) against v at DV = 128.
+//   Q and K tiles take D's geometry, V and O DV's; S = Q K^T runs 12
+//   k-steps and O += P V is m64n128.  A thread then holds Q's A registers
+//   (48), O (64), S (32) and P (16): over what two blocks an SM leave it
+//   (168 registers; it spilled there), so that instance runs one block an
+//   SM (`kFwdBlocks`), with up to 255 registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,16 +85,22 @@ constexpr int BM = 64;              // q rows per tile: one consumer warpgroup
 constexpr int BN = 64;              // kv rows per tile
 constexpr int kStages = 2;          // K/V ring depth
 constexpr int kThreads = 128 + 32;  // the consumer warpgroup + the producer warp
-constexpr int kBlocksPerSm = 2;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+// Blocks an SM: two where a thread's live registers (Q's A registers D/4,
+// O DV/2, S BN/2, P BN/4) stay within the 168 that two blocks leave it (D
+// 128: 144, no spill), else one
+template <int D, int DV>
+constexpr int kFwdBlocks = D / 4 + DV / 2 + BN / 2 + BN / 4 <= 144 ? 2 : 1;
+
+template <int D, int DV>
 struct Smem {
     static constexpr int Q = BM * D * 2;        // bytes of one q tile
-    static constexpr int KV = BN * D * 2;       // bytes of one K (or V) tile
+    static constexpr int K = BN * D * 2;        // bytes of one K tile
+    static constexpr int V = BN * DV * 2;       // bytes of one V tile
     static constexpr int k_off = 2 * Q;         // after the two q buffers
-    static constexpr int v_off = k_off + kStages * KV;
-    static constexpr int bar_off = v_off + kStages * KV;
+    static constexpr int v_off = k_off + kStages * K;
+    static constexpr int bar_off = v_off + kStages * V;
     static constexpr size_t bytes = bar_off + (4 + 2 * kStages) * 8 + 1024;   // + alignment
 };
 
@@ -115,19 +129,20 @@ __device__ __forceinline__ Item item_of(const Params& p, int w) {
     return it;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks<D, DV>)
     flash_fwd_kernel(const __grid_constant__ TileMap<D> tq,
                      const __grid_constant__ TileMap<D> tk,
-                     const __grid_constant__ TileMap<D> tv, const Params p) {
+                     const __grid_constant__ TileMap<DV> tv, const Params p) {
+    using L = Smem<D, DV>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    bf16* q_sh = reinterpret_cast<bf16*>(smem);                      // [2][BM x D]
-    bf16* k_sh = reinterpret_cast<bf16*>(smem + Smem<D>::k_off);   // [kStages][BN x D]
-    bf16* v_sh = reinterpret_cast<bf16*>(smem + Smem<D>::v_off);
-    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Smem<D>::bar_off);   // [2]
-    uint64_t* q_empty = q_full + 2;                                             // [2]
-    uint64_t* full = q_empty + 2;                                               // [kStages]
+    bf16* q_sh = reinterpret_cast<bf16*>(smem);                   // [2][BM x D]
+    bf16* k_sh = reinterpret_cast<bf16*>(smem + L::k_off);        // [kStages][BN x D]
+    bf16* v_sh = reinterpret_cast<bf16*>(smem + L::v_off);        // [kStages][BN x DV]
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);   // [2]
+    uint64_t* q_empty = q_full + 2;                                       // [2]
+    uint64_t* full = q_empty + 2;                                         // [kStages]
     uint64_t* empty = full + kStages;                                           // [kStages]
 
     const int n_work = p.B * p.H * p.n_qt;
@@ -152,14 +167,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                 const Item it = item_of(p, w);
                 const int hk = it.h / p.rep, qb = j & 1;
                 if (j >= 2) mbar_wait(&q_empty[qb], ((j >> 1) - 1) & 1);
-                mbar_expect_tx(&q_full[qb], Smem<D>::Q);
+                mbar_expect_tx(&q_full[qb], L::Q);
                 tma_load_tile<D, BM>(q_sh + qb * BM * D, &tq, &q_full[qb], it.q0, it.h, it.b);
                 for (int t = 0; t < it.n_tiles; ++t, ++n) {
                     const int s = n % kStages;
                     if (n >= kStages) mbar_wait(&empty[s], (n / kStages - 1) & 1);
-                    mbar_expect_tx(&full[s], 2 * Smem<D>::KV);
+                    mbar_expect_tx(&full[s], L::K + L::V);
                     tma_load_tile<D, BN>(k_sh + s * BN * D, &tk, &full[s], t * BN, hk, it.b);
-                    tma_load_tile<D, BN>(v_sh + s * BN * D, &tv, &full[s], t * BN, hk, it.b);
+                    tma_load_tile<DV, BN>(v_sh + s * BN * DV, &tv, &full[s], t * BN, hk, it.b);
                 }
             }
         }
@@ -180,7 +195,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         uint32_t qf[D / 16][4];
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-            ldsm_x4(qf[kk], swz_addr<D, BM>(q_addr + qb * Smem<D>::Q, warp * 16 + lane % 16,
+            ldsm_x4(qf[kk], swz_addr<D, BM>(q_addr + qb * L::Q, warp * 16 + lane % 16,
                                             kk * 16 + (lane / 16) * 8));
         __syncwarp();
         if (lane == 0) mbar_arrive(&q_empty[qb]);
@@ -191,15 +206,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
             const int row = it.q0 + warp * 16 + g + 8 * hr;
             lim[hr] = p.causal ? min(p.kv_len, p.q_offset + row + 1) : p.kv_len;
         }
-        float o[D / 2];
+        float o[DV / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
         float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
 
         for (int t = 0; t < it.n_tiles; ++t, ++n) {
             const int s = n % kStages;
             mbar_wait(&full[s], (n / kStages) & 1);
-            const uint32_t kb = k_addr + s * Smem<D>::KV, vb = v_addr + s * Smem<D>::KV;
+            const uint32_t kb = k_addr + s * L::K, vb = v_addr + s * L::V;
 
             // S = Q K^T: 64 rows x BN columns; register 4 j + 2 hr + e holds
             // row g + 8 hr of this warp's 16, column 8 j + 2 c + e
@@ -252,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                 l_i[hr] = l_i[hr] * alpha + rsum;
                 m_i[hr] = m_new;
 #pragma unroll
-                for (int dt = 0; dt < D / 8; ++dt) {
+                for (int dt = 0; dt < DV / 8; ++dt) {
                     o[4 * dt + 2 * hr] *= alpha;
                     o[4 * dt + 2 * hr + 1] *= alpha;
                 }
@@ -261,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
             // O += P V
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(o, pf[kk], vb, kk);
+            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<DV, BN>(o, pf[kk], vb, kk);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(o);
@@ -288,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         const int row = it.q0 + warp * 16 + g + 8 * odd;
         bf16* orow = p.o + it.b * p.o_sb + it.h * p.o_sh + row * p.o_ss;
 #pragma unroll
-        for (int dt0 = 0; dt0 < D / 8; dt0 += 2) {
+        for (int dt0 = 0; dt0 < DV / 8; dt0 += 2) {
             uint32_t x[4];              // x[e]: row g + 8 (e % 2), chunk dt0 + e / 2
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
@@ -310,16 +325,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const Params& p, int Hkv,
            const int64_t* st, cudaStream_t stream) {
-    TileMap<D> tq, tk, tv;
+    TileMap<D> tq, tk;
+    TileMap<DV> tv;
     int rc = encode_map<D>(&tq, q, p.B, p.H, p.S, st[0], st[1], st[2], BM);
     if (!rc) rc = encode_map<D>(&tk, k, p.B, Hkv, p.kv_len, st[3], st[4], st[5], BN);
-    if (!rc) rc = encode_map<D>(&tv, v, p.B, Hkv, p.kv_len, st[6], st[7], st[8], BN);
+    if (!rc) rc = encode_map<DV>(&tv, v, p.B, Hkv, p.kv_len, st[6], st[7], st[8], BN);
     if (rc) return rc;
-    const int bytes = static_cast<int>(Smem<D>::bytes);
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+    const int bytes = static_cast<int>(Smem<D, DV>::bytes);
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     // a persistent grid: as many blocks as stay resident, each walking the
@@ -328,25 +344,26 @@ int launch(const void* q, const void* k, const void* v, const Params& p, int Hkv
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
         return static_cast<int>(e);
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_fwd_kernel<D>,
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_fwd_kernel<D, DV>,
                                                            kThreads, bytes)) != cudaSuccess)
         return static_cast<int>(e);
     const int n_work = p.B * p.H * p.n_qt;
     const int grid = max(1, min(n_work, sms * max(per_sm, 1)));
-    flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, p);
+    flash_fwd_kernel<D, DV><<<grid, kThreads, bytes, stream>>>(tq, tk, tv, p);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q [B,H,S,D], k/v [B,Hkv,T,D], out [B,H,S,D] as strided bf16 views whose
-// last dim is contiguous; lse [B,H,S] contiguous fp32.  strides holds the
-// (batch, head, row) element strides of q, k, v, out in that order.  The
-// wrapper checks shapes, 16-byte alignment (which TMA needs of the data
-// pointers and strides) and D in {32, 64, 80, 128}.
+// q, k [B,H,S,D] / [B,Hkv,T,D], v [B,Hkv,T,DV], out [B,H,S,DV] as strided
+// bf16 views whose last dim is contiguous; lse [B,H,S] contiguous fp32.
+// strides holds the (batch, head, row) element strides of q, k, v, out in
+// that order.  The wrapper checks shapes, 16-byte alignment (which TMA needs
+// of the data pointers and strides) and (D, DV): (32, 32), (64, 64),
+// (80, 80), (128, 128) or (192, 128).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* out, void* lse, int B, int H, int Hkv,
-                                        int S, int D, int kv_len, int q_offset,
+                                        int S, int D, int DV, int kv_len, int q_offset,
                                         int causal, float scale, const int64_t* strides,
                                         void* stream) {
     Params p;
@@ -364,23 +381,27 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
     p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
     if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (D != DV && !(D == 192 && DV == 128)) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
-        case 32: return launch<32>(q, k, v, p, Hkv, strides, st);
-        case 64: return launch<64>(q, k, v, p, Hkv, strides, st);
-        case 80: return launch<80>(q, k, v, p, Hkv, strides, st);
-        case 128: return launch<128>(q, k, v, p, Hkv, strides, st);
+        case 32: return launch<32, 32>(q, k, v, p, Hkv, strides, st);
+        case 64: return launch<64, 64>(q, k, v, p, Hkv, strides, st);
+        case 80: return launch<80, 80>(q, k, v, p, Hkv, strides, st);
+        case 128: return launch<128, 128>(q, k, v, p, Hkv, strides, st);
+        case 192: return launch<192, 128>(q, k, v, p, Hkv, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-// Dynamic shared memory of one forward block at head dim D (0 for another D).
-extern "C" int flash_attention_fwd_smem_bytes(int D) {
+// Dynamic shared memory of one forward block at head dims (D, DV) (0 for
+// another pair).
+extern "C" int flash_attention_fwd_smem_bytes(int D, int DV) {
+    if (D != DV && !(D == 192 && DV == 128)) return 0;
     switch (D) {
-        case 32: return static_cast<int>(Smem<32>::bytes);
-        case 64: return static_cast<int>(Smem<64>::bytes);
-        case 80: return static_cast<int>(Smem<80>::bytes);
-        case 128: return static_cast<int>(Smem<128>::bytes);
+        case 32: return static_cast<int>(Smem<32, 32>::bytes);
+        case 64: return static_cast<int>(Smem<64, 64>::bytes);
+        case 80: return static_cast<int>(Smem<80, 80>::bytes);
+        case 128: return static_cast<int>(Smem<128, 128>::bytes);
+        case 192: return static_cast<int>(Smem<192, 128>::bytes);
         default: return 0;
     }
 }
-

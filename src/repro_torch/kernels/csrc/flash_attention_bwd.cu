@@ -88,7 +88,21 @@
 //   dK += dS^T Q are each an m64n64 and an m64n16 product, so q, k, v and
 //   dO are read as they are.  The dq pass takes D = 80 the same way: 4 + 1
 //   k-steps for S and dP, and dQ += dS K as an m64n64 and an m64n16
-//   product.  An item's products and its
+//   product.
+// * q/k head dim D and v head dim DV may differ: MLA's expanded branch
+//   runs at D = 192 ([nope | rope], three 64-column slabs) and DV = 128.
+//   Q, K, dQ and dK take D's tiles; V, dO, out and dV DV's.  S and S^T run
+//   D / 16 k-steps, dP and dP^T DV / 16; dQ += dS K and dK += dS^T Q are
+//   an m64n128 and an m64n64 product (wgmma_rs_tile).  The dq pass's two
+//   item buffers, 3-stage K ring and 2-stage V ring need 264 KB there, so
+//   it keeps one item buffer (`DqSmem::BUFS`): the next item's Q and dO load
+//   once the consumers release this item's.  The dk/dv block would hold dk
+//   (96 fp32 registers a thread), dv (64), S^T and dP^T (32 each) at once
+//   and spill, so at <192, 128> (`kPTBf16`) P^T is rounded to its bf16 A
+//   registers as soon as S^T is read, dV += P^T dO is issued with
+//   dP^T = V dO^T, and dS^T = P^T (dP^T - delta) takes P^T from those bf16
+//   registers: S^T and dP^T never live at once.  dS^T then carries P^T's
+//   bf16 rounding (2^-9 relative) besides its own.  An item's products and its
 //   exp/dS work run one after the other in the one warpgroup, which is what
 //   holds the pass to a fraction of the bf16 rate; a 3-stage ring beat 2,
 //   and issuing dV += P^T dO before dS^T is ready was slower (PERF.md).
@@ -136,13 +150,18 @@ struct DqParams {
     int64_t o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss;
 };
 
-template <int D>
+template <int D, int DV>
 struct DqSmem {
-    static constexpr int TILE = BM * D * 2;              // one [64 x D] bf16 tile
-    static constexpr int ITEM = 4 * TILE;                // q and dO of an item's two slots
-    static constexpr int k_off = 2 * ITEM;               // after the two item buffers
-    static constexpr int v_off = k_off + kDqKStages * TILE;
-    static constexpr int rows_off = v_off + kDqVStages * TILE;   // [2 items] lse [2][64]
+    static constexpr int TQ = BM * D * 2;                // one [64 x D] bf16 tile: q, K
+    static constexpr int TO = BM * DV * 2;               // one [64 x DV] tile: dO, V
+    static constexpr int ITEM = 2 * (TQ + TO);           // q and dO of an item's two slots
+    static constexpr int REST = kDqKStages * TQ + kDqVStages * TO + 2 * 2 * BM * 4 +
+                                (4 + 2 * kDqKStages + 2 * kDqVStages) * 8 + 1024;
+    // two item buffers where they fit a block's 227 KB, else one
+    static constexpr int BUFS = 2 * ITEM + REST <= 232448 ? 2 : 1;
+    static constexpr int k_off = BUFS * ITEM;            // after the item buffers
+    static constexpr int v_off = k_off + kDqKStages * TQ;
+    static constexpr int rows_off = v_off + kDqVStages * TO;     // [2 items] lse [2][64]
     static constexpr int bar_off = rows_off + 2 * 2 * BM * 4;
     static constexpr size_t bytes =
         bar_off + (4 + 2 * kDqKStages + 2 * kDqVStages) * 8 + 1024;   // + alignment
@@ -197,13 +216,14 @@ __device__ __forceinline__ DqItem dq_item(const DqParams& p, int w) {
     return it;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ TileMap<D> tq,
-                        const __grid_constant__ TileMap<D> tdo,
+                        const __grid_constant__ TileMap<DV> tdo,
                         const __grid_constant__ TileMap<D> tk,
-                        const __grid_constant__ TileMap<D> tv, const DqParams p) {
-    using L = DqSmem<D>;
+                        const __grid_constant__ TileMap<DV> tv, const DqParams p) {
+    using L = DqSmem<D, DV>;
+    constexpr int NB = L::BUFS;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     float* rows_sh = reinterpret_cast<float*>(smem + L::rows_off);     // item buffer b: lse
@@ -238,22 +258,22 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         if (tid >= 256 + 32) return;
         for (int w = blockIdx.x, j = 0, n = 0; w < n_work; w += gridDim.x, ++j) {
             const DqItem it = dq_item(p, w);
-            const int qb = j & 1;
+            const int qb = j % NB;
             const int ns = (it.h[0] >= 0) + (it.h[1] >= 0);
             unsigned char* buf = smem + qb * L::ITEM;
             float* lse_sh = rows_sh + qb * 2 * BM;      // [2 slots][64]
-            if (j >= 2) mbar_wait(&q_empty[qb], ((j >> 1) - 1) & 1);
+            if (j >= NB) mbar_wait(&q_empty[qb], (j / NB - 1) & 1);
             // q and dO of both warpgroups' slots by TMA, their lse by the
             // lanes, then the item's K and V tiles
             if (lane == 0) {
-                mbar_expect_tx(&q_full[qb], 2 * ns * L::TILE);
+                mbar_expect_tx(&q_full[qb], ns * (L::TQ + L::TO));
 #pragma unroll
                 for (int g = 0; g < 2; ++g) {
                     if (it.h[g] < 0) continue;
-                    tma_load_tile<D, BM>(reinterpret_cast<bf16*>(buf + 2 * g * L::TILE), &tq,
-                                         &q_full[qb], it.q0[g], it.h[g], it.b);
-                    tma_load_tile<D, BM>(reinterpret_cast<bf16*>(buf + (2 * g + 1) * L::TILE),
-                                         &tdo, &q_full[qb], it.q0[g], it.h[g], it.b);
+                    bf16* slot = reinterpret_cast<bf16*>(buf + g * (L::TQ + L::TO));
+                    tma_load_tile<D, BM>(slot, &tq, &q_full[qb], it.q0[g], it.h[g], it.b);
+                    tma_load_tile<DV, BM>(slot + BM * D, &tdo, &q_full[qb], it.q0[g], it.h[g],
+                                          it.b);
                 }
             }
             for (int i = lane; i < 2 * BM; i += 32) {
@@ -267,15 +287,15 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                 const int sk = n % kDqKStages, sv = n % kDqVStages;
                 if (n >= kDqKStages) mbar_wait(&k_empty[sk], (n / kDqKStages - 1) & 1);
                 if (lane == 0) {
-                    mbar_expect_tx(&k_full[sk], L::TILE);
-                    tma_load_tile<D, BN>(reinterpret_cast<bf16*>(smem + L::k_off + sk * L::TILE),
+                    mbar_expect_tx(&k_full[sk], L::TQ);
+                    tma_load_tile<D, BN>(reinterpret_cast<bf16*>(smem + L::k_off + sk * L::TQ),
                                          &tk, &k_full[sk], t * BN, it.hk, it.b);
                 }
                 if (n >= kDqVStages) mbar_wait(&v_empty[sv], (n / kDqVStages - 1) & 1);
                 if (lane == 0) {
-                    mbar_expect_tx(&v_full[sv], L::TILE);
-                    tma_load_tile<D, BN>(reinterpret_cast<bf16*>(smem + L::v_off + sv * L::TILE),
-                                         &tv, &v_full[sv], t * BN, it.hk, it.b);
+                    mbar_expect_tx(&v_full[sv], L::TO);
+                    tma_load_tile<DV, BN>(reinterpret_cast<bf16*>(smem + L::v_off + sv * L::TO),
+                                          &tv, &v_full[sv], t * BN, it.hk, it.b);
                 }
             }
         }
@@ -288,20 +308,20 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     setmaxnreg_inc<kDqConsumerRegs>();
     const int wg = tid / 128, warp = (tid % 128) / 32;
     const int g = lane / 4, c = lane % 4;
-    // a row's 16-byte chunks: lane c of the quad takes chunks c, c + 4, ...
-    constexpr int NCH = D / 8, QV = (NCH + 3) / 4;
+    // a row of out / dO in 16-byte chunks: lane c of the quad takes chunks c, c + 4, ...
+    constexpr int NCH = DV / 8, QV = (NCH + 3) / 4;
     const uint32_t k_base = smem_u32(smem + L::k_off), v_base = smem_u32(smem + L::v_off);
     int n = 0;                          // K/V tiles consumed so far, over all items
     for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
         const DqItem it = dq_item(p, w);
-        const int qb = j & 1, h = wg ? it.h[1] : it.h[0], q0 = wg ? it.q0[1] : it.q0[0];
+        const int qb = j % NB, h = wg ? it.h[1] : it.h[0], q0 = wg ? it.q0[1] : it.q0[0];
         const bool active = h >= 0;     // an odd group's last pair has one head;
                                         // an odd n_qt's last tile pair one tile
         // the kv tiles of this slot's rows: a suffix of the item's tiles that
         // lies past the causal limit is waited on and released, not computed
         const int n_own = active ? dq_kv_tiles(p, q0) : 0;
-        const uint32_t q_addr = smem_u32(smem + qb * L::ITEM + 2 * wg * L::TILE);
-        const uint32_t do_addr = q_addr + L::TILE;
+        const uint32_t q_addr = smem_u32(smem + qb * L::ITEM + wg * (L::TQ + L::TO));
+        const uint32_t do_addr = q_addr + L::TQ;
         const float* lse_sh = rows_sh + qb * 2 * BM + wg * BM;
 
         // delta = rowsum(out * dO) in fp32: out read now, ahead of the tile's
@@ -320,7 +340,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                     ? *reinterpret_cast<const uint4*>(orow + 8 * (4 * k + c))
                     : make_uint4(0u, 0u, 0u, 0u);
         }
-        mbar_wait(&q_full[qb], (j >> 1) & 1);
+        mbar_wait(&q_full[qb], (j / NB) & 1);
         float lse2[2], dlt[2];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
@@ -329,7 +349,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 #pragma unroll
             for (int k = 0; k < QV; ++k) {
                 if (4 * k + c >= NCH) continue;
-                const uint4 du = lds_u4(swz_addr<D, BM>(do_addr, rr, 8 * (4 * k + c)));
+                const uint4 du = lds_u4(swz_addr<DV, BM>(do_addr, rr, 8 * (4 * k + c)));
                 const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&ov[hr][k]);
                 const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&du);
 #pragma unroll
@@ -360,8 +380,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
             mbar_wait(&v_full[(n + t) % kDqVStages], ((n + t) / kDqVStages) & 1);
         };
         auto issue_s_dp = [&](int t) {      // tile t's K and V are there
-            const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TILE;
-            const uint32_t v_addr = v_base + ((n + t) % kDqVStages) * L::TILE;
+            const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TQ;
+            const uint32_t v_addr = v_base + ((n + t) % kDqVStages) * L::TO;
 #pragma unroll
             for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
             wgmma_fence();
@@ -370,9 +390,9 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                 wgmma_ss<BN, 0, 0>(sc, desc_k<D, BM>(q_addr, 0, kk), desc_k<D, BN>(k_addr, 0, kk),
                                 kk > 0);
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<BN, 0, 0>(dp, desc_k<D, BM>(do_addr, 0, kk), desc_k<D, BN>(v_addr, 0, kk),
-                                kk > 0);
+            for (int kk = 0; kk < DV / 16; ++kk)
+                wgmma_ss<BN, 0, 0>(dp, desc_k<DV, BM>(do_addr, 0, kk),
+                                   desc_k<DV, BN>(v_addr, 0, kk), kk > 0);
         };
         auto release = [&](uint64_t* bar) {
             __syncwarp();
@@ -423,7 +443,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
             }
             // dQ += dS K_t (K MN-major), then tile t + 1's S and dP
             wgmma_fence();
-            const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TILE;
+            const uint32_t k_addr = k_base + ((n + t) % kDqKStages) * L::TQ;
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(acc, dsf[kk], k_addr, kk);
             if (t + 1 < it.n_tiles) {
@@ -489,29 +509,35 @@ struct DkvParams {
     int64_t dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
 };
 
-template <int D>
+template <int D, int DV>
 struct DkvSmem {
-    static constexpr int TILE = BM * D * 2;              // one [64 x D] bf16 tile
-    static constexpr int STAGE = 2 * TILE + 1024;        // q, dO, lse and delta (64 floats each)
-    static constexpr int RLD = D + 4;                    // fp32 partial rows, padded
-    static constexpr int RED = 2 * BM * RLD * 4;         // dk and dv partials
+    static constexpr int TK = BM * D * 2;                // one [64 x D] bf16 tile: K, q
+    static constexpr int TV = BM * DV * 2;               // one [64 x DV] tile: V, dO
+    static constexpr int STAGE = TK + TV + 1024;         // q, dO, lse and delta (64 floats each)
+    static constexpr int RLD = D + 4, RLDV = DV + 4;     // fp32 partial rows, padded
+    static constexpr int RED = BM * (RLD + RLDV) * 4;    // dk and dv partials
     static constexpr int RING = kDkvStages * STAGE > RED ? kDkvStages * STAGE : RED;
-    static constexpr int ring_off = 2 * TILE;            // after this block's K and V
+    static constexpr int ring_off = TK + TV;             // after this block's K and V
     static constexpr int bar_off = ring_off + RING;
     static constexpr size_t bytes = bar_off + (1 + 2 * kDkvStages) * 8 + 1024;
 };
 
-template <int D>
+// P^T kept as bf16 A registers (see the design note): where dk, dv, S^T and
+// dP^T together would pass 192 fp32 registers a thread
+template <int D, int DV>
+constexpr bool kPTBf16 = D / 2 + DV / 2 + BN > 192;
+
+template <int D, int DV>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ TileMap<D> tq,
-                         const __grid_constant__ TileMap<D> tdo,
+                         const __grid_constant__ TileMap<DV> tdo,
                          const __grid_constant__ TileMap<D> tk,
-                         const __grid_constant__ TileMap<D> tv, const DkvParams p) {
-    using L = DkvSmem<D>;
+                         const __grid_constant__ TileMap<DV> tv, const DkvParams p) {
+    using L = DkvSmem<D, DV>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     bf16* k_sh = reinterpret_cast<bf16*>(smem);
-    bf16* v_sh = reinterpret_cast<bf16*>(smem + L::TILE);
+    bf16* v_sh = reinterpret_cast<bf16*>(smem + L::TK);
     unsigned char* ring = smem + L::ring_off;      // stage s: q, dO, lse, delta
     uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
     uint64_t* full = kv_full + 1;
@@ -541,16 +567,18 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     }
     __syncthreads();
 
-    float dk[D / 2], dv[D / 2];
+    float dk[D / 2], dv[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
 
     if (tid >= 128) {               // producer warp
         if (n_items > 0) {
             if (lane == 0) {
-                mbar_expect_tx(kv_full, 2 * L::TILE);
+                mbar_expect_tx(kv_full, L::TK + L::TV);
                 tma_load_tile<D, BM>(k_sh, &tk, kv_full, k0, hk, b);
-                tma_load_tile<D, BM>(v_sh, &tv, kv_full, k0, hk, b);
+                tma_load_tile<DV, BM>(v_sh, &tv, kv_full, k0, hk, b);
             }
             for (int it = 0; it < n_items; ++it) {
                 const int s = it % kDkvStages;
@@ -559,12 +587,12 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
                 const int n0 = (qt0 + it % per_head) * BN;
                 unsigned char* st = ring + s * L::STAGE;
                 if (lane == 0) {
-                    mbar_expect_tx(&full[s], 2 * L::TILE);
+                    mbar_expect_tx(&full[s], L::TK + L::TV);
                     tma_load_tile<D, BN>(reinterpret_cast<bf16*>(st), &tq, &full[s], n0, h, b);
-                    tma_load_tile<D, BN>(reinterpret_cast<bf16*>(st + L::TILE), &tdo, &full[s],
-                                         n0, h, b);
+                    tma_load_tile<DV, BN>(reinterpret_cast<bf16*>(st + L::TK), &tdo, &full[s],
+                                          n0, h, b);
                 }
-                float* lse_sh = reinterpret_cast<float*>(st + 2 * L::TILE);
+                float* lse_sh = reinterpret_cast<float*>(st + L::TK + L::TV);
                 const int64_t base = (int64_t(b) * p.H + h) * p.S;
                 for (int i = lane; i < BN; i += 32) {
                     const bool ok = n0 + i < p.S;
@@ -586,56 +614,119 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             const int s = it % kDkvStages;
             mbar_wait(&full[s], (it / kDkvStages) & 1);
             const unsigned char* st = ring + s * L::STAGE;
-            const uint32_t q_addr = smem_u32(st), do_addr = q_addr + L::TILE;
-            const float* lb = reinterpret_cast<const float*>(st + 2 * L::TILE);
+            const uint32_t q_addr = smem_u32(st), do_addr = q_addr + L::TK;
+            const float* lb = reinterpret_cast<const float*>(st + L::TK + L::TV);
             const float* db = lb + BN;
             const int n0 = (qt0 + it % per_head) * BN;
+            // (row hr, column j * 8 + 2 c + e) of this thread is unmasked
+            auto live = [&](int hr, int cc) {
+                const int qi = n0 + cc;
+                return qi < p.S && krow[hr] < p.kv_len && (!p.causal || krow[hr] <= p.q_offset + qi);
+            };
 
             // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x BN q columns each
-            float sc[BN / 2], dp[BN / 2];
+            auto issue_st = [&](float (&sc)[BN / 2]) {
 #pragma unroll
-            for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<BN, 0, 0>(sc, desc_k<D, BM>(k_addr, 0, kk), desc_k<D, BN>(q_addr, 0, kk),
-                                kk > 0);
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<BN, 0, 0>(dp, desc_k<D, BM>(v_addr, 0, kk), desc_k<D, BN>(do_addr, 0, kk),
-                                kk > 0);
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(sc);
-            fence_regs(dp);
-
-            // P^T on unmasked entries (0 elsewhere) and dS^T = P^T (dP^T - delta),
-            // both rounded to bf16 A registers
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss<BN, 0, 0>(sc, desc_k<D, BM>(k_addr, 0, kk),
+                                       desc_k<D, BN>(q_addr, 0, kk), kk > 0);
+            };
             uint32_t pf[BN / 16][4], dsf[BN / 16][4];
+            if constexpr (!kPTBf16<D, DV>) {
+                float sc[BN / 2], dp[BN / 2];
 #pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
+                for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+                wgmma_fence();
+                issue_st(sc);
 #pragma unroll
-                for (int j = 0; j < BN / 8; ++j) {
+                for (int kk = 0; kk < DV / 16; ++kk)
+                    wgmma_ss<BN, 0, 0>(dp, desc_k<DV, BM>(v_addr, 0, kk),
+                                       desc_k<DV, BN>(do_addr, 0, kk), kk > 0);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(sc);
+                fence_regs(dp);
+
+                // P^T on unmasked entries (0 elsewhere) and dS^T = P^T (dP^T - delta),
+                // both rounded to bf16 A registers
 #pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        const int cc = j * 8 + 2 * c + e, qi = n0 + cc;
-                        const bool ok = qi < p.S && krow[hr] < p.kv_len &&
-                                        (!p.causal || krow[hr] <= p.q_offset + qi);
-                        float& sv = sc[4 * j + 2 * hr + e];
-                        sv = ok ? exp2f(sv * p.scale_log2 - lb[cc]) : 0.f;
+                for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+                    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int cc = j * 8 + 2 * c + e;
+                            float& sv = sc[4 * j + 2 * hr + e];
+                            sv = live(hr, cc) ? exp2f(sv * p.scale_log2 - lb[cc]) : 0.f;
+                        }
+                        const int r = 4 * j + 2 * hr, cc = j * 8 + 2 * c;
+                        pf[j / 2][(j % 2) * 2 + hr] = pack_bf16(sc[r], sc[r + 1]);
+                        dsf[j / 2][(j % 2) * 2 + hr] = pack_bf16(
+                            sc[r] * (dp[r] - db[cc]), sc[r + 1] * (dp[r + 1] - db[cc + 1]));
                     }
-                    const int r = 4 * j + 2 * hr, cc = j * 8 + 2 * c;
-                    pf[j / 2][(j % 2) * 2 + hr] = pack_bf16(sc[r], sc[r + 1]);
-                    dsf[j / 2][(j % 2) * 2 + hr] = pack_bf16(sc[r] * (dp[r] - db[cc]),
-                                                             sc[r + 1] * (dp[r + 1] - db[cc + 1]));
                 }
+                // dV += P^T dO and dK += dS^T Q
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<DV, BN>(dv, pf[kk], do_addr, kk);
+#pragma unroll
+                for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(dk, dsf[kk], q_addr, kk);
+            } else {
+                float sc[BN / 2];
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+                wgmma_fence();
+                issue_st(sc);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(sc);
+                // P^T straight to bf16 A registers; S^T is dead after this
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+                    for (int j = 0; j < BN / 8; ++j) {
+                        float pv[2];
+#pragma unroll
+                        for (int e = 0; e < 2; ++e)
+                            pv[e] = live(hr, j * 8 + 2 * c + e)
+                                ? exp2f(sc[4 * j + 2 * hr + e] * p.scale_log2 - lb[j * 8 + 2 * c + e])
+                                : 0.f;
+                        pf[j / 2][(j % 2) * 2 + hr] = pack_bf16(pv[0], pv[1]);
+                    }
+                }
+                // dV += P^T dO, and dP^T = V dO^T beside it
+                float dp[BN / 2];
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) dp[i] = 0.f;
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<DV, BN>(dv, pf[kk], do_addr, kk);
+#pragma unroll
+                for (int kk = 0; kk < DV / 16; ++kk)
+                    wgmma_ss<BN, 0, 0>(dp, desc_k<DV, BM>(v_addr, 0, kk),
+                                       desc_k<DV, BN>(do_addr, 0, kk), kk > 0);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(dp);
+                fence_regs(dv);
+                fence_regs(pf);
+                // dS^T = P^T (dP^T - delta), P^T read back from its bf16 registers
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+                    for (int j = 0; j < BN / 8; ++j) {
+                        const int r = 4 * j + 2 * hr, cc = j * 8 + 2 * c;
+                        const float2 pv = __bfloat1622float2(
+                            *reinterpret_cast<const __nv_bfloat162*>(&pf[j / 2][(j % 2) * 2 + hr]));
+                        dsf[j / 2][(j % 2) * 2 + hr] = pack_bf16(
+                            pv.x * (dp[r] - db[cc]), pv.y * (dp[r + 1] - db[cc + 1]));
+                    }
+                }
+                // dK += dS^T Q
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(dk, dsf[kk], q_addr, kk);
             }
-            // dV += P^T dO and dK += dS^T Q
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(dv, pf[kk], do_addr, kk);
-#pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tile<D, BN>(dk, dsf[kk], q_addr, kk);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(dv);
@@ -657,39 +748,45 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
             bf16* krw = p.dk + b * p.dk_sb + hk * p.dk_sh + row * p.dk_ss + 2 * c;
             bf16* vrw = p.dv + b * p.dv_sb + hk * p.dv_sh + row * p.dv_ss + 2 * c;
 #pragma unroll
-            for (int dt = 0; dt < D / 8; ++dt) {
+            for (int dt = 0; dt < D / 8; ++dt)
                 *reinterpret_cast<__nv_bfloat162*>(krw + dt * 8) = __floats2bfloat162_rn(
                     dk[4 * dt + 2 * hr] * p.scale, dk[4 * dt + 2 * hr + 1] * p.scale);
+#pragma unroll
+            for (int dt = 0; dt < DV / 8; ++dt)
                 *reinterpret_cast<__nv_bfloat162*>(vrw + dt * 8) =
                     __floats2bfloat162_rn(dv[4 * dt + 2 * hr], dv[4 * dt + 2 * hr + 1]);
-            }
         }
         return;
     }
 
     // The cluster's sum.  The ring is idle now: every load was consumed.
-    float* red = reinterpret_cast<float*>(ring);    // [2][64][RLD]: dk, dv partials
+    // [64][RLD] dk partials, then [64][RLDV] dv partials
+    float* red = reinterpret_cast<float*>(ring);
+    float* red_v = red + BM * L::RLD;
     if (tid < 128) {
         const int warp = tid / 32, g = lane / 4, c = lane % 4;
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
             const int r = warp * 16 + g + 8 * hr;
 #pragma unroll
-            for (int dt = 0; dt < D / 8; ++dt) {
+            for (int dt = 0; dt < D / 8; ++dt)
                 *reinterpret_cast<float2*>(red + r * L::RLD + dt * 8 + 2 * c) =
                     make_float2(dk[4 * dt + 2 * hr], dk[4 * dt + 2 * hr + 1]);
-                *reinterpret_cast<float2*>(red + (BM + r) * L::RLD + dt * 8 + 2 * c) =
+#pragma unroll
+            for (int dt = 0; dt < DV / 8; ++dt)
+                *reinterpret_cast<float2*>(red_v + r * L::RLDV + dt * 8 + 2 * c) =
                     make_float2(dv[4 * dt + 2 * hr], dv[4 * dt + 2 * hr + 1]);
-            }
         }
     }
     cluster_sync();
     const int rows = BM / C, r0 = rank * rows;
-    const uint32_t red_addr = smem_u32(red);
-    for (int i = tid; i < 2 * rows * (D / 4); i += kDkvThreads) {
-        const int which = i / (rows * (D / 4)), rem = i % (rows * (D / 4));
-        const int r = r0 + rem / (D / 4), col = (rem % (D / 4)) * 4;
-        const uint32_t addr = red_addr + ((which * BM + r) * L::RLD + col) * 4;
+    const uint32_t red_addr = smem_u32(red), red_v_addr = smem_u32(red_v);
+    const int n_k = rows * (D / 4);                 // dk's float4s, then dv's
+    for (int i = tid; i < n_k + rows * (DV / 4); i += kDkvThreads) {
+        const int which = i >= n_k, rem = which ? i - n_k : i, w4 = which ? DV / 4 : D / 4;
+        const int r = r0 + rem / w4, col = (rem % w4) * 4;
+        const uint32_t addr = which ? red_v_addr + (r * L::RLDV + col) * 4
+                                    : red_addr + (r * L::RLD + col) * 4;
         float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int src = 0; src < C; ++src) {      // fixed order: repeatable bits
             const float4 v = ld_cluster_f4(map_rank(addr, src));
@@ -713,17 +810,18 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     cluster_sync();                 // no block leaves while another reads its partials
 }
 
-template <int D>
+template <int D, int DV>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const DqParams& p,
               const int64_t* st, cudaStream_t stream) {
-    TileMap<D> tq, tdo, tk, tv;
+    TileMap<D> tq, tk;
+    TileMap<DV> tdo, tv;
     int rc = encode_map<D>(&tq, q, p.B, p.H, p.S, st[0], st[1], st[2], BM);
-    if (!rc) rc = encode_map<D>(&tdo, dout, p.B, p.H, p.S, st[12], st[13], st[14], BM);
+    if (!rc) rc = encode_map<DV>(&tdo, dout, p.B, p.H, p.S, st[12], st[13], st[14], BM);
     if (!rc) rc = encode_map<D>(&tk, k, p.B, p.Hkv, p.kv_len, st[3], st[4], st[5], BN);
-    if (!rc) rc = encode_map<D>(&tv, v, p.B, p.Hkv, p.kv_len, st[6], st[7], st[8], BN);
+    if (!rc) rc = encode_map<DV>(&tv, v, p.B, p.Hkv, p.kv_len, st[6], st[7], st[8], BN);
     if (rc) return rc;
-    const int bytes = static_cast<int>(DqSmem<D>::bytes);
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+    const int bytes = static_cast<int>(DqSmem<D, DV>::bytes);
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     // a persistent grid: as many blocks as stay resident, each walking the
@@ -732,26 +830,27 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
         return static_cast<int>(e);
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dq_kernel<D>,
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dq_kernel<D, DV>,
                                                            kDqThreads, bytes)) != cudaSuccess)
         return static_cast<int>(e);
     const int n_work = dq_work(p.n_qt, p.B, p.Hkv, p.rep);
     const int grid = max(1, min(n_work, sms * max(per_sm, 1)));
-    flash_bwd_dq_kernel<D><<<grid, kDqThreads, bytes, stream>>>(tq, tdo, tk, tv, p);
+    flash_bwd_dq_kernel<D, DV><<<grid, kDqThreads, bytes, stream>>>(tq, tdo, tk, tv, p);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const DkvParams& p, int B, const int64_t* st, cudaStream_t stream) {
-    TileMap<D> tq, tdo, tk, tv;
+    TileMap<D> tq, tk;
+    TileMap<DV> tdo, tv;
     int rc = encode_map<D>(&tq, q, B, p.H, p.S, st[0], st[1], st[2], BN);
-    if (!rc) rc = encode_map<D>(&tdo, dout, B, p.H, p.S, st[12], st[13], st[14], BN);
+    if (!rc) rc = encode_map<DV>(&tdo, dout, B, p.H, p.S, st[12], st[13], st[14], BN);
     if (!rc) rc = encode_map<D>(&tk, k, B, p.Hkv, p.kv_len, st[3], st[4], st[5], BM);
-    if (!rc) rc = encode_map<D>(&tv, v, B, p.Hkv, p.kv_len, st[6], st[7], st[8], BM);
+    if (!rc) rc = encode_map<DV>(&tv, v, B, p.Hkv, p.kv_len, st[6], st[7], st[8], BM);
     if (rc) return rc;
-    const int bytes = static_cast<int>(DkvSmem<D>::bytes);
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+    const int bytes = static_cast<int>(DkvSmem<D, DV>::bytes);
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaLaunchConfig_t cfg = {};
@@ -766,7 +865,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_kernel<D>, tq, tdo, tk, tv, p);
+    e = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_kernel<D, DV>, tq, tdo, tk, tv, p);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
@@ -774,19 +873,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// Shared layout of both entry points: q, out, dO, dq [B,H,S,D] and k, v, dk,
-// dv [B,Hkv,T,D] as strided bf16 views whose last dim is contiguous; lse and
-// delta [B,H,S] contiguous fp32.  strides holds the (batch, head, row)
-// element strides of q, k, v, out, dO, dq, dk, dv in that order.  A pointer
-// the pass does not touch may be null.  The wrapper checks shapes, 16-byte
-// alignment and D: one of {32, 64, 80, 128}.
+// Shared layout of both entry points: q, dq [B,H,S,D], k, dk [B,Hkv,T,D],
+// out, dO [B,H,S,DV] and v, dv [B,Hkv,T,DV] as strided bf16 views whose last
+// dim is contiguous; lse and delta [B,H,S] contiguous fp32.  strides holds the
+// (batch, head, row) element strides of q, k, v, out, dO, dq, dk, dv in that
+// order.  A pointer the pass does not touch may be null.  The wrapper checks
+// shapes, 16-byte alignment and (D, DV): one of (32, 32), (64, 64), (80, 80),
+// (128, 128) and (192, 128).
+namespace {
+bool head_dims_ok(int D, int DV) { return D == DV || (D == 192 && DV == 128); }
+}  // namespace
 
 // dq pass: writes dq and delta = rowsum(out * dO).
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                            const void* out, const void* dout, const void* lse,
                                            void* delta, void* dq, int B, int H, int Hkv, int S,
-                                           int T, int D, int kv_len, int q_offset, int causal,
-                                           float scale, const int64_t* strides, void* stream) {
+                                           int T, int D, int DV, int kv_len, int q_offset,
+                                           int causal, float scale, const int64_t* strides,
+                                           void* stream) {
     (void)T;
     DqParams p;
     p.o = static_cast<const bf16*>(out);
@@ -807,12 +911,14 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const v
     p.o_sb = strides[9];   p.o_sh = strides[10];  p.o_ss = strides[11];
     p.dq_sb = strides[15]; p.dq_sh = strides[16]; p.dq_ss = strides[17];
     if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+    if (!head_dims_ok(D, DV)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch_dq<32>(q, k, v, dout, p, strides, st);
-        case 64: return launch_dq<64>(q, k, v, dout, p, strides, st);
-        case 80: return launch_dq<80>(q, k, v, dout, p, strides, st);
-        case 128: return launch_dq<128>(q, k, v, dout, p, strides, st);
+        case 32: return launch_dq<32, 32>(q, k, v, dout, p, strides, st);
+        case 64: return launch_dq<64, 64>(q, k, v, dout, p, strides, st);
+        case 80: return launch_dq<80, 80>(q, k, v, dout, p, strides, st);
+        case 128: return launch_dq<128, 128>(q, k, v, dout, p, strides, st);
+        case 192: return launch_dq<192, 128>(q, k, v, dout, p, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -822,9 +928,9 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const v
 extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* delta,
                                             void* dk, void* dv, int B, int H, int Hkv, int S,
-                                            int T, int D, int kv_len, int q_offset, int causal,
-                                            int cluster, float scale, const int64_t* strides,
-                                            void* stream) {
+                                            int T, int D, int DV, int kv_len, int q_offset,
+                                            int causal, int cluster, float scale,
+                                            const int64_t* strides, void* stream) {
     if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
         return static_cast<int>(cudaErrorInvalidValue);
     DkvParams p;
@@ -846,34 +952,42 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const 
     p.dk_sb = strides[18]; p.dk_sh = strides[19]; p.dk_ss = strides[20];
     p.dv_sb = strides[21]; p.dv_sh = strides[22]; p.dv_ss = strides[23];
     if (B == 0 || T == 0) return static_cast<int>(cudaGetLastError());
+    if (!head_dims_ok(D, DV)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch_dkv<32>(q, k, v, dout, p, B, strides, st);
-        case 64: return launch_dkv<64>(q, k, v, dout, p, B, strides, st);
-        case 80: return launch_dkv<80>(q, k, v, dout, p, B, strides, st);
-        case 128: return launch_dkv<128>(q, k, v, dout, p, B, strides, st);
+        case 32: return launch_dkv<32, 32>(q, k, v, dout, p, B, strides, st);
+        case 64: return launch_dkv<64, 64>(q, k, v, dout, p, B, strides, st);
+        case 80: return launch_dkv<80, 80>(q, k, v, dout, p, B, strides, st);
+        case 128: return launch_dkv<128, 128>(q, k, v, dout, p, B, strides, st);
+        case 192: return launch_dkv<192, 128>(q, k, v, dout, p, B, strides, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-// Dynamic shared memory of one dk/dv block at head dim D (0 for another D).
-extern "C" int flash_attention_bwd_dkv_smem_bytes(int D) {
+// Dynamic shared memory of one dk/dv block at head dims (D, DV) (0 for
+// another pair).
+extern "C" int flash_attention_bwd_dkv_smem_bytes(int D, int DV) {
+    if (!head_dims_ok(D, DV)) return 0;
     switch (D) {
-        case 32: return static_cast<int>(DkvSmem<32>::bytes);
-        case 64: return static_cast<int>(DkvSmem<64>::bytes);
-        case 80: return static_cast<int>(DkvSmem<80>::bytes);
-        case 128: return static_cast<int>(DkvSmem<128>::bytes);
+        case 32: return static_cast<int>(DkvSmem<32, 32>::bytes);
+        case 64: return static_cast<int>(DkvSmem<64, 64>::bytes);
+        case 80: return static_cast<int>(DkvSmem<80, 80>::bytes);
+        case 128: return static_cast<int>(DkvSmem<128, 128>::bytes);
+        case 192: return static_cast<int>(DkvSmem<192, 128>::bytes);
         default: return 0;
     }
 }
 
-// Dynamic shared memory of one dq block at head dim D (0 for another D).
-extern "C" int flash_attention_bwd_dq_smem_bytes(int D) {
+// Dynamic shared memory of one dq block at head dims (D, DV) (0 for another
+// pair).
+extern "C" int flash_attention_bwd_dq_smem_bytes(int D, int DV) {
+    if (!head_dims_ok(D, DV)) return 0;
     switch (D) {
-        case 32: return static_cast<int>(DqSmem<32>::bytes);
-        case 64: return static_cast<int>(DqSmem<64>::bytes);
-        case 80: return static_cast<int>(DqSmem<80>::bytes);
-        case 128: return static_cast<int>(DqSmem<128>::bytes);
+        case 32: return static_cast<int>(DqSmem<32, 32>::bytes);
+        case 64: return static_cast<int>(DqSmem<64, 64>::bytes);
+        case 80: return static_cast<int>(DqSmem<80, 80>::bytes);
+        case 128: return static_cast<int>(DqSmem<128, 128>::bytes);
+        case 192: return static_cast<int>(DqSmem<192, 128>::bytes);
         default: return 0;
     }
 }

@@ -9,7 +9,8 @@
 // Tiles in shared memory.  A [R rows x D cols] bf16 tile is stored as
 // SLABS slabs of [R][SW bytes], SW = min(2 D, 128), then, where D is not a
 // multiple of SW/2 columns (D = 80), one tail slab of [R][2 TAIL bytes]
-// (TAIL = 16 columns at D = 80).  Each slab is one TMA box, written in the
+// (TAIL = 16 columns at D = 80).  D = 192 (MLA's [nope | rope] q/k) is three
+// 64-column slabs and no tail.  Each slab is one TMA box, written in the
 // swizzled layout of its own width (128B for 64 columns, 64B for 32, 32B for
 // 16) that the wgmma descriptors read; a slab starts on a 1024-byte
 // boundary (R = 64), so the swizzle pattern's base offset is 0.  A tile with
@@ -303,12 +304,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 // d (m64 x nD) += A B, B an MN-major [R x D] tile at `tile`, k rows
 // [16 kk, 16 kk + 16): one product over the main slabs' columns and, where
 // the tile has a tail slab, one over the tail's, into d's last 2 TAIL
-// registers (the accumulator layout's column order)
+// registers (the accumulator layout's column order).  Past 128 columns
+// (D = 192: three 64-column slabs) the first two slabs are one m64n128
+// product and the rest a second one into d's registers from 64 on.
 template <int D, int R>
 __device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2], const uint32_t (&a)[4],
                                               uint32_t tile, int kk) {
     using G = Swz<D>;
-    if constexpr (G::TAIL == 0) {
+    if constexpr (G::TAIL == 0 && D > 128) {
+        static_assert(D - 128 <= 128 && 128 % G::COLS == 0, "wgmma_rs_tile: D <= 256");
+        wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_mn<D, R>(tile, kk), 1);
+        wgmma_rs<D - 128>(*reinterpret_cast<float(*)[(D - 128) / 2]>(&d[64]), a,
+                          make_desc<G::SW>(tile + (128 / G::COLS) * R * G::SW + kk * 16 * G::SW,
+                                           R * G::SW),
+                          1);
+    } else if constexpr (G::TAIL == 0) {
         wgmma_rs<D>(d, a, desc_mn<D, R>(tile, kk), 1);
     } else {
         constexpr int MAIN = G::SLABS * G::COLS;

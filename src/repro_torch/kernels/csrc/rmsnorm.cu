@@ -49,6 +49,9 @@
 //   barrier each block sums 32-column slices of those rows, in block order,
 //   into dscale.  Every sum has a fixed order: the same inputs (on the same
 //   card) give the same bits.
+// * x's rows may lie at a pitch wider than d, as the forward reads them
+//   (kv_norm's 512 of each 576-column row): the backward reads the same
+//   rows in place; dy is read and dx written contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,7 +171,7 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ dy,
                    __nv_bfloat16* __restrict__ dx, float* __restrict__ partial,
                    __nv_bfloat16* __restrict__ dscale, unsigned* barrier,
-                   int rows, int d, int G, float eps) {
+                   int rows, int d, int pitch, int G, float eps) {
     extern __shared__ float part[];                  // [R][d]: the groups' dscale rows
     __shared__ float2 red[2][kBwdThreads / 32];      // (ss, sd) per warp, by row parity
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -186,17 +189,17 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
     int row = blockIdx.x * R + grp;
     uint4 xc[kVec], gc[kVec];
     if (row < rows) {
-        load_vecs<kVec>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * d), nvec,
-                        lg, G, xc);
+        load_vecs<kVec>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * pitch),
+                        nvec, lg, G, xc);
         load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + static_cast<int64_t>(row) * d), nvec,
                         lg, G, gc);
     }
     for (int it = 0; row < rows; ++it, row += stride) {
         uint4 xn[kVec], gn[kVec];
         if (row + stride < rows) {      // the next row's loads, in flight meanwhile
-            const int64_t next = static_cast<int64_t>(row + stride) * d;
-            load_vecs<kVec>(reinterpret_cast<const uint4*>(x + next), nvec, lg, G, xn);
-            load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + next), nvec, lg, G, gn);
+            const int64_t next = static_cast<int64_t>(row + stride);
+            load_vecs<kVec>(reinterpret_cast<const uint4*>(x + next * pitch), nvec, lg, G, xn);
+            load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + next * d), nvec, lg, G, gn);
         }
         float ss = 0.f, sd = 0.f;                    // sum x^2, sum dy s x
 #pragma unroll
@@ -359,14 +362,16 @@ extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
     return static_cast<int>(cudaGetLastError());
 }
 
-// x, dy, dx: [rows, d] contiguous bf16; scale, dscale: [d] bf16; partial:
+// x: [rows, d] bf16 rows at a pitch of `pitch` elements (pitch >= d,
+// pitch % 8 == 0); dy, dx: [rows, d] contiguous bf16; scale, dscale: [d] bf16; partial:
 // [n_part, d] fp32 scratch, n_part >= 1: the grid takes min(n_part, the
 // blocks the card holds at once, the rows' groups) blocks; barrier: two
 // uint32 that are 0 before the first launch on a stream, left for the next;
 // d % 8 == 0, d <= 8192, pointers 16-byte aligned (the wrapper checks).
 extern "C" int rmsnorm_bwd_bf16(const void* x, const void* scale, const void* dy, void* dx,
                                 void* partial, void* dscale, void* barrier, int rows, int d,
-                                int n_part, float eps, void* stream) {
+                                int pitch, int n_part, float eps, void* stream) {
+    if (pitch < d || pitch % 8) return static_cast<int>(cudaErrorInvalidValue);
     const int smem = bwd_smem(d);
     cudaError_t e = cudaFuncSetAttribute(rmsnorm_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -385,7 +390,7 @@ extern "C" int rmsnorm_bwd_bf16(const void* x, const void* scale, const void* dy
     blocks = blocks < sms * per_sm ? blocks : sms * per_sm;
     void* args[] = {const_cast<void**>(&x), const_cast<void**>(&scale),
                     const_cast<void**>(&dy), &dx, &partial, &dscale, &barrier,
-                    &rows, &d, const_cast<int*>(&G), &eps};
+                    &rows, &d, &pitch, const_cast<int*>(&G), &eps};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rmsnorm_bwd_kernel), dim3(blocks),
                                     dim3(kBwdThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));

@@ -23,6 +23,11 @@ A tile of 80 columns is a 64-column slab and a 16-column tail slab, each
 with its own swizzle (csrc/hopper_sm90.cuh), so q, k, v, out, dO and the
 cache are read as they are, with no padded copy.
 
+q/k head dim D and v head dim DV may differ where `HEAD_DIM_PAIRS` lists
+the pair: MLA's expanded branch attends at D 192 ([nope | rope]) against
+DV 128 (deepseek-v2-lite-16b).  out, dO and dv are [..., DV]; q, k, dq and
+dk [..., D].  Every pass takes it natively: v is not padded.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.
 """
@@ -38,11 +43,14 @@ from .. import _build
 from .ref import attention_bwd_dkv_ref, attention_bwd_dq_ref, attention_with_lse_ref
 
 HEAD_DIMS = (32, 64, 80, 128)      # every pass's kernel takes each of them
-_ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 8 + (
+# (q/k head dim, v head dim): each of HEAD_DIMS with itself, and MLA's
+# [nope | rope] keys (128 + 64) against its v head dim 128
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+_ARGTYPES = (_build.PTR,) * 5 + (_build.INT,) * 9 + (
     _build.FLOAT, _build.PTR, _build.PTR)
-_BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 9 + (
+_BWD_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 10 + (
     _build.FLOAT, _build.PTR, _build.PTR)
-_DKV_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 10 + (
+_DKV_ARGTYPES = (_build.PTR,) * 8 + (_build.INT,) * 11 + (
     _build.FLOAT, _build.PTR, _build.PTR)
 DKV_CLUSTERS = (1, 2, 4, 8)
 _TILE = 64                  # rows of every tile of csrc/flash_attention_bwd.cu
@@ -112,15 +120,15 @@ def dq_items(b: int, h: int, hkv: int, s: int, *, kv_len: Optional[int] = None,
 
 def _check(name: str, q, k, v, kv_len: int, q_offset: int) -> None:
     b, h, s, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
+    hkv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     for arg, x in (("q", q), ("k", k), ("v", v)):
         _build.require(x, arg, torch.bfloat16, q.device)
-    if (k.shape != (b, hkv, t, d) or v.shape != k.shape or h % hkv
-            or d not in HEAD_DIMS or not 0 <= kv_len <= t or q_offset < 0):
+    if (k.shape != (b, hkv, t, d) or v.shape != (b, hkv, t, dv) or h % hkv
+            or (d, dv) not in HEAD_DIM_PAIRS or not 0 <= kv_len <= t or q_offset < 0):
         raise ValueError(
             f"{name}: unsupported shapes q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, kv_len {kv_len}, "
-            f"q_offset {q_offset} (head dim must be one of {HEAD_DIMS})")
+            f"q_offset {q_offset} ((q/k, v) head dims must be one of {HEAD_DIM_PAIRS})")
 
 
 def _check_like(name: str, x: torch.Tensor, shape, dtype, device) -> None:
@@ -139,10 +147,12 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
-def _empty_like_heads(x: torch.Tensor) -> torch.Tensor:
-    """[B,H,S,D] view of a new contiguous [B,S,H,D] tensor: the model's
-    layout, so the caller's transpose back is free."""
-    b, h, s, d = x.shape
+def _empty_like_heads(x: torch.Tensor, d: Optional[int] = None) -> torch.Tensor:
+    """[B,H,S,d] view of a new contiguous [B,S,H,d] tensor (d: x's last dim
+    unless given): the model's layout, so the caller's transpose back is
+    free."""
+    b, h, s, dx = x.shape
+    d = dx if d is None else d
     return torch.empty((b, s, h, d), dtype=x.dtype, device=x.device).transpose(1, 2)
 
 
@@ -150,12 +160,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: Optional[float] = None, causal: bool = True,
                         q_offset: int = 0, kv_len: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B,H,S,D]; k,v [B,Hkv,T,D] -> (out [B,H,S,D], lse [B,H,S] fp32).
+    """q [B,H,S,D]; k [B,Hkv,T,D]; v [B,Hkv,T,DV] -> (out [B,H,S,DV], lse
+    [B,H,S] fp32).
 
     Query row i attends to columns j < kv_len (default T) and, when causal,
     j <= q_offset + i.  With q_offset = 0 and kv_len = S = T this is the
     Pallas kernel's top-left-aligned causal mask.  On CUDA, `out` is a
-    [B,H,S,D] view of a contiguous [B,S,H,D] tensor.
+    [B,H,S,DV] view of a contiguous [B,S,H,DV] tensor.
     """
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -166,11 +177,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_with_lse_ref(q, k, v, scale, causal=causal,
                                       q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_fwd", q, k, v, kv_len, q_offset)
-    out = _empty_like_heads(q)
+    dv = v.shape[-1]
+    out = _empty_like_heads(q, dv)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_fwd_bf16", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, hkv, s, d, kv_len, int(q_offset), int(causal),
+            lse.data_ptr(), b, h, hkv, s, d, dv, kv_len, int(q_offset), int(causal),
             float(scale), _strides(q, k, v, out), _build.stream(q))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
@@ -185,9 +197,10 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: Optional[float] = None, causal: bool = True,
                            q_offset: int = 0, kv_len: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dq pass (counterpart of `_bwd_dq_kernel`): q, out, do [B,H,S,D];
-    k, v [B,Hkv,T,D]; lse [B,H,S] fp32 from the forward -> (dq [B,H,S,D],
-    delta [B,H,S] fp32 = rowsum(out * do)), with the forward's mask."""
+    """The dq pass (counterpart of `_bwd_dq_kernel`): q [B,H,S,D]; out, do
+    [B,H,S,DV]; k [B,Hkv,T,D]; v [B,Hkv,T,DV]; lse [B,H,S] fp32 from the
+    forward -> (dq [B,H,S,D], delta [B,H,S] fp32 = rowsum(out * do)), with
+    the forward's mask."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     kv_len = t if kv_len is None else int(kv_len)
@@ -197,14 +210,15 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_dq_ref(q, k, v, out, do, lse, scale, causal=causal,
                                     q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_bwd_dq", q, k, v, kv_len, q_offset)
-    _check_like("out", out, q.shape, torch.bfloat16, q.device)
-    _check_like("do", do, q.shape, torch.bfloat16, q.device)
+    dv = v.shape[-1]
+    _check_like("out", out, (b, h, s, dv), torch.bfloat16, q.device)
+    _check_like("do", do, (b, h, s, dv), torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
     dq = _empty_like_heads(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd_dq_bf16", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hkv, s, t, d,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hkv, s, t, d, dv,
             kv_len, int(q_offset), int(causal), float(scale),
             _strides(q, k, v, out, do, dq, None, None), _build.stream(q))
     _build.check(rc, "flash_attention_bwd_dq")
@@ -222,8 +236,9 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             cluster: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv pass (counterpart of `_bwd_dkv_kernel` plus the GQA sum at
-    kernel.py:262-264): -> (dk, dv [B,Hkv,T,D]); rows at or past kv_len get
-    zeros.  `cluster` (one of DKV_CLUSTERS; default `dkv_cluster_size`) is
+    kernel.py:262-264): q [B,H,S,D]; do [B,H,S,DV]; k [B,Hkv,T,D]; v
+    [B,Hkv,T,DV] -> (dk [B,Hkv,T,D], dv [B,Hkv,T,DV]); rows at or past
+    kv_len get zeros.  `cluster` (one of DKV_CLUSTERS; default `dkv_cluster_size`) is
     the number of blocks that split each kv tile's GQA group."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -234,7 +249,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal=causal,
                                      q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_bwd_dkv", q, k, v, kv_len, q_offset)
-    _check_like("do", do, q.shape, torch.bfloat16, q.device)
+    _check_like("do", do, (b, h, s, v.shape[-1]), torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
     _check_like("delta", delta, (b, h, s), torch.float32, q.device)
     if cluster is None:
@@ -246,7 +261,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.function("flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t, d,
-            kv_len, int(q_offset), int(causal), int(cluster), float(scale),
+            v.shape[-1], kv_len, int(q_offset), int(causal), int(cluster), float(scale),
             _strides(q, k, v, None, do, None, dk, dv), _build.stream(q))
     _build.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1

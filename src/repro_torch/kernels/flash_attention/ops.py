@@ -32,7 +32,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, causal: bool = True
                     ) -> torch.Tensor:
-    """q [B,H,S,D]; k,v [B,Hkv,S,D] -> out [B,H,S,D], differentiable in q, k
-    and v.  The causal mask is aligned top-left (q_offset 0), as the Pallas
-    kernels'."""
+    """q [B,H,S,D]; k [B,Hkv,S,D]; v [B,Hkv,S,DV] -> out [B,H,S,DV],
+    differentiable in q, k and v.  The causal mask is aligned top-left
+    (q_offset 0), as the Pallas kernels'."""
     return _FlashAttention.apply(q, k, v, scale, causal)

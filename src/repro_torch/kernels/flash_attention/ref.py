@@ -6,7 +6,8 @@ Pallas passes do.
 The mask is by absolute position: query row i sits at `q_offset + i` and
 sees cache columns `j < kv_len` with `j <= q_offset + i` when causal.  The
 default `q_offset = T - S` aligns the mask bottom-right, as the JAX oracle's
-`tril(k=t-s)` does; the kernel wrapper passes its own `q_offset`.
+`tril(k=t-s)` does; the kernel wrapper passes its own `q_offset`.  v (and
+so out, dO and dv) may have another head dim than q and k (MLA).
 """
 from __future__ import annotations
 

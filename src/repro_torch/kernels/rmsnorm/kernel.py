@@ -7,10 +7,10 @@ reference) and gives the gradients of both inputs.  A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.
 `<wrapper>.launches` counts kernel launches.
 
-The forward reads its rows in place at any uniform pitch (`row_pitch`): a
-slice of the first D columns of wider rows, such as MLA's `kv_norm` input
-(512 of each 576-column projection row), takes one launch and no copy.  Its
-output, and every tensor of the backward, is contiguous.
+Both directions read x's rows in place at any uniform pitch (`row_pitch`):
+a slice of the first D columns of wider rows, such as MLA's `kv_norm` input
+(512 of each 576-column projection row), takes one launch and no copy.  The
+forward's output, the backward's dy and its dx are contiguous.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
              _build.FLOAT, _build.PTR)
-_BWD_ARGTYPES = (_build.PTR,) * 7 + (_build.INT,) * 3 + (_build.FLOAT, _build.PTR)
+_BWD_ARGTYPES = (_build.PTR,) * 7 + (_build.INT,) * 4 + (_build.FLOAT, _build.PTR)
 # the forward holds a row in the registers of at most 512 threads, at most
 # eight 16-byte vectors each
 MAX_D = 32768
@@ -39,12 +39,11 @@ _BWD_BLOCKS = 4 * 132
 _BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, name: str, *, contiguous: bool) -> None:
+def _check(x: torch.Tensor, scale: torch.Tensor, name: str) -> None:
     d = x.shape[-1]
-    if (contiguous and not x.is_contiguous()) or scale.shape != (d,) or d % 8:
-        raise ValueError(f"{name}: needs {'contiguous ' if contiguous else ''}x [..., D] "
-                         f"with D % 8 == 0 and scale [D]; got {tuple(x.shape)}, "
-                         f"{tuple(scale.shape)}")
+    if scale.shape != (d,) or d % 8:
+        raise ValueError(f"{name}: needs x [..., D] with D % 8 == 0 and scale [D]; "
+                         f"got {tuple(x.shape)}, {tuple(scale.shape)}")
 
 
 def row_pitch(x: torch.Tensor) -> int:
@@ -78,7 +77,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
     d = x.shape[-1]
     _build.require(x, "x", torch.bfloat16, x.device)
     _build.require(scale, "scale", torch.bfloat16, x.device)
-    _check(x, scale, "rmsnorm", contiguous=False)
+    _check(x, scale, "rmsnorm")
     if d > MAX_D:
         raise ValueError(f"rmsnorm: D <= {MAX_D}; got {d}")
     pitch = row_pitch(x)
@@ -96,24 +95,26 @@ rmsnorm.launches = 0
 
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x, dy [..., D]; scale [D] -> (dx [..., D], dscale [D]), each in its
-    input's dtype (fp32 math; dscale summed over rows in a fixed order).
-    One launch: a cooperative grid whose blocks meet at a grid barrier
-    (`csrc/rmsnorm.cu`)."""
+    """x [..., D], its rows at any uniform pitch, as the forward read them;
+    dy [..., D] contiguous; scale [D] -> (dx [..., D] contiguous, dscale
+    [D]), each in its input's dtype (fp32 math; dscale summed over rows in a
+    fixed order).  One launch: a cooperative grid whose blocks meet at a
+    grid barrier (`csrc/rmsnorm.cu`)."""
     if not x.is_cuda:
         return rmsnorm_bwd_ref(x, scale, dy, eps)
     d = x.shape[-1]
     for name, t in (("x", x), ("scale", scale), ("dy", dy)):
         _build.require(t, name, torch.bfloat16, x.device)
-    _check(x, scale, "rmsnorm_bwd", contiguous=True)
+    _check(x, scale, "rmsnorm_bwd")
     if dy.shape != x.shape or not dy.is_contiguous():
         raise ValueError(f"rmsnorm_bwd: dy must be contiguous and shaped like x "
                          f"{tuple(x.shape)}; got {tuple(dy.shape)}")
     if d > MAX_BWD_D:
         raise ValueError(f"rmsnorm_bwd: D <= {MAX_BWD_D}; got {d}")
+    pitch = row_pitch(x)
     rows = x.numel() // d
     n_part = max(1, min(rows, _BWD_BLOCKS))
-    dx = torch.empty_like(x)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dscale = torch.empty_like(scale)
     partial = torch.empty((n_part, d), dtype=torch.float32, device=x.device)
     st = _build.stream(x)
@@ -123,8 +124,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
             2, dtype=torch.int32, device=x.device)
     fn = _build.function("rmsnorm_bwd_bf16", _BWD_ARGTYPES)
     rc = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dscale.data_ptr(), barrier.data_ptr(), rows, d, n_part,
-            float(eps), st)
+            partial.data_ptr(), dscale.data_ptr(), barrier.data_ptr(), rows, d, pitch,
+            n_part, float(eps), st)
     _build.check(rc, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx, dscale

@@ -1,7 +1,9 @@
 """RMSNorm with its gradient: the forward and backward kernels under one
 `torch.autograd.Function`.  The JAX package has no such op (its gradient
 comes from XLA autodiff of jnp code); the model's RMS norms go through it
-so that on a card both directions run the kernels."""
+so that on a card both directions run the kernels.  The forward saves x as
+the caller passed it (MLA's kv_norm: a slice of wider rows), and the
+backward kernel reads it at that pitch as the forward did."""
 from __future__ import annotations
 
 import torch

@@ -3,7 +3,10 @@
 `Trainer.run` takes a batch, runs `runtime/steps.py::train_step` (the
 model's loss through the kernels, autograd back through their backward
 kernels, AdamW) and logs, for `steps` steps.  It is the same for every
-family `loss_fn` trains: the dense decoders and the Mamba2 (ssm) stack.
+family `loss_fn` trains: the dense decoders, the Mamba2 (ssm) stack and the
+MoE family (deepseek-v2-lite-16b).  `n_layers` cuts the depth (the first
+layers of the config, the dense prefix first, every width kept): a model
+whose train state does not fit one card trains a few of its layers.
 Batches come from any iterable of numpy batch dicts in the format
 `repro.data.DataPipeline` yields (tokens, labels, loss_mask), or else from
 an in-memory corpus (synthesised as the JAX Trainer does when none is
@@ -15,13 +18,15 @@ Runs on `cuda` unless the config says `device="cpu"`.
         --steps 20 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --full \\
         --steps 8 --batch 8 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
+        --full --n-layers 6 --steps 8 --batch 8 --seq 512
 """
 from __future__ import annotations
 
 import argparse
 import statistics
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Iterable, Optional, Sequence
 
 import numpy as np
@@ -46,6 +51,7 @@ class TrainerConfig:
     device: str = "cuda"
     seed: int = 0                       # random weights
     moment_dtype: torch.dtype = torch.float32
+    n_layers: Optional[int] = None      # keep the config's first n layers
 
 
 class Trainer:
@@ -55,7 +61,12 @@ class Trainer:
         self.tc = tc
         self.device = resolve_device(tc.device)
         cfg = get_config(tc.arch)
-        self.cfg = cfg.reduced() if tc.reduced else cfg
+        cfg = cfg.reduced() if tc.reduced else cfg
+        if tc.n_layers is not None:
+            if not 1 <= tc.n_layers <= cfg.n_layers:
+                raise ValueError(f"n_layers must be in 1..{cfg.n_layers}, got {tc.n_layers}")
+            cfg = replace(cfg, n_layers=tc.n_layers)
+        self.cfg = cfg
         self.opt_cfg = AdamWConfig(lr=tc.lr, total_steps=tc.steps,
                                    warmup_steps=max(1, tc.steps // 20),
                                    moment_dtype=tc.moment_dtype)
@@ -128,11 +139,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--moment-dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--n-layers", type=int, default=None)
     args = ap.parse_args(argv)
     tc = TrainerConfig(arch=args.arch, steps=args.steps, global_batch=args.batch,
                        seq_len=args.seq, lr=args.lr, reduced=args.reduced,
                        device=args.device, seed=args.seed,
-                       moment_dtype=getattr(torch, args.moment_dtype))
+                       moment_dtype=getattr(torch, args.moment_dtype),
+                       n_layers=args.n_layers)
     out = Trainer(tc).run()
     print(f"[trainer] done: final_loss={out['final_loss']:.4f} steps={out['steps']} "
           f"step_s={out['step_s']:.3f} tokens_per_s={out['tokens_per_s']:.1f}")

@@ -14,8 +14,10 @@ on the train path through autograd ops whose backward runs the backward
 kernels.  The LayerNorm stays plain torch, as JAX computes it in jnp.
 MLA's absorbed attention and the MoE router, dispatch, expert products and
 combine stay plain torch too: JAX computes them in jnp, with no Pallas
-kernel.  MLA serves only (its expanded, no-cache branch is the train path,
-not ported yet).  The activation-sharding constraints of `repro.context`
+kernel.  MLA's expanded (no-cache) branch, the train path, attends through
+the flash kernels at q/k head dim qk_nope + qk_rope against v head dim
+v_head_dim, where JAX runs `blocked_causal_attention` (jnp): the port puts
+a kernel there, as for the dense family.  The activation-sharding constraints of `repro.context`
 are single-device no-ops and have no counterpart here; the `embeds`
 frontends are not ported yet (ROADMAP.md).
 """
@@ -194,7 +196,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
-# MLA — multi-head latent attention (DeepSeek V2/V3), the serve path
+# MLA — multi-head latent attention (DeepSeek V2/V3)
 # ---------------------------------------------------------------------------
 
 def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
@@ -231,17 +233,16 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
 def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
             kv_cache: Optional[Dict[str, torch.Tensor]] = None,
             cache_pos: Optional[int] = None):
-    """MLA attention against the latent cache ({"ckv": [B, T, kv_lora],
+    """MLA attention.  Without a cache (the train path) K and V are expanded
+    from the latent and causal attention runs over [nope | rope] head dims
+    through the flash kernels, the rotary keys broadcast over the heads, as
+    JAX's no-cache branch.  With the latent cache ({"ckv": [B, T, kv_lora],
     "krope": [B, T, rope]}: one layer's bf16 slices), for the prefill and
     the decode step alike: x's latent and rotary keys are written into the
     cache at `cache_pos` IN PLACE, then attention runs ABSORBED in the
     latent space in fp32, as JAX's cache branch computes it.  The einsums
     read the first cache_pos + s rows; JAX reads all T, whose masked rows
     weigh exactly 0.  Returns (y, kv_cache)."""
-    if kv_cache is None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA's expanded (no-cache) branch is the train path, not "
-            "ported yet (ROADMAP.md Queue 1 item 1, MoE training)")
     m = cfg.mla
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
@@ -251,6 +252,18 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
     ckv = apply_norm({"scale": p["kv_norm"]}, ckv_full[..., :m.kv_lora_rank])
     k_rope = apply_rope(ckv_full[..., None, m.kv_lora_rank:], positions,
                         cfg.rope_theta)[..., 0, :]
+
+    if kv_cache is None:
+        h = cfg.n_heads
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
+        v = torch.einsum("bsr,rhk->bshk", ckv, p["wv_b"])
+        q_cat = torch.cat([q_nope, q_rope], dim=-1)
+        k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_rope.shape[:2], h,
+                                                                 m.qk_rope_dim)], dim=-1)
+        out = flash_attention(q_cat.transpose(1, 2), k_cat.transpose(1, 2),
+                              v.transpose(1, 2), scale).transpose(1, 2)
+        y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+        return y, None
 
     s = x.shape[1]
     kv_len = cache_pos + s

@@ -1,14 +1,16 @@
 """Model assembly of the port: the train and serve paths of the dense
-transformer decoder and of the pure Mamba2 (ssm) stack, and the serve path
-of the MoE family (MLA attention, capacity-routed MoE, the dense prefix
-layers, the MTP head's params).
+transformer decoder, of the pure Mamba2 (ssm) stack and of the MoE family
+(MLA attention, capacity-routed MoE, the dense prefix layers), and the MTP
+head's params.
 
 Counterpart of `repro/models/transformer.py`.  Ported so far: `init_model`,
 `init_cache`, `_layer_is_moe`, `_init_tf_layer`, `_apply_tf_layer`,
 `_model_step`, `_serve_tf`, `prefill` and `decode_step` for the dense, moe
-and ssm families, and `forward`, `_chunked_ce` and `loss_fn` for the dense
-and ssm families (on moe, MLA or MTP they wait for the MoE training slice;
-ssm has no MTP branch, as in JAX).  Layers are kept as a list of
+and ssm families, and `forward`, `_chunked_ce` and `loss_fn` for the dense,
+ssm and moe families.  `forward` sums the MoE layers' load-balancing aux
+loss, as JAX's does; the MTP branch of `loss_fn` (deepseek-v3-671b) is not
+ported yet and training such a config raises (ssm has no MTP branch, as in
+JAX).  Layers are kept as a list of
 per-layer param dicts (`params["blocks"][i]`, and the MoE family's dense
 `params["prefix"][i]`, as JAX names them) where JAX stacks the blocks for
 `lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
@@ -45,10 +47,11 @@ def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the hybrid family is not ported yet "
             "(ROADMAP.md Queue 1 item 3, hybrid, after MoE)")
-    if train and (cfg.moe is not None or cfg.mla is not None or cfg.mtp):
+    if train and cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and MTP serve but do not train yet "
-            "(ROADMAP.md Queue 1 item 1, MoE training)")
+            f"{cfg.name}: the MTP branch of loss_fn (with q_norm's backward and the "
+            "sigmoid router's gradients) does not train yet "
+            "(ROADMAP.md Queue 1 item 1, deepseek-v3-671b training)")
     if cfg.frontend is not None or cfg.pos_embed != "none":
         raise NotImplementedError(
             f"{cfg.name}: stub frontends and sinusoidal positions are not "
@@ -138,11 +141,20 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward; returns (hidden [B,S,D], aux_loss).  The ssm
-    stack runs each layer from no state, as JAX's forward does."""
+    stack runs each layer from no state, as JAX's forward does.  The MoE
+    family runs its dense prefix layers, then its MoE blocks, and sums their
+    aux losses: each checkpointed block returns its aux as an output, so its
+    gradient flows."""
     _require_ported(cfg, train=True)
     h = L.embed_tokens(params["embed"], batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)   # no MoE yet
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def run(body, hh, lp):
+        # activation checkpointing: backward recomputes each layer from its
+        # input, so only the [B,S,D] carry per layer is kept
+        return (checkpoint(body, hh, lp, use_reentrant=False) if cfg.remat == "layer"
+                else body(hh, lp))
 
     if cfg.family == "ssm":
         def body(hh, lp):
@@ -151,11 +163,18 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         def body(hh, lp):
             return _apply_tf_layer(cfg, lp, hh, positions)[0]
 
+    def moe_body(hh, lp):
+        hh, _, a = _apply_tf_layer(cfg, lp, hh, positions, moe=True)
+        return hh, a
+
+    for lp in params.get("prefix", []):
+        h = run(body, h, lp)
     for lp in params["blocks"]:
-        # activation checkpointing: backward recomputes each layer from its
-        # input, so only the [B,S,D] carry per layer is kept
-        h = (checkpoint(body, h, lp, use_reentrant=False) if cfg.remat == "layer"
-             else body(h, lp))
+        if cfg.moe is not None:
+            h, a = run(moe_body, h, lp)
+            aux = aux + a
+        else:
+            h = run(body, h, lp)
     return L.apply_norm(params["final_norm"], h), aux
 
 

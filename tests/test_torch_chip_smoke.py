@@ -52,7 +52,11 @@ def test_hopper_kernel_report_reads_every_instance_with_its_parameters(tmp_path)
     assert {r["dynamic_smem_bytes"] for r in grads if (r["P"], r["N"]) == (64, 128)} == {193}
     assert {r["dynamic_smem_bytes"] for r in walk if (r["P"], r["N"]) == (64, 128)} == {192}
     assert all(r["registers"] == 128 and r["spill_stores"] == 0 for r in rows)
-    assert len([r for r in rows if r["kernel"] == "flash_fwd_kernel"]) == 4
+    fwd = [r for r in rows if r["kernel"] == "flash_fwd_kernel"]
+    assert [(r["D"], r["DV"]) for r in fwd] == [(32, 32), (64, 64), (80, 80), (128, 128),
+                                               (192, 128)]
+    # the shared memory entry point is called with the pair (D, DV)
+    assert {r["dynamic_smem_bytes"] for r in fwd if r["D"] == 192} == {320}
     for r in rows:
         cs.check_no_spills(r)
 
@@ -61,8 +65,11 @@ def test_hopper_kernel_report_reads_every_instance_with_its_parameters(tmp_path)
     ("ssd_bwd_grads_kernel", (64, 128), True),
     ("ssd_bwd_walk_kernel", (64, 128), True),
     ("ssd_bwd_walk_kernel", (32, 128), False),
-    ("flash_bwd_dkv_kernel", (80,), True),
-    ("flash_bwd_dkv_kernel", (128,), False),
+    ("flash_bwd_dkv_kernel", (80, 80), True),
+    ("flash_bwd_dkv_kernel", (128, 128), False),
+    ("flash_fwd_kernel", (192, 128), True),
+    ("flash_bwd_dq_kernel", (192, 128), True),
+    ("flash_bwd_dkv_kernel", (192, 128), True),
 ])
 def test_spill_gate_holds_the_instances_that_must_not_spill(tmp_path, kernel, vals, fails):
     cs = _chip_smoke()
@@ -88,3 +95,50 @@ def test_ssd_bwd_work_at_the_train_shape():
     assert tc == 2 * macs
     assert nbytes == 8 * 2048 * 24 * 64 * 8 + 4 * 8 * 2048 * 128 * 2 + 2 * 8 * 2048 * 24 * 4 + 2 * 24 * 4
     assert f32 == 2 * (8 * 24 * 32 * (2080 * (128 + 256) + 5 * 524288) + 8 * 32 * 2080 * 128)
+
+
+@pytest.mark.parametrize("arch,seq,row1_len", [
+    ("chatglm3-6b", 64, 40), ("mamba2-130m", 192, 40),
+    ("deepseek-v2-lite-16b", 192, 152)])       # as chip_smoke.py's three checks run
+def test_train_check_holds_each_family_by_one_rule(arch, seq, row1_len):
+    """`train_check` with the CPU on both sides: the same plain versions give
+    the same loss and gradients and no routing flip, pinned or unpinned; an
+    MoE model's route calls (the forward's and the remat recompute's) are
+    recorded, one per MoE layer each, and a model without MoE makes none."""
+    import torch
+
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    cfg = cs.moe_small_config() if arch == cs.MOE_ARCH else get_config(arch).reduced()
+    rec = cs.train_check(torch.device("cpu"), cfg, 3, seq, row1_len)
+    assert rec["ok"] and rec["rel_err_loss"] <= 1e-6 and rec["rel_l2_all_grads"] <= 1e-6
+    assert rec["route_flips"] == 0 and rec["unpinned_forward"]["route_flips"] == 0
+    n_moe = cfg.n_layers - cfg.moe.n_dense_prefix if cfg.moe else 0
+    assert rec["moe_route_calls"] == 2 * n_moe
+    assert rec["routes"] == 2 * n_moe * 2 * seq * (cfg.moe.top_k if cfg.moe else 0)
+
+
+def test_upstream_of_keeps_earlier_layers_of_the_same_sequence_up_to_the_token():
+    cs = _chip_smoke()
+    flips = [{"layer": 0, "token": 5}, {"layer": 0, "token": 9}, {"layer": 0, "token": 12},
+             {"layer": 1, "token": 15}, {"layer": 2, "token": 7}]
+    # seq 10: token 7 is row 0, position 7; token 12 is row 1, position 2
+    assert cs.upstream_of(flips[4], flips, 10) == [flips[0]]
+    assert cs.upstream_of(flips[3], flips, 10) == [flips[2]]
+    assert cs.upstream_of(flips[0], flips, 10) == []
+
+
+def test_capacity_changes_finds_a_route_a_flip_pushed_past_capacity():
+    """Two experts of capacity 2 (4 tokens, top-1, factor 1): token 0 moving
+    to expert 1 drops token 3's route there, which selects the same expert
+    in both runs; the flipped token itself is `route_flips`' to report."""
+    import torch
+
+    cs = _chip_smoke()
+    cfg = types.SimpleNamespace(moe=types.SimpleNamespace(top_k=1, n_experts=2,
+                                                          capacity_factor=1.0))
+    a = [{"idx": torch.tensor([[0], [1], [0], [1]])}]
+    b = [{"idx": torch.tensor([[1], [1], [0], [1]])}]
+    assert cs.capacity_changes(a, b, cfg, 4) == [
+        {"layer": 0, "token": 3, "kept_a": [1], "kept_b": []}]
+    assert cs.capacity_changes(a, a, cfg, 4) == []

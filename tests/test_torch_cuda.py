@@ -14,8 +14,14 @@ plain version's) at TOL_BF16, and so every gradient of its backward (bf16
 dx, dB, dC; fp32 ddt, da_log, dh0) against the plain version at the
 kernel's chunk; da_log, a sum over every row of a head, relative to its
 largest |value|; at the train shapes every gradient also within 1e-3
-relative L2 of fp64 autograd.
+relative L2 of fp64 autograd.  The flash passes at q/k head dim 192 and v
+head dim 128 (MLA's expanded branch) and the reduced deepseek-v2-lite-16b
+train step are held by chip_smoke.py's own functions (`mla_flash_check`,
+`train_check`): one rule for the card tests and the smoke run.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +41,14 @@ from repro_torch.kernels.ssd_scan.kernel import KERNEL_CHUNK
 TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 
 pytestmark = pytest.mark.cuda
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
@@ -221,7 +235,8 @@ def test_reduced_server_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("shape", [(8, 128), (3, 4096), (4096, 4096), (2, 100, 256),
                                    (4097, 4096), (1, 4096), (333, 136), (5, 8192),
-                                   (7, 8)])
+                                   (7, 8),
+                                   (4096, 2048)])     # deepseek-v2-lite-16b's train step
 def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(5)
     x = _rand(rng, shape, dev, 3.0)
@@ -292,7 +307,7 @@ def test_flash_kernels_at_head_dim_80_match_plain(dev, monkeypatch, b, h, hkv, s
     the softmax scale of D 80."""
     from repro_torch.kernels import _build
 
-    smem = {p: _build.function(f"flash_attention_{p}_smem_bytes", (_build.INT,))(80)
+    smem = {p: _build.function(f"flash_attention_{p}_smem_bytes", (_build.INT,) * 2)(80, 80)
             for p in ("fwd", "bwd_dq", "bwd_dkv")}
     assert all(v > 0 for v in smem.values())
     calls = []                          # (entry, q pointer, head dim) of each kernel call
@@ -403,7 +418,8 @@ def test_flash_dq_kernel_is_bitwise_repeatable(dev, d, hkv):
 
 
 @pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512),
-                                 (512, 50280)])     # mamba2-130m's vocab, one of 8 CE chunks
+                                 (512, 50280),      # mamba2-130m's vocab, one of 8 CE chunks
+                                 (512, 102400)])    # deepseek-v2-lite-16b: whole 1024-col blocks
 def test_fused_ce_kernels_match_plain(dev, r, v):
     rng = np.random.default_rng(7)
     logits = _rand(rng, (r, v), dev, 2.0)
@@ -915,3 +931,115 @@ def test_reduced_mamba2_train_step_on_card_matches_cpu(dev):
     _rel_close(torch.cat([t.float().flatten() for t in tree_leaves(states["cuda"]["params"])]),
                torch.cat([t.float().flatten() for t in tree_leaves(states["cpu"]["params"])]),
                3e-2)
+
+
+# ---------------------------------------------------------------------------
+# the MoE train path: flash at q/k head dim 192 and v head dim 128, the
+# RMSNorm backward at kv_norm's row pitch, a reduced deepseek-v2-lite-16b
+# train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("s", [512, 200])     # the train shape; a tail of 3 tiles + 8 rows
+def test_flash_kernels_at_head_dims_192_128_match_plain(dev, seed, s):
+    """MLA's expanded branch (deepseek-v2-lite-16b at full width: 16 heads,
+    MHA, q/k [8, 16, S, 192], v [8, 16, S, 128], causal): the forward, dq and
+    dk/dv kernels against their plain versions by chip_smoke.py's rule (no
+    element past TOL_BF16, lse and delta TOL_LSE), one launch each, outputs
+    at their own head dims, and each pass's bits repeated.  Two seeds."""
+    cs = _chip_smoke()
+    randn = cs.bf16_normal(np.random.default_rng(100 + seed), dev)
+    args = cs.mla_flash_inputs(randn, 8, s)
+    before = [w.launches for w in (flash_attention_fwd, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkv)]
+    rec = cs.mla_flash_check(*args)
+    # the check launches each pass three times: once checked, twice repeated
+    assert [w.launches for w in (flash_attention_fwd, flash_attention_bwd_dq,
+                                 flash_attention_bwd_dkv)] == [n + 3 for n in before]
+    assert rec["shapes_ok"], rec
+    assert all(e <= 0 for e in rec["excess"].values()), rec
+    assert all(rec["bitwise_repeatable"].values()), rec
+
+
+def test_flash_wrappers_refuse_an_unlisted_head_dim_pair(dev):
+    """q/k and v head dims may differ only as HEAD_DIM_PAIRS lists them."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIM_PAIRS
+    assert (192, 128) in HEAD_DIM_PAIRS and (128, 192) not in HEAD_DIM_PAIRS
+    q = torch.zeros(1, 64, 2, 128, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(q, q, v)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rmsnorm_bwd_kernel_reads_x_at_kv_norms_pitch(dev, seed):
+    """kv_norm's backward: x the first 512 columns of [2, 96, 576] rows, read
+    in place at pitch 576 as the forward read it; dy contiguous; dx written
+    contiguous; one launch; dscale's bits repeated."""
+    rng = np.random.default_rng(30 + seed)
+    full = _rand(rng, (2, 96, 576), dev, 3.0)
+    x = full[..., :512]
+    sc = 1.0 + 0.1 * _rand(rng, (512,), dev)
+    dy = _rand(rng, (2, 96, 512), dev)
+    before = rmsnorm_bwd.launches
+    dx, ds = rmsnorm_bwd(x, sc, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    assert dx.is_contiguous() and dx.shape == x.shape
+    rx, rs = rmsnorm_bwd_ref(x, sc, dy)
+    _close(dx, rx, **TOL_BF16)
+    _close(ds, rs, rtol=0, atol=2e-2 * float(rs.float().abs().max()))
+    dx2, ds2 = rmsnorm_bwd(x, sc, dy)
+    assert torch.equal(dx2, dx) and torch.equal(ds2, ds)
+
+
+def test_rmsnorm_op_backward_on_card_reads_the_saved_slice(dev):
+    """The autograd op saves kv_norm's slice as it is: its backward launches
+    the kernel on the pitched rows, and the gradient reaches the wide
+    projection through the slice."""
+    from repro_torch.kernels import rmsnorm_op, rmsnorm_ref
+    rng = np.random.default_rng(32)
+    full = _rand(rng, (2, 64, 576), dev, 3.0).requires_grad_(True)
+    sc = (1.0 + 0.1 * _rand(rng, (512,), dev)).requires_grad_(True)
+    dy = _rand(rng, (2, 64, 512), dev)
+    before = rmsnorm_bwd.launches
+    g_full, g_sc = torch.autograd.grad(rmsnorm_op(full[..., :512], sc), (full, sc), dy)
+    assert rmsnorm_bwd.launches == before + 1
+    w_full, w_sc = torch.autograd.grad(rmsnorm_ref(full[..., :512], sc), (full, sc), dy)
+    _close(g_full, w_full, **TOL_BF16)
+    assert not g_full[..., 512:].any()
+    _close(g_sc, w_sc, rtol=0, atol=2e-2 * float(w_sc.float().abs().max()))
+
+
+@pytest.mark.parametrize("seed", [40, 41])
+def test_reduced_deepseek_train_step_on_card_matches_cpu(dev, seed):
+    """Reduced deepseek-v2-lite-16b with MLA at the full model's head dims
+    (so its attention runs the <192, 128> flash kernels), batch 2 x 192
+    tokens: the loss and every gradient on the card against the CPU with
+    the CPU's routing pinned to the card's, by chip_smoke.py's
+    train_check_moe (relative error of the loss and relative L2 error of all
+    gradients <= 3e-2; no routing flip at a top-k gap >= 1e-2); then the
+    launch counts of one train step on the card."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import make_train_state, train_step
+
+    cs = _chip_smoke()
+    cfg = cs.moe_small_config()
+    seq = 3 * cs.FLASH_TILE
+    rec = cs.train_check(dev, cfg, seed, seq, row1_len=seq - 40)
+    assert rec["moe_route_calls"] == 2 * (cfg.n_layers - cfg.moe.n_dense_prefix)
+    assert rec["ok"], {k: v for k, v in rec.items() if k != "flips"}
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 193)))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    state = make_train_state(cfg, opt_cfg, params=params)
+    reset_launches()
+    train_step(state, batch, cfg, opt_cfg)
+    n, c = cfg.n_layers, 8
+    assert {k: v for k, v in launches().items() if v} == {
+        "rmsnorm": 6 * n + 1, "rmsnorm_bwd": 3 * n + 1, "flash_attention_fwd": 2 * n,
+        "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n, "fused_ce": 2 * c,
+        "fused_ce_bwd": c}

@@ -2,6 +2,7 @@
 """Where two runs of the MoE serve path part: routing flips at near-ties.
 
     python3 tools/moe_routing_check.py [--src DIR] [--skip-full]
+        [--train-seeds S ...]
 
 Every `moe_route` call of a run is recorded (`chip_smoke.RouteRecorder`:
 its top_idx and, per token, the gap between the k-th and (k+1)-th largest
@@ -17,6 +18,12 @@ rounding, not a fault.  One JSON line per comparison:
 2. full-width deepseek-v2-lite-16b, `chip_smoke.py`'s cross_check_moe
    (`chip_smoke.moe_cross_check`: the same weights, prompts and
    capacity_factor), with every flip listed.
+3. with `--train-seeds`, `chip_smoke.py`'s train_check_moe at each seed
+   (`chip_smoke.train_check` on reduced deepseek-v2-lite-16b with MLA at
+   the full head dims, 2 x 192 tokens; the card test's seeds are 40 and
+   41, chip_smoke's 18): the pinned run's flips, and an unpinned CPU
+   forward's, each flip at a gap >= NEAR_TIE with the flips upstream of it.
+   Only these run when seeds are given.
 """
 from __future__ import annotations
 
@@ -73,6 +80,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--skip-full", action="store_true",
                     help="only the reduced card-vs-CPU comparisons")
+    ap.add_argument("--train-seeds", type=int, nargs="+", default=[],
+                    help="run train_check_moe at these seeds instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("moe_routing_check: no CUDA device", file=sys.stderr)
@@ -87,6 +96,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
+    if args.train_seeds:
+        cfg = cs.moe_small_config()
+        seq = 3 * cs.FLASH_TILE
+        for seed in args.train_seeds:
+            print(json.dumps({"check": "train_check_moe", "seed": seed,
+                              **cs.train_check(dev, cfg, seed, seq, seq - 40)}), flush=True)
+        return 0
     with cs.RouteRecorder(layers) as rec:
         for arch in ("deepseek-v2-lite-16b", "deepseek-v3-671b"):
             print(json.dumps(card_vs_cpu(arch, rec, dev)), flush=True)
