@@ -32,7 +32,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    102400 ([512, 102400], one of 8 chunks).  The three flash passes at q/k
    head dim 192 and v head dim 128 (deepseek-v2-lite-16b's MLA, MHA, 8 x 16
    heads x 512, and a 200-row tail), each against its plain version,
-   bitwise repeatable, timed beside SDPA and bound by causal pairs.  The dq
+   bitwise repeatable, timed beside SDPA and bound by causal pairs; the same
+   at deepseek-v3-671b's 128 heads (8 x 128 heads x 512).  deepseek-v3-671b's
+   shapes: RMSNorm at [2048, 7168], [2048, 1536] (q_norm), [4, 7168] and [4,
+   1536], its backward at [4096, 7168] and [4096, 1536], the CE and its
+   backward at vocab 129280 ([512, 129280] and the MTP loss's [584,
+   129280]).  The dq
    pass, decode attention and the RMSNorm backward (at every shape) are
    checked bitwise repeatable; the SSD scan's
    y and final state at the serve shape and at an 8193-token tail from a
@@ -55,14 +60,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    as JAX's jnp); cross_check_moe with capacity_factor = n_experts / top_k
    and, for the gate, each MoE layer's selection in the decode step pinned
    to the prefill's (the unpinned error and the near-tie flips beside it;
-   every flip's top-k gaps must be below NEAR_TIE).
-5. train_check, train_check_ssm, train_check_moe — one loss and every
+   every flip's top-k gaps must be below NEAR_TIE).  serve_v3 —
+   full-width deepseek-v3-671b cut to its first 4 of 61 layers (3 dense, 1
+   MoE: 256 routed experts top-8 + 1 shared, the sigmoid router; q-LoRA,
+   128 MLA heads at d 7168; 15.7 B params), the same batch, the RMSNorm its
+   one kernel; cross_check_v3 as cross_check_moe.
+5. train_check, train_check_ssm, train_check_moe, train_check_v3 — one loss and every
    gradient of reduced chatglm3-6b (64 tokens), of reduced mamba2-130m (192
    tokens, three of the SSD kernels' chunks) and of reduced
    deepseek-v2-lite-16b with MLA at the full head dims (192 tokens, three
    flash tiles; the CPU's routing pinned to the card's, flips reported and
    failed at a gap >= NEAR_TIE; an unpinned CPU forward's flips beside,
-   each wide one with the flips upstream of it) on the card (kernels)
+   each wide one with the flips upstream of it) and of reduced
+   deepseek-v3-671b (3 dense layers, 1 MoE layer with the sigmoid router
+   and a router_bias drawn from the seed, the MTP layer; MLA at the full
+   head dims, q-LoRA at 1536; 192 tokens; router_bias's gradient exactly
+   zero on every side) on the card (kernels)
    against the same weights and batch on the CPU (plain versions), all by
    one function, `train_check`; beside the gate, each side against the same
    weights in fp32 on the CPU (the bf16 model's own rounding).
@@ -80,6 +93,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    layers, ~3.42 B params), fp32 moments: 8 steps of 8 x 512 tokens, the
    same checks (MLA's expanded branch through the <192, 128> flash kernels,
    kv_norm's backward at its row pitch, the CE at vocab 102400).
+   train_v3 — deepseek-v3-671b at full width, cut to its 3 dense layers,
+   with the MTP layer loss_fn runs on them (~4.19 B params), fp32 moments:
+   8 steps of 8 x 512 tokens, the same checks, mtp_ce finite and falling
+   too (the flash passes at <192, 128> over 128 heads, q_norm's backward at
+   d 1536, the RMSNorm backward at d 7168, the CE at vocab 129280 in 8
+   chunks and the MTP loss's 7).
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -164,6 +183,19 @@ MLA_DQK, MLA_DV, MLA_HEADS, FLASH_TILE = 192, 128, 16, 64
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 8
 MOE_TRAIN_CUT = ["n_layers 6 of 27: the dense layer + 5 MoE layers (the full model's "
                  "15.7 B params and their fp32 AdamW state, ~188 GB, do not fit 80 GB)"]
+# the serve_v3 and train_v3 phases: deepseek-v3-671b (arXiv:2412.19437) at
+# full width, 128 MLA heads at d 7168, q-LoRA 1536, 256 experts top-8 with
+# the sigmoid router, MTP on.  serve_v3 keeps its first 4 of 61 layers (the 3
+# dense ones and the first MoE layer); train_v3 its 3 dense layers, with the
+# MTP layer that loss_fn runs on them
+V3_ARCH, V3_HEADS = "deepseek-v3-671b", 128
+V3_SERVE_LAYERS, V3_TRAIN_LAYERS, V3_TRAIN_STEPS = 4, 3, 8
+V3_SERVE_CUT = ["n_layers 4 of 61: the 3 dense layers + the first MoE layer (15.7 B params "
+                "with the embedding, head and MTP head, 31.4 GB in bf16; the full model's "
+                "671 B do not fit 80 GB)"]
+V3_TRAIN_CUT = ["n_layers 3 of 61: the 3 dense layers, + the MTP layer loss_fn runs (4.19 B "
+                "params, ~50 GB with fp32 AdamW moments; one MoE layer alone holds ~11.5 B "
+                "params, ~138 GB with its fp32 AdamW state)"]
 
 
 def emit(obj) -> None:
@@ -281,6 +313,62 @@ def mla_flash_check(q, k, v, do) -> dict:
             "max_abs_err": {"fwd": err(out, ref), "dq": err(dq, rq),
                             "dkv": max(err(dk, rk), err(dv, rv))},
             "bitwise_repeatable": repeat}
+
+
+def rmsnorm_check(x, sc) -> dict:
+    """The RMSNorm forward against its plain version on the same inputs:
+    the excess over TOL_RMSNORM (> 0 fails) and the largest |error|."""
+    from repro_torch.kernels import rmsnorm, rmsnorm_ref
+    out, ref = rmsnorm(x, sc), rmsnorm_ref(x, sc)
+    torch.cuda.synchronize()
+    return {"excess": excess(out, ref, TOL_RMSNORM),
+            "max_abs_err": float((out.float() - ref.float()).abs().max())}
+
+
+def rmsnorm_bwd_check(x, sc, dy) -> dict:
+    """The RMSNorm backward against its plain version on the same inputs:
+    the excess of dx over TOL_BF16 and of dscale over TOL_DSCALE x its
+    largest |value| (> 0 fails), the largest errors, and whether two more
+    launches repeat its bits.  chip_smoke's nested rows and
+    tests/test_torch_cuda.py hold the kernel by this one rule."""
+    from repro_torch.kernels import rmsnorm_bwd, rmsnorm_bwd_ref
+    (dx, ds), (rdx, rds) = rmsnorm_bwd(x, sc, dy), rmsnorm_bwd_ref(x, sc, dy)
+    repeat = True
+    for _ in range(2):
+        dx2, ds2 = rmsnorm_bwd(x, sc, dy)
+        repeat &= torch.equal(dx2, dx) and torch.equal(ds2, ds)
+    torch.cuda.synchronize()
+    ds_err = float((ds.float() - rds.float()).abs().max())
+    return {"excess": max(excess(dx, rdx, TOL_BF16),
+                          ds_err - TOL_DSCALE * float(rds.float().abs().max())),
+            "max_abs_err": float((dx.float() - rdx.float()).abs().max()),
+            "dscale_max_abs_err": ds_err, "bitwise_repeatable": bool(repeat)}
+
+
+def ce_check(logits, labels, mask, g) -> dict:
+    """The fused CE forward (nll and lse at TOL_CE) and backward (dlogits at
+    TOL_BF16) against their plain versions on the same inputs: the excess
+    of each (> 0 fails) and the largest errors.  chip_smoke's nested rows
+    and tests/test_torch_cuda.py hold the kernels by this one rule."""
+    from repro_torch.kernels import fused_ce, fused_ce_bwd
+    from repro_torch.kernels.cross_entropy import ce_bwd_ref, ce_rows_ref
+    (nll, lse), (rn, rl) = fused_ce(logits, labels, mask), ce_rows_ref(logits, labels, mask)
+    dl, rdl = fused_ce_bwd(logits, labels, mask, lse, g), ce_bwd_ref(logits, labels, mask, rl, g)
+    torch.cuda.synchronize()
+    return {"excess": {"fwd": max(excess(nll, rn, TOL_CE), excess(lse, rl, TOL_CE)),
+                       "bwd": excess(dl, rdl, TOL_BF16)},
+            "max_abs_err": {"nll": float((nll - rn).abs().max()),
+                            "lse": float((lse - rl).abs().max()),
+                            "dlogits": float((dl.float() - rdl.float()).abs().max())}}
+
+
+def ce_inputs(rng, dev, rows, vocab) -> tuple:
+    """A CE chunk's logits [rows, vocab] bf16 ~ N(0, 4), labels, a mask with
+    ~10 % of rows off and an all-ones gradient, from `rng`."""
+    logits = bf16_normal(rng, dev)(rows, vocab, scale=2.0)
+    labels = torch.from_numpy(rng.integers(0, vocab, rows)).to(dev)
+    mask = torch.from_numpy((rng.random(rows) > 0.1).astype(np.float32)).to(dev)
+    return logits, labels, mask, torch.ones(rows, device=dev)
 
 
 def mla_flash_work(b, s, h=MLA_HEADS) -> dict:
@@ -430,13 +518,18 @@ def mla_moe_serve_bound(cfg, params, batch, prompt) -> dict:
     f32 = cfg.n_layers * attn + n_moe * 2 * t * d * mo.n_experts
     from repro_torch.tree import tree_leaves
 
-    weights = sum(x.numel() * x.element_size() for x in tree_leaves(params))
-    read = weights - params["embed"]["tok"].numel() * params["embed"]["tok"].element_size()
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    weights = nbytes(params)
+    # a serve step reads neither the token-embedding table (a gather) nor the
+    # MTP head (deepseek-v3's, which only the training loss runs)
+    read = weights - nbytes(params["embed"]["tok"]) - nbytes(params.get("mtp", {}))
     ops_ms = (bf16 / PEAK_BF16 + f32 / PEAK_F32) * 1e3
     return {"prefill_capacity": cap, "prefill_tflop_bf16": bf16 / 1e12,
             "prefill_tflop_fp32": f32 / 1e12, "weights_gb": weights / 1e9,
-            "prefill_bound_ms": max(ops_ms, weights / PEAK_BYTES * 1e3),
-            "prefill_bound_by": "operations" if ops_ms >= weights / PEAK_BYTES * 1e3 else "bytes",
+            "weights_read_gb": read / 1e9,
+            "prefill_bound_ms": max(ops_ms, read / PEAK_BYTES * 1e3),
+            "prefill_bound_by": "operations" if ops_ms >= read / PEAK_BYTES * 1e3 else "bytes",
             "decode_step_bound_ms": read / PEAK_BYTES * 1e3, "decode_bound_by": "bytes"}
 
 
@@ -588,11 +681,14 @@ def moe_model_flops(cfg, batch, seq) -> float:
     """Model FLOPs of one train step of an MLA + MoE model (forward and
     backward, no recompute): 6 x the params a token's products read x
     tokens, plus causal attention.  A token reads, in every layer, MLA's
-    projections (wq, wkv_a, wk_b, wv_b, wo), and in the dense prefix layers
-    the dense FFN, in the MoE layers the router, top_k routed experts and
-    the shared experts; then the untied head; not the embedding table (a
-    gather) nor the norms.  Attention: 2 (q/k head dim + v head dim) per
-    unmasked (row, column) pair a head forward, 3x with the backward."""
+    projections (wq, or q-LoRA's wq_a and wq_b; wkv_a, wk_b, wv_b, wo), and
+    in the dense prefix layers the dense FFN, in the MoE layers the router,
+    top_k routed experts and the shared experts; then the untied head; not
+    the embedding table (a gather) nor the norms.  Attention: 2 (q/k head
+    dim + v head dim) per unmasked (row, column) pair a head forward, 3x
+    with the backward.  With an MTP head (deepseek-v3) one more dense layer
+    (MLA, the dense FFN, its attention) over every token, and the head
+    again over the B (S - 1) tokens of its loss."""
     m, mo, d, h = cfg.mla, cfg.moe, cfg.d_model, cfg.n_heads
     qk, ff = m.qk_nope_dim + m.qk_rope_dim, mo.d_expert_ff or cfg.d_ff
     q_proj = (d * m.q_lora_rank + m.q_lora_rank * h * qk) if m.q_lora_rank else d * h * qk
@@ -600,11 +696,14 @@ def moe_model_flops(cfg, batch, seq) -> float:
            + m.kv_lora_rank * h * (m.qk_nope_dim + m.v_head_dim) + h * m.v_head_dim * d)
     n_prefix = min(mo.n_dense_prefix, cfg.n_layers)
     n_moe = cfg.n_layers - n_prefix
-    active = (cfg.n_layers * mla + n_prefix * 3 * d * cfg.d_ff
-              + n_moe * (d * mo.n_experts + 3 * d * ff * (mo.top_k + mo.n_shared))
-              + (0 if cfg.tie_embeddings else d * cfg.vocab_size))
+    n_dense = n_prefix + int(cfg.mtp)
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
+    active = ((cfg.n_layers + int(cfg.mtp)) * mla + n_dense * 3 * d * cfg.d_ff
+              + n_moe * (d * mo.n_experts + 3 * d * ff * (mo.top_k + mo.n_shared)) + head)
     pairs = batch * h * seq * (seq + 1) // 2
-    return 6 * active * batch * seq + 3 * 2 * (qk + m.v_head_dim) * pairs * cfg.n_layers
+    mtp_head = 6 * head * batch * (seq - 1) if cfg.mtp else 0
+    return (6 * active * batch * seq + mtp_head
+            + 3 * 2 * (qk + m.v_head_dim) * pairs * (cfg.n_layers + int(cfg.mtp)))
 
 
 def leaf_names(tree, prefix=""):
@@ -636,6 +735,58 @@ def moe_small_config():
     from repro_torch.configs.base import MLAConfig
     return get_config(MOE_ARCH).reduced(mla=MLAConfig(
         kv_lora_rank=64, q_lora_rank=0, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128))
+
+
+def v3_small_config():
+    """Reduced deepseek-v3-671b (4 layers: the 3 dense ones and 1 MoE layer
+    with the sigmoid router, 8 experts top-2; d 128, 4 heads; the MTP head)
+    with MLA at the full model's head dims (qk_nope 128, qk_rope 64, v 128;
+    kv_lora 64) and q-LoRA at its full rank 1536, so its attention runs the
+    flash kernels' <192, 128> instances and q_norm's backward runs at D 1536."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLAConfig
+    return get_config(V3_ARCH).reduced(mla=MLAConfig(
+        kv_lora_rank=64, q_lora_rank=1536, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128))
+
+
+def ce_chunks_of(s, n=CE_CHUNKS) -> int:
+    """`_chunked_ce`'s number of chunks of a length-s sequence: the largest
+    count <= n that divides s (the MTP loss's S - 1 = 511: 7 of 73 rows)."""
+    while s % n:
+        n -= 1
+    return n
+
+
+def mla_norms(cfg) -> int:
+    """RMS norms a layer of an MLA model runs: attn_norm, kv_norm, ffn_norm,
+    and q-LoRA's q_norm where the config has it."""
+    return 3 + int(bool(cfg.mla.q_lora_rank))
+
+
+def moe_serve_launches(cfg) -> dict:
+    """Kernel launches of a serve run (a prefill and NEW decode steps) of an
+    MLA + MoE model: every layer's norms and final_norm, every step; nothing
+    else (MLA's absorbed attention and the MoE are plain torch)."""
+    return {"rmsnorm": (mla_norms(cfg) * cfg.n_layers + 1) * (1 + NEW)}
+
+
+def moe_train_launches(cfg, seq) -> dict:
+    """Kernel launches of one train step of an MLA + MoE model (remat per
+    layer, CE_CHUNKS cross-entropy chunks): each layer's norms forward twice
+    (the recompute) and backward once, final_norm once each way; the flash
+    forward twice, dq and dk/dv once a layer; the CE forward twice and its
+    backward once a chunk.  An MTP head adds its layer's norms and its own
+    norm, once each way (it is not checkpointed), a flash forward, dq and
+    dk/dv, and the CE of its S - 1 positions in `ce_chunks_of(seq - 1)`
+    chunks."""
+    n, layers = mla_norms(cfg), cfg.n_layers
+    mtp = int(cfg.mtp)
+    chunks = CE_CHUNKS + (ce_chunks_of(seq - 1) if mtp else 0)
+    return {"rmsnorm": 2 * n * layers + 1 + mtp * (n + 1),
+            "rmsnorm_bwd": n * layers + 1 + mtp * (n + 1),
+            "flash_attention_fwd": 2 * layers + mtp, "flash_attention_bwd_dq": layers + mtp,
+            "flash_attention_bwd_dkv": layers + mtp, "fused_ce": 2 * chunks,
+            "fused_ce_bwd": chunks}
 
 
 def capacity_changes(a_calls, b_calls, cfg, tokens) -> list:
@@ -686,14 +837,27 @@ def train_check(dev, cfg, seed, seq=64, row1_len=40) -> dict:
     (`capacity_changes`).
     A model without MoE makes no route calls and reports no flips.
 
+    A sigmoid router's bias (deepseek-v3), zero at init, is drawn from the
+    seed (N(0, 0.1^2)) so that it shifts the selection.  It only selects, so
+    its gradient is exactly zero: it is held to that on every side, and the
+    loss's gradients of every leaf come from `param_grads`, as the train
+    step takes them.
+
     The record's "ok" holds the gate: loss and all gradients within
-    TOL_GRAD (relative), no flip of the pinned run at a gap >= NEAR_TIE."""
+    TOL_GRAD (relative), every router_bias gradient exactly zero, no flip
+    of the pinned run at a gap >= NEAR_TIE."""
     from repro_torch.models import init_model, layers, loss_fn
+    from repro_torch.runtime.steps import param_grads
     from repro_torch.tree import tree_leaves, tree_map
 
     t0 = time.perf_counter()
     with torch.no_grad():
         sp = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        brng = np.random.default_rng(seed + 2)
+        for lp in sp["blocks"]:
+            if "router_bias" in lp.get("ffn", {}):
+                lp["ffn"]["router_bias"].copy_(torch.from_numpy(
+                    brng.standard_normal(lp["ffn"]["router_bias"].shape) * 0.1))
     sp_cpu = tree_map(lambda t: t.detach().cpu(), sp)
     toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (2, seq + 1))
     smask = np.ones((2, seq), np.float32)
@@ -713,13 +877,16 @@ def train_check(dev, cfg, seed, seq=64, row1_len=40) -> dict:
             rec.pin = None if pin is None else [c["idx"] for c in routes[pin]]
             loss, _ = loss_fn(params, batch_on(where), cfg)
             res[side] = [loss.detach().float().cpu()] + [
-                g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+                g.float().cpu() for g in param_grads(loss, leaves)]
             routes[side] = rec.take()
         rec.pin = None
         with torch.no_grad():          # the forward's calls only: no recompute
             loss_fn(sp_cpu, batch_on("cpu"), cfg)
         unpinned = rec.take()
     names = leaf_names(sp)
+    # the leaves the loss has no path to: exactly zero on every side
+    zero = {nm: {side: float(res[side][1 + i].abs().max()) for side in res}
+            for i, nm in enumerate(names) if nm.endswith("router_bias")}
     # The bf16 kernels round P and dS where the plain versions keep fp32.
     # Gate on the loss and on the relative L2 error of all gradients taken
     # together; per leaf it is reported, not gated: the key-bias gradient's
@@ -756,8 +923,10 @@ def train_check(dev, cfg, seed, seq=64, row1_len=40) -> dict:
                 "capacity_changes": len(moved) - len(free),
                 "wide_flips": free_wide,
                 "wide_flips_with_nothing_upstream": sum(not f["upstream"] for f in free_wide)},
+            "zero_grad_leaves_max_abs": zero,
             "witness_fp32_params": witness, "seconds": time.perf_counter() - t0,
-            "ok": bool(rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD and not wide)}
+            "ok": bool(rel_loss <= TOL_GRAD and rel_all <= TOL_GRAD and not wide
+                       and not any(v for z in zero.values() for v in z.values()))}
 
 
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
@@ -830,10 +999,14 @@ def check_no_spills(entry: dict) -> None:
     """Raise if `entry` (a row of the ptxas reports) is an instance that
     must not spill: the flash kernels' head dim 80 ones and their q/k head
     dim 192, v head dim 128 ones (MLA), which hold dq, dk, dv or O in
-    registers, and the SSD backward's at mamba2-130m's P 64, N 128, which
-    hold the states and the dB, dC sums."""
+    registers, the SSD backward's at mamba2-130m's P 64, N 128, which
+    hold the states and the dB, dC sums, and the RMSNorm backward (one
+    instance for every d up to 8192, deepseek-v3-671b's 7168 among them),
+    which holds a row of x and of dy and its dscale partials."""
     if not (entry.get("spill_stores") or entry.get("spill_loads")):
         return
+    if entry["kernel"] == "rmsnorm_bwd_kernel":
+        raise AssertionError(f"rmsnorm_bwd_kernel spills: {entry}")
     if entry["kernel"].startswith("flash_") and (entry.get("D"), entry.get("DV")) in (
             (80, 80), (MLA_DQK, MLA_DV)):
         raise AssertionError(f"{entry['kernel']}<{entry['D']}, {entry['DV']}> spills: {entry}")
@@ -968,34 +1141,39 @@ def main() -> int:
     r["max_abs_err"] = float((out.float() - ref.float()).abs().max())
     # the decode steps' norms: [4, 4096] (chatglm3-6b, 57 a step) and [4, 768]
     # (mamba2-130m, 49 a step), 6,784 of the serve runs' 7,794 launches
-    r["decode_shapes"] = {}
-    for dd in (4096, 768):
-        xd, sd = xrandn(BATCH, dd, scale=3.0), 1.0 + 0.1 * xrandn(dd)
-        od, rd = rmsnorm(xd, sd), rmsnorm_ref(xd, sd)
-        torch.cuda.synchronize()
-        r["decode_shapes"][f"{BATCH}x{dd}"] = other_shape(
-            f"rmsnorm [{BATCH}, {dd}]", excess(od, rd, TOL_RMSNORM),
-            lambda xd=xd, sd=sd: rmsnorm(xd, sd), lambda xd=xd, sd=sd: rmsnorm_ref(xd, sd),
-            lambda xd=xd, sd=sd, dd=dd: F.rms_norm(xd, (dd,), sd, 1e-6),
-            2 * xd.numel() * 2 + dd * 2, 4 * xd.numel(), PEAK_F32,
-            float((od.float() - rd.float()).abs().max()))
+    def rms_case(randn_, rows_, dd, pitch=None):
+        """The forward at another shape of the serve and train paths, [rows_,
+        dd] read from rows `pitch` apart, drawn from `randn_`: held by
+        rmsnorm_check and timed as other_shape."""
+        pitch = pitch or dd
+        xd, sd = randn_(rows_, pitch, scale=3.0)[:, :dd], 1.0 + 0.1 * randn_(dd)
+        chk = rmsnorm_check(xd, sd)
+        return other_shape(
+            f"rmsnorm [{rows_}, {dd}] at pitch {pitch}", chk["excess"],
+            lambda: rmsnorm(xd, sd), lambda: rmsnorm_ref(xd, sd),
+            lambda: F.rms_norm(xd, (dd,), sd, 1e-6),
+            2 * xd.numel() * 2 + dd * 2, 4 * xd.numel(), PEAK_F32, chk["max_abs_err"],
+            **({"pitch": pitch} if pitch != dd else {}))
+
+    r["decode_shapes"] = {f"{BATCH}x{dd}": rms_case(xrandn, BATCH, dd) for dd in (4096, 768)}
     # deepseek-v2-lite-16b's norms (serve_moe: 5,330 launches): d 2048, and
     # kv_norm's [rows, 512] read in place from rows 576 apart, at its prefill's
     # 2048 rows and its decode steps' 4; own generator, as above
     mrandn = bf16_normal(np.random.default_rng(SEED + 12), dev)
-    r["deepseek_v2_lite_shapes"] = {}
-    for rows_, dd, pitch in ((BATCH * PROMPT, 2048, 2048), (BATCH * PROMPT, 512, 576),
-                             (BATCH, 2048, 2048), (BATCH, 512, 576)):
-        xd, sd = mrandn(rows_, pitch, scale=3.0)[:, :dd], 1.0 + 0.1 * mrandn(dd)
-        od, rd = rmsnorm(xd, sd), rmsnorm_ref(xd, sd)
-        torch.cuda.synchronize()
-        name = f"{rows_}x{dd}" + (f"_pitch{pitch}" if pitch != dd else "")
-        r["deepseek_v2_lite_shapes"][name] = other_shape(
-            f"rmsnorm [{rows_}, {dd}] at pitch {pitch}", excess(od, rd, TOL_RMSNORM),
-            lambda xd=xd, sd=sd: rmsnorm(xd, sd), lambda xd=xd, sd=sd: rmsnorm_ref(xd, sd),
-            lambda xd=xd, sd=sd, dd=dd: F.rms_norm(xd, (dd,), sd, 1e-6),
-            2 * xd.numel() * 2 + dd * 2, 4 * xd.numel(), PEAK_F32,
-            float((od.float() - rd.float()).abs().max()), pitch=pitch)
+    r["deepseek_v2_lite_shapes"] = {
+        f"{rows_}x{dd}" + (f"_pitch{pitch}" if pitch != dd else ""):
+            rms_case(mrandn, rows_, dd, pitch)
+        for rows_, dd, pitch in ((BATCH * PROMPT, 2048, 2048), (BATCH * PROMPT, 512, 576),
+                                 (BATCH, 2048, 2048), (BATCH, 512, 576))}
+    # deepseek-v3-671b's norms (serve_v3, train_v3): attn_norm and ffn_norm at
+    # d 7168 and q-LoRA's q_norm at 1536, at its prefill's 2048 rows and its
+    # decode steps' 4 (the train step's 4096 rows take the prefill's geometry);
+    # kv_norm's rows are v2-lite's above.  Own generator, as above
+    vrandn3 = bf16_normal(np.random.default_rng(SEED + 23), dev)
+    r["deepseek_v3_shapes"] = {
+        f"{rows_}x{dd}": rms_case(vrandn3, rows_, dd)
+        for rows_, dd in ((BATCH * PROMPT, 7168), (BATCH * PROMPT, 1536), (BATCH, 7168),
+                          (BATCH, 1536))}
     emit({"phase": "kernel", **r, "shape": [BATCH * PROMPT, d]})
 
     # flash forward: one layer's prefill attention, q from the cache layout
@@ -1160,54 +1338,43 @@ def main() -> int:
             raise AssertionError("rmsnorm_bwd is not bitwise repeatable")
     r["bitwise_repeatable"] = True
     del dx2, dsc2
-    # kv_norm's backward in deepseek-v2-lite-16b's train step: x the first 512
-    # of each 576-column row, read at that pitch, [8 x 512, 512]; own
-    # generator.  Its ~12.6 MB take 0.0038 ms at 3.35 TB/s, under the timer's
-    # 5.54 us floor: no share of the bound is read from it
-    krandn = bf16_normal(np.random.default_rng(SEED + 17), dev)
-    xk, sk = krandn(rows_t, 576, scale=3.0)[:, :512], 1.0 + 0.1 * krandn(512)
-    dyk = krandn(rows_t, 512)
-    (dxk, dsk), (rdxk, rdsk) = rmsnorm_bwd(xk, sk, dyk), rmsnorm_bwd_ref(xk, sk, dyk)
-    torch.cuda.synchronize()
-    for _ in range(2):
-        dxk2, dsk2 = rmsnorm_bwd(xk, sk, dyk)
-        if not (torch.equal(dxk2, dxk) and torch.equal(dsk2, dsk)):
-            raise AssertionError("rmsnorm_bwd at pitch 576 is not bitwise repeatable")
-    xkl, skl = xk.detach().requires_grad_(True), sk.detach().requires_grad_(True)
-    r["kv_norm_pitch576"] = other_shape(
-        "rmsnorm_bwd [4096, 512] at pitch 576",
-        max(excess(dxk, rdxk, TOL_BF16), float((dsk.float() - rdsk.float()).abs().max())
-            - TOL_DSCALE * float(rdsk.float().abs().max())),
-        lambda: rmsnorm_bwd(xk, sk, dyk), lambda: rmsnorm_bwd_ref(xk, sk, dyk),
-        grad_fn(F.rms_norm(xkl, (512,), skl, 1e-6), (xkl, skl), dyk),
-        3 * xk.numel() * 2 + 2 * 512 * 2, 10 * xk.numel(), PEAK_F32,
-        float((dxk.float() - rdxk.float()).abs().max()), shape=[rows_t, 512], pitch=576,
-        dscale_max_abs_err=float((dsk.float() - rdsk.float()).abs().max()),
-        bitwise_repeatable=True, bound_note="near the timer's 5.54 us floor: no ratio claimed")
-    del xk, sk, dyk, dxk, dsk, rdxk, rdsk, dxk2, dsk2, xkl, skl
+    def rms_bwd_case(gen_seed, dd, pitch=None, **extra):
+        """The backward at another train-path shape, [rows_t, dd] with x's
+        rows `pitch` apart, from its own generator: held by
+        rmsnorm_bwd_check (bitwise repeatable too), timed as other_shape."""
+        brandn_ = bf16_normal(np.random.default_rng(gen_seed), dev)
+        pitch = pitch or dd
+        xb, sb = brandn_(rows_t, pitch, scale=3.0)[:, :dd], 1.0 + 0.1 * brandn_(dd)
+        dyb = brandn_(rows_t, dd)
+        chk = rmsnorm_bwd_check(xb, sb, dyb)
+        if not chk["bitwise_repeatable"]:
+            raise AssertionError(f"rmsnorm_bwd [{rows_t}, {dd}] at pitch {pitch} is not "
+                                 "bitwise repeatable")
+        xbl, sbl = xb.detach().requires_grad_(True), sb.detach().requires_grad_(True)
+        return other_shape(
+            f"rmsnorm_bwd [{rows_t}, {dd}] at pitch {pitch}", chk["excess"],
+            lambda: rmsnorm_bwd(xb, sb, dyb), lambda: rmsnorm_bwd_ref(xb, sb, dyb),
+            grad_fn(F.rms_norm(xbl, (dd,), sbl, 1e-6), (xbl, sbl), dyb),
+            3 * xb.numel() * 2 + 2 * dd * 2, 10 * xb.numel(), PEAK_F32,
+            chk["max_abs_err"], shape=[rows_t, dd],
+            **({"pitch": pitch} if pitch != dd else {}),
+            dscale_max_abs_err=chk["dscale_max_abs_err"], bitwise_repeatable=True, **extra)
+
+    # kv_norm's backward in deepseek-v2-lite-16b's and deepseek-v3-671b's
+    # train steps: x the first 512 of each 576-column row, read at that pitch,
+    # [8 x 512, 512].  Its ~12.6 MB take 0.0038 ms at 3.35 TB/s, under the
+    # timer's 5.54 us floor: no share of the bound is read from it
+    r["kv_norm_pitch576"] = rms_bwd_case(
+        SEED + 17, 512, 576, bound_note="near the timer's 5.54 us floor: no ratio claimed")
     # attn_norm's and ffn_norm's backward in deepseek-v2-lite-16b's train
-    # step: d 2048, [8 x 512, 2048]; own generator
-    drandn = bf16_normal(np.random.default_rng(SEED + 20), dev)
-    x2, s2 = drandn(rows_t, 2048, scale=3.0), 1.0 + 0.1 * drandn(2048)
-    dy2 = drandn(rows_t, 2048)
-    (dx2_, ds2_), (rdx2, rds2) = rmsnorm_bwd(x2, s2, dy2), rmsnorm_bwd_ref(x2, s2, dy2)
-    torch.cuda.synchronize()
-    for _ in range(2):
-        dx2b, ds2b = rmsnorm_bwd(x2, s2, dy2)
-        if not (torch.equal(dx2b, dx2_) and torch.equal(ds2b, ds2_)):
-            raise AssertionError("rmsnorm_bwd at d 2048 is not bitwise repeatable")
-    x2l, s2l = x2.detach().requires_grad_(True), s2.detach().requires_grad_(True)
-    r["deepseek_v2_lite_d2048"] = other_shape(
-        "rmsnorm_bwd [4096, 2048]",
-        max(excess(dx2_, rdx2, TOL_BF16), float((ds2_.float() - rds2.float()).abs().max())
-            - TOL_DSCALE * float(rds2.float().abs().max())),
-        lambda: rmsnorm_bwd(x2, s2, dy2), lambda: rmsnorm_bwd_ref(x2, s2, dy2),
-        grad_fn(F.rms_norm(x2l, (2048,), s2l, 1e-6), (x2l, s2l), dy2),
-        3 * x2.numel() * 2 + 2 * 2048 * 2, 10 * x2.numel(), PEAK_F32,
-        float((dx2_.float() - rdx2.float()).abs().max()), shape=[rows_t, 2048],
-        dscale_max_abs_err=float((ds2_.float() - rds2.float()).abs().max()),
-        bitwise_repeatable=True)
-    del x2, s2, dy2, dx2_, ds2_, rdx2, rds2, dx2b, ds2b, x2l, s2l
+    # step: d 2048, [8 x 512, 2048]
+    r["deepseek_v2_lite_d2048"] = rms_bwd_case(SEED + 20, 2048)
+    # deepseek-v3-671b's train step (train_v3): attn_norm, ffn_norm, the
+    # final and MTP norms at d 7168 (a 512-thread group holds a row, one to
+    # two vectors of x and of dy a thread), q_norm at q-LoRA's 1536
+    r["deepseek_v3_d7168"] = rms_bwd_case(SEED + 24, 7168)
+    r["deepseek_v3_q_norm_d1536"] = rms_bwd_case(SEED + 25, 1536)
+    torch.cuda.empty_cache()
     emit({"phase": "kernel", **r, "shape": [rows_t, d],
           "dscale_max_abs_err": float((dsc.float() - rdsc.float()).abs().max())})
     del x, dy, dx, dsc, rdx, rdsc, xl, scl
@@ -1328,59 +1495,71 @@ def main() -> int:
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
     del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, sdpa_bwd
 
-    # MLA's expanded branch (train_moe): the <192, 128> instances of the three
-    # passes at q, k [8, 16, 512, 192], v [8, 16, 512, 128] (MHA, causal),
-    # each held to its plain version and bitwise repeatable (mla_flash_check),
-    # timed beside SDPA, the bound by causal pairs (mla_flash_work); and a
-    # tail at S 200, checked.  Nested in the three flash rows.
+    # MLA's expanded branch: the <192, 128> instances of the three passes at
+    # q, k [8, H, 512, 192], v [8, H, 512, 128] (MHA, causal), at
+    # deepseek-v2-lite-16b's 16 heads (train_moe) and deepseek-v3-671b's 128
+    # (train_v3), each held to its plain version and bitwise repeatable
+    # (mla_flash_check), timed beside SDPA, the bound by causal pairs
+    # (mla_flash_work); at 16 heads also a tail at S 200, checked.  Nested in
+    # the three flash rows as dqk192_dv128 and dqk192_dv128_h128.
     t_mla = time.perf_counter()
-    mrandn = bf16_normal(np.random.default_rng(SEED + 16), dev)
-    checks = {}
-    for s_ in (200, TRAIN_S):
-        margs = mla_flash_inputs(mrandn, TRAIN_B, s_)
-        chk = mla_flash_check(*margs)
-        if not (chk["shapes_ok"] and all(e <= 0 for e in chk["excess"].values())
-                and all(chk["bitwise_repeatable"].values())):
-            raise AssertionError(f"flash <{MLA_DQK}, {MLA_DV}> at S {s_}: {chk}")
-        checks[s_] = chk
-    q, k, v, do = margs
-    out, lse = flash_attention_fwd(q, k, v)
-    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse)
-    backend, sdpa_fwd, sdpa_bwd = sdpa_any_backend(q, k, v, do)
-    work = mla_flash_work(TRAIN_B, TRAIN_S)
-    passes = {
-        "flash_attention_fwd": ("fwd", lambda: flash_attention_fwd(q, k, v),
-                                lambda: attention_with_lse_ref(q, k, v, q_offset=0), sdpa_fwd),
-        "flash_attention_bwd_dq": ("dq", lambda: flash_attention_bwd_dq(q, k, v, out, do, lse),
-                                   lambda: attention_bwd_dq_ref(q, k, v, out, do, lse,
-                                                                q_offset=0), sdpa_bwd),
-        "flash_attention_bwd_dkv": ("dkv",
-                                    lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-                                    lambda: attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                                                  q_offset=0), sdpa_bwd)}
-    mla_rows = {}
-    for name, (key, kern, plain, lib) in passes.items():
-        nbytes, flops = work[key]
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
-        mla_rows[name] = {
-            "shape": {"B": TRAIN_B, "H": MLA_HEADS, "Hkv": MLA_HEADS, "S": TRAIN_S,
-                      "D": MLA_DQK, "DV": MLA_DV, "causal": True},
-            "max_abs_err": checks[TRAIN_S]["max_abs_err"][key],
-            "excess_at_tol": checks[TRAIN_S]["excess"][key], "bitwise_repeatable": True,
-            "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
-            "library_ms": time_ms(lib, flush),
-            "library": f"SDPA ({backend} backend)"
-                       + (", dq+dk+dv in one backward" if key != "fwd" else ""),
-            "bound_ms": b_ms, "bound_by": b_by, "gbytes": nbytes / 1e9, "gflop": flops / 1e9,
-            "causal_pairs": TRAIN_B * MLA_HEADS * TRAIN_S * (TRAIN_S + 1) // 2,
-            "tail_S200": {"excess_at_tol": checks[200]["excess"][key],
-                          "max_abs_err": checks[200]["max_abs_err"][key],
-                          "bitwise_repeatable": True}}
-        next(row for row in rows if row["name"] == name)["dqk192_dv128"] = mla_rows[name]
-    emit({"phase": "kernel_mla_flash", "instances": mla_rows, "sdpa_backend": backend,
+    mla_rows, backends = {}, {}
+    for heads, key_h, gen_seed, lengths in ((MLA_HEADS, "dqk192_dv128", SEED + 16,
+                                             (200, TRAIN_S)),
+                                            (V3_HEADS, "dqk192_dv128_h128", SEED + 26,
+                                             (TRAIN_S,))):
+        mrandn = bf16_normal(np.random.default_rng(gen_seed), dev)
+        checks = {}
+        for s_ in lengths:
+            margs = mla_flash_inputs(mrandn, TRAIN_B, s_, heads)
+            chk = mla_flash_check(*margs)
+            if not (chk["shapes_ok"] and all(e <= 0 for e in chk["excess"].values())
+                    and all(chk["bitwise_repeatable"].values())):
+                raise AssertionError(f"flash <{MLA_DQK}, {MLA_DV}> at H {heads} S {s_}: {chk}")
+            checks[s_] = chk
+        q, k, v, do = margs
+        out, lse = flash_attention_fwd(q, k, v)
+        dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse)
+        backend, sdpa_fwd, sdpa_bwd = sdpa_any_backend(q, k, v, do)
+        backends[heads] = backend
+        work = mla_flash_work(TRAIN_B, TRAIN_S, heads)
+        passes = {
+            "flash_attention_fwd": ("fwd", lambda: flash_attention_fwd(q, k, v),
+                                    lambda: attention_with_lse_ref(q, k, v, q_offset=0),
+                                    sdpa_fwd),
+            "flash_attention_bwd_dq": ("dq",
+                                       lambda: flash_attention_bwd_dq(q, k, v, out, do, lse),
+                                       lambda: attention_bwd_dq_ref(q, k, v, out, do, lse,
+                                                                    q_offset=0), sdpa_bwd),
+            "flash_attention_bwd_dkv": ("dkv",
+                                        lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                                        lambda: attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                                      q_offset=0), sdpa_bwd)}
+        for name, (key, kern, plain, lib) in passes.items():
+            nbytes, flops = work[key]
+            b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
+            inst = {
+                "shape": {"B": TRAIN_B, "H": heads, "Hkv": heads, "S": TRAIN_S,
+                          "D": MLA_DQK, "DV": MLA_DV, "causal": True},
+                "max_abs_err": checks[TRAIN_S]["max_abs_err"][key],
+                "excess_at_tol": checks[TRAIN_S]["excess"][key], "bitwise_repeatable": True,
+                "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+                "library_ms": time_ms(lib, flush),
+                "library": f"SDPA ({backend} backend)"
+                           + (", dq+dk+dv in one backward" if key != "fwd" else ""),
+                "bound_ms": b_ms, "bound_by": b_by, "gbytes": nbytes / 1e9,
+                "gflop": flops / 1e9,
+                "causal_pairs": TRAIN_B * heads * TRAIN_S * (TRAIN_S + 1) // 2}
+            if 200 in checks:
+                inst["tail_S200"] = {"excess_at_tol": checks[200]["excess"][key],
+                                     "max_abs_err": checks[200]["max_abs_err"][key],
+                                     "bitwise_repeatable": True}
+            mla_rows.setdefault(key_h, {})[name] = inst
+            next(row for row in rows if row["name"] == name)[key_h] = inst
+        del q, k, v, do, out, lse, dq, delta, margs, sdpa_fwd, sdpa_bwd, passes
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_mla_flash", "instances": mla_rows, "sdpa_backends": backends,
           "seconds": time.perf_counter() - t_mla})
-    del q, k, v, do, out, lse, dq, delta, margs, sdpa_fwd, sdpa_bwd, passes
-    torch.cuda.empty_cache()
 
     # fused cross-entropy: one of the train step's 8 chunks, [8 x 64, 65024]
     vocab = get_config(ARCH).vocab_size
@@ -1404,35 +1583,46 @@ def main() -> int:
                    nbytes=logits.numel() * 2 + rowsb + rows_c * 8,
                    flops=4 * logits.numel(), peak=PEAK_F32)
     r["max_abs_err"] = float((nll - rn).abs().max())
+
+    def ce_case(gen_seed, rows_, vocab_):
+        """The CE forward and backward at another train-path shape, [rows_,
+        vocab_] logits from their own generator (`ce_inputs`), held by
+        ce_check and timed as other_shape: (forward, backward) entries."""
+        lv, lab_v, mask_v, g_ = ce_inputs(np.random.default_rng(gen_seed), dev, rows_, vocab_)
+        chk = ce_check(lv, lab_v, mask_v, g_)
+        lsv, rlv = fused_ce(lv, lab_v, mask_v)[1], ce_rows_ref(lv, lab_v, mask_v)[1]
+        rows_b = rows_ * (8 + 4)                               # labels + mask
+        fwd = other_shape(
+            f"fused_ce [{rows_}, {vocab_}]", chk["excess"]["fwd"],
+            lambda: fused_ce(lv, lab_v, mask_v), lambda: ce_rows_ref(lv, lab_v, mask_v),
+            lambda: (F.cross_entropy(lv, lab_v, reduction="none") * mask_v).sum(),
+            lv.numel() * 2 + rows_b + rows_ * 8, 4 * lv.numel(), PEAK_F32,
+            chk["max_abs_err"]["nll"], shape=[rows_, vocab_],
+            lse_max_abs_err=chk["max_abs_err"]["lse"])
+        lvl = lv.detach().requires_grad_(True)
+        bwd = other_shape(
+            f"fused_ce_bwd [{rows_}, {vocab_}]", chk["excess"]["bwd"],
+            lambda: fused_ce_bwd(lv, lab_v, mask_v, lsv, g_),
+            lambda: ce_bwd_ref(lv, lab_v, mask_v, rlv, g_),
+            grad_fn((F.cross_entropy(lvl, lab_v, reduction="none") * mask_v).sum(), (lvl,), None),
+            2 * lv.numel() * 2 + rows_b + rows_ * 8, 4 * lv.numel(), PEAK_F32,
+            chk["max_abs_err"]["dlogits"], shape=[rows_, vocab_])
+        return fwd, bwd
+
     # deepseek-v2-lite-16b's vocab (train_moe): one of its 8 chunks, [512,
     # 102400], 100 whole 1024-column blocks where 65024 ends in half of one;
-    # own generator.  Its backward is checked here and nested in its row below
-    vrng = np.random.default_rng(SEED + 21)
-    vrandn = bf16_normal(vrng, dev)
-    vocab_v = get_config(MOE_ARCH).vocab_size
-    lv = vrandn(rows_c, vocab_v, scale=2.0)
-    lab_v = torch.from_numpy(vrng.integers(0, vocab_v, rows_c)).to(dev)
-    mask_v = torch.from_numpy((vrng.random(rows_c) > 0.1).astype(np.float32)).to(dev)
-    (nv, lsv), (rnv, rlv) = fused_ce(lv, lab_v, mask_v), ce_rows_ref(lv, lab_v, mask_v)
-    dlv, rdlv = fused_ce_bwd(lv, lab_v, mask_v, lsv, g), ce_bwd_ref(lv, lab_v, mask_v, rlv, g)
-    torch.cuda.synchronize()
-    r["deepseek_v2_lite_vocab"] = other_shape(
-        f"fused_ce [{rows_c}, {vocab_v}]", max(excess(nv, rnv, TOL_CE), excess(lsv, rlv, TOL_CE)),
-        lambda: fused_ce(lv, lab_v, mask_v), lambda: ce_rows_ref(lv, lab_v, mask_v),
-        lambda: (F.cross_entropy(lv, lab_v, reduction="none") * mask_v).sum(),
-        lv.numel() * 2 + rowsb + rows_c * 8, 4 * lv.numel(), PEAK_F32,
-        float((nv - rnv).abs().max()), shape=[rows_c, vocab_v],
-        lse_max_abs_err=float((lsv - rlv).abs().max()))
+    # deepseek-v3-671b's (train_v3): 129280 (126.25 blocks), one of the main
+    # loss's 8 chunks [512, 129280] and one of the MTP loss's 7, [8 x 73 =
+    # 584, 129280].  The backward entries are nested in its row below
+    ce_v2 = ce_case(SEED + 21, rows_c, get_config(MOE_ARCH).vocab_size)
+    vocab_v3 = get_config(V3_ARCH).vocab_size
+    rows_mtp = TRAIN_B * ((TRAIN_S - 1) // ce_chunks_of(TRAIN_S - 1))
+    ce_v3 = {f"{n}x{vocab_v3}": ce_case(gen_seed, n, vocab_v3)
+             for gen_seed, n in ((SEED + 27, rows_c), (SEED + 28, rows_mtp))}
+    r["deepseek_v2_lite_vocab"] = ce_v2[0]
+    r["deepseek_v3_vocab"] = {name: fb[0] for name, fb in ce_v3.items()}
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
-    lvl = lv.detach().requires_grad_(True)
-    ce_bwd_v = other_shape(
-        f"fused_ce_bwd [{rows_c}, {vocab_v}]", excess(dlv, rdlv, TOL_BF16),
-        lambda: fused_ce_bwd(lv, lab_v, mask_v, lsv, g),
-        lambda: ce_bwd_ref(lv, lab_v, mask_v, rlv, g),
-        grad_fn((F.cross_entropy(lvl, lab_v, reduction="none") * mask_v).sum(), (lvl,), None),
-        2 * lv.numel() * 2 + rowsb + rows_c * 8, 4 * lv.numel(), PEAK_F32,
-        float((dlv.float() - rdlv.float()).abs().max()), shape=[rows_c, vocab_v])
-    del lv, lab_v, mask_v, nv, lsv, rnv, rlv, dlv, rdlv, lvl
+    torch.cuda.empty_cache()
     r = kernel_row("fused_ce_bwd", "src/repro_torch/kernels/csrc/cross_entropy.cu",
                    "none (JAX differentiates src/repro/kernels/cross_entropy/ref.py:5)",
                    excess(dl, rdl, TOL_BF16),
@@ -1442,7 +1632,8 @@ def main() -> int:
                    nbytes=2 * logits.numel() * 2 + rowsb + rows_c * 8,
                    flops=4 * logits.numel(), peak=PEAK_F32)
     r["max_abs_err"] = float((dl.float() - rdl.float()).abs().max())
-    r["deepseek_v2_lite_vocab"] = ce_bwd_v
+    r["deepseek_v2_lite_vocab"] = ce_v2[1]
+    r["deepseek_v3_vocab"] = {name: fb[1] for name, fb in ce_v3.items()}
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
     del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv
 
@@ -1609,12 +1800,22 @@ def main() -> int:
 
     # -- the serve paths: Server.generate, launch counts, then prefill(S + 1)
     # against prefill(S) + decode(1) -----------------------------------------
-    def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup):
-        """Full-width `arch` serves BATCH prompts of `prompt` tokens and NEW
-        more through Server.generate; every launch count must be `want`(cfg).
+    def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup, n_layers=None,
+              cut=()):
+        """Full-width `arch` (its first `n_layers` layers when given: the
+        config the Server reads is the full one with that depth, for the
+        time it builds) serves BATCH prompts of `prompt` tokens and NEW more
+        through Server.generate; every launch count must be `want`(cfg).
         Returns the server, the prompts (one token longer) and the counts."""
+        from repro_torch.configs import REGISTRY
         t0 = time.perf_counter()
-        srv = Server(arch, reduced=False, max_len=max_len, device="cuda", seed=SEED)
+        full = REGISTRY[arch]
+        if n_layers is not None:
+            REGISTRY[arch] = replace(full, n_layers=n_layers)
+        try:
+            srv = Server(arch, reduced=False, max_len=max_len, device="cuda", seed=SEED)
+        finally:
+            REGISTRY[arch] = full
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         cfg = srv.cfg
@@ -1628,7 +1829,8 @@ def main() -> int:
         expect = {name: 0 for name in got}
         expect.update(want(cfg))
         emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "head_dim": cfg.head_dim, "batch": BATCH, "prompt": prompt, "new_tokens": NEW,
+              "head_dim": cfg.head_dim, "reduced": list(cut), "batch": BATCH, "prompt": prompt,
+              "new_tokens": NEW,
               "init_s": init_s, "prefill_ms": out["prefill_s"] * 1e3,
               "decode_tok_per_s": out["decode_tok_per_s"],
               "decode_step_ms": BATCH / out["decode_tok_per_s"] * 1e3,
@@ -1708,23 +1910,35 @@ def main() -> int:
     # (at its row pitch) and ffn_norm a layer, final_norm, every step.  The
     # warm-up is at the served shape: the prefill's expert products are
     # [64, 240, ...] (capacity 240), the decode steps' [64, 1, ...].
-    srv, prompts, by_path["serve_moe"] = serve(
-        "serve_moe", MOE_ARCH, PROMPT, MAX_LEN, SEED + 11,
-        lambda c: {"rmsnorm": (3 * c.n_layers + 1) * (1 + NEW)},
-        lambda p: (p[:, :PROMPT], 1))
-    emit({"phase": "serve_moe_bound", "batch": BATCH, "prompt": PROMPT,
-          **mla_moe_serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
-    rec = moe_cross_check(srv, prompts, dev, MAX_LEN)
-    emit({"phase": "cross_check_moe", **rec})
-    if not (rec["finite"] and rec["pinned"]["max_abs_err"]
-            <= TOL_CROSS * rec["pinned"]["logit_absmax"]):
-        raise AssertionError(f"cross_check_moe: prefill+decode disagrees with prefill, the "
-                             f"selection pinned: {rec['pinned']} (tol {TOL_CROSS})")
-    if rec["wide_flips"]:
-        raise AssertionError(f"cross_check_moe: {rec['wide_flips']} routes flipped at a top-k "
-                             f"gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}")
-    del srv
-    torch.cuda.empty_cache()
+    def serve_moe_and_check(phase, check_phase, arch, prompt_seed, n_layers=None, cut=()):
+        """An MLA + MoE model's serve phase (its one kernel the RMSNorm), its
+        serve bound, then moe_cross_check, gated with each MoE layer's
+        selection pinned (no flip at a gap >= NEAR_TIE)."""
+        srv, prompts, got = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed, moe_serve_launches,
+                                  lambda p: (p[:, :PROMPT], 1), n_layers=n_layers, cut=cut)
+        emit({"phase": f"{phase}_bound", "batch": BATCH, "prompt": PROMPT,
+              **mla_moe_serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
+        rec = moe_cross_check(srv, prompts, dev, MAX_LEN)
+        emit({"phase": check_phase, **rec})
+        if not (rec["finite"] and rec["pinned"]["max_abs_err"]
+                <= TOL_CROSS * rec["pinned"]["logit_absmax"]):
+            raise AssertionError(f"{check_phase}: prefill+decode disagrees with prefill, the "
+                                 f"selection pinned: {rec['pinned']} (tol {TOL_CROSS})")
+        if rec["wide_flips"]:
+            raise AssertionError(f"{check_phase}: {rec['wide_flips']} routes flipped at a "
+                                 f"top-k gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}")
+        del srv
+        torch.cuda.empty_cache()
+        return got
+
+    by_path["serve_moe"] = serve_moe_and_check("serve_moe", "cross_check_moe", MOE_ARCH,
+                                               SEED + 11)
+    # deepseek-v3-671b cut to its first 4 layers (31.4 GB of bf16 weights):
+    # the sigmoid router at 256 experts top-8, q-LoRA, 128 MLA heads at d
+    # 7168; norms attn, q, kv and ffn a layer, then final_norm.  Its
+    # cross-check's prefill of 513 tokens has capacity 2052 at the factor 32
+    by_path["serve_v3"] = serve_moe_and_check("serve_v3", "cross_check_v3", V3_ARCH, SEED + 29,
+                                              n_layers=V3_SERVE_LAYERS, cut=V3_SERVE_CUT)
 
     # -- train_check(_ssm, _moe): reduced chatglm3-6b, mamba2-130m and
     # deepseek-v2-lite-16b, loss and every gradient, card vs CPU
@@ -1736,6 +1950,11 @@ def main() -> int:
             # MLA at full head dims (the <192, 128> flash kernels), 192 tokens
             # (three 64-row tiles), the CPU's routing pinned to the card's
             ("train_check_moe", moe_small_config(), SEED + 18, 3 * FLASH_TILE,
+             3 * FLASH_TILE - 40),
+            # reduced deepseek-v3-671b: 3 dense layers, 1 MoE layer with the
+            # sigmoid router (router_bias drawn from the seed), the MTP layer;
+            # q-LoRA at its full 1536
+            ("train_check_v3", v3_small_config(), SEED + 30, 3 * FLASH_TILE,
              3 * FLASH_TILE - 40)):
         rec = train_check(dev, cfg_, seed_, seq_, row1_len)
         emit({"phase": phase, **rec})
@@ -1743,7 +1962,8 @@ def main() -> int:
             raise AssertionError(
                 f"{phase}: reduced {rec['arch']} on the card disagrees with the CPU: loss "
                 f"{rec['rel_err_loss']}, gradients {rec['rel_l2_all_grads']} (relative, tol "
-                f"{TOL_GRAD}); flips at a gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}")
+                f"{TOL_GRAD}); flips at a gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}; "
+                f"gradients that must be zero: {rec['zero_grad_leaves_max_abs']}")
 
     # -- the train paths: Trainer.run on one fixed batch ------------------------
     def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S,
@@ -1751,8 +1971,9 @@ def main() -> int:
         """Full-width `arch` (its first `n_layers` layers when given) trains
         `steps` steps of TRAIN_B x `seq` tokens (remat per layer, CE_CHUNKS
         cross-entropy chunks, AdamW) on one fixed batch, repeated: a
-        learnable target.  Every loss finite, the last below the first,
-        every launch count per step `want`(cfg)."""
+        learnable target.  Every loss finite, the last below the first (and
+        so the MTP head's mtp_ce, where the model has one), every launch
+        count per step `want`(cfg)."""
         t_phase = time.perf_counter()
         tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
@@ -1782,7 +2003,8 @@ def main() -> int:
               "head_dim": cfg.head_dim, "n_params": n_params, "global_batch": TRAIN_B,
               "seq_len": seq, "steps": steps, "remat": cfg.remat, "ce_chunks": CE_CHUNKS,
               "moment_dtype": str(moment_dtype).split(".")[-1], "reduced": cut,
-              "init_s": init_s, "losses": losses, "step_ms": out["step_s"] * 1e3,
+              "init_s": init_s, "losses": losses, "mtp_ces": out.get("mtp_ces"),
+              "step_ms": out["step_s"] * 1e3,
               "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "model_tflops_per_step": flops / 1e12,
@@ -1794,6 +2016,11 @@ def main() -> int:
             raise AssertionError(f"non-finite loss in the {phase} run: {losses}")
         if not losses[-1] < losses[0]:
             raise AssertionError(f"the loss did not fall in the {phase} run: {losses}")
+        if cfg.mtp and not (len(out.get("mtp_ces", ())) == steps
+                            and all(np.isfinite(out["mtp_ces"]))
+                            and out["mtp_ces"][-1] < out["mtp_ces"][0]):
+            raise AssertionError(f"mtp_ce not finite and falling in the {phase} run: "
+                                 f"{out.get('mtp_ces')}")
         if got != {k: v * steps for k, v in per_step.items()}:
             raise AssertionError(f"{phase} launch counts {got} != {steps} x {per_step}")
         del tr
@@ -1827,17 +2054,24 @@ def main() -> int:
     # ffn_norm, each recomputed, and the three flash passes at <192, 128>
     by_path["train_moe"] = train(
         "train_moe", MOE_ARCH, MOE_TRAIN_STEPS, torch.float32, MOE_TRAIN_CUT,
-        lambda c: {"rmsnorm": 6 * c.n_layers + 1, "rmsnorm_bwd": 3 * c.n_layers + 1,
-                   **attention_per_step(c)}, SEED + 19, n_layers=MOE_TRAIN_LAYERS)
+        lambda c: moe_train_launches(c, TRAIN_S), SEED + 19, n_layers=MOE_TRAIN_LAYERS)
+    # deepseek-v3-671b: its 3 dense layers at full width and the MTP layer,
+    # fp32 moments; per layer attn_norm, q_norm (d 1536), kv_norm (at its
+    # row pitch) and ffn_norm, each recomputed, the flash passes at <192,
+    # 128> over 128 heads; the MTP layer once, its CE in 7 chunks of 73 rows
+    by_path["train_v3"] = train(
+        "train_v3", V3_ARCH, V3_TRAIN_STEPS, torch.float32, V3_TRAIN_CUT,
+        lambda c: moe_train_launches(c, TRAIN_S), SEED + 31, n_layers=V3_TRAIN_LAYERS)
 
     for row in rows:
         row["launches_by_path"] = {p: cnt[row["name"]] for p, cnt in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']}: no launch on the main paths")
-        if "dqk192_dv128" in row:       # MLA's expanded branch runs in train_moe alone
-            row["dqk192_dv128"]["launches_by_path"] = {
-                "train_moe": by_path["train_moe"][row["name"]]}
+        # MLA's expanded branch runs in train_moe (16 heads) and train_v3 (128)
+        for key_h, path in (("dqk192_dv128", "train_moe"), ("dqk192_dv128_h128", "train_v3")):
+            if key_h in row:
+                row[key_h]["launches_by_path"] = {path: by_path[path][row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -46,7 +46,7 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"
                                   "belong to families the port does not serve yet")
     out = {k: tree_map(lambda a: to_tensor(a, device), tree[k])
            for k in _UNSTACKED if k in tree}
-    stacked = tree_map(lambda a: to_tensor(a, device), tree["blocks"])
+    stacked = tree_map(lambda a: to_tensor(a, device), tree.get("blocks", {}))
     out["blocks"] = [tree_map(lambda t, i=i: t[i].clone(), stacked)
                      for i in range(cfg.n_layers - len(tree.get("prefix", [])))]
     return out
@@ -65,11 +65,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The port's dense-decoder, MoE or Mamba2 params (or grads) -> the JAX
     layout, as numpy: the per-layer dicts of `blocks` restacked to `[L, ...]`
-    leaves, `prefix` and `mtp` as they are."""
+    leaves, `prefix` and `mtp` as they are; no `blocks` key where the
+    params have none (a depth cut to the dense prefix)."""
     blocks = params["blocks"]
     n = cfg.n_layers - len(params.get("prefix", []))
     if len(blocks) != n:
         raise ValueError(f"{cfg.name}: {len(blocks)} blocks, config has {n}")
     out = {k: tree_map(to_numpy, params[k]) for k in _UNSTACKED if k in params}
-    out["blocks"] = tree_map(lambda *ts: np.stack([to_numpy(t) for t in ts]), *blocks)
+    if blocks:       # a cut to the dense prefix has none (JAX always stacks some)
+        out["blocks"] = tree_map(lambda *ts: np.stack([to_numpy(t) for t in ts]), *blocks)
     return out

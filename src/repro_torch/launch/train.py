@@ -4,9 +4,11 @@
 model's loss through the kernels, autograd back through their backward
 kernels, AdamW) and logs, for `steps` steps.  It is the same for every
 family `loss_fn` trains: the dense decoders, the Mamba2 (ssm) stack and the
-MoE family (deepseek-v2-lite-16b).  `n_layers` cuts the depth (the first
-layers of the config, the dense prefix first, every width kept): a model
-whose train state does not fit one card trains a few of its layers.
+MoE family (deepseek-v2-lite-16b, and deepseek-v3-671b with its MTP head,
+whose loss the step's metrics carry as `mtp_ce`).  `n_layers` cuts the
+depth (the first layers of the config, the dense prefix first, every width
+kept; the MTP head stays): a model whose train state does not fit one card
+trains a few of its layers (deepseek-v3-671b: its 3 dense layers).
 Batches come from any iterable of numpy batch dicts in the format
 `repro.data.DataPipeline` yields (tokens, labels, loss_mask), or else from
 an in-memory corpus (synthesised as the JAX Trainer does when none is
@@ -20,6 +22,8 @@ Runs on `cuda` unless the config says `device="cpu"`.
         --steps 8 --batch 8 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
         --full --n-layers 6 --steps 8 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
+        --full --n-layers 3 --steps 8 --batch 8 --seq 512
 """
 from __future__ import annotations
 
@@ -104,11 +108,12 @@ class Trainer:
     def run(self) -> Dict[str, Any]:
         """Returns final_loss and steps (as the JAX Trainer), plus the loss of
         every step, step_s (median wall time of the steps after the first,
-        each ending in a sync) and tokens_per_s."""
+        each ending in a sync), tokens_per_s, and with an MTP head the
+        `mtp_ce` of every step (mtp_ces)."""
         if self.state is None:
             self.init_state()
         tc = self.tc
-        losses, times = [], []
+        losses, times, mtp_ces = [], [], []
         for step in range(tc.steps):
             batch = self._to_device(next(self.batches))
             self._sync()
@@ -116,6 +121,8 @@ class Trainer:
             self.state, metrics = self.step_fn(self.state, batch)
             losses.append(float(metrics["loss"]))          # waits for the step
             times.append(time.perf_counter() - t0)
+            if "mtp_ce" in metrics:
+                mtp_ces.append(float(metrics["mtp_ce"]))
             if (step + 1) % tc.log_every == 0 or step == tc.steps - 1:
                 print(f"[trainer] step {step+1}/{tc.steps} loss={losses[-1]:.4f} "
                       f"lr={float(metrics['lr']):.2e} "
@@ -123,8 +130,11 @@ class Trainer:
                       f"({sum(times):.1f}s)")
         step_s = statistics.median(times[1:] or times)
         tokens = tc.global_batch * tc.seq_len
-        return {"final_loss": losses[-1], "steps": tc.steps, "losses": losses,
-                "step_s": step_s, "tokens_per_s": tokens / step_s}
+        out = {"final_loss": losses[-1], "steps": tc.steps, "losses": losses,
+               "step_s": step_s, "tokens_per_s": tokens / step_s}
+        if mtp_ces:
+            out["mtp_ces"] = mtp_ces
+        return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

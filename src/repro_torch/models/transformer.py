@@ -8,10 +8,11 @@ Counterpart of `repro/models/transformer.py`.  Ported so far: `init_model`,
 `_model_step`, `_serve_tf`, `prefill` and `decode_step` for the dense, moe
 and ssm families, and `forward`, `_chunked_ce` and `loss_fn` for the dense,
 ssm and moe families.  `forward` sums the MoE layers' load-balancing aux
-loss, as JAX's does; the MTP branch of `loss_fn` (deepseek-v3-671b) is not
-ported yet and training such a config raises (ssm has no MTP branch, as in
-JAX).  Layers are kept as a list of
-per-layer param dicts (`params["blocks"][i]`, and the MoE family's dense
+loss, as JAX's does; `loss_fn` adds deepseek-v3-671b's multi-token
+prediction (MTP) loss as JAX's does (ssm has no MTP branch, as in JAX).
+A depth cut that keeps only the dense prefix leaves `params["blocks"]`
+empty, which JAX's stacked `init_model` cannot build.  Layers are kept as
+a list of per-layer param dicts (`params["blocks"][i]`, and the MoE family's dense
 `params["prefix"][i]`, as JAX names them) where JAX stacks the blocks for
 `lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
 becomes `torch.utils.checkpoint` (non-reentrant): around each layer when
@@ -41,17 +42,12 @@ from . import ssm as S
 Params = Dict[str, Any]
 
 
-def _require_ported(cfg: ModelConfig, *, train: bool = False) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     """Raise for the families and features later slices bring."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid family is not ported yet "
             "(ROADMAP.md Queue 1 item 3, hybrid, after MoE)")
-    if train and cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP branch of loss_fn (with q_norm's backward and the "
-            "sigmoid router's gradients) does not train yet "
-            "(ROADMAP.md Queue 1 item 1, deepseek-v3-671b training)")
     if cfg.frontend is not None or cfg.pos_embed != "none":
         raise NotImplementedError(
             f"{cfg.name}: stub frontends and sinusoidal positions are not "
@@ -128,7 +124,7 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
         params["prefix"] = [_init_tf_layer(cfg, gen, device) for _ in range(n_prefix)]
     params["blocks"] = [_init_tf_layer(cfg, gen, device, moe=_layer_is_moe(cfg, i))
                         for i in range(n_prefix, cfg.n_layers)]
-    if cfg.mtp:      # deepseek-v3's multi-token-prediction head (its loss: later)
+    if cfg.mtp:      # deepseek-v3's multi-token-prediction head
         params["mtp"] = {"layer": _init_tf_layer(cfg, gen, device),
                          "norm": L.init_norm(cfg, device)}
     return params
@@ -145,7 +141,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     family runs its dense prefix layers, then its MoE blocks, and sums their
     aux losses: each checkpointed block returns its aux as an output, so its
     gradient flows."""
-    _require_ported(cfg, train=True)
+    _require_ported(cfg)
     h = L.embed_tokens(params["embed"], batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -206,7 +202,13 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, aux_weight: float = 0.01, ce_chunks: int = 8
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens, labels [B,S] int64 and loss_mask [B,S] fp32 (optional)
-    -> (loss, {loss, ce, aux, ppl})."""
+    -> (loss, {loss, ce, aux, ppl}, and mtp_ce with an MTP head).
+
+    The MTP head (deepseek-v3-671b) predicts the token after the label: one
+    more dense layer and its norm on `forward`'s final-normed h, then the
+    chunked CE of its first S - 1 positions against labels shifted by one,
+    0.1 x that CE added to the loss, as JAX's `loss_fn`.  The layer is not
+    checkpointed (JAX's is not); its CE chunks are, as the main loss's."""
     h, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
@@ -216,8 +218,19 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                                 n_chunks=ce_chunks)
     ce = nll_sum / torch.clamp(msum, min=1.0)
     loss = ce + aux_weight * aux
-    return loss, {"loss": loss, "ce": ce, "aux": aux,
-                  "ppl": torch.exp(torch.clamp(ce, max=20.0))}
+    metrics = {"loss": loss, "ce": ce, "aux": aux,
+               "ppl": torch.exp(torch.clamp(ce, max=20.0))}
+    if cfg.mtp and cfg.family not in ("ssm", "hybrid"):
+        positions = torch.arange(h.shape[1], device=h.device)
+        hm, _, _ = _apply_tf_layer(cfg, params["mtp"]["layer"], h, positions)
+        hm = L.apply_norm(params["mtp"]["norm"], hm)
+        nll2, m2sum = _chunked_ce(params["embed"], hm[:, :-1], labels[:, 1:], mask[:, 1:],
+                                  cfg, n_chunks=ce_chunks)
+        mtp_ce = nll2 / torch.clamp(m2sum, min=1.0)
+        loss = loss + 0.1 * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,13 @@ def make_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
 
+def param_grads(loss: torch.Tensor, leaves) -> Tuple[torch.Tensor, ...]:
+    """The gradient of `loss` in every leaf, as `jax.grad` gives it: a leaf
+    the loss does not reach (the sigmoid router's `router_bias`, which only
+    shifts the selection) gets zeros of its shape and dtype."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+
+
 def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, opt_cfg: AdamWConfig
                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
@@ -39,7 +46,7 @@ def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
     leaves = tree_leaves(params)
     with torch.enable_grad():
         loss, metrics = loss_fn(params, batch, cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = param_grads(loss, leaves)
     new_params, new_opt, opt_metrics = adamw_update(
         tree_unflatten(params, list(grads)), state["opt"], params, opt_cfg)
     metrics = {k: v.detach() for k, v in {**metrics, **opt_metrics}.items()}

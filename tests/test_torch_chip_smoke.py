@@ -99,23 +99,61 @@ def test_ssd_bwd_work_at_the_train_shape():
 
 @pytest.mark.parametrize("arch,seq,row1_len", [
     ("chatglm3-6b", 64, 40), ("mamba2-130m", 192, 40),
-    ("deepseek-v2-lite-16b", 192, 152)])       # as chip_smoke.py's three checks run
+    ("deepseek-v2-lite-16b", 192, 152),
+    ("deepseek-v3-671b", 192, 152)])           # as chip_smoke.py's four checks run
 def test_train_check_holds_each_family_by_one_rule(arch, seq, row1_len):
     """`train_check` with the CPU on both sides: the same plain versions give
     the same loss and gradients and no routing flip, pinned or unpinned; an
     MoE model's route calls (the forward's and the remat recompute's) are
-    recorded, one per MoE layer each, and a model without MoE makes none."""
+    recorded, one per MoE layer each, and a model without MoE makes none.
+    deepseek-v3-671b's sigmoid router gets a nonzero router_bias, whose
+    gradient is exactly zero on every side (and gated so)."""
     import torch
 
     cs = _chip_smoke()
     from repro_torch.configs import get_config
-    cfg = cs.moe_small_config() if arch == cs.MOE_ARCH else get_config(arch).reduced()
+    small = {cs.MOE_ARCH: cs.moe_small_config, cs.V3_ARCH: cs.v3_small_config}
+    cfg = small[arch]() if arch in small else get_config(arch).reduced()
     rec = cs.train_check(torch.device("cpu"), cfg, 3, seq, row1_len)
     assert rec["ok"] and rec["rel_err_loss"] <= 1e-6 and rec["rel_l2_all_grads"] <= 1e-6
     assert rec["route_flips"] == 0 and rec["unpinned_forward"]["route_flips"] == 0
     n_moe = cfg.n_layers - cfg.moe.n_dense_prefix if cfg.moe else 0
     assert rec["moe_route_calls"] == 2 * n_moe
     assert rec["routes"] == 2 * n_moe * 2 * seq * (cfg.moe.top_k if cfg.moe else 0)
+    sigmoid = cfg.moe is not None and cfg.moe.router == "sigmoid"
+    assert list(rec["zero_grad_leaves_max_abs"]) == (["blocks.0.ffn.router_bias"] if sigmoid
+                                                     else [])
+    assert all(v == 0.0 for z in rec["zero_grad_leaves_max_abs"].values() for v in z.values())
+
+
+def test_v3_small_config_keeps_the_full_head_dims_and_q_lora():
+    cs = _chip_smoke()
+    cfg = cs.v3_small_config()
+    m = cfg.mla
+    assert (m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, m.q_lora_rank) == (192, 128, 1536)
+    assert cfg.mtp and cfg.moe.router == "sigmoid" and cfg.n_layers == 4
+    assert cfg.moe.n_dense_prefix == 3 and cfg.d_model == 128
+
+
+def test_moe_serve_launches_count_q_norm_where_the_config_has_it():
+    """serve_v3's 4 layers run attn, q, kv and ffn norm a layer and
+    final_norm, every one of 65 steps: 1,105 launches; deepseek-v2-lite-16b
+    (no q-LoRA) 3 a layer: 5,330 at its 27."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    cs = _chip_smoke()
+    v3 = replace(get_config(cs.V3_ARCH), n_layers=cs.V3_SERVE_LAYERS)
+    assert cs.moe_serve_launches(v3) == {"rmsnorm": 1105}
+    assert cs.moe_serve_launches(get_config(cs.MOE_ARCH)) == {"rmsnorm": 5330}
+
+
+def test_spill_gate_holds_the_rmsnorm_backward():
+    cs = _chip_smoke()
+    row = {"kernel": "rmsnorm_bwd_kernel", "source": "rmsnorm.cu", "registers": 128}
+    cs.check_no_spills({**row, "spill_stores": 0, "spill_loads": 0})
+    with pytest.raises(AssertionError, match="spills"):
+        cs.check_no_spills({**row, "spill_stores": 8, "spill_loads": 8})
 
 
 def test_upstream_of_keeps_earlier_layers_of_the_same_sequence_up_to_the_token():

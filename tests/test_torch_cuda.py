@@ -15,9 +15,11 @@ dx, dB, dC; fp32 ddt, da_log, dh0) against the plain version at the
 kernel's chunk; da_log, a sum over every row of a head, relative to its
 largest |value|; at the train shapes every gradient also within 1e-3
 relative L2 of fp64 autograd.  The flash passes at q/k head dim 192 and v
-head dim 128 (MLA's expanded branch) and the reduced deepseek-v2-lite-16b
-train step are held by chip_smoke.py's own functions (`mla_flash_check`,
-`train_check`): one rule for the card tests and the smoke run.
+head dim 128 (MLA's expanded branch), the reduced deepseek-v2-lite-16b
+and deepseek-v3-671b train steps, and deepseek-v3-671b's RMSNorm and CE
+shapes are held by chip_smoke.py's own functions (`mla_flash_check`,
+`train_check`, `rmsnorm_check`, `rmsnorm_bwd_check`, `ce_check`): one rule
+for the card tests and the smoke run.
 """
 import importlib.util
 from pathlib import Path
@@ -1043,3 +1045,101 @@ def test_reduced_deepseek_train_step_on_card_matches_cpu(dev, seed):
         "rmsnorm": 6 * n + 1, "rmsnorm_bwd": 3 * n + 1, "flash_attention_fwd": 2 * n,
         "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n, "fused_ce": 2 * c,
         "fused_ce_bwd": c}
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v3-671b's serve and train paths: the RMSNorm at d 7168 and q_norm's
+# 1536, the CE at vocab 129280 (the MTP loss's 584-row chunk too), the flash
+# passes at <192, 128> over 128 heads, a reduced train step; each held by
+# chip_smoke.py's own rule at two seeds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("rows,d", [(2048, 7168), (2048, 1536), (4, 7168), (4, 1536)])
+def test_rmsnorm_kernel_at_deepseek_v3_widths_matches_plain(dev, seed, rows, d):
+    """serve_v3's norms: attn_norm and ffn_norm at d 7168, q_norm at 1536,
+    at the prefill's 2048 rows and a decode step's 4 (one row over 448
+    threads of two vectors each at d 7168), by chip_smoke.rmsnorm_check."""
+    cs = _chip_smoke()
+    randn = cs.bf16_normal(np.random.default_rng(200 + seed), dev)
+    x, sc = randn(rows, d, scale=3.0), 1.0 + 0.1 * randn(d)
+    before = rmsnorm.launches
+    rec = cs.rmsnorm_check(x, sc)
+    assert rmsnorm.launches == before + 1
+    assert rec["excess"] <= 0, rec
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("d", [7168, 1536])
+def test_rmsnorm_bwd_kernel_at_deepseek_v3_widths_matches_plain(dev, seed, d):
+    """train_v3's norm backward over 8 x 512 rows: d 7168 (a 512-thread group
+    a row, some threads holding one vector and some two) and q_norm's 1536,
+    by chip_smoke.rmsnorm_bwd_check: within tolerance, bits repeated."""
+    cs = _chip_smoke()
+    randn = cs.bf16_normal(np.random.default_rng(210 + seed), dev)
+    x, sc = randn(4096, d, scale=3.0), 1.0 + 0.1 * randn(d)
+    dy = randn(4096, d)
+    before = rmsnorm_bwd.launches
+    rec = cs.rmsnorm_bwd_check(x, sc, dy)
+    assert rmsnorm_bwd.launches == before + 3       # checked, then twice repeated
+    assert rec["excess"] <= 0 and rec["bitwise_repeatable"], rec
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("rows", [512, 584])
+def test_fused_ce_kernels_at_deepseek_v3_vocab_match_plain(dev, seed, rows):
+    """train_v3's CE chunks at vocab 129280 (126.25 blocks of 1024 columns):
+    one of the main loss's 8 ([512, 129280]) and one of the MTP loss's 7
+    ([8 x 73 = 584, 129280]), forward and backward by chip_smoke.ce_check."""
+    cs = _chip_smoke()
+    args = cs.ce_inputs(np.random.default_rng(220 + seed), dev, rows, 129280)
+    n_f, n_b = fused_ce.launches, fused_ce_bwd.launches
+    rec = cs.ce_check(*args)
+    assert fused_ce.launches == n_f + 1 and fused_ce_bwd.launches == n_b + 1
+    assert all(e <= 0 for e in rec["excess"].values()), rec
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flash_kernels_at_head_dims_192_128_over_128_heads_match_plain(dev, seed):
+    """MLA's expanded branch at deepseek-v3-671b's width: 128 heads, MHA,
+    q/k [8, 128, 512, 192], v [8, 128, 512, 128], causal (a grid 8x
+    deepseek-v2-lite-16b's), by chip_smoke.mla_flash_check."""
+    cs = _chip_smoke()
+    randn = cs.bf16_normal(np.random.default_rng(230 + seed), dev)
+    rec = cs.mla_flash_check(*cs.mla_flash_inputs(randn, 8, 512, cs.V3_HEADS))
+    assert rec["shapes_ok"], rec
+    assert all(e <= 0 for e in rec["excess"].values()), rec
+    assert all(rec["bitwise_repeatable"].values()), rec
+
+
+@pytest.mark.parametrize("seed", [42, 43])
+def test_reduced_deepseek_v3_train_step_on_card_matches_cpu(dev, seed):
+    """Reduced deepseek-v3-671b (3 dense layers, 1 MoE layer with the sigmoid
+    router and a router_bias from the seed, the MTP layer; MLA at the full
+    head dims, q-LoRA at 1536), batch 2 x 192 tokens: the loss and every
+    gradient on the card against the CPU, the CPU's routing pinned to the
+    card's, by chip_smoke.py's train_check_v3 (router_bias's gradient
+    exactly zero on both sides); then the launch counts of one train step
+    on the card against chip_smoke.moe_train_launches."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import make_train_state, train_step
+
+    cs = _chip_smoke()
+    cfg = cs.v3_small_config()
+    seq = 3 * cs.FLASH_TILE
+    rec = cs.train_check(dev, cfg, seed, seq, row1_len=seq - 40)
+    assert rec["moe_route_calls"] == 2 * (cfg.n_layers - cfg.moe.n_dense_prefix)
+    assert list(rec["zero_grad_leaves_max_abs"]) == ["blocks.0.ffn.router_bias"]
+    assert rec["ok"], {k: v for k, v in rec.items() if k != "flips"}
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 193)))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    state = make_train_state(cfg, opt_cfg, params=params)
+    reset_launches()
+    _, metrics = train_step(state, batch, cfg, opt_cfg)
+    assert torch.isfinite(metrics["mtp_ce"])
+    assert {k: v for k, v in launches().items() if v} == cs.moe_train_launches(cfg, seq)

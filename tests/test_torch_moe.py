@@ -386,21 +386,32 @@ def test_server_serves_moe_on_cpu_and_defaults_to_cuda(model):
 
 
 def test_moe_training_raises_naming_its_roadmap_item(model):
-    """deepseek-v2-lite-16b trains (MoE and MLA alone no longer raise);
-    deepseek-v3-671b, whose loss has the MTP branch, still raises, naming
-    the remaining half of ROADMAP Queue 1 item 1."""
+    """Both MoE models train now (ROADMAP Queue 1 item 1 is done):
+    deepseek-v2-lite-16b's loss is finite with its aux loss, and
+    deepseek-v3-671b's also carries the MTP head's mtp_ce, added to the loss
+    at 0.1 as JAX's loss_fn adds it (tests/test_torch_v3_train.py holds it
+    to JAX).  The hybrid family still raises (test below)."""
     cfg, tp = model["cfg"], model["torch"]["bf16"]
     toks = _t(np.zeros((1, 8)))
     batch = {"tokens": toks, "labels": toks}
-    if not cfg.mtp:
-        with torch.no_grad():
-            loss, metrics = loss_fn(tp, batch, cfg)
-        assert torch.isfinite(loss) and float(metrics["aux"]) > 0
-        return
+    with torch.no_grad():
+        loss, metrics = loss_fn(tp, batch, cfg)
+    assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+    assert ("mtp_ce" in metrics) == cfg.mtp
+    if cfg.mtp:
+        assert torch.isfinite(metrics["mtp_ce"])
+        want = metrics["ce"].float() + 0.01 * metrics["aux"] + 0.1 * metrics["mtp_ce"]
+        assert float(loss) == pytest.approx(float(want), rel=1e-6)
+
+
+def test_hybrid_training_still_raises_naming_its_roadmap_item(model):
+    """A hybrid config (the MoE family's layers under `family="hybrid"`) is
+    refused by forward and loss_fn, naming ROADMAP Queue 1 item 3."""
+    cfg, tp = replace(model["cfg"], family="hybrid"), model["torch"]["bf16"]
+    toks = _t(np.zeros((1, 8)))
     for fn in (forward, loss_fn):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 1, deepseek-v3-671b training"):
-            fn(tp, batch, cfg)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3, hybrid"):
+            fn(tp, {"tokens": toks, "labels": toks}, cfg)
 
 
 # ---------------------------------------------------------------------------

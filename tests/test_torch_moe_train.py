@@ -57,6 +57,7 @@ from repro_torch.launch.train import Trainer, TrainerConfig
 from repro_torch.models import decode_step, forward, init_cache, loss_fn, prefill
 from repro_torch.models import layers as TL
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.runtime.steps import param_grads
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 ARCH = "deepseek-v2-lite-16b"
@@ -145,7 +146,7 @@ def _port_grads(params, batch, cfg, pin=None):
     with CS.RouteRecorder(TL) as rec:
         rec.pin = pin
         loss, metrics = loss_fn(params, _tb(batch), cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = param_grads(loss, leaves)
         calls = rec.take()
     return loss, metrics, to_jax_params(tree_unflatten(params, list(grads)), cfg), calls
 
@@ -177,16 +178,22 @@ def _selection(model, dt, batch):
     return (jl, jm, jg), (loss, metrics, tg), flips
 
 
-def _assert_trees_close(got, want, rel=None, floor=1.0, **tol):
+def _assert_trees_close(got, want, rel=None, floor=1.0, zero=(), **tol):
     """Every leaf of `got` (numpy, JAX layout) against `want`; with `rel`,
     within rel x max(floor, the leaf's largest |value|).  Prints each leaf's
-    largest |value| and asserts it is above the atol the leaf is held to."""
+    largest |value| and asserts it is above the atol the leaf is held to.
+    A leaf whose name ends in one of `zero` is instead asserted exactly 0 on
+    both sides (a gradient the loss has no path to)."""
     jax.tree_util.tree_map_with_path(lambda *a: None, want)   # same structure
     for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want),
                             jax.tree_util.tree_leaves(got)):
         w, g = _np(w), _np(g)
         name = jax.tree_util.keystr(path)
         assert g.shape == w.shape, name
+        if any(name.endswith(f"['{z}']") for z in zero):
+            print(f"{name}: exactly 0 on both sides")
+            assert not np.any(w) and not np.any(g), name
+            continue
         if rel is not None:
             tol = dict(rtol=0, atol=rel * max(floor, float(np.abs(w).max())))
         print(f"{name}: max |grad| {float(np.abs(w).max()):.3e}, atol {tol['atol']:.3e}")

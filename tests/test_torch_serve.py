@@ -319,26 +319,27 @@ def test_serve_main_runs_on_cpu(capsys):
     (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "trains"),
     (dict(mla=tbase.MLAConfig(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
                               v_head_dim=32)), "trains"),
-    (dict(mtp=True), "Queue 1 item 1, deepseek-v3-671b training"),
+    # the roadmap item MTP training closed stays in its id
+    pytest.param(dict(mtp=True), "trains",
+                 id="change3-Queue 1 item 1, deepseek-v3-671b training"),
     (dict(pos_embed="sinusoidal"), "Queue 1 item 4"),
 ])
 def test_unported_branches_name_their_roadmap_item(change, item):
     """Hybrid and sinusoidal positions are refused at init; MoE, MLA and MTP
-    serve (tests/test_torch_moe.py); MoE and MLA train (item "trains":
-    forward and loss_fn run, tests/test_torch_moe_train.py holds them to
-    JAX), MTP refuses to train."""
+    serve (tests/test_torch_moe.py) and train (item "trains": forward and
+    loss_fn run, and loss_fn reports the MTP head's mtp_ce;
+    tests/test_torch_moe_train.py and tests/test_torch_v3_train.py hold them
+    to JAX)."""
     cfg = replace(get_config(ARCH).reduced(), **change)
-    if "training" in item or item == "trains":
+    if item == "trains":
         params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
         init_cache(cfg, 1, 8, "cpu")
         toks = torch.zeros((1, 8), dtype=torch.long)
         for fn in (forward, loss_fn):
-            if item == "trains":
-                with torch.no_grad():
-                    assert torch.isfinite(fn(params, {"tokens": toks, "labels": toks}, cfg)[0]).all()
-                continue
-            with pytest.raises(NotImplementedError, match=item):
-                fn(params, {"tokens": toks, "labels": toks}, cfg)
+            with torch.no_grad():
+                out = fn(params, {"tokens": toks, "labels": toks}, cfg)
+            assert torch.isfinite(out[0]).all()
+        assert ("mtp_ce" in out[1]) == cfg.mtp
         return
     with pytest.raises(NotImplementedError, match=item):
         init_model(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -2,10 +2,12 @@
 """Where the time of the port's serve path goes, on one NVIDIA card.
 
     python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b |
-                                    deepseek-v2-lite-16b] [--src DIR]
+                                    deepseek-v2-lite-16b | deepseek-v3-671b] [--src DIR]
 
-Builds a full-width model (chatglm3-6b by default, mamba2-130m, stablelm-3b
-or deepseek-v2-lite-16b; random weights from seed 0), prefills 4 prompts
+Builds a full-width model (chatglm3-6b by default, mamba2-130m, stablelm-3b,
+deepseek-v2-lite-16b or deepseek-v3-671b, the latter cut to the depth of
+`chip_smoke.py`'s serve_v3, read from its `V3_SERVE_LAYERS`; random
+weights from seed 0), prefills 4 prompts
 (512 tokens, 8192 for mamba2-130m, as `chip_smoke.py` serves them) and
 decodes 8 tokens, each phase under `torch.profiler`.  For each phase it
 prints one JSON line: the wall time (host clock, synchronised), the device
@@ -30,6 +32,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -104,7 +107,7 @@ def _phase(name, fn, n_items, moe=False):
 
 
 PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512,
-          "deepseek-v2-lite-16b": 512}
+          "deepseek-v2-lite-16b": 512, "deepseek-v3-671b": 512}
 
 
 def main() -> int:
@@ -126,6 +129,10 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import V3_ARCH, V3_SERVE_LAYERS           # serve_v3's depth cut
+    if args.arch == V3_ARCH:
+        cfg = replace(cfg, n_layers=V3_SERVE_LAYERS)
     moe = cfg.moe is not None
     if moe:
         _scope(layers, SCOPES)
@@ -151,7 +158,7 @@ def main() -> int:
                                    s0 + i, cfg)
                 tok = lg[:, -1].argmax(-1)
 
-        print(json.dumps({"arch": args.arch, "batch": b, "prompt": s0,
+        print(json.dumps({"arch": args.arch, "n_layers": cfg.n_layers, "batch": b, "prompt": s0,
                           "src": os.path.abspath(args.src)}), flush=True)
         _phase("prefill", run_prefill, 1, moe)
         _phase("decode", run_decode, steps, moe)

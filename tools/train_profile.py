@@ -2,12 +2,13 @@
 """Where the time of the port's train step goes, on one NVIDIA card.
 
     python3 tools/train_profile.py [--arch stablelm-3b | mamba2-130m |
-        deepseek-v2-lite-16b] [--src DIR]
+        deepseek-v2-lite-16b | deepseek-v3-671b] [--src DIR]
 
 Builds full-width chatglm3-6b (random weights from seed 0, AdamW with bf16
-moments, as `chip_smoke.py` trains it), stablelm-3b, mamba2-130m or
-deepseek-v2-lite-16b (fp32 moments; the latter cut to the depth of
-`chip_smoke.py`'s train_moe, read from its `MOE_TRAIN_LAYERS`) and runs
+moments, as `chip_smoke.py` trains it), stablelm-3b, mamba2-130m,
+deepseek-v2-lite-16b or deepseek-v3-671b (fp32 moments; the deepseek
+models cut to the depth of `chip_smoke.py`'s train_moe and train_v3, read
+from its `MOE_TRAIN_LAYERS` and `V3_TRAIN_LAYERS`) and runs
 two train steps as warm-up and one for the wall time of a whole step, at
 `chip_smoke.py`'s train shapes (8 x 512 tokens; mamba2-130m 8 x 2048).
 Then it profiles the step's two halves under `torch.profiler`: the forward
@@ -48,9 +49,10 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 MOMENTS = {"chatglm3-6b": torch.bfloat16, "stablelm-3b": torch.float32,
-           "mamba2-130m": torch.float32, "deepseek-v2-lite-16b": torch.float32}
+           "mamba2-130m": torch.float32, "deepseek-v2-lite-16b": torch.float32,
+           "deepseek-v3-671b": torch.float32}
 SEQ = {"chatglm3-6b": 512, "stablelm-3b": 512, "mamba2-130m": 2048,
-       "deepseek-v2-lite-16b": 512}
+       "deepseek-v2-lite-16b": 512, "deepseek-v3-671b": 512}
 # the functions of `models/layers.py` each run inside a range of their name
 SCOPES = ("apply_moe", "moe_route", "moe_slots", "apply_mlp", "mla_fwd")
 NODE = "autograd::engine::evaluate_function: "
@@ -160,6 +162,7 @@ def main() -> int:
     from repro_torch.launch.train import Trainer, TrainerConfig
     from repro_torch.models import layers, loss_fn
     from repro_torch.optim import adamw_update
+    from repro_torch.runtime.steps import param_grads
     from repro_torch.tree import tree_leaves, tree_unflatten
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -170,8 +173,9 @@ def main() -> int:
     n_layers = None
     if moe:
         sys.path.insert(0, ROOT)
-        from chip_smoke import MOE_TRAIN_LAYERS      # train_moe's depth cut
-        n_layers = MOE_TRAIN_LAYERS
+        # train_moe's and train_v3's depth cuts
+        from chip_smoke import MOE_TRAIN_LAYERS, V3_ARCH, V3_TRAIN_LAYERS
+        n_layers = V3_TRAIN_LAYERS if args.arch == V3_ARCH else MOE_TRAIN_LAYERS
         _scope(layers, SCOPES)
     tc = TrainerConfig(arch=args.arch, reduced=False, global_batch=b, seq_len=s,
                        steps=1, device="cuda", seed=0, moment_dtype=MOMENTS[args.arch],
@@ -195,7 +199,7 @@ def main() -> int:
 
     def forward_backward():
         loss, _ = loss_fn(params, batch, tr.cfg)
-        held["grads"] = torch.autograd.grad(loss, tree_leaves(params))
+        held["grads"] = param_grads(loss, tree_leaves(params))
 
     def update():
         adamw_update(tree_unflatten(params, list(held.pop("grads"))), tr.state["opt"],
