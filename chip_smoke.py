@@ -11,8 +11,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    passes at each (q/k, v) head dim pair, the SSD scan at each state dim,
    the SSD backward's walkers and gradient pass at each head and state dim),
    its registers, spills, shared memory and blocks an SM from the `ptxas -v`
-   report (the flash kernels' head dim 80 and <192, 128> instances and the
-   SSD backward's P 64, N 128 ones must not spill), and the registers and
+   report (the flash kernels' head dim 80 and <192, 128> instances, the SSD
+   scan's N 16 one and the SSD backward's P 64, N 128 and P 64, N 16 ones
+   must not spill), and the registers and
    spills of every instance of decode attention and of the RMSNorm backward.
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
@@ -37,7 +38,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    shapes: RMSNorm at [2048, 7168], [2048, 1536] (q_norm), [4, 7168] and [4,
    1536], its backward at [4096, 7168] and [4096, 1536], the CE and its
    backward at vocab 129280 ([512, 129280] and the MTP loss's [584,
-   129280]).  The dq
+   129280]).  jamba-1.5-large-398b's shapes: RMSNorm at [2048, 8192],
+   [2048, 16384] (the Mamba layers' gated out_norm over d_inner), [4, 8192]
+   and [4, 16384]; the flash forward at B 4, 64 heads over 8 kv heads (GQA
+   rep 8), S 512, D 128 from the 1024-row cache; decode attention at rep 8
+   at the serve lengths, every cluster size; the SSD scan at x [4, 512, 256,
+   64], N 16 (and a 513-row tail from a nonzero state), held to the plain
+   version and to the fp64 recurrence; the SSD backward at [8, 512, 256,
+   64], P 64, N 16, held as at mamba2-130m's shape.  The dq
    pass, decode attention and the RMSNorm backward (at every shape) are
    checked bitwise repeatable; the SSD scan's
    y and final state at the serve shape and at an 8193-token tail from a
@@ -64,8 +72,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    full-width deepseek-v3-671b cut to its first 4 of 61 layers (3 dense, 1
    MoE: 256 routed experts top-8 + 1 shared, the sigmoid router; q-LoRA,
    128 MLA heads at d 7168; 15.7 B params), the same batch, the RMSNorm its
-   one kernel; cross_check_v3 as cross_check_moe.
-5. train_check, train_check_ssm, train_check_moe, train_check_v3 — one loss and every
+   one kernel; cross_check_v3 as cross_check_moe.  serve_hybrid —
+   full-width jamba-1.5-large-398b cut to one of its 9 period blocks (8
+   layers: attention at index 4 over 64 heads, rep 8, seven Mamba layers of
+   256 SSD heads at N 16, MoE on layers 1, 3, 5 and 7) and 8 of its 16
+   experts (top-2; 25.8 B params, 51.6 GB in bf16), the same batch: the
+   RMSNorm (d 8192 and 16384), the flash forward and the SSD scan in the
+   prefill, decode attention in each decode step, every launch counted
+   (`hybrid_serve_launches`); cross_check_hybrid as cross_check_moe.
+5. train_check, train_check_ssm, train_check_moe, train_check_v3,
+   train_check_hybrid — one loss and every
    gradient of reduced chatglm3-6b (64 tokens), of reduced mamba2-130m (192
    tokens, three of the SSD kernels' chunks) and of reduced
    deepseek-v2-lite-16b with MLA at the full head dims (192 tokens, three
@@ -75,10 +91,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    deepseek-v3-671b (3 dense layers, 1 MoE layer with the sigmoid router
    and a router_bias drawn from the seed, the MTP layer; MLA at the full
    head dims, q-LoRA at 1536; 192 tokens; router_bias's gradient exactly
-   zero on every side) on the card (kernels)
-   against the same weights and batch on the CPU (plain versions), all by
-   one function, `train_check`; beside the gate, each side against the same
-   weights in fp32 on the CPU (the bf16 model's own rounding).
+   zero on every side) on the card (kernels) against the same weights and
+   batch on the CPU (plain versions), all by one function, `train_check`;
+   beside the gate, each side against the same weights in fp32 on the CPU
+   (the bf16 model's own rounding).  train_check_hybrid — reduced
+   jamba-1.5-large-398b (one period block, 8 query heads over 1 kv head at
+   D 128 (rep 8), the SSD kernels at P 64, N 16; 192 tokens) the same way
+   unit by unit (`hybrid_train_check`): the embedding, each layer and the
+   head on the CPU from the card's input to it and the card's gradient at
+   its output, the routing pinned, each unit and each leaf held at
+   TOL_GRAD; the whole
+   model's card-vs-CPU reading, which bf16 rounding leaves several percent
+   apart, printed beside.
 6. train, train_stablelm — full-width chatglm3-6b trains 8 steps and
    stablelm-3b 4 steps of batch 8 x 512 tokens through `Trainer.run` (remat
    per layer, 8 cross-entropy chunks, AdamW; chatglm3-6b with bf16 moments,
@@ -135,6 +159,7 @@ TOL_LSE = 1e-2
 TOL_CE = 1e-4            # per-row nll and lse: fp32 sums over the vocab
 TOL_DSCALE = 2e-2        # rmsnorm dscale: x its largest |value| (a sum over 4096 rows)
 TOL_GRAD = 3e-2          # train_check: relative error of the loss and of all gradients
+AUX_WEIGHT = 0.01        # loss_fn's default weight of the MoE aux loss
 # the SSD scan's y and final state: relative L2 error against the fp64
 # recurrence (`ssd_scan_f64`), at the serve shape and the 8193-token tail;
 # the kernel's split bf16 hi + lo operands keep ~16 bits of mantissa, and
@@ -196,6 +221,15 @@ V3_SERVE_CUT = ["n_layers 4 of 61: the 3 dense layers + the first MoE layer (15.
 V3_TRAIN_CUT = ["n_layers 3 of 61: the 3 dense layers, + the MTP layer loss_fn runs (4.19 B "
                 "params, ~50 GB with fp32 AdamW moments; one MoE layer alone holds ~11.5 B "
                 "params, ~138 GB with its fp32 AdamW state)"]
+# the serve_hybrid phase: jamba-1.5-large-398b (arXiv:2403.19887) at full
+# width (d 8192, 64 heads over 8 kv heads at D 128, d_ff and expert width
+# 24576, 256 SSD heads of P 64 at N 16, vocab 65536), cut to one of its 9
+# period blocks (attention at index 4, seven Mamba layers, MoE on layers 1,
+# 3, 5 and 7) and 8 of its 16 experts, top-2 kept
+HYBRID_ARCH, HYBRID_SERVE_LAYERS, HYBRID_SERVE_EXPERTS = "jamba-1.5-large-398b", 8, 8
+HYBRID_SERVE_CUT = ["n_layers 8 of 72: one of the 9 period blocks",
+                    "n_experts 8 of 16 (top-2 kept): one block at 16 experts holds ~45 B "
+                    "params, ~90 GB in bf16; at 8, ~25.8 B, ~51.6 GB"]
 
 
 def emit(obj) -> None:
@@ -467,6 +501,21 @@ def ssd_grads_f64(scan_ref, args, h0, dy, dh_final, chunk=256):
     return torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
 
 
+def ssd_fwd_work(b, s, h, p, n, chunk=SSD_CHUNK) -> tuple:
+    """(bytes, tensor-core operations) of the SSD scan's forward.  Bytes: x
+    (bf16) and dt read, y (fp32) written, a_log, B and C read, h0 read and
+    h_final written (fp32).  Operations: the kernel runs its products on the
+    tensor cores in bf16, each fp32 operand split into hi + lo; per (batch,
+    head, 64-row chunk) C B^T (1 product, L L N), C h^T (2, L P N), att (x
+    dt) (3, L L P) and the state update (2, P N L), with P padded to 64."""
+    tok_heads, nc, pk = b * s * h, -(-s // chunk), max(p, 64)
+    nbytes = (tok_heads * p * (2 + 4) + tok_heads * 4 + h * 4 + 2 * b * s * n * 2
+              + 2 * b * h * p * n * 4)
+    ops = 2 * b * h * nc * (chunk * chunk * n + 2 * chunk * pk * n + 3 * chunk * chunk * pk
+                            + 2 * pk * n * chunk)
+    return nbytes, ops
+
+
 def ssd_bwd_work(b, s, h, p, n, chunk=SSD_CHUNK) -> tuple:
     """(bytes, tensor-core operations, fp32 operations) the SSD scan's
     backward needs.  Bytes: x, dy, B, C, dt read and dx, dB, dC, ddt written
@@ -608,12 +657,15 @@ def moe_cross_check(srv, prompts, dev, cache_len) -> dict:
     decode step's hidden states differ from the prefill's by rounding, and a
     token whose k-th and (k+1)-th selection scores nearly tie may take the
     other expert: such a flip moves the logits by that expert's whole share.
-    So the decode step runs twice: as served ("unpinned"), and with each
-    MoE layer's selection pinned to the prefill's for the same token
-    ("pinned", its own scores as weights), which leaves every difference
-    but the flips.  Both are returned, with the flips and their gaps."""
+    So the decode step runs twice from the prefill's cache (from a copy of
+    it the second time: a step advances a Mamba layer's states in place):
+    as served ("unpinned"), and with each MoE layer's selection pinned to
+    the prefill's for the same token ("pinned", its own scores as weights),
+    which leaves every difference but the flips.  Both are returned, with
+    the flips and their gaps."""
     from repro_torch.models import init_cache, layers
     from repro_torch.runtime.steps import prefill_step, serve_step
+    from repro_torch.tree import tree_map
 
     mo = srv.cfg.moe
     cfg = replace(srv.cfg, moe=replace(mo, capacity_factor=mo.n_experts / mo.top_k))
@@ -627,11 +679,13 @@ def moe_cross_check(srv, prompts, dev, cache_len) -> dict:
         cache = init_cache(cfg, b, cache_len, dev)
         prefill_step(srv.params, cache, {"tokens": toks[:, :s]}, cfg)
         rec.take()
+        # the step updates the cache in place (a Mamba layer's states advance):
+        # the pinned run starts from a copy of the prefill's
+        again = tree_map(torch.clone, cache)
         step, _ = serve_step(srv.params, cache, {"tokens": toks[:, s:]}, s, cfg)
         r_step = rec.take()
-        # the same step again (it rewrites cache row s with the same values)
         rec.pin = [c["idx"][last] for c in r_full]
-        pinned, _ = serve_step(srv.params, cache, {"tokens": toks[:, s:]}, s, cfg)
+        pinned, _ = serve_step(srv.params, again, {"tokens": toks[:, s:]}, s, cfg)
         rec.pin = None
         torch.cuda.synchronize()
     scale = float(full.abs().max())
@@ -747,6 +801,121 @@ def v3_small_config():
     from repro_torch.configs.base import MLAConfig
     return get_config(V3_ARCH).reduced(mla=MLAConfig(
         kv_lora_rank=64, q_lora_rank=1536, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128))
+
+
+def hybrid_small_config():
+    """Reduced jamba-1.5-large-398b (one period block of 8 layers, d 128, 8
+    experts top-2) with the full model's head dims: 8 query heads over 1 kv
+    head at D 128 (GQA rep 8, as 64 over 8 at full width) and the full
+    model's SSM (P 64, N 16), so its attention runs the flash kernels' D 128
+    instances at rep 8 and its Mamba layers the SSD kernels' P 64, N 16
+    ones."""
+    from repro_torch.configs import get_config
+    full = get_config(HYBRID_ARCH)
+    return full.reduced(n_heads=8, n_kv_heads=1, d_head=128, ssm=full.ssm)
+
+
+def hybrid_serve_config():
+    """serve_hybrid's config: the full model cut to HYBRID_SERVE_LAYERS layers
+    and HYBRID_SERVE_EXPERTS experts, every width kept."""
+    from repro_torch.configs import get_config
+    full = get_config(HYBRID_ARCH)
+    return replace(full, n_layers=HYBRID_SERVE_LAYERS,
+                   moe=replace(full.moe, n_experts=HYBRID_SERVE_EXPERTS))
+
+
+def moe_layer_count(cfg) -> int:
+    """The MoE layers of a model: each hybrid period block's (every
+    moe_every-th layer from 1), or the layers after an MoE model's dense
+    prefix; 0 without MoE."""
+    if cfg.moe is None:
+        return 0
+    if cfg.hybrid is not None:
+        hy = cfg.hybrid
+        return cfg.n_layers // hy.period * len(range(1, hy.period, hy.moe_every))
+    return cfg.n_layers - cfg.moe.n_dense_prefix
+
+
+def hybrid_serve_launches(cfg) -> dict:
+    """Kernel launches of a serve run (a prefill and NEW decode steps) of a
+    hybrid model: per forward every layer's mixer_norm and ffn_norm, each
+    Mamba layer's gated out_norm, and final_norm; the prefill's attention
+    through the flash forward and its Mamba layers through the SSD scan;
+    each decode step's attention through decode attention (its Mamba layers
+    run the plain recurrence, as JAX's decode)."""
+    hy = cfg.hybrid
+    nb = cfg.n_layers // hy.period
+    norms = nb * (2 * hy.period + hy.period - 1) + 1
+    return {"rmsnorm": norms * (1 + NEW), "flash_attention_fwd": nb,
+            "ssd_scan": nb * (hy.period - 1), "decode_attention": nb * NEW}
+
+
+def hybrid_train_launches(cfg) -> dict:
+    """Kernel launches of one train step of a hybrid model (each period block
+    checkpointed whole, CE_CHUNKS cross-entropy chunks): each block's norms
+    (mixer_norm and ffn_norm a layer, the Mamba layers' gated out_norm)
+    forward twice (the recompute) and backward once, final_norm once each
+    way; the attention layer's flash forward twice, dq and dk/dv once; each
+    Mamba layer's SSD scan twice and its backward once; the CE forward twice
+    and its backward once a chunk."""
+    hy = cfg.hybrid
+    nb = cfg.n_layers // hy.period
+    norms = nb * (2 * hy.period + hy.period - 1)
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
+            "flash_attention_fwd": 2 * nb, "flash_attention_bwd_dq": nb,
+            "flash_attention_bwd_dkv": nb, "ssd_scan": 2 * nb * (hy.period - 1),
+            "ssd_scan_bwd": nb * (hy.period - 1), "fused_ce": 2 * CE_CHUNKS,
+            "fused_ce_bwd": CE_CHUNKS}
+
+
+def hybrid_serve_bound(cfg, params, batch, prompt) -> dict:
+    """The least time of a hybrid model's serve steps as the port computes
+    them.  Prefill of batch x prompt tokens: the bf16 products (the Mamba
+    layers' in_proj and out_proj, the attention projections and its causal
+    pairs at 4 D flops a pair a head, the dense FFNs, every expert at its
+    capacity, the head on the last token, the SSD scan's chunked products
+    at 64-row chunks: C B^T a (batch, chunk), att x and the state in and out
+    a head) over the bf16 peak plus the fp32 router over the fp32 peak, one
+    after the other; or the weight bytes over the memory rate, if larger.
+    A decode step runs every expert (capacity >= 1), so it reads every
+    weight but the token-embedding table.  The active-param count (a token's
+    top_k experts, not the capacity) is given beside it."""
+    from repro_torch.tree import tree_leaves
+    hy, mo, ss = cfg.hybrid, cfg.moe, cfg.ssm
+    d, h, hkv, dh, t = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, batch * prompt
+    nb = cfg.n_layers // hy.period
+    di = ss.expand * d
+    hs, n, pp = di // ss.head_dim, ss.d_state, ss.head_dim
+    in_dim = 2 * di + 2 * ss.n_groups * n + hs
+    n_moe = len(range(1, hy.period, hy.moe_every))
+    ff = mo.d_expert_ff or cfg.d_ff
+    cap = int(max(1, math.ceil(t * mo.top_k / mo.n_experts * mo.capacity_factor)))
+    nc, L = -(-prompt // SSD_CHUNK), SSD_CHUNK
+    ssd = 2 * batch * nc * (L * L * n + hs * (L * L * pp + 2 * L * n * pp))
+    pairs = batch * h * prompt * (prompt + 1) // 2
+    mamba = 2 * t * (d * in_dim + di * d) + ssd
+    attn = 2 * t * d * dh * (2 * h + 2 * hkv) + 4 * dh * pairs
+    dense = 2 * t * 3 * d * cfg.d_ff
+    experts = 2 * mo.n_experts * cap * 3 * d * ff
+    bf16 = (nb * ((hy.period - 1) * mamba + attn + (hy.period - n_moe) * dense
+                  + n_moe * experts) + 2 * batch * d * cfg.vocab_size)
+    f32 = nb * n_moe * 2 * t * d * mo.n_experts
+    total = sum(x.numel() for x in tree_leaves(params))
+    active = total - nb * n_moe * (mo.n_experts - mo.top_k) * 3 * d * ff
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    weights = nbytes(params)
+    read = weights - nbytes(params["embed"]["tok"])
+    ops_ms = (bf16 / PEAK_BF16 + f32 / PEAK_F32) * 1e3
+    return {"prefill_capacity": cap, "prefill_tflop_bf16": bf16 / 1e12,
+            "prefill_tflop_fp32": f32 / 1e12, "params": total,
+            "active_params": active,
+            "prefill_tflop_active_params": 2 * t * active / 1e12,
+            "weights_gb": weights / 1e9, "weights_read_gb": read / 1e9,
+            "prefill_bound_ms": max(ops_ms, read / PEAK_BYTES * 1e3),
+            "prefill_bound_by": "operations" if ops_ms >= read / PEAK_BYTES * 1e3 else "bytes",
+            "decode_step_bound_ms": read / PEAK_BYTES * 1e3, "decode_bound_by": "bytes"}
 
 
 def ce_chunks_of(s, n=CE_CHUNKS) -> int:
@@ -929,6 +1098,171 @@ def train_check(dev, cfg, seed, seq=64, row1_len=40) -> dict:
                        and not any(v for z in zero.values() for v in z.values()))}
 
 
+def hybrid_layer_chain(params, batch, cfg, forced=None):
+    """`loss_fn`'s loss (AUX_WEIGHT its aux_weight) and every gradient of a
+    hybrid model, taken a unit at a time: the token embedding, each layer of
+    each period block (`_apply_hybrid_layer`) and the head (final_norm and
+    the chunked CE).  Each unit runs forward from its own input and backward
+    from the gradient at its own output, and chained they give the whole
+    model's loss and gradients.  `forced`, another run's chain, gives each
+    unit that run's input and output gradient instead, cast to this run's
+    dtype, so that each unit of two runs is compared on the same operands.
+    Returns (loss, [each leaf's gradient in `tree_leaves` order], the chain:
+    {"ins": the input of each layer and of the head, "grads": the gradient
+    at each}), all on the CPU."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+
+    def operand(key, k, own):
+        return (own if forced is None else forced[key][k].to(own.device, own.dtype)).detach()
+
+    h0 = L.embed_tokens(params["embed"], batch["tokens"])
+    positions = torch.arange(h0.shape[1], device=h0.device)
+    units = [(i, lp) for bp in params["blocks"] for i, lp in enumerate(bp["layers"])]
+    ins, outs, h = [], [], h0.detach()
+    for k, (i, lp) in enumerate(units):
+        ins.append(operand("ins", k, h).requires_grad_(True))
+        h, aux, _ = T._apply_hybrid_layer(cfg, lp, i, ins[-1], positions)
+        outs.append((h, aux))
+        h = h.detach()
+    ins.append(operand("ins", len(units), h).requires_grad_(True))
+    nll, msum = T._chunked_ce(params["embed"], L.apply_norm(params["final_norm"], ins[-1]),
+                              batch["labels"], batch["loss_mask"], cfg)
+    ce = nll / torch.clamp(msum, min=1.0)
+    ce.backward()
+    grads = [ins[-1].grad]
+    for k in reversed(range(len(units))):
+        y, aux = outs[k]
+        g = operand("grads", k + 1, grads[0])
+        if aux.requires_grad:       # an MoE layer: the loss takes AUX_WEIGHT x its aux
+            torch.autograd.backward([y, aux], [g, torch.full_like(aux, AUX_WEIGHT)])
+        else:
+            y.backward(g)
+        grads.insert(0, ins[k].grad)
+    h0.backward(operand("grads", 0, grads[0]))
+    loss = ce.detach() + AUX_WEIGHT * sum(aux.detach() for _, aux in outs)
+    return (loss.float().cpu(),
+            [(t.grad if t.grad is not None else torch.zeros_like(t)).float().cpu()
+             for t in leaves],
+            {"ins": [x.detach().cpu() for x in ins], "grads": [g.detach().cpu() for g in grads]})
+
+
+def chain_unit(name: str, period: int):
+    """The unit of `hybrid_layer_chain` a leaf belongs to: "embed" (the
+    token table), "head" (final_norm, the head) or the layer's index."""
+    if name == "embed.tok":
+        return "embed"
+    if not name.startswith("blocks."):
+        return "head"
+    _, blk, _, i = name.split(".")[:4]
+    return int(blk) * period + int(i)
+
+
+def hybrid_train_check(dev, cfg, seed, seq, row1_len) -> dict:
+    """train_check of a hybrid model, unit by unit: its loss and every
+    gradient on `dev` (kernels), taken by `hybrid_layer_chain`, against the
+    CPU's (plain versions) with each unit forced to the card's operands (its
+    input and the gradient at its output) and each MoE layer's selection
+    pinned to the card's, weighted by the CPU's own scores.
+
+    A bf16 hybrid model's gradients are not fixed to TOL_GRAD by its
+    rounding: rounding the Mamba layers' gated output to bf16 turns a
+    difference in the fp32 sums' last bit into a whole bf16 ulp now and
+    then, each Mamba layer roughly doubles a relative difference of its
+    input in its output and triples it in its input's gradient, and seven
+    follow one another in a block.  So a whole-model comparison reads
+    several percent between any two orders of summation, and so does the
+    card against the CPU (the `unforced` record: the CPU's own chain, the
+    selection pinned).  Unit by unit the same kernels meet the same
+    operands, and each unit and each leaf is held at TOL_GRAD.
+
+    The record's "ok" holds the gate: the loss, all gradients together, each
+    unit's (its leaves' gradients and the gradient at its input) and each
+    leaf's within TOL_GRAD (relative L2), and no flip of the pinned run at a
+    gap >= NEAR_TIE.  Beside it each side against the same units on the CPU in
+    fp32 (the card's operands, cast): each unit's own bf16 rounding."""
+    from repro_torch.models import init_model, layers
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sp = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sp_cpu = tree_map(lambda t: t.detach().cpu(), sp)
+    toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (2, seq + 1))
+    smask = np.ones((2, seq), np.float32)
+    smask[1, row1_len:] = 0.0
+
+    def batch_on(where):
+        return {"tokens": torch.from_numpy(toks[:, :-1]).to(where),
+                "labels": torch.from_numpy(toks[:, 1:]).to(where),
+                "loss_mask": torch.from_numpy(smask).to(where)}
+
+    res, routes = {}, {}
+    with RouteRecorder(layers) as rec:
+        res["cuda"] = hybrid_layer_chain(sp, batch_on(dev), cfg)
+        routes["cuda"] = rec.take()
+        rec.pin = [c["idx"] for c in routes["cuda"]]
+        for side, params, forced in (
+                ("cpu", sp_cpu, res["cuda"][2]),
+                ("cpu_fp32", tree_map(lambda t: t.detach().float(), sp_cpu), res["cuda"][2]),
+                ("cpu_unforced", sp_cpu, None)):
+            res[side] = hybrid_layer_chain(tree_map(lambda t: t.detach().clone(), params),
+                                           batch_on("cpu"), cfg, forced=forced)
+            routes[side] = rec.take()
+        rec.pin = None
+    names = leaf_names(sp)
+    units = {}
+    for i, nm in enumerate(names):
+        units.setdefault(chain_unit(nm, cfg.hybrid.period), []).append(i)
+
+    def unit_grads(run, u):
+        """a unit's leaves' gradients and the gradient at its input"""
+        return [run[1][i] for i in units[u]] + (
+            [] if u == "embed" else [run[2]["grads"][-1 if u == "head" else u]])
+
+    def unit_errors(got, want):
+        return {str(u): float(torch.cat([(x - y).flatten() for x, y in
+                                         zip(unit_grads(got, u), unit_grads(want, u))]).norm()
+                              / torch.cat([y.flatten() for y in unit_grads(want, u)]).norm())
+                for u in units}
+
+    def compare(a, b):
+        rel_loss, rel_all, rel_leaf = grad_rel_errors([a[0]] + a[1], [b[0]] + b[1], names)
+        return rel_loss, rel_all, rel_leaf, unit_errors(a, b)
+
+    rel_loss, rel_all, rel_leaf, rel_unit = compare(res["cuda"], res["cpu"])
+    worst = sorted(rel_leaf, key=rel_leaf.get, reverse=True)[:4]
+    witness = {}
+    for side in ("cuda", "cpu"):
+        w_loss, w_all, w_leaf, w_unit = compare(res[side], res["cpu_fp32"])
+        witness[f"{side}_bf16_vs_cpu_fp32"] = {
+            "rel_err_loss": w_loss, "rel_l2_all_grads": w_all,
+            "max_unit_rel_l2": max(w_unit.values()),
+            "worst_leaf_rel_l2": {nm: w_leaf[nm] for nm in worst}}
+    u_loss, u_all, _, u_unit = compare(res["cuda"], res["cpu_unforced"])
+    flips = route_flips(routes["cuda"], [{"idx": c["own"], "gap": c["gap"]}
+                                         for c in routes["cpu"]])
+    wide = wide_flips(flips)
+    return {"arch": cfg.name, "reduced": True, "batch": 2, "seq": seq,
+            "loss_cuda": float(res["cuda"][0]), "loss_cpu": float(res["cpu"][0]),
+            "rel_err_loss": rel_loss, "n_grads": len(names), "rel_l2_all_grads": rel_all,
+            "unit_rel_l2": rel_unit, "worst_leaf_rel_l2": {nm: rel_leaf[nm] for nm in worst},
+            "tol": TOL_GRAD, "moe_route_calls": len(routes["cuda"]),
+            "routes": sum(int(c["idx"].numel()) for c in routes["cuda"]),
+            "gated": "cpu forced to the card's operands unit by unit, its selection pinned",
+            "route_flips": len(flips),
+            "largest_flip_gap": max([max(f["gap_a"], f["gap_b"]) for f in flips], default=None),
+            "near_tie": NEAR_TIE, "wide_flips": len(wide), "flips": flips,
+            "unforced": {"rel_err_loss": u_loss, "rel_l2_all_grads": u_all,
+                         "max_unit_rel_l2": max(u_unit.values())},
+            "witness_fp32_params": witness, "seconds": time.perf_counter() - t0,
+            "ok": bool(max(rel_loss, rel_all, *rel_unit.values(), *rel_leaf.values()) <= TOL_GRAD
+                       and not wide)}
+
+
 # The kernels written for Hopper (wgmma, TMA, mbarrier rings): their
 # ptxas report, dynamic shared memory and blocks an SM, at each value of
 # their template parameters (the head dim D, the SSD scan's state dim N, the
@@ -999,8 +1333,9 @@ def check_no_spills(entry: dict) -> None:
     """Raise if `entry` (a row of the ptxas reports) is an instance that
     must not spill: the flash kernels' head dim 80 ones and their q/k head
     dim 192, v head dim 128 ones (MLA), which hold dq, dk, dv or O in
-    registers, the SSD backward's at mamba2-130m's P 64, N 128, which
-    hold the states and the dB, dC sums, and the RMSNorm backward (one
+    registers, the SSD backward's at mamba2-130m's P 64, N 128 and at
+    jamba-1.5-large-398b's P 64, N 16, which hold the states and the dB, dC
+    sums, the SSD scan's at jamba's N 16, and the RMSNorm backward (one
     instance for every d up to 8192, deepseek-v3-671b's 7168 among them),
     which holds a row of x and of dy and its dscale partials."""
     if not (entry.get("spill_stores") or entry.get("spill_loads")):
@@ -1010,8 +1345,11 @@ def check_no_spills(entry: dict) -> None:
     if entry["kernel"].startswith("flash_") and (entry.get("D"), entry.get("DV")) in (
             (80, 80), (MLA_DQK, MLA_DV)):
         raise AssertionError(f"{entry['kernel']}<{entry['D']}, {entry['DV']}> spills: {entry}")
-    if entry["kernel"].startswith("ssd_bwd_") and (entry.get("P"), entry.get("N")) == (64, 128):
-        raise AssertionError(f"{entry['kernel']}<64, 128> spills: {entry}")
+    if entry["kernel"].startswith("ssd_bwd_") and (entry.get("P"), entry.get("N")) in (
+            (64, 128), (64, 16)):
+        raise AssertionError(f"{entry['kernel']}<{entry['P']}, {entry['N']}> spills: {entry}")
+    if entry["kernel"] == "ssd_scan_kernel" and entry.get("N") == 16:
+        raise AssertionError(f"ssd_scan_kernel<16> spills: {entry}")
 
 
 # Kernels of plain CUDA (mma.sync, cp.async): registers and spills of each
@@ -1174,6 +1512,14 @@ def main() -> int:
         f"{rows_}x{dd}": rms_case(vrandn3, rows_, dd)
         for rows_, dd in ((BATCH * PROMPT, 7168), (BATCH * PROMPT, 1536), (BATCH, 7168),
                           (BATCH, 1536))}
+    # jamba-1.5-large-398b's norms (serve_hybrid): mixer_norm, ffn_norm and
+    # final_norm at d 8192, the Mamba layers' gated out_norm at d_inner 16384,
+    # at its prefill's 2048 rows and its decode steps' 4; own generator
+    jrandn = bf16_normal(np.random.default_rng(SEED + 33), dev)
+    r["jamba_shapes"] = {
+        f"{rows_}x{dd}": rms_case(jrandn, rows_, dd)
+        for rows_, dd in ((BATCH * PROMPT, 8192), (BATCH * PROMPT, 16384), (BATCH, 8192),
+                          (BATCH, 16384))}
     emit({"phase": "kernel", **r, "shape": [BATCH * PROMPT, d]})
 
     # flash forward: one layer's prefill attention, q from the cache layout
@@ -1247,6 +1593,29 @@ def main() -> int:
             PEAK_BF16, float((o8.float() - r8.float()).abs().max()),
             shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80})
     del q8, k8, v8, o8, l8, r8, rl8, k8s, v8s
+    # jamba-1.5-large-398b's prefill attention (serve_hybrid): 64 query heads
+    # over 8 kv heads (GQA rep 8) at D 128, k and v read from the 1024-row
+    # cache; against SDPA with the group expanded, the bound by causal pairs
+    frandn = bf16_normal(np.random.default_rng(SEED + 36), dev)
+    g_h, g_kv = 64, 8
+    qj = frandn(b, s, g_h, hd).transpose(1, 2)
+    kj, vj = (frandn(b, MAX_LEN, g_kv, hd).transpose(1, 2) for _ in range(2))
+    (oj, lj), (rj, rlj) = (flash_attention_fwd(qj, kj, vj, kv_len=s),
+                           attention_with_lse_ref(qj, kj, vj, q_offset=0, kv_len=s))
+    torch.cuda.synchronize()
+    kje, vje = (x[:, :, :s].repeat_interleave(g_h // g_kv, dim=1) for x in (kj, vj))
+    pairs_j = b * g_h * s * (s + 1) // 2
+    r["jamba_rep8"] = other_shape(
+        "flash_attention_fwd at rep 8 (jamba-1.5-large-398b)",
+        max(excess(oj, rj, TOL_BF16), excess(lj, rlj, TOL_LSE)),
+        lambda: flash_attention_fwd(qj, kj, vj, kv_len=s),
+        lambda: attention_with_lse_ref(qj, kj, vj, q_offset=0, kv_len=s),
+        lambda: F.scaled_dot_product_attention(qj, kje, vje, is_causal=True),
+        (2 * qj.numel() + 2 * b * g_kv * s * hd) * 2 + b * g_h * s * 4, 4 * hd * pairs_j,
+        PEAK_BF16, float((oj.float() - rj.float()).abs().max()),
+        shape={"B": b, "H": g_h, "Hkv": g_kv, "S": s, "T": MAX_LEN, "kv_len": s, "D": hd},
+        causal_pairs=pairs_j)
+    del qj, kj, vj, oj, lj, rj, rlj, kje, vje
     emit({"phase": "kernel", **r,
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "q_offset": 0}})
 
@@ -1310,7 +1679,13 @@ def main() -> int:
     r["stablelm_3b"] = other_shape(*args, **extra)
     args, extra = decode_case("ragged lengths", qd, ck, cv, lens_np)
     r["ragged_lengths"] = other_shape(*args, **extra)
-    del ck8, cv8, args
+    # jamba-1.5-large-398b's decode steps (serve_hybrid): 64 query heads over
+    # 8 kv heads (rep 8) at D 128, at the serve lengths; own generator
+    drandn = bf16_normal(np.random.default_rng(SEED + 37), dev)
+    ckj, cvj = drandn(b, t, 8, hd), drandn(b, t, 8, hd)
+    args, extra = decode_case("jamba-1.5-large-398b", drandn(b, 64, hd), ckj, cvj, serve_lens)
+    r["jamba_rep8"] = other_shape(*args, **extra)
+    del ck8, cv8, ckj, cvj, args
     emit({"phase": "kernel", **r})
 
     # rmsnorm backward: every norm of the train step, [8 x 512, 4096]
@@ -1416,6 +1791,60 @@ def main() -> int:
                                        float((dv8.float() - rv8.float()).abs().max())),
                         shape=shape8)
     del q8, k8, v8, do8, out8, lse8, dq8, delta8, rq8, rdelta8, dk8, dv8, rk8, rv8, sdpa_bwd8
+    # jamba-1.5-large-398b's attention gradient at full width (64 query heads
+    # over 8 kv heads, GQA rep 8, D 128) at the train shape: dq, and dk/dv at
+    # every cluster size, each held to its plain version, bitwise repeatable,
+    # timed beside SDPA's backward; nested in the two rows as jamba_rep8
+    jrandn = bf16_normal(np.random.default_rng(SEED + 38), dev)
+    g_h, g_kv = 64, 8
+    qj, kj, vj, doj = flash_bwd_inputs(jrandn, b, s, g_h, g_kv, hd)
+    outj, lsej = flash_attention_fwd(qj, kj, vj)
+    (dqj, deltaj), (rqj, rdeltaj) = (flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej),
+                                     attention_bwd_dq_ref(qj, kj, vj, outj, doj, lsej,
+                                                          q_offset=0))
+    (dkj, dvj), (rkj, rvj) = (flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj),
+                              attention_bwd_dkv_ref(qj, kj, vj, doj, lsej, rdeltaj, q_offset=0))
+    torch.cuda.synchronize()
+    for _ in range(3):
+        dq2, delta2 = flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej)
+        dk2, dv2 = flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj)
+        if not all(torch.equal(x, y) for x, y in ((dq2, dqj), (delta2, deltaj), (dk2, dkj),
+                                                 (dv2, dvj))):
+            raise AssertionError("the flash backward at rep 8 is not bitwise repeatable")
+    cluster_ms_j = {}
+    for c in DKV_CLUSTERS:
+        ck_, cv_ = flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj, cluster=c)
+        torch.cuda.synchronize()
+        over_c = max(excess(ck_, rkj, TOL_BF16), excess(cv_, rvj, TOL_BF16))
+        if not over_c <= 0:
+            raise AssertionError(f"flash_attention_bwd_dkv at rep 8 with cluster {c} disagrees "
+                                 f"with its plain version (excess over tolerance {over_c})")
+        cluster_ms_j[str(c)] = time_ms(
+            lambda c=c: flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj, cluster=c), flush)
+    sdpa_bwdj = sdpa_backward(qj, kj, vj, doj)
+    qbj, kvbj, rowbj = qj.numel() * 2, kj.numel() * 2, b * g_h * s * 4
+    pairs_j = b * g_h * s * (s + 1) // 2
+    shape_j = {"B": b, "H": g_h, "Hkv": g_kv, "S": s, "D": hd, "causal": True}
+    dq_rep8 = other_shape(
+        "flash_attention_bwd_dq at rep 8 (jamba-1.5-large-398b)",
+        max(excess(dqj, rqj, TOL_BF16), excess(deltaj, rdeltaj, TOL_LSE)),
+        lambda: flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej),
+        lambda: attention_bwd_dq_ref(qj, kj, vj, outj, doj, lsej, q_offset=0),
+        sdpa_bwdj, 4 * qbj + 2 * kvbj + 2 * rowbj, 6 * hd * pairs_j, PEAK_BF16,
+        float((dqj.float() - rqj.float()).abs().max()), shape=shape_j,
+        bitwise_repeatable=True)
+    dkv_rep8 = other_shape(
+        "flash_attention_bwd_dkv at rep 8 (jamba-1.5-large-398b)",
+        max(excess(dkj, rkj, TOL_BF16), excess(dvj, rvj, TOL_BF16)),
+        lambda: flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj),
+        lambda: attention_bwd_dkv_ref(qj, kj, vj, doj, lsej, rdeltaj, q_offset=0),
+        sdpa_bwdj, 2 * qbj + 4 * kvbj + 2 * rowbj, 8 * hd * pairs_j, PEAK_BF16,
+        max(float((dkj.float() - rkj.float()).abs().max()),
+            float((dvj.float() - rvj.float()).abs().max())), shape=shape_j,
+        cluster=dkv_cluster_size(g_h // g_kv, b * g_kv * s // 64), cluster_ms=cluster_ms_j,
+        bitwise_repeatable=True)
+    del (qj, kj, vj, doj, outj, lsej, dqj, deltaj, rqj, rdeltaj, dkj, dvj, rkj, rvj, dq2,
+         delta2, dk2, dv2, ck_, cv_, sdpa_bwdj)
     sdpa_bwd = sdpa_backward(q, k, v, do)
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each
     r = kernel_row("flash_attention_bwd_dq",
@@ -1436,6 +1865,7 @@ def main() -> int:
             raise AssertionError("flash_attention_bwd_dq is not bitwise repeatable")
     r["bitwise_repeatable"] = True
     r["head_dim_80"] = dq80
+    r["jamba_rep8"] = dq_rep8
     del dq2, delta2
     # rep 1 (MHA) at head dim 128 on an odd number of q tiles (7): a block's
     # two warpgroups take two adjacent q tiles of a head, and the last item
@@ -1490,6 +1920,7 @@ def main() -> int:
         r["cluster_ms"][str(c)] = time_ms(
             lambda c=c: flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=c), flush)
     r["head_dim_80"] = dkv80
+    r["jamba_rep8"] = dkv_rep8
     del ck_, cv_
     emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
@@ -1667,19 +2098,8 @@ def main() -> int:
         if not worst <= TOL_SSD_REL_L2:
             raise AssertionError(f"ssd_scan is further from the fp64 recurrence than "
                                  f"{TOL_SSD_REL_L2} (relative L2): {rel}")
-        tok_heads = BATCH * SSM_PROMPT * hs
         n_chunks = -(-SSM_PROMPT // SSD_CHUNK)
-        r_bytes = (tok_heads * ps * (2 + 4) + tok_heads * 4 + hs * 4
-                   + 2 * BATCH * SSM_PROMPT * ns * 2 + 2 * BATCH * hs * ps * ns * 4)
-        # The bound: the kernel runs its products on the tensor cores in bf16,
-        # each fp32 operand split into hi + lo; per (batch, head, 64-row chunk)
-        # C B^T (1 product, L L N), C h^T (2, L P N), att (x dt) (3, L L P)
-        # and the state update (2, P N L), with P padded to 64.
-        pk = max(ps, 64)
-        tc_ops = 2 * BATCH * hs * n_chunks * (SSD_CHUNK * SSD_CHUNK * ns
-                                              + 2 * SSD_CHUNK * pk * ns
-                                              + 3 * SSD_CHUNK * SSD_CHUNK * pk
-                                              + 2 * pk * ns * SSD_CHUNK)
+        r_bytes, tc_ops = ssd_fwd_work(BATCH, SSM_PROMPT, hs, ps, ns)
         r = kernel_row("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                        "src/repro/kernels/ssd_scan/kernel.py:28", over,
                        lambda: ssd_scan(*sargs, h0=h0),
@@ -1697,6 +2117,53 @@ def main() -> int:
                                        + 4 * SSD_CHUNK * ns * ps)
     bf16_ops = BATCH * n_chunks * SSD_CHUNK * (SSD_CHUNK + 1) * ns
     yard_ms, yard_by = bound(r_bytes, f32_ops + bf16_ops * PEAK_F32 / PEAK_BF16, PEAK_F32)
+    # jamba-1.5-large-398b's prefill scan (serve_hybrid): x [4, 512, 256, 64]
+    # at N 16 (the kernel's N 16 instance), slices of one conv output, from
+    # the cache's zero state; and a 513-row tail from a nonzero state.  Held
+    # as the row above: against the plain version at TOL_BF16 and against the
+    # fp64 recurrence at TOL_SSD_REL_L2.  Own generator
+    jcfg = get_config(HYBRID_ARCH)
+    pj, nj = jcfg.ssm.head_dim, jcfg.ssm.d_state
+    hj = jcfg.ssm.expand * jcfg.d_model // pj
+    jrng = np.random.default_rng(SEED + 38)
+    jrandn = bf16_normal(jrng, dev)
+    with torch.inference_mode():
+        jargs, jh0 = ssd_inputs(jrandn, jrng, dev, BATCH, PROMPT, hj, pj, nj, 0.0)
+        (jy, jhf), (jry, jrh) = (ssd_scan(*jargs, h0=jh0),
+                                 ssd_scan_ref(*jargs, chunk=jcfg.ssm.chunk, h0=jh0))
+        jtargs, jth0 = ssd_inputs(jrandn, jrng, dev, BATCH, PROMPT + 1, hj, pj, nj, 0.3)
+        (jty, jthf), (jrty, jrth) = (ssd_scan(*jtargs, h0=jth0),
+                                     ssd_scan_ref(*jtargs, chunk=jcfg.ssm.chunk, h0=jth0))
+        torch.cuda.synchronize()
+        over_j = max(excess(jy, jry, TOL_BF16), excess(jhf, jrh, TOL_BF16))
+        tail_j = max(excess(jty, jrty, TOL_BF16), excess(jthf, jrth, TOL_BF16))
+        finite = all(bool(torch.isfinite(t).all()) for t in (jy, jhf, jty, jthf))
+        if not (finite and tail_j <= 0):
+            raise AssertionError(f"ssd_scan at N {nj}, S = {PROMPT + 1} from a nonzero state "
+                                 f"disagrees with its plain version (excess {tail_j}, "
+                                 f"finite {finite})")
+        rel_j = {"serve": ssd_rel_errors(jargs, jh0, {"kernel": (jy, jhf), "plain": (jry, jrh)}),
+                 "tail": ssd_rel_errors(jtargs, jth0, {"kernel": (jty, jthf),
+                                                       "plain": (jrty, jrth)})}
+        worst = max(max(e["kernel"].values()) for e in rel_j.values())
+        if not worst <= TOL_SSD_REL_L2:
+            raise AssertionError(f"ssd_scan at N {nj} is further from the fp64 recurrence than "
+                                 f"{TOL_SSD_REL_L2} (relative L2): {rel_j}")
+        nbytes_j, ops_j = ssd_fwd_work(BATCH, PROMPT, hj, pj, nj)
+        r["jamba_n16"] = other_shape(
+            f"ssd_scan at N {nj} (jamba-1.5-large-398b)", over_j,
+            lambda: ssd_scan(*jargs, h0=jh0),
+            lambda: ssd_scan_ref(*jargs, chunk=jcfg.ssm.chunk, h0=jh0), None,
+            nbytes_j, ops_j, PEAK_BF16,
+            max(float((jy - jry).abs().max()), float((jhf - jrh).abs().max())),
+            shape={"B": BATCH, "S": PROMPT, "H": hj, "P": pj, "N": nj,
+                   "x_strides": list(jargs[0].stride()), "kernel_chunk": SSD_CHUNK},
+            gflop_bf16=ops_j / 1e9, rel_l2_vs_fp64=rel_j["serve"],
+            tail_check={"S": PROMPT + 1, "h0": "N(0, 0.3^2)", "excess_at_tol": tail_j,
+                        "max_abs_err": max(float((jty - jrty).abs().max()),
+                                           float((jthf - jrth).abs().max())),
+                        "rel_l2_vs_fp64": rel_j["tail"]})
+    del jargs, jh0, jy, jhf, jry, jrh, jtargs, jth0, jty, jthf, jrty, jrth
     emit({"phase": "kernel", **r, "tol": TOL_BF16,
           "shape": {"B": BATCH, "S": SSM_PROMPT, "H": hs, "P": ps, "N": ns,
                     "x_strides": list(sargs[0].stride()), "kernel_chunk": SSD_CHUNK},
@@ -1725,16 +2192,22 @@ def main() -> int:
     # repeatable; its own generator leaves the other rows' inputs as they were
     t_bwd = time.perf_counter()
     brng = np.random.default_rng(SEED + 13)
-    brandn = bf16_normal(brng, dev)
     names = ("dx", "ddt", "da_log", "dB", "dC", "dh0")
     checks = {}
-    for what, s_, h0_scale, with_dhf in (("train", SSM_TRAIN_S, 0.0, False),
-                                         ("tail", SSM_TRAIN_S + 1, 0.3, True)):
-        bargs, bh0 = ssd_inputs(brandn, brng, dev, TRAIN_B, s_, hs, ps, ns, h0_scale)
+    # jamba-1.5-large-398b's shape: a full-width train step's scan gradient,
+    # [8, 512, 256, 64] at P 64, N 16 (the backward's P 64, N 16 instances),
+    # from no state; its own generator
+    jrng = np.random.default_rng(SEED + 39)
+    for what, rng_, s_, hb, pb, nb_, h0_scale, with_dhf in (
+            ("train", brng, SSM_TRAIN_S, hs, ps, ns, 0.0, False),
+            ("tail", brng, SSM_TRAIN_S + 1, hs, ps, ns, 0.3, True),
+            ("jamba", jrng, PROMPT, hj, pj, nj, 0.0, False)):
+        bargs, bh0 = ssd_inputs(bf16_normal(rng_, dev), rng_, dev, TRAIN_B, s_, hb, pb, nb_,
+                                h0_scale)
         bh0 = bh0 if h0_scale else None
-        bdy = torch.from_numpy(brng.standard_normal((TRAIN_B, s_, hs, ps),
+        bdy = torch.from_numpy(rng_.standard_normal((TRAIN_B, s_, hb, pb),
                                                     dtype=np.float32)).to(dev)
-        bdhf = (torch.from_numpy(brng.standard_normal((TRAIN_B, hs, ps, ns), dtype=np.float32))
+        bdhf = (torch.from_numpy(rng_.standard_normal((TRAIN_B, hb, pb, nb_), dtype=np.float32))
                 .to(dev) if with_dhf else None)
         got = ssd_scan_bwd(*bargs, bh0, bdy, bdhf)
         # the plain version at the kernel's 64-row chunks: at 256 its own fp32
@@ -1762,7 +2235,8 @@ def main() -> int:
                                  f"plain version {over}, finite {finite}, relative L2 against "
                                  f"fp64 {rel} (tol {TOL_SSD_BWD_REL_L2})")
         checks[what] = {
-            "S": s_, "h0": "N(0, 0.3^2)" if h0_scale else None,
+            "B": TRAIN_B, "S": s_, "H": hb, "P": pb, "N": nb_,
+            "h0": "N(0, 0.3^2)" if h0_scale else None,
             "dh_final": "N(0, 1)" if with_dhf else None, "excess_at_tol": over,
             "max_abs_err": {nm: float((g.float() - w.float()).abs().max())
                             for nm, g, w, _ in pairs},
@@ -1781,6 +2255,16 @@ def main() -> int:
             r["max_abs_err"] = max(checks[what]["max_abs_err"].values())
             shape = {"B": TRAIN_B, "S": s_, "H": hs, "P": ps, "N": ns,
                      "x_strides": list(bargs[0].stride()), "kernel_chunk": SSD_CHUNK}
+        if what == "jamba":
+            nbytes_j, tc_j, _ = ssd_bwd_work(TRAIN_B, s_, hb, pb, nb_)
+            r["jamba_p64_n16"] = other_shape(
+                f"ssd_scan_bwd at P {pb}, N {nb_} (jamba-1.5-large-398b)", over,
+                lambda a=bargs, d=bdy: ssd_scan_bwd(*a, None, d, None),
+                lambda a=bargs, d=bdy: ssd_scan_bwd_ref(*a, None, d, None, chunk=SSD_CHUNK),
+                None, nbytes_j, tc_j, PEAK_BF16, max(checks[what]["max_abs_err"].values()),
+                shape={"B": TRAIN_B, "S": s_, "H": hb, "P": pb, "N": nb_,
+                       "x_strides": list(bargs[0].stride()), "kernel_chunk": SSD_CHUNK},
+                gflop_bf16=tc_j / 1e9, gbytes=nbytes_j / 1e9, check=checks[what])
         del bargs, bh0, bdy, bdhf, got, want, exact, pairs, again
         torch.cuda.empty_cache()
     emit({"phase": "kernel", **r, "tol": TOL_BF16, "shape": shape,
@@ -1800,18 +2284,18 @@ def main() -> int:
 
     # -- the serve paths: Server.generate, launch counts, then prefill(S + 1)
     # against prefill(S) + decode(1) -----------------------------------------
-    def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup, n_layers=None,
+    def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup, config=None,
               cut=()):
-        """Full-width `arch` (its first `n_layers` layers when given: the
-        config the Server reads is the full one with that depth, for the
-        time it builds) serves BATCH prompts of `prompt` tokens and NEW more
-        through Server.generate; every launch count must be `want`(cfg).
-        Returns the server, the prompts (one token longer) and the counts."""
+        """Full-width `arch` (or `config`, a cut of it: the config the Server
+        reads is that one, for the time it builds) serves BATCH prompts of
+        `prompt` tokens and NEW more through Server.generate; every launch
+        count must be `want`(cfg).  Returns the server, the prompts (one
+        token longer) and the counts."""
         from repro_torch.configs import REGISTRY
         t0 = time.perf_counter()
         full = REGISTRY[arch]
-        if n_layers is not None:
-            REGISTRY[arch] = replace(full, n_layers=n_layers)
+        if config is not None:
+            REGISTRY[arch] = config
         try:
             srv = Server(arch, reduced=False, max_len=max_len, device="cuda", seed=SEED)
         finally:
@@ -1910,14 +2394,15 @@ def main() -> int:
     # (at its row pitch) and ffn_norm a layer, final_norm, every step.  The
     # warm-up is at the served shape: the prefill's expert products are
     # [64, 240, ...] (capacity 240), the decode steps' [64, 1, ...].
-    def serve_moe_and_check(phase, check_phase, arch, prompt_seed, n_layers=None, cut=()):
-        """An MLA + MoE model's serve phase (its one kernel the RMSNorm), its
-        serve bound, then moe_cross_check, gated with each MoE layer's
+    def serve_moe_and_check(phase, check_phase, arch, prompt_seed, config=None, cut=(),
+                            want=moe_serve_launches, serve_bound=mla_moe_serve_bound):
+        """An MoE model's serve phase (an MLA model's one kernel the RMSNorm),
+        its serve bound, then moe_cross_check, gated with each MoE layer's
         selection pinned (no flip at a gap >= NEAR_TIE)."""
-        srv, prompts, got = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed, moe_serve_launches,
-                                  lambda p: (p[:, :PROMPT], 1), n_layers=n_layers, cut=cut)
+        srv, prompts, got = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed, want,
+                                  lambda p: (p[:, :PROMPT], 1), config=config, cut=cut)
         emit({"phase": f"{phase}_bound", "batch": BATCH, "prompt": PROMPT,
-              **mla_moe_serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
+              **serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
         rec = moe_cross_check(srv, prompts, dev, MAX_LEN)
         emit({"phase": check_phase, **rec})
         if not (rec["finite"] and rec["pinned"]["max_abs_err"]
@@ -1937,8 +2422,20 @@ def main() -> int:
     # the sigmoid router at 256 experts top-8, q-LoRA, 128 MLA heads at d
     # 7168; norms attn, q, kv and ffn a layer, then final_norm.  Its
     # cross-check's prefill of 513 tokens has capacity 2052 at the factor 32
-    by_path["serve_v3"] = serve_moe_and_check("serve_v3", "cross_check_v3", V3_ARCH, SEED + 29,
-                                              n_layers=V3_SERVE_LAYERS, cut=V3_SERVE_CUT)
+    by_path["serve_v3"] = serve_moe_and_check(
+        "serve_v3", "cross_check_v3", V3_ARCH, SEED + 29,
+        config=replace(get_config(V3_ARCH), n_layers=V3_SERVE_LAYERS), cut=V3_SERVE_CUT)
+    # jamba-1.5-large-398b: one full-width period block with 8 of its 16
+    # experts (51.6 GB of bf16 weights); per forward mixer_norm and ffn_norm a
+    # layer, the seven Mamba layers' out_norm and final_norm, the prefill's
+    # attention through the flash forward (rep 8) and its Mamba layers
+    # through the SSD scan (N 16), each decode step's attention through
+    # decode attention.  Its cross-check's prefill of 513 tokens has capacity
+    # 2052 at the factor 4
+    by_path["serve_hybrid"] = serve_moe_and_check(
+        "serve_hybrid", "cross_check_hybrid", HYBRID_ARCH, SEED + 34,
+        config=hybrid_serve_config(), cut=HYBRID_SERVE_CUT, want=hybrid_serve_launches,
+        serve_bound=hybrid_serve_bound)
 
     # -- train_check(_ssm, _moe): reduced chatglm3-6b, mamba2-130m and
     # deepseek-v2-lite-16b, loss and every gradient, card vs CPU
@@ -1964,6 +2461,19 @@ def main() -> int:
                 f"{rec['rel_err_loss']}, gradients {rec['rel_l2_all_grads']} (relative, tol "
                 f"{TOL_GRAD}); flips at a gap >= {NEAR_TIE}: {wide_flips(rec['flips'])}; "
                 f"gradients that must be zero: {rec['zero_grad_leaves_max_abs']}")
+    # reduced jamba-1.5-large-398b: one period block, GQA rep 8 at D 128, the
+    # SSD kernels at P 64, N 16; 192 tokens: three 64-row SSD chunks and three
+    # flash tiles; unit by unit (hybrid_train_check), the CPU's routing pinned
+    rec = hybrid_train_check(dev, hybrid_small_config(), SEED + 35, 3 * SSD_CHUNK,
+                             3 * SSD_CHUNK - 40)
+    emit({"phase": "train_check_hybrid", **rec})
+    if not rec["ok"]:
+        raise AssertionError(
+            f"train_check_hybrid: reduced {rec['arch']} on the card disagrees with the CPU "
+            f"unit by unit: loss {rec['rel_err_loss']}, all gradients "
+            f"{rec['rel_l2_all_grads']}, each unit's {rec['unit_rel_l2']}, the worst leaves "
+            f"{rec['worst_leaf_rel_l2']} (relative, tol {TOL_GRAD}); flips at a gap >= "
+            f"{NEAR_TIE}: {wide_flips(rec['flips'])}")
 
     # -- the train paths: Trainer.run on one fixed batch ------------------------
     def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S,

@@ -3,12 +3,13 @@
 It holds only the architectures the port runs so far; the JAX package's
 other configs raise `KeyError` until their slice lands (see ROADMAP.md).
 """
-from . import chatglm3_6b, deepseek_v2_lite_16b, deepseek_v3_671b, mamba2_130m, stablelm_3b
+from . import (chatglm3_6b, deepseek_v2_lite_16b, deepseek_v3_671b, jamba_1_5_large_398b,
+               mamba2_130m, stablelm_3b)
 from .base import HybridConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
-            for m in (chatglm3_6b, deepseek_v2_lite_16b, deepseek_v3_671b, mamba2_130m,
-                      stablelm_3b)}
+            for m in (chatglm3_6b, deepseek_v2_lite_16b, deepseek_v3_671b, jamba_1_5_large_398b,
+                      mamba2_130m, stablelm_3b)}
 
 ARCH_IDS = tuple(sorted(REGISTRY))
 

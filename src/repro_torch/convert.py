@@ -7,8 +7,10 @@ such numpy dicts.  Leaf names and einsum layouts are kept (`wq` [d,H,dh],
 `wo` [H,dh,d], the Mamba2 `in_proj` [d,in], `conv_w` [W,C], the MoE
 experts' `wi_gate` [E,d,ff], ...); the stacked `[L, ...]` leaves of
 `params["blocks"]` become one param dict per layer and back, for the dense,
-moe and ssm families.  The MoE family's dense `prefix` layers and
-deepseek-v3's `mtp` head are unstacked in JAX too, and cross as they are.
+moe and ssm families; a hybrid model's stacked `[NB, ...]` period blocks
+become one dict a block, `{"layers": [period layer dicts]}`, and back.  The
+MoE family's dense `prefix` layers and deepseek-v3's `mtp` head are
+unstacked in JAX too, and cross as they are.
 fp32 leaves (the SSM's `A_log`, `D`, `dt_bias`, the MoE `router` and
 `router_bias`) stay fp32, and a tied embedding is the one `tok` leaf.  bf16
 crosses as its bits, through an `int16` view.
@@ -36,19 +38,27 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 _UNSTACKED = ("embed", "final_norm", "prefix", "mtp")
 
 
+def n_blocks(cfg: ModelConfig, n_prefix: int = 0) -> int:
+    """Entries of `params["blocks"]`: the period blocks of a hybrid model,
+    else the layers after the dense prefix."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.period
+    return cfg.n_layers - n_prefix
+
+
 def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"
                     ) -> Dict[str, Any]:
-    """JAX dense-decoder, MoE or Mamba2 params (numpy leaves) -> the port's
-    params."""
+    """JAX dense-decoder, MoE, Mamba2 or hybrid params (numpy leaves) -> the
+    port's params."""
     extra = set(tree) - {"blocks", *_UNSTACKED}
-    if extra or cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: params {sorted(extra) or ['blocks']} "
-                                  "belong to families the port does not serve yet")
+    if extra:
+        raise NotImplementedError(f"{cfg.name}: params {sorted(extra)} belong to "
+                                  "features the port does not serve yet")
     out = {k: tree_map(lambda a: to_tensor(a, device), tree[k])
            for k in _UNSTACKED if k in tree}
     stacked = tree_map(lambda a: to_tensor(a, device), tree.get("blocks", {}))
     out["blocks"] = [tree_map(lambda t, i=i: t[i].clone(), stacked)
-                     for i in range(cfg.n_layers - len(tree.get("prefix", [])))]
+                     for i in range(n_blocks(cfg, len(tree.get("prefix", []))))]
     return out
 
 
@@ -63,12 +73,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def to_jax_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """The port's dense-decoder, MoE or Mamba2 params (or grads) -> the JAX
-    layout, as numpy: the per-layer dicts of `blocks` restacked to `[L, ...]`
-    leaves, `prefix` and `mtp` as they are; no `blocks` key where the
-    params have none (a depth cut to the dense prefix)."""
+    """The port's dense-decoder, MoE, Mamba2 or hybrid params (or grads) ->
+    the JAX layout, as numpy: the per-layer (per-block) dicts of `blocks`
+    restacked to `[L, ...]` (`[NB, ...]`) leaves, `prefix` and `mtp` as they
+    are; no `blocks` key where the params have none (a depth cut to the
+    dense prefix)."""
     blocks = params["blocks"]
-    n = cfg.n_layers - len(params.get("prefix", []))
+    n = n_blocks(cfg, len(params.get("prefix", [])))
     if len(blocks) != n:
         raise ValueError(f"{cfg.name}: {len(blocks)} blocks, config has {n}")
     out = {k: tree_map(to_numpy, params[k]) for k in _UNSTACKED if k in params}

@@ -3,12 +3,15 @@
 `Trainer.run` takes a batch, runs `runtime/steps.py::train_step` (the
 model's loss through the kernels, autograd back through their backward
 kernels, AdamW) and logs, for `steps` steps.  It is the same for every
-family `loss_fn` trains: the dense decoders, the Mamba2 (ssm) stack and the
+family `loss_fn` trains: the dense decoders, the Mamba2 (ssm) stack, the
 MoE family (deepseek-v2-lite-16b, and deepseek-v3-671b with its MTP head,
-whose loss the step's metrics carry as `mtp_ce`).  `n_layers` cuts the
-depth (the first layers of the config, the dense prefix first, every width
-kept; the MTP head stays): a model whose train state does not fit one card
-trains a few of its layers (deepseek-v3-671b: its 3 dense layers).
+whose loss the step's metrics carry as `mtp_ce`) and the hybrid family
+(jamba-1.5-large-398b).  `n_layers` cuts the depth (the first layers of the
+config, the dense prefix first, every width kept; the MTP head stays): a
+model whose train state does not fit one card trains a few of its layers
+(deepseek-v3-671b: its 3 dense layers).  A hybrid model is cut as JAX's
+`init_model` reads its depth, into n_layers // period period blocks, so
+`n_layers` must be a multiple of the period (jamba: 8, one block).
 Batches come from any iterable of numpy batch dicts in the format
 `repro.data.DataPipeline` yields (tokens, labels, loss_mask), or else from
 an in-memory corpus (synthesised as the JAX Trainer does when none is
@@ -56,6 +59,7 @@ class TrainerConfig:
     seed: int = 0                       # random weights
     moment_dtype: torch.dtype = torch.float32
     n_layers: Optional[int] = None      # keep the config's first n layers
+    #                                     (hybrid: n_layers // period blocks)
 
 
 class Trainer:
@@ -69,6 +73,9 @@ class Trainer:
         if tc.n_layers is not None:
             if not 1 <= tc.n_layers <= cfg.n_layers:
                 raise ValueError(f"n_layers must be in 1..{cfg.n_layers}, got {tc.n_layers}")
+            if cfg.hybrid is not None and tc.n_layers % cfg.hybrid.period:
+                raise ValueError(f"n_layers must be a multiple of the hybrid period "
+                                 f"{cfg.hybrid.period}, got {tc.n_layers}")
             cfg = replace(cfg, n_layers=tc.n_layers)
         self.cfg = cfg
         self.opt_cfg = AdamWConfig(lr=tc.lr, total_steps=tc.steps,

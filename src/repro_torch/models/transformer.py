@@ -1,21 +1,24 @@
 """Model assembly of the port: the train and serve paths of the dense
-transformer decoder, of the pure Mamba2 (ssm) stack and of the MoE family
-(MLA attention, capacity-routed MoE, the dense prefix layers), and the MTP
-head's params.
+transformer decoder, of the pure Mamba2 (ssm) stack, of the MoE family
+(MLA attention, capacity-routed MoE, the dense prefix layers) and of the
+hybrid (Jamba) family's period blocks, and the MTP head's params.
 
 Counterpart of `repro/models/transformer.py`.  Ported so far: `init_model`,
 `init_cache`, `_layer_is_moe`, `_init_tf_layer`, `_apply_tf_layer`,
-`_model_step`, `_serve_tf`, `prefill` and `decode_step` for the dense, moe
-and ssm families, and `forward`, `_chunked_ce` and `loss_fn` for the dense,
-ssm and moe families.  `forward` sums the MoE layers' load-balancing aux
-loss, as JAX's does; `loss_fn` adds deepseek-v3-671b's multi-token
-prediction (MTP) loss as JAX's does (ssm has no MTP branch, as in JAX).
+`_init_hybrid_block`, `_apply_hybrid_layer`, `_apply_hybrid_block`,
+`_model_step`, `_serve_tf`, `prefill` and `decode_step`, `forward`,
+`_chunked_ce` and `loss_fn` for the dense, moe, ssm and hybrid families.  `forward` sums the MoE layers'
+load-balancing aux loss, as JAX's does; `loss_fn` adds deepseek-v3-671b's
+multi-token prediction (MTP) loss as JAX's does (ssm and hybrid have no MTP
+branch, as in JAX).
 A depth cut that keeps only the dense prefix leaves `params["blocks"]`
 empty, which JAX's stacked `init_model` cannot build.  Layers are kept as
 a list of per-layer param dicts (`params["blocks"][i]`, and the MoE family's dense
 `params["prefix"][i]`, as JAX names them) where JAX stacks the blocks for
-`lax.scan`, and the loop over layers is a Python loop.  `jax.checkpoint`
-becomes `torch.utils.checkpoint` (non-reentrant): around each layer when
+`lax.scan`, and the loop over layers is a Python loop; a hybrid model's
+`params["blocks"][i]` is one period block, `{"layers": [period dicts]}`.
+`jax.checkpoint` becomes `torch.utils.checkpoint` (non-reentrant): around
+each layer (each whole period block of a hybrid model) when
 `cfg.remat == "layer"`, and around each cross-entropy chunk always.
 
 Public entry points (used by runtime/launch):
@@ -24,8 +27,9 @@ Public entry points (used by runtime/launch):
   prefill(params, batch, cfg, cache)           -> (logits_last, cache)
   decode_step(params, batch, cfg, cache, pos)  -> (logits, cache)
   init_cache(cfg, batch, max_len, device)      -> cache
-The cache (KV, MLA's latent and rotary keys, or the ssm conv and scan
-states) is updated in place and returned.
+The cache (KV, MLA's latent and rotary keys, the ssm conv and scan
+states, or a hybrid model's KV and conv and scan states of every block) is
+updated in place and returned.
 """
 from __future__ import annotations
 
@@ -43,11 +47,7 @@ Params = Dict[str, Any]
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Raise for the families and features later slices bring."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family is not ported yet "
-            "(ROADMAP.md Queue 1 item 3, hybrid, after MoE)")
+    """Raise for the features later slices bring."""
     if cfg.frontend is not None or cfg.pos_embed != "none":
         raise NotImplementedError(
             f"{cfg.name}: stub frontends and sinusoidal positions are not "
@@ -105,6 +105,81 @@ def _apply_ssm_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, *, state=None
 
 
 # ---------------------------------------------------------------------------
+# hybrid (Jamba) period block
+# ---------------------------------------------------------------------------
+
+def _hybrid_moe(cfg: ModelConfig, i: int) -> bool:
+    return i % cfg.hybrid.moe_every == 1
+
+
+def _init_hybrid_block(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    """{"layers": [period dicts]}, each with mixer_norm, mixer (attention at
+    `attn_index`, a Mamba2 layer elsewhere), ffn_norm and ffn (MoE on every
+    `moe_every`-th layer from 1, the dense MLP elsewhere)."""
+    hy = cfg.hybrid
+    layers = []
+    for i in range(hy.period):
+        mixer = (L.init_attention(cfg, gen, device) if i == hy.attn_index
+                 else S.init_ssm(cfg, gen, device))
+        layers.append({"mixer_norm": L.init_norm(cfg, device), "mixer": mixer,
+                       "ffn_norm": L.init_norm(cfg, device),
+                       "ffn": (L.init_moe(cfg, gen, device) if _hybrid_moe(cfg, i)
+                               else L.init_mlp(cfg, gen, device))})
+    return {"layers": layers}
+
+
+def _apply_hybrid_layer(cfg: ModelConfig, lp: Params, i: int, h: torch.Tensor, positions,
+                        *, kv_cache=None, state=None, cache_pos=None):
+    """Layer i of a period block: its mixer (attention at `attn_index`,
+    reading and writing `kv_cache` in place when given; a Mamba2 layer
+    elsewhere, from `state` {"conv", "ssm"} or from zeros) and its FFN (MoE
+    on every `moe_every`-th layer from 1), each after its norm and added to
+    the residual.  Returns (h, aux, the Mamba layer's new state or None): aux
+    is the layer's MoE load-balancing loss, 0 for a dense FFN."""
+    x = L.apply_norm(lp["mixer_norm"], h)
+    nst = None
+    if i == cfg.hybrid.attn_index:
+        y, _ = L.attention_fwd(lp["mixer"], x, cfg, positions, kv_cache=kv_cache,
+                               cache_pos=cache_pos)
+    else:
+        y, nst = S.ssm_fwd(lp["mixer"], x, cfg, state=state)
+    h = h + y
+    x = L.apply_norm(lp["ffn_norm"], h)
+    if _hybrid_moe(cfg, i):
+        y, aux = L.apply_moe(lp["ffn"], x, cfg)
+    else:
+        y, aux = L.apply_mlp(lp["ffn"], x, cfg), torch.zeros((), dtype=torch.float32,
+                                                             device=h.device)
+    return h + y, aux, nst
+
+
+def _apply_hybrid_block(cfg: ModelConfig, p: Params, h: torch.Tensor, positions, *,
+                        cache=None, cache_pos=None):
+    """One period block, `_apply_hybrid_layer` a layer.  `cache` is this
+    block's {"kv": {"k", "v"} [B, T, Hkv, dh], "conv": [period - 1, B, W-1,
+    C], "ssm": [period - 1, B, H, P, N]} or None (the train path: attention
+    through the flash kernels, every Mamba layer from a zero state).  With a
+    cache the attention layer writes its keys and values in place and the
+    Mamba layers' new states are copied into their slots.  Returns (h,
+    cache, aux): aux is the sum of the block's MoE load-balancing losses."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ssm_i = 0
+    for i, lp in enumerate(p["layers"]):
+        st = None
+        if cache is not None and i != cfg.hybrid.attn_index:
+            st = {"conv": cache["conv"][ssm_i], "ssm": cache["ssm"][ssm_i]}
+        h, a, nst = _apply_hybrid_layer(cfg, lp, i, h, positions,
+                                        kv_cache=None if cache is None else cache["kv"],
+                                        state=st, cache_pos=cache_pos)
+        if st is not None:
+            st["conv"].copy_(nst["conv"])
+            st["ssm"].copy_(nst["ssm"])
+        ssm_i += int(i != cfg.hybrid.attn_index)
+        aux = aux + a
+    return h, cache, aux
+
+
+# ---------------------------------------------------------------------------
 # whole-model init
 # ---------------------------------------------------------------------------
 
@@ -112,12 +187,17 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Random weights with the JAX init's distributions, drawn on `device`
     from `gen` (the numbers differ from `jax.random`'s).  The MoE family
     keeps its dense prefix layers in `prefix`, the rest in `blocks`, and
-    deepseek-v3's multi-token-prediction head in `mtp`, as JAX names them."""
+    deepseek-v3's multi-token-prediction head in `mtp`, as JAX names them.
+    A hybrid model's `blocks` holds its n_layers // period period blocks."""
     _require_ported(cfg)
     params: Params = {"embed": L.init_embed(cfg, gen, device),
                       "final_norm": L.init_norm(cfg, device)}
     if cfg.family == "ssm":
         params["blocks"] = [_init_ssm_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
+        return params
+    if cfg.family == "hybrid":
+        params["blocks"] = [_init_hybrid_block(cfg, gen, device)
+                            for _ in range(cfg.n_layers // cfg.hybrid.period)]
         return params
     n_prefix = cfg.moe.n_dense_prefix if cfg.moe else 0
     if n_prefix:
@@ -140,7 +220,9 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     stack runs each layer from no state, as JAX's forward does.  The MoE
     family runs its dense prefix layers, then its MoE blocks, and sums their
     aux losses: each checkpointed block returns its aux as an output, so its
-    gradient flows."""
+    gradient flows.  The hybrid family does the same a period block at a
+    time, each whole block checkpointed, as JAX's remat wraps its scanned
+    block body."""
     _require_ported(cfg)
     h = L.embed_tokens(params["embed"], batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
@@ -163,10 +245,17 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         hh, _, a = _apply_tf_layer(cfg, lp, hh, positions, moe=True)
         return hh, a
 
+    def hybrid_body(hh, bp):        # a period block, its MoE layers' aux summed
+        hh, _, a = _apply_hybrid_block(cfg, bp, hh, positions)
+        return hh, a
+
     for lp in params.get("prefix", []):
         h = run(body, h, lp)
     for lp in params["blocks"]:
-        if cfg.moe is not None:
+        if cfg.family == "hybrid":
+            h, a = run(hybrid_body, h, lp)
+            aux = aux + a
+        elif cfg.moe is not None:
             h, a = run(moe_body, h, lp)
             aux = aux + a
         else:
@@ -242,10 +331,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, 
     cache {"mla": {"ckv": [L,B,max_len,kv_lora], "krope": [L,B,max_len,rope]}}
     (the dense prefix layers' slots first); for ssm the conv and scan states
     ({"ssm_state": {"conv": [L,B,W-1,C] bf16, "ssm": [L,B,H,P,N] fp32}}),
-    whose size does not depend on max_len."""
+    whose size does not depend on max_len; for hybrid, per period block the
+    attention layer's KV and the Mamba layers' states, as JAX stacks them:
+    {"kv": {"k", "v"} [NB,B,max_len,Hkv,dh], "conv": [NB,period-1,B,W-1,C],
+    "ssm": [NB,period-1,B,H,P,N]}."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return {"ssm_state": S.init_ssm_state(cfg, batch, cfg.n_layers, device)}
+    if cfg.family == "hybrid":
+        hy = cfg.hybrid
+        nb = cfg.n_layers // hy.period
+        st = S.init_ssm_state(cfg, batch, nb * (hy.period - 1), device)
+        return {"kv": L.init_kv_cache(cfg, batch, max_len, nb, device),
+                **{k: v.view(nb, hy.period - 1, *v.shape[1:]) for k, v in st.items()}}
     if cfg.mla is not None:
         return {"mla": L.init_mla_cache(cfg, batch, max_len, cfg.n_layers, device)}
     return {"kv": L.init_kv_cache(cfg, batch, max_len, cfg.n_layers, device)}
@@ -257,11 +355,13 @@ def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     """Shared incremental forward for prefill (s>1) and decode (s=1)."""
     _require_ported(cfg)
     h = L.embed_tokens(params["embed"], batch["tokens"])
+    s = h.shape[1]
+    positions = cache_pos + torch.arange(s, device=h.device)
     if cfg.family == "ssm":
         h, new_cache = _serve_ssm(params, h, cfg, cache["ssm_state"]), cache
+    elif cfg.family == "hybrid":
+        h, new_cache = _serve_hybrid(params, h, cfg, cache, cache_pos, positions), cache
     else:
-        s = h.shape[1]
-        positions = cache_pos + torch.arange(s, device=h.device)
         key = "mla" if cfg.mla is not None else "kv"
         h, nc = _serve_tf(params, h, cfg, cache[key], cache_pos, positions)
         new_cache = {key: nc}
@@ -278,6 +378,16 @@ def _serve_ssm(params, h, cfg, states):
         h, nst = _apply_ssm_layer(cfg, lp, h, state=st)
         st["conv"].copy_(nst["conv"])
         st["ssm"].copy_(nst["ssm"])
+    return h
+
+
+def _serve_hybrid(params, h, cfg, cache, cache_pos, positions):
+    """Hybrid serve path: every period block reads its slice of the stacked
+    [NB, ...] KV and conv and scan states and writes the new ones in place."""
+    for i, bp in enumerate(params["blocks"]):
+        bc = {"kv": {name: c[i] for name, c in cache["kv"].items()},
+              "conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+        h, _, _ = _apply_hybrid_block(cfg, bp, h, positions, cache=bc, cache_pos=cache_pos)
     return h
 
 

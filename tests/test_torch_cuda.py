@@ -77,7 +77,9 @@ def _close(a, b, **tol):
                                    (4, 768), (4, 2560), (4096, 4096),
                                    (1061, 4096),     # not a multiple of the persistent grid
                                    (333, 136), (5, 8192), (3, 16384), (300, 16384),
-                                   (2, 32768), (7, 8)])
+                                   (2, 32768), (7, 8),
+                                   # jamba-1.5-large-398b's d 8192 and d_inner 16384
+                                   (2048, 8192), (2048, 16384), (4, 8192), (4, 16384)])
 def test_rmsnorm_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(0)
     x = _rand(rng, shape, dev, 3.0)
@@ -118,6 +120,8 @@ def test_rmsnorm_kernel_reads_rows_at_a_pitch(dev, rows, d, pitch):
     (1, 4, 2, 200, 200, 32, 0, 200, True),     # D 32 in a 128-row tile
     (2, 6, 2, 100, 256, 64, 40, 140, True),    # kv_len < T, q_offset 40: TMA's edge
     (1, 8, 2, 200, 200, 64, 0, 200, False),    # full attention, D 64
+    (4, 64, 8, 512, 1024, 128, 0, 512, True),  # jamba-1.5-large-398b's prefill: rep 8
+    (2, 16, 2, 130, 300, 128, 40, 170, True),  # rep 8 into a longer cache
 ])
 def test_flash_kernel_matches_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(1)
@@ -145,6 +149,8 @@ def test_flash_kernel_matches_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, c
     (2, 24, 1, 300, 80, [299, 33]),             # D 80, rep 24: two 16-head tiles
     (2, 128, 1, 96, 32, [96, 5]),               # rep 128 at D 32: four head chunks
     (1, 32, 1, 2048, 128, [2047]),              # rep 32, long
+    (4, 64, 8, 1024, 128, [513, 540, 561, 576]),  # jamba-1.5-large-398b's: rep 8
+    (3, 16, 2, 100, 128, [0, 64, 99]),          # rep 8: length 0, ragged tails
 ])
 def test_decode_kernel_matches_plain(dev, b, h, hkv, t, d, lengths):
     rng = np.random.default_rng(2)
@@ -164,7 +170,7 @@ def test_decode_kernel_matches_plain(dev, b, h, hkv, t, d, lengths):
     _close(decode_attention(q, k2, v2, lens), out, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("d,h,hkv", [(128, 32, 2), (80, 32, 32), (64, 6, 2)])
+@pytest.mark.parametrize("d,h,hkv", [(128, 32, 2), (80, 32, 32), (64, 6, 2), (128, 64, 8)])
 def test_decode_kernel_every_cluster_size_matches_plain(dev, d, h, hkv):
     """Each cluster size splits the live rows (ranks with no rows when the
     length is short) and combines them to the plain version."""
@@ -269,6 +275,8 @@ def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
     (2, 6, 6, 130, 300, 80, 40, 170, True),    # rep 1, D 80, offset into a longer cache
     (1, 4, 4, 320, 320, 80, 0, 320, False),    # rep 1, D 80, full attention, 5 q tiles
     (2, 8, 2, 100, 256, 80, 40, 140, True),    # rep 4, D 80, kv_len < T
+    (2, 8, 1, 192, 192, 128, 0, 192, True),    # train_check_hybrid's rep 8 at D 128
+    (8, 64, 8, 512, 512, 128, 0, 512, True),   # a full-width jamba train step's: rep 8
 ])
 def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(6)
@@ -361,7 +369,7 @@ def _dkv_inputs(rng, dev, b, h, hkv, s, d):
 
 
 @pytest.mark.parametrize("cluster", DKV_CLUSTERS)
-@pytest.mark.parametrize("h,hkv", [(6, 2), (16, 1)])   # rep 3 (< 4, 8) and rep 16
+@pytest.mark.parametrize("h,hkv", [(6, 2), (16, 1), (16, 2)])   # rep 3 (< 4, 8), 16 and 8
 def test_flash_dkv_every_cluster_size_matches_plain(dev, cluster, h, hkv):
     """Each cluster size splits the GQA group (blocks with no head when
     rep < cluster) and sums it to the plain version's dk/dv."""
@@ -646,6 +654,10 @@ def _ssd_inputs(rng, dev, b, s, h, p, n, *, strong=False, strided=False, h0=Fals
     (2, 65, 3, 16, 16, "strong_h0"),     # strong decay from a nonzero state, every P
     (2, 200, 3, 32, 64, "strong_h0"),
     (2, 130, 3, 64, 128, "strong_h0"),
+    (4, 512, 256, 64, 16, "strided"),    # jamba-1.5-large-398b's prefill: N 16
+    (2, 513, 32, 64, 16, "strided_h0"),  # N 16: a one-row tail from a state
+    (2, 65, 8, 64, 16, "strong_h0"),
+    (2, 1, 8, 64, 16, "h0"),
 ])
 def test_ssd_scan_kernel_matches_plain(dev, b, s, h, p, n, case):
     rng = np.random.default_rng(10)
@@ -790,6 +802,9 @@ def _ssd_bwd_case(rng, dev, b, s, h, p, n, case):
     # many heads: the sum over heads in order and the walkers' chunk loop
     (1, 320, 24, 64, 128, "strided_h0_dhf"),
     (2, 40, 24, 32, 64, "plain"),            # one chunk shorter than 64 rows
+    # jamba-1.5-large-398b's P 64, N 16: a tail from a state, strong decay
+    (2, 513, 32, 64, 16, "strided_h0_dhf"),
+    (2, 130, 8, 64, 16, "strong_h0_dhf"),
 ])
 def test_ssd_scan_bwd_kernel_matches_plain(dev, b, s, h, p, n, case):
     """The plain version at the kernel's 64-row chunks, the comparison
@@ -1143,3 +1158,81 @@ def test_reduced_deepseek_v3_train_step_on_card_matches_cpu(dev, seed):
     _, metrics = train_step(state, batch, cfg, opt_cfg)
     assert torch.isfinite(metrics["mtp_ce"])
     assert {k: v for k, v in launches().items() if v} == cs.moe_train_launches(cfg, seq)
+
+
+# ---------------------------------------------------------------------------
+# jamba-1.5-large-398b's shapes: the SSD scan at N 16 over 256 heads and its
+# backward at P 64, N 16 at a full-width train step's shape, by chip_smoke.py's
+# rules; a reduced hybrid train step card vs CPU (rep 8, P 64, N 16)
+# ---------------------------------------------------------------------------
+
+def test_ssd_scan_kernel_at_jamba_shape_matches_fp64(dev):
+    """The serve prefill's scan, x [4, 512, 256, 64] at N 16 from zeros and a
+    513-row tail from a nonzero state: y and the final state against
+    chip_smoke.py's fp64 recurrence by relative L2 <= TOL_SSD_REL_L2, and
+    bitwise repeatable."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(20)
+    randn = cs.bf16_normal(rng, dev)
+    for s, h0_scale in ((512, 0.0), (513, 0.3)):
+        args, h0 = cs.ssd_inputs(randn, rng, dev, 4, s, 256, 64, 16, h0_scale)
+        with torch.inference_mode():
+            y, hf = ssd_scan(*args, h0=h0)
+            rel = cs.ssd_rel_errors(args, h0, {"kernel": (y, hf)})["kernel"]
+            assert max(rel.values()) <= cs.TOL_SSD_REL_L2, rel
+            y2, hf2 = ssd_scan(*args, h0=h0)
+            assert torch.equal(y2, y) and torch.equal(hf2, hf)
+
+
+def test_ssd_scan_bwd_kernel_at_jamba_train_shape_matches_plain_and_fp64(dev):
+    """A full-width jamba train step's scan gradient, [8, 512, 256, 64] at
+    P 64, N 16 from no state: every gradient against the plain version at
+    the kernel's chunk and against fp64 autograd by relative L2 <= 1e-3 (a
+    bf16 output against the fp64 gradient rounded to bf16), bitwise
+    repeatable."""
+    rng = np.random.default_rng(21)
+    args = _ssd_bwd_case(rng, dev, 8, 512, 256, 64, 16, "strided")
+    got = ssd_scan_bwd(*args)
+    want = ssd_scan_bwd_ref(*args, chunk=KERNEL_CHUNK)
+    names = ("dx", "ddt", "da_log", "dB", "dC")
+    for name, g, w in zip(names, got, want):
+        if name == "da_log":
+            _close(g, w, rtol=0, atol=3e-2 * float(w.abs().max()))
+        else:
+            _close(g, w, **TOL_BF16)
+    for name, g, e in zip(names, got, _ssd_grads_f64(*args)):
+        rel = _rel_l2(g, e.to(g.dtype))
+        assert rel <= 1e-3, f"{name}: relative L2 {rel} against fp64"
+    again = ssd_scan_bwd(*args)
+    assert all(torch.equal(a, g) for a, g in zip(again, got) if g is not None)
+
+
+@pytest.mark.parametrize("seed", [44, 45])
+def test_reduced_hybrid_train_step_on_card_matches_cpu(dev, seed):
+    """Reduced jamba-1.5-large-398b (one period block; 8 query heads over 1 kv
+    head at D 128, rep 8; the SSD kernels at P 64, N 16), batch 2 x 192
+    tokens: the loss and every gradient on the card against the CPU unit by
+    unit, the CPU's routing pinned to the card's, by chip_smoke.py's
+    train_check_hybrid (`hybrid_train_check`); then the launch counts of one
+    train step on the card against chip_smoke.hybrid_train_launches."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import make_train_state, train_step
+
+    cs = _chip_smoke()
+    cfg = cs.hybrid_small_config()
+    seq = 3 * cs.SSD_CHUNK
+    rec = cs.hybrid_train_check(dev, cfg, seed, seq, row1_len=seq - 40)
+    assert rec["moe_route_calls"] == cs.moe_layer_count(cfg) == 4
+    assert rec["ok"], {k: v for k, v in rec.items() if k != "flips"}
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 193)))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    state = make_train_state(cfg, opt_cfg, params=params)
+    reset_launches()
+    _, metrics = train_step(state, batch, cfg, opt_cfg)
+    assert torch.isfinite(metrics["loss"]) and float(metrics["aux"]) > 0
+    assert {k: v for k, v in launches().items() if v} == cs.hybrid_train_launches(cfg)

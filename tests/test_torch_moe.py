@@ -390,7 +390,7 @@ def test_moe_training_raises_naming_its_roadmap_item(model):
     deepseek-v2-lite-16b's loss is finite with its aux loss, and
     deepseek-v3-671b's also carries the MTP head's mtp_ce, added to the loss
     at 0.1 as JAX's loss_fn adds it (tests/test_torch_v3_train.py holds it
-    to JAX).  The hybrid family still raises (test below)."""
+    to JAX).  The hybrid family trains too (test below)."""
     cfg, tp = model["cfg"], model["torch"]["bf16"]
     toks = _t(np.zeros((1, 8)))
     batch = {"tokens": toks, "labels": toks}
@@ -405,13 +405,24 @@ def test_moe_training_raises_naming_its_roadmap_item(model):
 
 
 def test_hybrid_training_still_raises_naming_its_roadmap_item(model):
-    """A hybrid config (the MoE family's layers under `family="hybrid"`) is
-    refused by forward and loss_fn, naming ROADMAP Queue 1 item 3."""
-    cfg, tp = replace(model["cfg"], family="hybrid"), model["torch"]["bf16"]
-    toks = _t(np.zeros((1, 8)))
-    for fn in (forward, loss_fn):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3, hybrid"):
-            fn(tp, {"tokens": toks, "labels": toks}, cfg)
+    """The hybrid family trains now (ROADMAP Queue 1 item 3 is done; the name
+    is kept from when it was refused): reduced jamba-1.5-large-398b with this
+    arch's MoE config (the softmax router, or the sigmoid one with its
+    router_bias and a shared expert) in its period block's four MoE layers:
+    forward and loss_fn run, and report a positive aux loss, the sum over
+    the block's MoE layers (tests/test_torch_hybrid.py holds the family to
+    JAX)."""
+    cfg = replace(get_config("jamba-1.5-large-398b").reduced(), moe=model["cfg"].moe)
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    ffn = params["blocks"][0]["layers"][1]["ffn"]
+    assert ("router_bias" in ffn) == (cfg.moe.router == "sigmoid")
+    toks = _t(np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 8)))
+    with torch.no_grad():
+        h, aux = forward(params, {"tokens": toks}, cfg)
+        loss, metrics = loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+    assert h.shape == (1, 8, cfg.d_model) and torch.isfinite(h).all()
+    assert float(aux) > 0 and float(metrics["aux"]) == pytest.approx(float(aux))
+    assert torch.isfinite(loss) and "mtp_ce" not in metrics
 
 
 # ---------------------------------------------------------------------------

@@ -401,7 +401,7 @@ def test_trainer_cuts_depth_and_its_loss_falls():
 
 
 SERVED = ["chatglm3-6b", "stablelm-3b", "mamba2-130m", "deepseek-v2-lite-16b",
-          "deepseek-v3-671b"]
+          "deepseek-v3-671b", "jamba-1.5-large-398b"]
 
 
 @pytest.mark.parametrize("arch", [

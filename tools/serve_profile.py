@@ -2,12 +2,14 @@
 """Where the time of the port's serve path goes, on one NVIDIA card.
 
     python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b |
-                                    deepseek-v2-lite-16b | deepseek-v3-671b] [--src DIR]
+                                    deepseek-v2-lite-16b | deepseek-v3-671b |
+                                    jamba-1.5-large-398b] [--src DIR]
 
 Builds a full-width model (chatglm3-6b by default, mamba2-130m, stablelm-3b,
-deepseek-v2-lite-16b or deepseek-v3-671b, the latter cut to the depth of
-`chip_smoke.py`'s serve_v3, read from its `V3_SERVE_LAYERS`; random
-weights from seed 0), prefills 4 prompts
+deepseek-v2-lite-16b, deepseek-v3-671b or jamba-1.5-large-398b, the last two
+cut as `chip_smoke.py`'s serve_v3 and serve_hybrid cut them, read from its
+`V3_SERVE_LAYERS` and `hybrid_serve_config`; random weights from seed 0),
+prefills 4 prompts
 (512 tokens, 8192 for mamba2-130m, as `chip_smoke.py` serves them) and
 decodes 8 tokens, each phase under `torch.profiler`.  For each phase it
 prints one JSON line: the wall time (host clock, synchronised), the device
@@ -18,7 +20,12 @@ line also splits the device time of the MoE layers (`apply_moe`): the
 expert products (its batched matmuls), their silu, the router, the slot
 numbering, the shared experts, and the rest: the dispatch gather, the
 combine, the aux loss and the casts and gate product around the silu; and
-gives MLA's (`mla_fwd`).  Each of those functions runs inside
+gives MLA's (`mla_fwd`).  For the hybrid family the line splits the device
+time by layer kind instead (`hybrid_split_ms`): the Mamba layers (`ssm_fwd`,
+and within them the SSD scan's kernel and the gated out_norm's RMSNorm),
+the attention layer (`attention_fwd`), the MoE FFNs (`apply_moe`), the
+dense FFNs (`apply_mlp`), and the rest (the embedding, the layer norms
+outside those, the head).  Each of those functions runs inside
 a `record_function` range for the profile; the device time of a range
 sums the kernels of every op it called.  `--src DIR` profiles the
 `repro_torch` under DIR (default: this checkout's `src`).  The card's name
@@ -42,8 +49,10 @@ from torch.profiler import ProfilerActivity, profile
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
-# the functions of `models/layers.py` each run inside a range of their name
+# the functions of `models/layers.py` (and `models/ssm.py`'s ssm_fwd) each run
+# inside a range of their name
 SCOPES = ("apply_moe", "moe_route", "moe_slots", "apply_mlp", "mla_fwd")
+HYBRID_SCOPES = ("ssm_fwd", "attention_fwd", "apply_moe", "apply_mlp")
 
 
 def _scope(mod, names) -> None:
@@ -59,8 +68,8 @@ def _device_ms(ev) -> float:
     """Device ms of the kernels an op launched, its children's included.  A
     range's own span on the device, which the profiler lists beside the
     kernels under the range's name, is left out."""
-    return (sum(k.duration for k in ev.kernels if k.name not in SCOPES) / 1e3
-            + sum(_device_ms(ch) for ch in ev.cpu_children))
+    return (sum(k.duration for k in ev.kernels if k.name not in SCOPES + HYBRID_SCOPES)
+            / 1e3 + sum(_device_ms(ch) for ch in ev.cpu_children))
 
 
 def _moe_split(prof) -> dict:
@@ -82,7 +91,32 @@ def _moe_split(prof) -> dict:
     return ms
 
 
-def _phase(name, fn, n_items, moe=False):
+def _kernel_ms(ev, name) -> float:
+    """Device ms of the kernels whose name holds `name` that an op launched,
+    its children's included."""
+    return (sum(k.duration for k in ev.kernels if name in k.name) / 1e3
+            + sum(_kernel_ms(ch, name) for ch in ev.cpu_children))
+
+
+def _hybrid_split(prof, busy_ms) -> dict:
+    """Device ms of a hybrid model's layer kinds, and within the Mamba layers
+    the SSD scan's and the RMSNorm's kernels (their other ops: in_proj and
+    out_proj, the conv, the gate; a decode step's recurrence)."""
+    ms = dict.fromkeys(HYBRID_SCOPES, 0.0)
+    inner = {"ssd_scan_kernel": 0.0, "rmsnorm_kernel": 0.0}
+    for ev in prof.events():
+        if ev.name in ms:
+            ms[ev.name] += _device_ms(ev)
+        if ev.name == "ssm_fwd":
+            for k in inner:
+                inner[k] += _kernel_ms(ev, k)
+    out = {f"{k}_ms": v for k, v in ms.items()}
+    out.update({f"ssm_fwd.{k}_ms": v for k, v in inner.items()})
+    out["rest_ms"] = busy_ms - sum(ms.values())
+    return out
+
+
+def _phase(name, fn, n_items, moe=False, hybrid=False):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -90,11 +124,12 @@ def _phase(name, fn, n_items, moe=False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in SCOPES]
+               if e.device_type == DeviceType.CUDA and e.key not in SCOPES + HYBRID_SCOPES]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     copies = [e for e in kernels if "copy" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    split = {"moe_split_ms": _moe_split(prof)} if moe else {}
+    split = ({"hybrid_split_ms": _hybrid_split(prof, busy_ms)} if hybrid
+             else {"moe_split_ms": _moe_split(prof)} if moe else {})
     print(json.dumps({
         "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
@@ -107,7 +142,8 @@ def _phase(name, fn, n_items, moe=False):
 
 
 PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512,
-          "deepseek-v2-lite-16b": 512, "deepseek-v3-671b": 512}
+          "deepseek-v2-lite-16b": 512, "deepseek-v3-671b": 512,
+          "jamba-1.5-large-398b": 512}
 
 
 def main() -> int:
@@ -121,7 +157,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_model
-    from repro_torch.models import layers
+    from repro_torch.models import layers, ssm
     from repro_torch.runtime.steps import prefill_step, serve_step
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,12 +166,18 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from chip_smoke import V3_ARCH, V3_SERVE_LAYERS           # serve_v3's depth cut
-    if args.arch == V3_ARCH:
+    from chip_smoke import HYBRID_ARCH, V3_ARCH, V3_SERVE_LAYERS, hybrid_serve_config
+    if args.arch == V3_ARCH:                                    # serve_v3's depth cut
         cfg = replace(cfg, n_layers=V3_SERVE_LAYERS)
-    moe = cfg.moe is not None
+    if args.arch == HYBRID_ARCH:                                # serve_hybrid's cut
+        cfg = hybrid_serve_config()
+    hybrid = cfg.family == "hybrid"
+    moe = cfg.moe is not None and not hybrid
     if moe:
         _scope(layers, SCOPES)
+    if hybrid:
+        _scope(layers, HYBRID_SCOPES[1:])
+        _scope(ssm, HYBRID_SCOPES[:1])
     b, s0, steps, seed = 4, PROMPT[args.arch], 8, 0
     max_len = 2 * s0
     with torch.inference_mode():
@@ -160,8 +202,8 @@ def main() -> int:
 
         print(json.dumps({"arch": args.arch, "n_layers": cfg.n_layers, "batch": b, "prompt": s0,
                           "src": os.path.abspath(args.src)}), flush=True)
-        _phase("prefill", run_prefill, 1, moe)
-        _phase("decode", run_decode, steps, moe)
+        _phase("prefill", run_prefill, 1, moe, hybrid)
+        _phase("decode", run_decode, steps, moe, hybrid)
     return 0
 
 
