@@ -14,7 +14,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    report (the flash kernels' head dim 80 and <192, 128> instances, the SSD
    scan's N 16 one and the SSD backward's P 64, N 128 and P 64, N 16 ones
    must not spill), and the registers and
-   spills of every instance of decode attention and of the RMSNorm backward.
+   spills of every instance of decode attention and of the RMSNorm backward
+   (none of which may spill).
 3. kernels — each kernel of the serve and train paths, at the shapes that
    path gives it, against its plain PyTorch version on the same inputs; its
    time, the plain version's, one library call's as a yardstick (never used
@@ -45,7 +46,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    at the serve lengths, every cluster size; the SSD scan at x [4, 512, 256,
    64], N 16 (and a 513-row tail from a nonzero state), held to the plain
    version and to the fp64 recurrence; the SSD backward at [8, 512, 256,
-   64], P 64, N 16, held as at mamba2-130m's shape.  The dq
+   64], P 64, N 16, held as at mamba2-130m's shape.  The last four
+   families' shapes: RMSNorm at pixtral-12b's [2048, 5120] and [4, 5120];
+   the flash forward from the 1024-row cache at B 4 for command-r-35b (64
+   heads over 8), starcoder2-15b (48 over 4: rep 12), pixtral-12b (32 over
+   8: rep 4) and musicgen-large (MHA, D 64), and at musicgen-large's train
+   shape (B 8); dq and dk/dv (every cluster size, bitwise repeatable) at
+   starcoder2-15b's rep 12 (B8 H48 Hkv4 S512 D128) and musicgen-large's D 64
+   MHA; decode attention at the serve lengths, every cluster size, for all
+   four (musicgen-large's is decode_kernel<64, 1>); the CE and its backward
+   at command-r-35b's vocab 256000 and musicgen-large's 2048 ([512, V]).
+   The dq
    pass, decode attention and the RMSNorm backward (at every shape) are
    checked bitwise repeatable; the SSD scan's
    y and final state at the serve shape and at an 8193-token tail from a
@@ -80,8 +91,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    RMSNorm (d 8192 and 16384), the flash forward and the SSD scan in the
    prefill, decode attention in each decode step, every launch counted
    (`hybrid_serve_launches`); cross_check_hybrid as cross_check_moe.
+   serve_command_r, serve_starcoder2, serve_pixtral, serve_musicgen — the
+   last four families at full width and full depth (30.3, 16.0, 12.2 and
+   2.4 B params), the same batch, each with its bound (`dense_serve_bound`)
+   and every launch counted (`dense_serve_launches`: the flash forward and
+   decode attention a layer, pixtral-12b's RMSNorm); pixtral-12b and
+   musicgen-large through the stub frontend (`Server.batch`: each token's
+   row of a seeded table built once); each followed by its cross_check.
 5. train_check, train_check_ssm, train_check_moe, train_check_v3,
-   train_check_hybrid — one loss and every
+   train_check_hybrid, train_check_starcoder2 — one loss and every
    gradient of reduced chatglm3-6b (64 tokens), of reduced mamba2-130m (192
    tokens, three of the SSD kernels' chunks) and of reduced
    deepseek-v2-lite-16b with MLA at the full head dims (192 tokens, three
@@ -91,7 +109,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    deepseek-v3-671b (3 dense layers, 1 MoE layer with the sigmoid router
    and a router_bias drawn from the seed, the MTP layer; MLA at the full
    head dims, q-LoRA at 1536; 192 tokens; router_bias's gradient exactly
-   zero on every side) on the card (kernels) against the same weights and
+   zero on every side) and of reduced starcoder2-15b at rep 12, D 128 (192
+   tokens) on the card (kernels) against the same weights and
    batch on the CPU (plain versions), all by one function, `train_check`;
    beside the gate, each side against the same weights in fp32 on the CPU
    (the bf16 model's own rounding).  train_check_hybrid — reduced
@@ -122,7 +141,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    8 steps of 8 x 512 tokens, the same checks, mtp_ce finite and falling
    too (the flash passes at <192, 128> over 128 heads, q_norm's backward at
    d 1536, the RMSNorm backward at d 7168, the CE at vocab 129280 in 8
-   chunks and the MTP loss's 7).
+   chunks and the MTP loss's 7).  train_musicgen — musicgen-large at full
+   width (48 layers, 2.42 B params), nothing cut, fp32 moments, 8 steps of
+   8 x 512 tokens on tokens alone, as the Trainer feeds it.
+   train_command_r — command-r-35b at full width cut to 2 of 40 layers,
+   fp32 moments: the CE at vocab 256000 and the tied table's two gradient
+   paths.  Every launch count per step: `dense_train_launches`.
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -230,6 +254,28 @@ HYBRID_ARCH, HYBRID_SERVE_LAYERS, HYBRID_SERVE_EXPERTS = "jamba-1.5-large-398b",
 HYBRID_SERVE_CUT = ["n_layers 8 of 72: one of the 9 period blocks",
                     "n_experts 8 of 16 (top-2 kept): one block at 16 experts holds ~45 B "
                     "params, ~90 GB in bf16; at 8, ~25.8 B, ~51.6 GB"]
+# the last four families, each served at full width and full depth:
+# command-r-35b (tied embeddings, vocab 256000, GQA 64 over 8), starcoder2-15b
+# (GELU, QKV bias, GQA 48 over 4: rep 12), pixtral-12b (the vit stub frontend,
+# RMSNorm at d 5120, GQA 32 over 8: rep 4) and musicgen-large (the encodec
+# stub frontend, sinusoidal positions, MHA at D 64); each serve run's seed of
+# its prompts
+DENSE_SERVES = (("serve_command_r", "command-r-35b", SEED + 40),
+                ("serve_starcoder2", "starcoder2-15b", SEED + 41),
+                ("serve_pixtral", "pixtral-12b", SEED + 42),
+                ("serve_musicgen", "musicgen-large", SEED + 43))
+# train_musicgen: musicgen-large at full width (48 layers, 2.42 B params,
+# ~29 GB with fp32 AdamW moments), nothing cut, 8 steps
+MG_ARCH, MG_TRAIN_STEPS = "musicgen-large", 8
+# train_command_r: command-r-35b at full width cut to 2 of its 40 layers, so
+# that the CE at vocab 256000 and the tied table's two gradient paths (the
+# gather and the head) run in a real step; fp32 moments (3.51 B params, ~42
+# GB of state; AdamW updates the 2.1 B-element table in blocks)
+CR_ARCH, CR_TRAIN_LAYERS, CR_TRAIN_STEPS = "command-r-35b", 2, 8
+CR_TRAIN_CUT = ["n_layers 2 of 40 (the full model's 30.3 B params hold 60.6 GB in bf16 alone)"]
+# train_check_starcoder2: reduced starcoder2-15b with 12 query heads over 1 kv
+# head at D 128 (rep 12, as 48 over 4 at full width)
+SC_ARCH = "starcoder2-15b"
 
 
 def emit(obj) -> None:
@@ -710,8 +756,8 @@ def moe_cross_check(srv, prompts, dev, cache_len) -> dict:
 def model_flops(cfg, n_params, batch, seq, chunk=SSD_CHUNK) -> float:
     """Model FLOPs of one train step (forward and backward, no recompute):
     6 x the parameters a token's products read x tokens, plus the
-    sequence mixing.  Dense: every parameter but the token-embedding table
-    (a gather), plus causal attention at 4 D flops per unmasked (row,
+    sequence mixing.  Dense: every parameter but an untied token-embedding
+    table (a gather; a tied one is the head's matrix), plus causal attention at 4 D flops per unmasked (row,
     column) pair forward, 3x with the backward.  ssm (tied embeddings, so
     the table is the head's matrix and counts): the SSD products as
     `ssd_chunked` runs them at `chunk`-row chunks, per (batch, chunk) C B^T
@@ -727,8 +773,8 @@ def model_flops(cfg, n_params, batch, seq, chunk=SSD_CHUNK) -> float:
         macs = batch * nc * (chunk * chunk * n + h * (chunk * chunk * p + 2 * chunk * n * p))
         return 6 * n_params * tokens + 3 * 2 * macs * cfg.n_layers
     pairs = batch * cfg.n_heads * seq * (seq + 1) // 2
-    return (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
-            + 12 * cfg.head_dim * pairs * cfg.n_layers)
+    gather = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    return 6 * (n_params - gather) * tokens + 12 * cfg.head_dim * pairs * cfg.n_layers
 
 
 def moe_model_flops(cfg, batch, seq) -> float:
@@ -916,6 +962,71 @@ def hybrid_serve_bound(cfg, params, batch, prompt) -> dict:
             "prefill_bound_ms": max(ops_ms, read / PEAK_BYTES * 1e3),
             "prefill_bound_by": "operations" if ops_ms >= read / PEAK_BYTES * 1e3 else "bytes",
             "decode_step_bound_ms": read / PEAK_BYTES * 1e3, "decode_bound_by": "bytes"}
+
+
+def dense_serve_launches(cfg) -> dict:
+    """Kernel launches of a serve run (a prefill and NEW decode steps) of a
+    dense model: the prefill's attention through the flash forward and each
+    decode step's through decode attention, a layer each; with RMS norms
+    (not LayerNorm, which stays plain torch as JAX computes it in jnp)
+    attn_norm and ffn_norm a layer and final_norm, every forward."""
+    out = {"flash_attention_fwd": cfg.n_layers, "decode_attention": cfg.n_layers * NEW}
+    if cfg.norm == "rmsnorm":
+        out["rmsnorm"] = (2 * cfg.n_layers + 1) * (1 + NEW)
+    return out
+
+
+def dense_train_launches(cfg) -> dict:
+    """Kernel launches of one train step of a dense model (remat per layer,
+    CE_CHUNKS cross-entropy chunks): each layer's flash forward twice (the
+    recompute), dq and dk/dv once; the CE forward twice and its backward once
+    a chunk; with RMS norms attn_norm and ffn_norm forward twice and backward
+    once a layer, final_norm once each way."""
+    out = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd_dq": cfg.n_layers,
+           "flash_attention_bwd_dkv": cfg.n_layers, "fused_ce": 2 * CE_CHUNKS,
+           "fused_ce_bwd": CE_CHUNKS}
+    if cfg.norm == "rmsnorm":
+        out.update(rmsnorm=4 * cfg.n_layers + 1, rmsnorm_bwd=2 * cfg.n_layers + 1)
+    return out
+
+
+def dense_serve_bound(cfg, params, batch, prompt) -> dict:
+    """The least time of a dense model's serve steps.  Prefill of batch x
+    prompt tokens: the bf16 products (q, k, v and o projections, the causal
+    pairs at 4 D flops a pair a head, the MLP: two products with GELU, three
+    with SwiGLU; the head on the last token) over the bf16 peak, or the
+    weights it reads over the memory rate, if larger.  A decode step reads
+    every weight but an untied token table (a gather; a tied one is the
+    head) and the KV cache's live rows at the serve run's mean length."""
+    from repro_torch.tree import tree_leaves
+    d, h, hkv, dh, t = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, batch * prompt
+    pairs = batch * h * prompt * (prompt + 1) // 2
+    attn = 2 * t * d * dh * (2 * h + 2 * hkv) + 4 * dh * pairs
+    mlp = 2 * t * (2 if cfg.act == "gelu" else 3) * d * cfg.d_ff
+    flops = cfg.n_layers * (attn + mlp) + 2 * batch * d * cfg.vocab_size
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    weights = nbytes(params)
+    read = weights - (0 if cfg.tie_embeddings else nbytes(params["embed"]["tok"]))
+    mean_len = (SERVE_LENGTHS[0] + SERVE_LENGTHS[1]) / 2
+    kv = cfg.n_layers * 2 * batch * mean_len * hkv * dh * 2
+    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, read / PEAK_BYTES * 1e3
+    return {"params": sum(x.numel() for x in tree_leaves(params)),
+            "prefill_tflop_bf16": flops / 1e12, "weights_gb": weights / 1e9,
+            "weights_read_gb": read / 1e9, "kv_read_gb": kv / 1e9,
+            "prefill_bound_ms": max(ops_ms, bytes_ms),
+            "prefill_bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "decode_step_bound_ms": (read + kv) / PEAK_BYTES * 1e3, "decode_bound_by": "bytes",
+            "decode_tok_per_s_bound": batch / ((read + kv) / PEAK_BYTES)}
+
+
+def starcoder2_small_config():
+    """Reduced starcoder2-15b (4 layers, d 128, GELU, QKV bias, LayerNorm)
+    with 12 query heads over 1 kv head at D 128: the flash kernels' and
+    decode attention's rep 12 at the full model's head dim."""
+    from repro_torch.configs import get_config
+    return get_config(SC_ARCH).reduced(n_heads=12, n_kv_heads=1, d_head=128)
 
 
 def ce_chunks_of(s, n=CE_CHUNKS) -> int:
@@ -1335,13 +1446,18 @@ def check_no_spills(entry: dict) -> None:
     dim 192, v head dim 128 ones (MLA), which hold dq, dk, dv or O in
     registers, the SSD backward's at mamba2-130m's P 64, N 128 and at
     jamba-1.5-large-398b's P 64, N 16, which hold the states and the dB, dC
-    sums, the SSD scan's at jamba's N 16, and the RMSNorm backward (one
+    sums, the SSD scan's at jamba's N 16, the RMSNorm backward (one
     instance for every d up to 8192, deepseek-v3-671b's 7168 among them),
-    which holds a row of x and of dy and its dscale partials."""
+    which holds a row of x and of dy and its dscale partials, and every
+    instance of decode attention, whose kv loop runs once per decode step
+    and layer."""
     if not (entry.get("spill_stores") or entry.get("spill_loads")):
         return
     if entry["kernel"] == "rmsnorm_bwd_kernel":
         raise AssertionError(f"rmsnorm_bwd_kernel spills: {entry}")
+    if entry["kernel"] == "decode_kernel":
+        raise AssertionError(f"decode_kernel<{entry.get('D')}, {entry.get('MT')}> spills: "
+                             f"{entry}")
     if entry["kernel"].startswith("flash_") and (entry.get("D"), entry.get("DV")) in (
             (80, 80), (MLA_DQK, MLA_DV)):
         raise AssertionError(f"{entry['kernel']}<{entry['D']}, {entry['DV']}> spills: {entry}")
@@ -1520,6 +1636,11 @@ def main() -> int:
         f"{rows_}x{dd}": rms_case(jrandn, rows_, dd)
         for rows_, dd in ((BATCH * PROMPT, 8192), (BATCH * PROMPT, 16384), (BATCH, 8192),
                           (BATCH, 16384))}
+    # pixtral-12b's norms (serve_pixtral: 5,265 launches): d 5120 at its
+    # prefill's 2048 rows and its decode steps' 4; own generator
+    prandn = bf16_normal(np.random.default_rng(SEED + 44), dev)
+    r["pixtral_shapes"] = {f"{rows_}x5120": rms_case(prandn, rows_, 5120)
+                           for rows_ in (BATCH * PROMPT, BATCH)}
     emit({"phase": "kernel", **r, "shape": [BATCH * PROMPT, d]})
 
     # flash forward: one layer's prefill attention, q from the cache layout
@@ -1593,29 +1714,46 @@ def main() -> int:
             PEAK_BF16, float((o8.float() - r8.float()).abs().max()),
             shape={"B": bb, "H": h, "Hkv": h, "S": s, "T": t80, "kv_len": s, "D": 80})
     del q8, k8, v8, o8, l8, r8, rl8, k8s, v8s
+    def flash_fwd_case(what, gen_seed, bb, g_h, g_kv, dd, t_kv):
+        """The forward at a model's prefill (k and v read from the t_kv-row
+        cache, kv_len s) or train shape (t_kv = s): q, then k and v drawn
+        from their own generator, held to the plain version, timed beside
+        SDPA with the group expanded, the bound by causal pairs."""
+        frandn = bf16_normal(np.random.default_rng(gen_seed), dev)
+        qj = frandn(bb, s, g_h, dd).transpose(1, 2)
+        kj, vj = (frandn(bb, t_kv, g_kv, dd).transpose(1, 2) for _ in range(2))
+        (oj, lj), (rj, rlj) = (flash_attention_fwd(qj, kj, vj, kv_len=s),
+                               attention_with_lse_ref(qj, kj, vj, q_offset=0, kv_len=s))
+        torch.cuda.synchronize()
+        kje, vje = (x[:, :, :s].repeat_interleave(g_h // g_kv, dim=1) for x in (kj, vj))
+        pairs_j = bb * g_h * s * (s + 1) // 2
+        return other_shape(
+            f"flash_attention_fwd ({what})",
+            max(excess(oj, rj, TOL_BF16), excess(lj, rlj, TOL_LSE)),
+            lambda: flash_attention_fwd(qj, kj, vj, kv_len=s),
+            lambda: attention_with_lse_ref(qj, kj, vj, q_offset=0, kv_len=s),
+            lambda: F.scaled_dot_product_attention(qj, kje, vje, is_causal=True),
+            (2 * qj.numel() + 2 * bb * g_kv * s * dd) * 2 + bb * g_h * s * 4, 4 * dd * pairs_j,
+            PEAK_BF16, float((oj.float() - rj.float()).abs().max()),
+            shape={"B": bb, "H": g_h, "Hkv": g_kv, "S": s, "T": t_kv, "kv_len": s, "D": dd},
+            causal_pairs=pairs_j)
+
     # jamba-1.5-large-398b's prefill attention (serve_hybrid): 64 query heads
-    # over 8 kv heads (GQA rep 8) at D 128, k and v read from the 1024-row
-    # cache; against SDPA with the group expanded, the bound by causal pairs
-    frandn = bf16_normal(np.random.default_rng(SEED + 36), dev)
-    g_h, g_kv = 64, 8
-    qj = frandn(b, s, g_h, hd).transpose(1, 2)
-    kj, vj = (frandn(b, MAX_LEN, g_kv, hd).transpose(1, 2) for _ in range(2))
-    (oj, lj), (rj, rlj) = (flash_attention_fwd(qj, kj, vj, kv_len=s),
-                           attention_with_lse_ref(qj, kj, vj, q_offset=0, kv_len=s))
-    torch.cuda.synchronize()
-    kje, vje = (x[:, :, :s].repeat_interleave(g_h // g_kv, dim=1) for x in (kj, vj))
-    pairs_j = b * g_h * s * (s + 1) // 2
-    r["jamba_rep8"] = other_shape(
-        "flash_attention_fwd at rep 8 (jamba-1.5-large-398b)",
-        max(excess(oj, rj, TOL_BF16), excess(lj, rlj, TOL_LSE)),
-        lambda: flash_attention_fwd(qj, kj, vj, kv_len=s),
-        lambda: attention_with_lse_ref(qj, kj, vj, q_offset=0, kv_len=s),
-        lambda: F.scaled_dot_product_attention(qj, kje, vje, is_causal=True),
-        (2 * qj.numel() + 2 * b * g_kv * s * hd) * 2 + b * g_h * s * 4, 4 * hd * pairs_j,
-        PEAK_BF16, float((oj.float() - rj.float()).abs().max()),
-        shape={"B": b, "H": g_h, "Hkv": g_kv, "S": s, "T": MAX_LEN, "kv_len": s, "D": hd},
-        causal_pairs=pairs_j)
-    del qj, kj, vj, oj, lj, rj, rlj, kje, vje
+    # over 8 kv heads (GQA rep 8) at D 128, k and v read from the 1024-row cache
+    r["jamba_rep8"] = flash_fwd_case("rep 8, jamba-1.5-large-398b", SEED + 36, b, 64, 8, hd,
+                                     MAX_LEN)
+    # the last four families' prefills, from the 1024-row cache: command-r-35b
+    # (64 over 8, the instance above on other inputs), starcoder2-15b (48 over
+    # 4: rep 12), pixtral-12b (32 over 8: rep 4), musicgen-large (MHA at D
+    # 64); and musicgen-large's train step (B 8, no cache)
+    for key, what, gen_seed, bb, g_h, g_kv, dd, t_kv in (
+            ("command_r_35b", "rep 8, command-r-35b", SEED + 45, b, 64, 8, hd, MAX_LEN),
+            ("starcoder2_15b", "rep 12, starcoder2-15b", SEED + 46, b, 48, 4, hd, MAX_LEN),
+            ("pixtral_12b", "rep 4, pixtral-12b", SEED + 47, b, 32, 8, hd, MAX_LEN),
+            ("musicgen_large", "D 64 MHA, musicgen-large", SEED + 48, b, 32, 32, 64, MAX_LEN),
+            ("musicgen_large_train", "D 64 MHA, musicgen-large train", SEED + 49, TRAIN_B, 32,
+             32, 64, s)):
+        r[key] = flash_fwd_case(what, gen_seed, bb, g_h, g_kv, dd, t_kv)
     emit({"phase": "kernel", **r,
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "q_offset": 0}})
 
@@ -1686,6 +1824,20 @@ def main() -> int:
     args, extra = decode_case("jamba-1.5-large-398b", drandn(b, 64, hd), ckj, cvj, serve_lens)
     r["jamba_rep8"] = other_shape(*args, **extra)
     del ck8, cv8, ckj, cvj, args
+    # the last four families' decode steps at the serve lengths, every
+    # cluster size: command-r-35b (64 heads over 8, rep 8), starcoder2-15b
+    # (48 over 4: rep 12), pixtral-12b (32 over 8: rep 4) and musicgen-large
+    # (MHA at D 64: decode_kernel<64, 1>); own generators
+    for key, what, gen_seed, g_h, g_kv, dd in (
+            ("command_r_35b", "command-r-35b", SEED + 50, 64, 8, hd),
+            ("starcoder2_15b", "starcoder2-15b", SEED + 51, 48, 4, hd),
+            ("pixtral_12b", "pixtral-12b", SEED + 52, 32, 8, hd),
+            ("musicgen_large", "musicgen-large", SEED + 53, 32, 32, 64)):
+        drandn = bf16_normal(np.random.default_rng(gen_seed), dev)
+        ckn, cvn = drandn(b, t, g_kv, dd), drandn(b, t, g_kv, dd)
+        args, extra = decode_case(what, drandn(b, g_h, dd), ckn, cvn, serve_lens)
+        r[key] = other_shape(*args, **extra)
+        del ckn, cvn, args
     emit({"phase": "kernel", **r})
 
     # rmsnorm backward: every norm of the train step, [8 x 512, 4096]
@@ -1791,60 +1943,74 @@ def main() -> int:
                                        float((dv8.float() - rv8.float()).abs().max())),
                         shape=shape8)
     del q8, k8, v8, do8, out8, lse8, dq8, delta8, rq8, rdelta8, dk8, dv8, rk8, rv8, sdpa_bwd8
-    # jamba-1.5-large-398b's attention gradient at full width (64 query heads
-    # over 8 kv heads, GQA rep 8, D 128) at the train shape: dq, and dk/dv at
-    # every cluster size, each held to its plain version, bitwise repeatable,
-    # timed beside SDPA's backward; nested in the two rows as jamba_rep8
-    jrandn = bf16_normal(np.random.default_rng(SEED + 38), dev)
-    g_h, g_kv = 64, 8
-    qj, kj, vj, doj = flash_bwd_inputs(jrandn, b, s, g_h, g_kv, hd)
-    outj, lsej = flash_attention_fwd(qj, kj, vj)
-    (dqj, deltaj), (rqj, rdeltaj) = (flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej),
-                                     attention_bwd_dq_ref(qj, kj, vj, outj, doj, lsej,
-                                                          q_offset=0))
-    (dkj, dvj), (rkj, rvj) = (flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj),
-                              attention_bwd_dkv_ref(qj, kj, vj, doj, lsej, rdeltaj, q_offset=0))
-    torch.cuda.synchronize()
-    for _ in range(3):
-        dq2, delta2 = flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej)
-        dk2, dv2 = flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj)
-        if not all(torch.equal(x, y) for x, y in ((dq2, dqj), (delta2, deltaj), (dk2, dkj),
-                                                 (dv2, dvj))):
-            raise AssertionError("the flash backward at rep 8 is not bitwise repeatable")
-    cluster_ms_j = {}
-    for c in DKV_CLUSTERS:
-        ck_, cv_ = flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj, cluster=c)
+    def flash_bwd_case(what, gen_seed, g_h, g_kv, dd):
+        """A model's attention gradient at the train shape (B 8, S 512): dq,
+        and dk/dv at every cluster size, each held to its plain version,
+        both passes bitwise repeatable, timed beside SDPA's backward; its
+        inputs from their own generator.  Returns the (dq, dk/dv) entries."""
+        jrandn = bf16_normal(np.random.default_rng(gen_seed), dev)
+        qj, kj, vj, doj = flash_bwd_inputs(jrandn, b, s, g_h, g_kv, dd)
+        outj, lsej = flash_attention_fwd(qj, kj, vj)
+        (dqj, deltaj), (rqj, rdeltaj) = (flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej),
+                                         attention_bwd_dq_ref(qj, kj, vj, outj, doj, lsej,
+                                                              q_offset=0))
+        (dkj, dvj), (rkj, rvj) = (flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj),
+                                  attention_bwd_dkv_ref(qj, kj, vj, doj, lsej, rdeltaj,
+                                                        q_offset=0))
         torch.cuda.synchronize()
-        over_c = max(excess(ck_, rkj, TOL_BF16), excess(cv_, rvj, TOL_BF16))
-        if not over_c <= 0:
-            raise AssertionError(f"flash_attention_bwd_dkv at rep 8 with cluster {c} disagrees "
-                                 f"with its plain version (excess over tolerance {over_c})")
-        cluster_ms_j[str(c)] = time_ms(
-            lambda c=c: flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj, cluster=c), flush)
-    sdpa_bwdj = sdpa_backward(qj, kj, vj, doj)
-    qbj, kvbj, rowbj = qj.numel() * 2, kj.numel() * 2, b * g_h * s * 4
-    pairs_j = b * g_h * s * (s + 1) // 2
-    shape_j = {"B": b, "H": g_h, "Hkv": g_kv, "S": s, "D": hd, "causal": True}
-    dq_rep8 = other_shape(
-        "flash_attention_bwd_dq at rep 8 (jamba-1.5-large-398b)",
-        max(excess(dqj, rqj, TOL_BF16), excess(deltaj, rdeltaj, TOL_LSE)),
-        lambda: flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej),
-        lambda: attention_bwd_dq_ref(qj, kj, vj, outj, doj, lsej, q_offset=0),
-        sdpa_bwdj, 4 * qbj + 2 * kvbj + 2 * rowbj, 6 * hd * pairs_j, PEAK_BF16,
-        float((dqj.float() - rqj.float()).abs().max()), shape=shape_j,
-        bitwise_repeatable=True)
-    dkv_rep8 = other_shape(
-        "flash_attention_bwd_dkv at rep 8 (jamba-1.5-large-398b)",
-        max(excess(dkj, rkj, TOL_BF16), excess(dvj, rvj, TOL_BF16)),
-        lambda: flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj),
-        lambda: attention_bwd_dkv_ref(qj, kj, vj, doj, lsej, rdeltaj, q_offset=0),
-        sdpa_bwdj, 2 * qbj + 4 * kvbj + 2 * rowbj, 8 * hd * pairs_j, PEAK_BF16,
-        max(float((dkj.float() - rkj.float()).abs().max()),
-            float((dvj.float() - rvj.float()).abs().max())), shape=shape_j,
-        cluster=dkv_cluster_size(g_h // g_kv, b * g_kv * s // 64), cluster_ms=cluster_ms_j,
-        bitwise_repeatable=True)
-    del (qj, kj, vj, doj, outj, lsej, dqj, deltaj, rqj, rdeltaj, dkj, dvj, rkj, rvj, dq2,
-         delta2, dk2, dv2, ck_, cv_, sdpa_bwdj)
+        for _ in range(3):
+            dq2, delta2 = flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej)
+            dk2, dv2 = flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj)
+            if not all(torch.equal(x, y) for x, y in ((dq2, dqj), (delta2, deltaj),
+                                                     (dk2, dkj), (dv2, dvj))):
+                raise AssertionError(f"the flash backward ({what}) is not bitwise repeatable")
+        cluster_ms_j = {}
+        for c in DKV_CLUSTERS:
+            ck_, cv_ = flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj, cluster=c)
+            torch.cuda.synchronize()
+            over_c = max(excess(ck_, rkj, TOL_BF16), excess(cv_, rvj, TOL_BF16))
+            if not over_c <= 0:
+                raise AssertionError(f"flash_attention_bwd_dkv ({what}) with cluster {c} "
+                                     f"disagrees with its plain version (excess over "
+                                     f"tolerance {over_c})")
+            cluster_ms_j[str(c)] = time_ms(
+                lambda c=c: flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj, cluster=c),
+                flush)
+        sdpa_bwdj = sdpa_backward(qj, kj, vj, doj)
+        qbj, kvbj, rowbj = qj.numel() * 2, kj.numel() * 2, b * g_h * s * 4
+        pairs_j = b * g_h * s * (s + 1) // 2
+        shape_j = {"B": b, "H": g_h, "Hkv": g_kv, "S": s, "D": dd, "causal": True}
+        dq_entry = other_shape(
+            f"flash_attention_bwd_dq ({what})",
+            max(excess(dqj, rqj, TOL_BF16), excess(deltaj, rdeltaj, TOL_LSE)),
+            lambda: flash_attention_bwd_dq(qj, kj, vj, outj, doj, lsej),
+            lambda: attention_bwd_dq_ref(qj, kj, vj, outj, doj, lsej, q_offset=0),
+            sdpa_bwdj, 4 * qbj + 2 * kvbj + 2 * rowbj, 6 * dd * pairs_j, PEAK_BF16,
+            float((dqj.float() - rqj.float()).abs().max()), shape=shape_j,
+            bitwise_repeatable=True)
+        dkv_entry = other_shape(
+            f"flash_attention_bwd_dkv ({what})",
+            max(excess(dkj, rkj, TOL_BF16), excess(dvj, rvj, TOL_BF16)),
+            lambda: flash_attention_bwd_dkv(qj, kj, vj, doj, lsej, deltaj),
+            lambda: attention_bwd_dkv_ref(qj, kj, vj, doj, lsej, rdeltaj, q_offset=0),
+            sdpa_bwdj, 2 * qbj + 4 * kvbj + 2 * rowbj, 8 * dd * pairs_j, PEAK_BF16,
+            max(float((dkj.float() - rkj.float()).abs().max()),
+                float((dvj.float() - rvj.float()).abs().max())), shape=shape_j,
+            cluster=dkv_cluster_size(g_h // g_kv, b * g_kv * s // 64), cluster_ms=cluster_ms_j,
+            bitwise_repeatable=True)
+        return dq_entry, dkv_entry
+
+    # jamba-1.5-large-398b's attention gradient at full width (64 query heads
+    # over 8 kv heads, GQA rep 8, D 128): nested in the two rows as jamba_rep8.
+    # starcoder2-15b's (48 over 4: rep 12, whose dk/dv cluster of 8 splits a
+    # kv head's 12 query heads 1 or 2 a rank) and musicgen-large's (MHA at D
+    # 64), nested as starcoder2_15b and musicgen_large
+    bwd_cases = {key: flash_bwd_case(what, gen_seed, g_h, g_kv, dd)
+                 for key, what, gen_seed, g_h, g_kv, dd in (
+                     ("jamba_rep8", "rep 8, jamba-1.5-large-398b", SEED + 38, 64, 8, hd),
+                     ("starcoder2_15b", "rep 12, starcoder2-15b", SEED + 54, 48, 4, hd),
+                     ("musicgen_large", "D 64 MHA, musicgen-large", SEED + 55, 32, 32, 64))}
+    torch.cuda.empty_cache()
     sdpa_bwd = sdpa_backward(q, k, v, do)
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * h * s * 4   # bytes of each
     r = kernel_row("flash_attention_bwd_dq",
@@ -1865,7 +2031,7 @@ def main() -> int:
             raise AssertionError("flash_attention_bwd_dq is not bitwise repeatable")
     r["bitwise_repeatable"] = True
     r["head_dim_80"] = dq80
-    r["jamba_rep8"] = dq_rep8
+    r.update({key: dq_dkv[0] for key, dq_dkv in bwd_cases.items()})
     del dq2, delta2
     # rep 1 (MHA) at head dim 128 on an odd number of q tiles (7): a block's
     # two warpgroups take two adjacent q tiles of a head, and the last item
@@ -1920,8 +2086,8 @@ def main() -> int:
         r["cluster_ms"][str(c)] = time_ms(
             lambda c=c: flash_attention_bwd_dkv(q, k, v, do, lse, delta, cluster=c), flush)
     r["head_dim_80"] = dkv80
-    r["jamba_rep8"] = dkv_rep8
-    del ck_, cv_
+    r.update({key: dq_dkv[1] for key, dq_dkv in bwd_cases.items()})
+    del ck_, cv_, bwd_cases
     emit({"phase": "kernel", **r, "library_covers": "dq+dk+dv (SDPA backward, GQA expanded)",
           "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": hd, "causal": True}})
     del q, k, v, do, out, lse, dq, delta, rq, rdelta, dk, dv, rk, rv, sdpa_bwd
@@ -2050,8 +2216,15 @@ def main() -> int:
     rows_mtp = TRAIN_B * ((TRAIN_S - 1) // ce_chunks_of(TRAIN_S - 1))
     ce_v3 = {f"{n}x{vocab_v3}": ce_case(gen_seed, n, vocab_v3)
              for gen_seed, n in ((SEED + 27, rows_c), (SEED + 28, rows_mtp))}
+    # command-r-35b's tied vocab 256000 (train_command_r: 250 whole 1024-column
+    # blocks, twice the widest row so far) and musicgen-large's 2048
+    # (train_musicgen), one of 8 chunks each
+    ce_new = {f"{name}_vocab": ce_case(gen_seed, rows_c, get_config(arch).vocab_size)
+              for name, arch, gen_seed in (("command_r_35b", CR_ARCH, SEED + 56),
+                                           ("musicgen_large", MG_ARCH, SEED + 57))}
     r["deepseek_v2_lite_vocab"] = ce_v2[0]
     r["deepseek_v3_vocab"] = {name: fb[0] for name, fb in ce_v3.items()}
+    r.update({name: fb[0] for name, fb in ce_new.items()})
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
     torch.cuda.empty_cache()
     r = kernel_row("fused_ce_bwd", "src/repro_torch/kernels/csrc/cross_entropy.cu",
@@ -2065,6 +2238,7 @@ def main() -> int:
     r["max_abs_err"] = float((dl.float() - rdl.float()).abs().max())
     r["deepseek_v2_lite_vocab"] = ce_v2[1]
     r["deepseek_v3_vocab"] = {name: fb[1] for name, fb in ce_v3.items()}
+    r.update({name: fb[1] for name, fb in ce_new.items()})
     emit({"phase": "kernel", **r, "shape": [rows_c, vocab]})
     del logits, labels, cmask, g, nll, lse, rn, rl, dl, rdl, lgl, ce_lib, ck, cv
 
@@ -2334,15 +2508,16 @@ def main() -> int:
         prefill of all but the last plus one decode step."""
         cfg, s = srv.cfg, prompts.shape[1] - 1
         with torch.inference_mode():
+            # srv.batch: with a stub frontend, each token's row of its table
             toks = torch.from_numpy(prompts).long().to(dev)
             full, _ = prefill_step(srv.params, init_cache(cfg, BATCH, cache_len, dev),
-                                   {"tokens": toks}, cfg)
+                                   srv.batch(toks), cfg)
             cache = init_cache(cfg, BATCH, cache_len, dev)
-            _, cache = prefill_step(srv.params, cache, {"tokens": toks[:, :s]}, cfg)
-            step, _ = serve_step(srv.params, cache, {"tokens": toks[:, s:]}, s, cfg)
+            _, cache = prefill_step(srv.params, cache, srv.batch(toks[:, :s]), cfg)
+            step, _ = serve_step(srv.params, cache, srv.batch(toks[:, s:]), s, cfg)
             # the noise floor: the same prefill at batch 2 (other GEMM shapes)
             half = (prefill_step(srv.params, init_cache(cfg, 2, cache_len, dev),
-                                 {"tokens": toks[:2]}, cfg)[0] if noise_floor else None)
+                                 srv.batch(toks[:2]), cfg)[0] if noise_floor else None)
             torch.cuda.synchronize()
         finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
         err = float((step - full).abs().max())
@@ -2360,9 +2535,7 @@ def main() -> int:
     by_path = {}
     # chatglm3-6b: 4 x 512 prompt tokens, 64 new, KV cache 1024
     srv, prompts, by_path["serve"] = serve(
-        "serve", ARCH, PROMPT, MAX_LEN, SEED + 1,
-        lambda c: {"rmsnorm": (2 * c.n_layers + 1) * (1 + NEW),
-                   "flash_attention_fwd": c.n_layers, "decode_attention": c.n_layers * NEW},
+        "serve", ARCH, PROMPT, MAX_LEN, SEED + 1, dense_serve_launches,
         lambda p: (p[:1, :16], 2))
     cross_check("cross_check", srv, prompts, MAX_LEN, noise_floor=True)
     del srv
@@ -2382,8 +2555,7 @@ def main() -> int:
 
     # stablelm-3b: head dim 80, LayerNorm (plain torch, as JAX's jnp), MHA
     srv, prompts, by_path["serve_stablelm"] = serve(
-        "serve_stablelm", LM_ARCH, PROMPT, MAX_LEN, SEED + 8,
-        lambda c: {"flash_attention_fwd": c.n_layers, "decode_attention": c.n_layers * NEW},
+        "serve_stablelm", LM_ARCH, PROMPT, MAX_LEN, SEED + 8, dense_serve_launches,
         lambda p: (p[:1, :16], 2))
     cross_check("cross_check_stablelm", srv, prompts, MAX_LEN)
     del srv
@@ -2437,6 +2609,24 @@ def main() -> int:
         config=hybrid_serve_config(), cut=HYBRID_SERVE_CUT, want=hybrid_serve_launches,
         serve_bound=hybrid_serve_bound)
 
+    # the last four families at full width and full depth, one at a time
+    # (command-r-35b's 60.6 GB of bf16 weights alone on the card): each serve
+    # run's bound, then its cross-check; pixtral-12b and musicgen-large
+    # through the stub frontend (its table built once, 1.34 GB for pixtral),
+    # the cross-check's 513th embedding from the same table
+    for phase, arch, prompt_seed in DENSE_SERVES:
+        t_phase = time.perf_counter()
+        srv, prompts, by_path[phase] = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed,
+                                             dense_serve_launches, lambda p: (p[:1, :16], 2))
+        emit({"phase": f"{phase}_bound", "batch": BATCH, "prompt": PROMPT,
+              **dense_serve_bound(srv.cfg, srv.params, BATCH, PROMPT),
+              "stub_table_gb": (0 if srv._stub is None
+                                else srv._stub.numel() * srv._stub.element_size() / 1e9)})
+        cross_check(phase.replace("serve", "cross_check"), srv, prompts, MAX_LEN)
+        del srv
+        torch.cuda.empty_cache()
+        emit({"phase": f"{phase}_seconds", "seconds": time.perf_counter() - t_phase})
+
     # -- train_check(_ssm, _moe): reduced chatglm3-6b, mamba2-130m and
     # deepseek-v2-lite-16b, loss and every gradient, card vs CPU
     for phase, cfg_, seed_, seq_, row1_len in (
@@ -2452,6 +2642,10 @@ def main() -> int:
             # sigmoid router (router_bias drawn from the seed), the MTP layer;
             # q-LoRA at its full 1536
             ("train_check_v3", v3_small_config(), SEED + 30, 3 * FLASH_TILE,
+             3 * FLASH_TILE - 40),
+            # reduced starcoder2-15b at rep 12, D 128 (GELU, QKV bias,
+            # LayerNorm), 192 tokens (three flash tiles)
+            ("train_check_starcoder2", starcoder2_small_config(), SEED + 58, 3 * FLASH_TILE,
              3 * FLASH_TILE - 40)):
         rec = train_check(dev, cfg_, seed_, seq_, row1_len)
         emit({"phase": phase, **rec})
@@ -2537,18 +2731,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         return got
 
-    def attention_per_step(c):
-        return {"flash_attention_fwd": 2 * c.n_layers, "flash_attention_bwd_dq": c.n_layers,
-                "flash_attention_bwd_dkv": c.n_layers, "fused_ce": 2 * CE_CHUNKS,
-                "fused_ce_bwd": CE_CHUNKS}
-
     by_path["train"] = train(
-        "train", ARCH, TRAIN_STEPS, torch.bfloat16, TRAIN_CUT,
-        lambda c: {"rmsnorm": 4 * c.n_layers + 1, "rmsnorm_bwd": 2 * c.n_layers + 1,
-                   **attention_per_step(c)}, SEED + 4)
+        "train", ARCH, TRAIN_STEPS, torch.bfloat16, TRAIN_CUT, dense_train_launches, SEED + 4)
     # stablelm-3b: the Trainer's default fp32 moments (~34 GB of state)
     by_path["train_stablelm"] = train(
-        "train_stablelm", LM_ARCH, LM_TRAIN_STEPS, torch.float32, [], attention_per_step,
+        "train_stablelm", LM_ARCH, LM_TRAIN_STEPS, torch.float32, [], dense_train_launches,
         SEED + 9)
     # mamba2-130m: 8 x 2048 tokens, the Trainer's default fp32 moments; per
     # layer the norm and the gated out_norm, each recomputed, and the scan
@@ -2572,6 +2759,16 @@ def main() -> int:
     by_path["train_v3"] = train(
         "train_v3", V3_ARCH, V3_TRAIN_STEPS, torch.float32, V3_TRAIN_CUT,
         lambda c: moe_train_launches(c, TRAIN_S), SEED + 31, n_layers=V3_TRAIN_LAYERS)
+    # musicgen-large at full width, nothing cut, fp32 moments: on tokens, as
+    # the Trainer feeds it (the token table plus sinusoidal positions)
+    by_path["train_musicgen"] = train(
+        "train_musicgen", MG_ARCH, MG_TRAIN_STEPS, torch.float32, [], dense_train_launches,
+        SEED + 59)
+    # command-r-35b cut to 2 layers, fp32 moments: the CE at vocab 256000 and
+    # the tied table's gradient from the gather and from the head
+    by_path["train_command_r"] = train(
+        "train_command_r", CR_ARCH, CR_TRAIN_STEPS, torch.float32, CR_TRAIN_CUT,
+        dense_train_launches, SEED + 60, n_layers=CR_TRAIN_LAYERS)
 
     for row in rows:
         row["launches_by_path"] = {p: cnt[row["name"]] for p, cnt in by_path.items()}

@@ -1,23 +1,24 @@
 """Config registry of the port: ``get_config("<arch-id>")``.
 
-It holds only the architectures the port runs so far; the JAX package's
-other configs raise `KeyError` until their slice lands (see ROADMAP.md).
+It holds the JAX package's ten architectures, each copied from
+`repro/configs/`; `ARCH_IDS` equals the JAX package's.
 """
-from . import (chatglm3_6b, deepseek_v2_lite_16b, deepseek_v3_671b, jamba_1_5_large_398b,
-               mamba2_130m, stablelm_3b)
+from . import (chatglm3_6b, command_r_35b, deepseek_v2_lite_16b, deepseek_v3_671b,
+               jamba_1_5_large_398b, mamba2_130m, musicgen_large, pixtral_12b, stablelm_3b,
+               starcoder2_15b)
 from .base import HybridConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
-            for m in (chatglm3_6b, deepseek_v2_lite_16b, deepseek_v3_671b, jamba_1_5_large_398b,
-                      mamba2_130m, stablelm_3b)}
+            for m in (chatglm3_6b, command_r_35b, deepseek_v2_lite_16b, deepseek_v3_671b,
+                      jamba_1_5_large_398b, mamba2_130m, musicgen_large, pixtral_12b,
+                      stablelm_3b, starcoder2_15b)}
 
 ARCH_IDS = tuple(sorted(REGISTRY))
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported yet; ported: "
-                       f"{', '.join(ARCH_IDS)}")
+        raise KeyError(f"unknown arch {name!r}; known: {', '.join(ARCH_IDS)}")
     return REGISTRY[name]
 
 

@@ -93,8 +93,13 @@ __device__ __forceinline__ const float* rank_ptr(const float* p, int rank, int C
     return reinterpret_cast<const float*>(r);
 }
 
+// The bounds ask for one block an SM, which lifts ptxas's register target;
+// the ring's shared memory already holds a block to 2-3 an SM at D >= 64.
+// Under the default target ptxas gave <64, 1> 80 registers and spilled a
+// loop-invariant shared memory address (stored before the kv loop, loaded
+// in every pass of it).
 template <int D, int MT>
-__global__ void __launch_bounds__(kThreads) decode_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
     using M = Smem<D, MT>;
     constexpr int LD = M::LD, R = M::R, NT = D / 8, VPR = D / 8;
     extern __shared__ __align__(128) unsigned char smem[];

@@ -3,6 +3,8 @@
 Counterpart of `repro/launch/serve.py`.  Loads (or initialises) a model on
 the card, serves a batch of token prompts against a KV cache, and returns
 the greedy tokens.  Runs on `cuda` unless the caller passes `device="cpu"`.
+An arch with a stub frontend (pixtral-12b's vit, musicgen-large's encodec)
+takes each token's row of a seeded table as its `embeds`, as JAX's Server.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --tokens 32
 """
@@ -30,6 +32,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# the stub frontend's table: JAX's Server draws it from this seed
+STUB_SEED, STUB_SCALE = 1234, 0.02
+_STUB_ROWS = 4096           # rows drawn at a time: ~84 MB of fp32 at d 5120
+
+
+def stub_table(vocab: int, d: int, device) -> torch.Tensor:
+    """The stub frontend's [vocab, d] table as bf16 on `device`: the bits of
+    JAX's `Server._embed_stub`, which draws `default_rng(STUB_SEED)
+    .standard_normal((vocab, d), float32) * STUB_SCALE` and casts the rows
+    it indexes to bf16.  The draws are taken in blocks of rows from the same
+    generator (the same stream, in the same order), each block scaled in
+    fp32 on the host and cast on `device`, so the host holds one block."""
+    rng = np.random.default_rng(STUB_SEED)
+    table = torch.empty((vocab, d), dtype=torch.bfloat16, device=device)
+    for r0 in range(0, vocab, _STUB_ROWS):
+        rows = min(_STUB_ROWS, vocab - r0)
+        block = rng.standard_normal((rows, d), dtype=np.float32) * np.float32(STUB_SCALE)
+        table[r0:r0 + rows] = torch.from_numpy(block).to(device)
+    return table
+
+
 class Server:
     def __init__(self, arch: str, *, reduced: bool = True, max_len: int = 512,
                  params=None, device="cuda", seed: int = 0) -> None:
@@ -42,6 +65,26 @@ class Server:
             with torch.inference_mode():
                 params = init_model(self.cfg, gen, self.device)
         self.params = params
+        # JAX rebuilds the stub table on the host at every call (every decode
+        # step); the port builds it once and gathers each step's rows on the
+        # device
+        self._stub = (None if self.cfg.frontend is None
+                      else stub_table(self.cfg.vocab_size, self.cfg.d_model, self.device))
+
+    def _embed_stub(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
+        """Stub modality frontend: deterministic pseudo-embeddings per token,
+        [..., d] bf16 (audio and vlm archs take precomputed frame or patch
+        embeddings); None for an arch without a frontend."""
+        return None if self._stub is None else self._stub[tokens]
+
+    def batch(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model's batch for `tokens` [B, S] on the server's device: the
+        tokens, and the stub frontend's `embeds` where the arch has one."""
+        out = {"tokens": tokens}
+        emb = self._embed_stub(tokens)
+        if emb is not None:
+            out["embeds"] = emb
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -58,8 +101,8 @@ class Server:
             raise ValueError(f"{s0} prompt + {n_tokens} new tokens exceed "
                              f"max_len {self.max_len}")
         cache = init_cache(self.cfg, b, self.max_len, self.device)
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.long,
-                                           device=self.device)}
+        batch = self.batch(torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                           device=self.device))
         self._sync()
         t0 = time.perf_counter()
         logits, cache = prefill_step(self.params, cache, batch, self.cfg)
@@ -73,7 +116,7 @@ class Server:
         t0 = time.perf_counter()
         for i in range(n_tokens):
             outs.append(tok)
-            logits, cache = serve_step(self.params, cache, {"tokens": tok[:, None]},
+            logits, cache = serve_step(self.params, cache, self.batch(tok[:, None]),
                                        s0 + i, self.cfg)
             finite &= torch.isfinite(logits).all()
             tok = logits[:, -1].argmax(-1)

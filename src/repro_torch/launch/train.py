@@ -6,7 +6,10 @@ kernels, AdamW) and logs, for `steps` steps.  It is the same for every
 family `loss_fn` trains: the dense decoders, the Mamba2 (ssm) stack, the
 MoE family (deepseek-v2-lite-16b, and deepseek-v3-671b with its MTP head,
 whose loss the step's metrics carry as `mtp_ce`) and the hybrid family
-(jamba-1.5-large-398b).  `n_layers` cuts the depth (the first layers of the
+(jamba-1.5-large-398b).  The stub-frontend families (pixtral-12b,
+musicgen-large) train on tokens alone, through the token table (plus
+musicgen-large's sinusoidal positions), as the JAX Trainer feeds them.
+`n_layers` cuts the depth (the first layers of the
 config, the dense prefix first, every width kept; the MTP head stays): a
 model whose train state does not fit one card trains a few of its layers
 (deepseek-v3-671b: its 3 dense layers).  A hybrid model is cut as JAX's
@@ -27,6 +30,8 @@ Runs on `cuda` unless the config says `device="cpu"`.
         --full --n-layers 6 --steps 8 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
         --full --n-layers 3 --steps 8 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \\
+        --full --steps 8 --batch 8 --seq 512
 """
 from __future__ import annotations
 

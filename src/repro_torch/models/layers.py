@@ -18,8 +18,7 @@ kernel.  MLA's expanded (no-cache) branch, the train path, attends through
 the flash kernels at q/k head dim qk_nope + qk_rope against v head dim
 v_head_dim, where JAX runs `blocked_causal_attention` (jnp): the port puts
 a kernel there, as for the dense family.  The activation-sharding constraints of `repro.context`
-are single-device no-ops and have no counterpart here; the `embeds`
-frontends are not ported yet (ROADMAP.md).
+are single-device no-ops and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -74,7 +73,7 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (split-halves convention, as the JAX package)
+# rotary / positional embeddings (split-halves rotary, as the JAX package)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
@@ -97,6 +96,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x_rot.float().chunk(2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([y.to(x.dtype), x_pass], dim=-1)
+
+
+def sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal positions [..., d] in bf16: fp32 angles, the sin
+    half then the cos half, as JAX's `sinusoidal_embed`."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

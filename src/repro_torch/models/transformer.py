@@ -7,8 +7,11 @@ Counterpart of `repro/models/transformer.py`.  Ported so far: `init_model`,
 `init_cache`, `_layer_is_moe`, `_init_tf_layer`, `_apply_tf_layer`,
 `_init_hybrid_block`, `_apply_hybrid_layer`, `_apply_hybrid_block`,
 `_model_step`, `_serve_tf`, `prefill` and `decode_step`, `forward`,
-`_chunked_ce` and `loss_fn` for the dense, moe, ssm and hybrid families.  `forward` sums the MoE layers'
-load-balancing aux loss, as JAX's does; `loss_fn` adds deepseek-v3-671b's
+`_chunked_ce`, `loss_fn` and `_embed_inputs` for the dense, moe, ssm and
+hybrid families and the stub-frontend (vlm, audio) ones: a batch may carry
+a frontend's `embeds` [B, S, D] in place of the token embedding, and
+sinusoidal positions are added where the config has them.  `forward` sums
+the MoE layers' load-balancing aux loss, as JAX's does; `loss_fn` adds deepseek-v3-671b's
 multi-token prediction (MTP) loss as JAX's does (ssm and hybrid have no MTP
 branch, as in JAX).
 A depth cut that keeps only the dense prefix leaves `params["blocks"]`
@@ -44,14 +47,6 @@ from . import layers as L
 from . import ssm as S
 
 Params = Dict[str, Any]
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    """Raise for the features later slices bring."""
-    if cfg.frontend is not None or cfg.pos_embed != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: stub frontends and sinusoidal positions are not "
-            "ported yet (ROADMAP.md Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +184,6 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     keeps its dense prefix layers in `prefix`, the rest in `blocks`, and
     deepseek-v3's multi-token-prediction head in `mtp`, as JAX names them.
     A hybrid model's `blocks` holds its n_layers // period period blocks."""
-    _require_ported(cfg)
     params: Params = {"embed": L.init_embed(cfg, gen, device),
                       "final_norm": L.init_norm(cfg, device)}
     if cfg.family == "ssm":
@@ -214,6 +208,21 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 # forward (train: full sequence, no cache) and loss
 # ---------------------------------------------------------------------------
 
+def _embed_inputs(params: Params, batch: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+    """The layers' input [B, S, D] bf16: a stub frontend's `embeds`, where the
+    config has a frontend and the batch carries them, else the token
+    embedding; plus sinusoidal positions from the batch's `pos0` (default 0)
+    where the config has them, as JAX's `_embed_inputs`."""
+    if cfg.frontend is not None and "embeds" in batch:
+        h = batch["embeds"].to(torch.bfloat16)
+    else:
+        h = L.embed_tokens(params["embed"], batch["tokens"])
+    if cfg.pos_embed == "sinusoidal":
+        positions = batch.get("pos0", 0) + torch.arange(h.shape[1], device=h.device)
+        h = h + L.sinusoidal_embed(positions, cfg.d_model)
+    return h
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward; returns (hidden [B,S,D], aux_loss).  The ssm
@@ -223,8 +232,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     gradient flows.  The hybrid family does the same a period block at a
     time, each whole block checkpointed, as JAX's remat wraps its scanned
     block body."""
-    _require_ported(cfg)
-    h = L.embed_tokens(params["embed"], batch["tokens"])
+    h = _embed_inputs(params, batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -335,7 +343,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, 
     attention layer's KV and the Mamba layers' states, as JAX stacks them:
     {"kv": {"k", "v"} [NB,B,max_len,Hkv,dh], "conv": [NB,period-1,B,W-1,C],
     "ssm": [NB,period-1,B,H,P,N]}."""
-    _require_ported(cfg)
     if cfg.family == "ssm":
         return {"ssm_state": S.init_ssm_state(cfg, batch, cfg.n_layers, device)}
     if cfg.family == "hybrid":
@@ -352,9 +359,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, 
 def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                 cache: Dict[str, Any], cache_pos: int
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Shared incremental forward for prefill (s>1) and decode (s=1)."""
-    _require_ported(cfg)
-    h = L.embed_tokens(params["embed"], batch["tokens"])
+    """Shared incremental forward for prefill (s>1) and decode (s=1); the
+    sinusoidal positions start at `cache_pos`."""
+    if cfg.pos_embed == "sinusoidal":
+        batch = dict(batch, pos0=cache_pos)
+    h = _embed_inputs(params, batch, cfg)
     s = h.shape[1]
     positions = cache_pos + torch.arange(s, device=h.device)
     if cfg.family == "ssm":

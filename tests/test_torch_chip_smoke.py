@@ -330,3 +330,142 @@ def test_hybrid_train_check_holds_each_unit(monkeypatch, fault):
         assert not rec["ok"] and rec["unit_rel_l2"][attn] > cs.TOL_GRAD
         assert rec["rel_l2_all_grads"] <= cs.TOL_GRAD
         assert max(v for u, v in rec["unit_rel_l2"].items() if u != attn) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# decode attention's spill gate; the last four families' phases
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("vals,spill", [((64, 1), 4), ((64, 1), 0), ((128, 2), 8),
+                                        ((32, 1), 0)])
+def test_spill_gate_fails_any_decode_kernel_instance_that_spills(tmp_path, vals, spill):
+    """`ptxas_report` reads every decode_kernel<D, MT> instance with its
+    template arguments, and `check_no_spills` fails any that spills: the
+    row of the report as ptxas writes it for <64, 1> when it spilled (an
+    8-byte stack frame, 4 bytes of spill stores and loads)."""
+    cs = _chip_smoke()
+    name = "_ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_95940b7213decode_kernel"
+    (tmp_path / "decode_attention.cu.log").write_text(
+        f"ptxas info    : Compiling entry function '{name}I" + "".join(f"Li{v}E" for v in vals)
+        + "EEvNS_6ParamsE' for 'sm_90a'\n"
+        f"    {2 * spill} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill "
+        "loads\nptxas info    : Used 80 registers, used 1 barriers\n")
+    (tmp_path / "rmsnorm.cu.log").write_text("")
+    rows = cs.ptxas_report(types.SimpleNamespace(BUILD_DIR=tmp_path))
+    assert rows == [{"kernel": "decode_kernel", "source": "decode_attention.cu",
+                     "D": vals[0], "MT": vals[1], "stack": 2 * spill, "spill_stores": spill,
+                     "spill_loads": spill, "registers": 80}]
+    if spill:
+        with pytest.raises(AssertionError, match=r"decode_kernel<%d, %d> spills" % vals):
+            cs.check_no_spills(rows[0])
+    else:
+        cs.check_no_spills(rows[0])
+
+
+def _spy_kernels(monkeypatch):
+    """Counts each kernel wrapper's calls through the model's imports (a CPU
+    tensor runs the plain version, which counts no launch)."""
+    from repro_torch.kernels.cross_entropy import ops as ce_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models import layers
+    calls = {}
+
+    def spy(mod, attr, names):
+        real = getattr(mod, attr)
+
+        def wrapped(*a, **k):
+            for n in names:
+                calls[n] = calls.get(n, 0) + 1
+            return real(*a, **k)
+        monkeypatch.setattr(mod, attr, wrapped)
+    spy(rms_ops, "rmsnorm", ["rmsnorm"])
+    spy(rms_ops, "rmsnorm_bwd", ["rmsnorm_bwd"])
+    spy(flash_ops, "flash_attention_fwd", ["flash_attention_fwd"])
+    spy(flash_ops, "flash_attention_bwd", ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    spy(layers, "flash_attention_fwd", ["flash_attention_fwd"])
+    spy(layers, "decode_attention", ["decode_attention"])
+    spy(ce_ops, "fused_ce", ["fused_ce"])
+    spy(ce_ops, "fused_ce_bwd", ["fused_ce_bwd"])
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["command-r-35b", "starcoder2-15b", "pixtral-12b",
+                                  "musicgen-large", "chatglm3-6b", "stablelm-3b"])
+def test_dense_serve_and_train_launches_are_what_the_model_calls(monkeypatch, arch):
+    """A reduced model's Server.generate (a prefill, then NEW decode steps;
+    the stub frontend's embeds for pixtral and musicgen) and one train step
+    (remat per layer, CE_CHUNKS chunks) call each kernel wrapper as often as
+    `dense_serve_launches` and `dense_train_launches` count, the counts the
+    serve and train phases gate on."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.runtime.steps import param_grads
+    from repro_torch.tree import tree_leaves
+    cs = _chip_smoke()
+    srv = Server(arch, max_len=96, device="cpu", seed=1)
+    cfg = srv.cfg
+    calls = _spy_kernels(monkeypatch)
+    prompts = np.random.default_rng(2).integers(1, cfg.vocab_size, (2, 16))
+    out = srv.generate(prompts, cs.NEW)
+    assert out["finite"] and out["tokens"].shape == (2, cs.NEW)
+    assert calls == cs.dense_serve_launches(cfg)
+    calls.clear()
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 65)))
+    loss, _ = loss_fn(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cfg)
+    param_grads(loss, leaves)
+    assert calls == cs.dense_train_launches(cfg)
+
+
+def test_dense_serve_bounds_at_full_width():
+    """The four serve phases' configs at full width and full depth, built on
+    the meta device as Server builds them: their parameter counts and the
+    bounds each phase prints (4 x 512 prompt tokens, decode at the serve
+    lengths): command-r-35b's tied 256000 x 8192 table is its head and is
+    read by every decode step; the other three read every weight but their
+    token table."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    cs = _chip_smoke()
+    want = {"command-r-35b": (30.284e9, 18.19, 117.4), "starcoder2-15b": (15.956e9, 9.40, 64.1),
+            "pixtral-12b": (12.248e9, 7.02, 45.5), "musicgen-large": (2.4247e9, 1.70, 10.2)}
+    assert [arch for _, arch, _ in cs.DENSE_SERVES] == list(want)
+    for arch, (n, decode_ms, prefill_ms) in want.items():
+        cfg = get_config(arch)
+        params = init_model(cfg, torch.Generator(), "meta")
+        bound = cs.dense_serve_bound(cfg, params, cs.BATCH, cs.PROMPT)
+        assert abs(bound["params"] - n) <= 1e-3 * n
+        assert bound["decode_step_bound_ms"] == pytest.approx(decode_ms, rel=1e-2)
+        assert bound["prefill_bound_ms"] == pytest.approx(prefill_ms, rel=1e-2)
+        assert bound["prefill_bound_by"] == "operations"
+        tok = cfg.vocab_size * cfg.d_model * 2
+        assert bound["weights_gb"] - bound["weights_read_gb"] == pytest.approx(
+            0 if cfg.tie_embeddings else tok / 1e9)
+
+
+def test_model_flops_count_a_tied_table_as_the_head():
+    """train_command_r's 2 layers with the tied table: 6 x every param x
+    tokens (the table is the head's matrix) plus the causal pairs; an
+    untied model leaves its token table (a gather) out."""
+    from dataclasses import replace
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    cr = replace(get_config(cs.CR_ARCH), n_layers=2)
+    n = 3_506_520_064
+    pairs = 8 * 64 * 512 * 513 // 2
+    assert cs.model_flops(cr, n, 8, 512) == 6 * n * 4096 + 12 * 128 * pairs * 2
+    sc = get_config(cs.SC_ARCH)
+    assert cs.model_flops(sc, 10**9, 8, 512) == (6 * (10**9 - 49152 * 6144) * 4096
+                                                  + 12 * 128 * (8 * 48 * 512 * 513 // 2) * 40)
+
+
+def test_starcoder2_small_config_runs_rep_12_at_d_128():
+    cs = _chip_smoke()
+    cfg = cs.starcoder2_small_config()
+    assert (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim) == (12, 128)
+    assert cfg.act == "gelu" and cfg.qkv_bias and cfg.norm == "layernorm"

@@ -79,7 +79,9 @@ def _close(a, b, **tol):
                                    (333, 136), (5, 8192), (3, 16384), (300, 16384),
                                    (2, 32768), (7, 8),
                                    # jamba-1.5-large-398b's d 8192 and d_inner 16384
-                                   (2048, 8192), (2048, 16384), (4, 8192), (4, 16384)])
+                                   (2048, 8192), (2048, 16384), (4, 8192), (4, 16384),
+                                   # pixtral-12b's d 5120: prefill and decode rows
+                                   (2048, 5120), (4, 5120)])
 def test_rmsnorm_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(0)
     x = _rand(rng, shape, dev, 3.0)
@@ -122,6 +124,11 @@ def test_rmsnorm_kernel_reads_rows_at_a_pitch(dev, rows, d, pitch):
     (1, 8, 2, 200, 200, 64, 0, 200, False),    # full attention, D 64
     (4, 64, 8, 512, 1024, 128, 0, 512, True),  # jamba-1.5-large-398b's prefill: rep 8
     (2, 16, 2, 130, 300, 128, 40, 170, True),  # rep 8 into a longer cache
+    (4, 48, 4, 512, 1024, 128, 0, 512, True),  # starcoder2-15b's prefill: rep 12
+    (2, 24, 2, 130, 300, 128, 40, 170, True),  # rep 12 into a longer cache
+    (4, 32, 8, 512, 1024, 128, 0, 512, True),  # pixtral-12b's prefill: rep 4 at D 128
+    (4, 32, 32, 512, 1024, 64, 0, 512, True),  # musicgen-large's prefill: D 64 MHA
+    (8, 32, 32, 512, 512, 64, 0, 512, True),   # musicgen-large's train step
 ])
 def test_flash_kernel_matches_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(1)
@@ -151,6 +158,11 @@ def test_flash_kernel_matches_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, c
     (1, 32, 1, 2048, 128, [2047]),              # rep 32, long
     (4, 64, 8, 1024, 128, [513, 540, 561, 576]),  # jamba-1.5-large-398b's: rep 8
     (3, 16, 2, 100, 128, [0, 64, 99]),          # rep 8: length 0, ragged tails
+    (4, 48, 4, 1024, 128, [513, 540, 561, 576]),  # starcoder2-15b's: rep 12
+    (3, 24, 2, 100, 128, [0, 64, 99]),          # rep 12: length 0, ragged tails
+    (4, 32, 8, 1024, 128, [513, 540, 561, 576]),  # pixtral-12b's: rep 4 at D 128
+    (4, 32, 32, 1024, 64, [513, 540, 561, 576]),  # musicgen-large's: D 64, rep 1
+    (3, 8, 8, 100, 64, [0, 17, 100]),           # D 64, rep 1: length 0, ragged tails
 ])
 def test_decode_kernel_matches_plain(dev, b, h, hkv, t, d, lengths):
     rng = np.random.default_rng(2)
@@ -170,7 +182,10 @@ def test_decode_kernel_matches_plain(dev, b, h, hkv, t, d, lengths):
     _close(decode_attention(q, k2, v2, lens), out, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("d,h,hkv", [(128, 32, 2), (80, 32, 32), (64, 6, 2), (128, 64, 8)])
+@pytest.mark.parametrize("d,h,hkv", [(128, 32, 2), (80, 32, 32), (64, 6, 2), (128, 64, 8),
+                                     # starcoder2-15b's rep 12, pixtral-12b's rep 4,
+                                     # musicgen-large's D 64 MHA
+                                     (128, 48, 4), (128, 32, 8), (64, 32, 32)])
 def test_decode_kernel_every_cluster_size_matches_plain(dev, d, h, hkv):
     """Each cluster size splits the live rows (ranks with no rows when the
     length is short) and combines them to the plain version."""
@@ -184,7 +199,7 @@ def test_decode_kernel_every_cluster_size_matches_plain(dev, d, h, hkv):
         _close(decode_attention(q, k, v, lens, cluster=c), ref, **TOL_BF16)
 
 
-@pytest.mark.parametrize("d,hkv", [(128, 2), (80, 32)])
+@pytest.mark.parametrize("d,hkv", [(128, 2), (80, 32), (128, 8), (64, 32)])
 def test_decode_kernel_is_bitwise_repeatable(dev, d, hkv):
     """One launch combines its partials in a fixed order: the same inputs
     give the same bits."""
@@ -241,6 +256,39 @@ def test_reduced_server_on_card_matches_cpu(dev):
         "rmsnorm": (2 * n + 1) * 9, "flash_attention_fwd": n, "decode_attention": n * 8}
 
 
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large"])
+def test_reduced_frontend_server_on_card_matches_cpu(dev, arch):
+    """A reduced stub-frontend arch served on the card (kernels; the stub
+    table built on the card) against the same weights and embeds on the CPU
+    (plain versions): the prefill's logits within 3e-2 of their largest
+    magnitude (chip_smoke.py's cross-check gate: elementwise at rtol = atol
+    = 3e-2, 2 of pixtral-12b's 1024 logits, each near 0, read 0.008 past),
+    then Server.generate's launch counts (pixtral-12b's RMS norms;
+    musicgen-large's LayerNorm stays plain torch) and the stub table's bits
+    on both devices."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import init_cache, prefill
+
+    gpu = Server(arch, max_len=64, device=dev, seed=3)
+    cpu = Server(arch, max_len=64, device="cpu", params=_map(gpu.params, lambda t: t.cpu()))
+    assert torch.equal(gpu._stub.cpu(), cpu._stub)
+    cfg = gpu.cfg
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 24)))
+    with torch.inference_mode():
+        lg, _ = prefill(gpu.params, gpu.batch(toks.to(dev)), cfg, init_cache(cfg, 2, 64, dev))
+        lc, _ = prefill(cpu.params, cpu.batch(toks), cfg, init_cache(cfg, 2, 64, "cpu"))
+    assert float((lg.cpu() - lc).abs().max()) <= 3e-2 * float(lc.abs().max())
+    reset_launches()
+    out = gpu.generate(toks.numpy()[:, :16], 8)
+    assert out["finite"]
+    n = cfg.n_layers
+    want = {"flash_attention_fwd": n, "decode_attention": n * 8}
+    if cfg.norm == "rmsnorm":
+        want["rmsnorm"] = (2 * n + 1) * 9
+    assert {k: v for k, v in launches().items() if v} == want
+
+
 @pytest.mark.parametrize("shape", [(8, 128), (3, 4096), (4096, 4096), (2, 100, 256),
                                    (4097, 4096), (1, 4096), (333, 136), (5, 8192),
                                    (7, 8),
@@ -277,6 +325,10 @@ def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
     (2, 8, 2, 100, 256, 80, 40, 140, True),    # rep 4, D 80, kv_len < T
     (2, 8, 1, 192, 192, 128, 0, 192, True),    # train_check_hybrid's rep 8 at D 128
     (8, 64, 8, 512, 512, 128, 0, 512, True),   # a full-width jamba train step's: rep 8
+    (8, 48, 4, 512, 512, 128, 0, 512, True),   # starcoder2-15b's train step: rep 12
+    (2, 12, 1, 192, 192, 128, 0, 192, True),   # train_check_starcoder2's rep 12 at D 128
+    (8, 32, 8, 512, 512, 128, 0, 512, True),   # pixtral-12b's: rep 4 at D 128
+    (8, 32, 32, 512, 512, 64, 0, 512, True),   # musicgen-large's: D 64 MHA
 ])
 def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, t, d, q_offset, kv_len, causal):
     rng = np.random.default_rng(6)
@@ -369,7 +421,10 @@ def _dkv_inputs(rng, dev, b, h, hkv, s, d):
 
 
 @pytest.mark.parametrize("cluster", DKV_CLUSTERS)
-@pytest.mark.parametrize("h,hkv", [(6, 2), (16, 1), (16, 2)])   # rep 3 (< 4, 8), 16 and 8
+@pytest.mark.parametrize("h,hkv", [(6, 2), (16, 1), (16, 2),   # rep 3 (< 4, 8), 16 and 8
+                                   # rep 12 (a cluster of 8 gives each rank 1 or 2
+                                   # heads) and rep 4 at D 128
+                                   (24, 2), (8, 2)])
 def test_flash_dkv_every_cluster_size_matches_plain(dev, cluster, h, hkv):
     """Each cluster size splits the GQA group (blocks with no head when
     rep < cluster) and sums it to the plain version's dk/dv."""
@@ -396,7 +451,9 @@ def test_flash_dkv_at_head_dim_80_every_cluster_size_matches_plain(dev, cluster,
 
 
 @pytest.mark.parametrize("d,h,hkv,cluster", [(128, 32, 2, None), (128, 32, 2, 8),
-                                             (80, 32, 32, None), (80, 32, 4, 8)])
+                                             (80, 32, 32, None), (80, 32, 4, 8),
+                                             # rep 12: the wrapper's cluster and 8
+                                             (128, 48, 4, None), (128, 48, 4, 8)])
 def test_flash_dkv_kernel_is_bitwise_repeatable(dev, d, h, hkv, cluster):
     """The cluster sums its partials in rank order: the same inputs give the
     same bits (head dim 128, and 80: stablelm-3b's MHA and a GQA group of 8
@@ -409,7 +466,8 @@ def test_flash_dkv_kernel_is_bitwise_repeatable(dev, d, h, hkv, cluster):
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
-@pytest.mark.parametrize("d,hkv", [(128, 2), (80, 32)])     # chatglm3-6b's GQA, stablelm-3b's MHA
+@pytest.mark.parametrize("d,hkv", [(128, 2), (80, 32),   # chatglm3-6b's GQA, stablelm-3b's MHA
+                                   (128, 4), (64, 32)])  # rep 8 of 32 heads, D 64 MHA
 def test_flash_dq_kernel_is_bitwise_repeatable(dev, d, hkv):
     """The dq pass writes each dq row from one warpgroup's registers, with no
     atomics: the same inputs give the same bits, and the same delta (at rep
@@ -429,7 +487,9 @@ def test_flash_dq_kernel_is_bitwise_repeatable(dev, d, hkv):
 
 @pytest.mark.parametrize("r,v", [(512, 65024), (64, 50304), (7, 512),
                                  (512, 50280),      # mamba2-130m's vocab, one of 8 CE chunks
-                                 (512, 102400)])    # deepseek-v2-lite-16b: whole 1024-col blocks
+                                 (512, 102400),     # deepseek-v2-lite-16b: whole 1024-col blocks
+                                 (512, 256000),     # command-r-35b's tied vocab
+                                 (512, 2048)])      # musicgen-large's
 def test_fused_ce_kernels_match_plain(dev, r, v):
     rng = np.random.default_rng(7)
     logits = _rand(rng, (r, v), dev, 2.0)

@@ -98,8 +98,10 @@ def test_config_values_and_reduced_match_jax():
             jc, tc = jc.reduced(), tc.reduced()
         assert asdict(tc) == asdict(jc)
         assert tc.head_dim == jc.head_dim
+    # command-r-35b, the case that raised before its config was copied
+    assert asdict(get_config("command-r-35b")) == asdict(jax_get_config("command-r-35b"))
     with pytest.raises(KeyError):
-        get_config("command-r-35b")            # not copied into the port yet
+        get_config("command-r-36b")            # no such arch
 
 
 def test_convert_keeps_names_layouts_and_bits(model):
@@ -315,23 +317,26 @@ def test_serve_main_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("change,item", [
-    # the hybrid family this case refused is ported (tests/test_torch_hybrid.py);
-    # its id stays, the case now takes a stub frontend, still refused
-    pytest.param(dict(frontend="encodec"), "Queue 1 item 4", id="change0-Queue 1 item 3"),
+    # the hybrid family this case refused is ported (tests/test_torch_hybrid.py),
+    # and so is the stub frontend it took next (tests/test_torch_families.py);
+    # its id stays
+    pytest.param(dict(frontend="encodec"), "trains", id="change0-Queue 1 item 3"),
     (dict(moe=tbase.MoEConfig(n_experts=4, top_k=2)), "trains"),
     (dict(mla=tbase.MLAConfig(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
                               v_head_dim=32)), "trains"),
     # the roadmap item MTP training closed stays in its id
     pytest.param(dict(mtp=True), "trains",
                  id="change3-Queue 1 item 1, deepseek-v3-671b training"),
-    (dict(pos_embed="sinusoidal"), "Queue 1 item 4"),
+    # sinusoidal positions are ported (tests/test_torch_families.py); the id stays
+    pytest.param(dict(pos_embed="sinusoidal"), "trains", id="change4-Queue 1 item 4"),
 ])
 def test_unported_branches_name_their_roadmap_item(change, item):
-    """Stub frontends and sinusoidal positions are refused at init; MoE, MLA and MTP
-    serve (tests/test_torch_moe.py) and train (item "trains": forward and
-    loss_fn run, and loss_fn reports the MTP head's mtp_ce;
-    tests/test_torch_moe_train.py and tests/test_torch_v3_train.py hold them
-    to JAX)."""
+    """Every branch a config can name now runs (item "trains": forward and
+    loss_fn run, and loss_fn reports the MTP head's mtp_ce): MoE, MLA and
+    MTP (tests/test_torch_moe.py, tests/test_torch_moe_train.py and
+    tests/test_torch_v3_train.py hold them to JAX), a stub frontend (fed
+    tokens here, as the Trainer feeds it) and sinusoidal positions
+    (tests/test_torch_families.py)."""
     cfg = replace(get_config(ARCH).reduced(), **change)
     if item == "trains":
         params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -201,6 +201,32 @@ def test_adamw_bf16_moments():
     assert float(m["grad_norm"]) == pytest.approx(4.0, rel=1e-2)
 
 
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_adamw_blocks_change_no_bit(monkeypatch, moments):
+    """AdamW updates a leaf a block of rows at a time (at most BLOCK
+    elements, one row at least): blocks of one row, of 3 rows (a ragged last
+    block of [7, 3, 5]) and of 3 elements of a 1-D leaf, and a 0-d leaf,
+    give the bits of each leaf updated whole, params and both moments, over
+    three steps."""
+    from repro_torch.optim import adamw
+    shapes = {"w": (7, 3, 5), "b": (9,), "s": ()}
+    cfg = AdamWConfig(moment_dtype=moments, warmup_steps=1)
+    out = {}
+    for block in (1 << 26, 15, 45, 3):
+        monkeypatch.setattr(adamw, "BLOCK", block)
+        rng = np.random.default_rng(5)         # the same draws for every block size
+        params = {k: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(
+            torch.bfloat16) for k, sh in shapes.items()}
+        opt = init_opt_state(params, cfg)
+        for step in range(3):
+            g = {k: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(
+                torch.bfloat16) for k, sh in shapes.items()}
+            params, opt, _ = adamw_update(g, opt, params, cfg)
+        out[block] = [params[k] for k in shapes] + [opt[mv][k] for mv in "mv" for k in shapes]
+    for block in (15, 45, 3):
+        assert all(torch.equal(a, b) for a, b in zip(out[block], out[1 << 26]))
+
+
 @pytest.mark.parametrize("t", [0, 1, 50, 99, 100, 101, 5000, 20000])
 def test_lr_at_matches_jax(t):
     kw = dict(lr=3e-4, warmup_steps=100, total_steps=10000)

@@ -3,12 +3,15 @@
 
     python3 tools/serve_profile.py [--arch mamba2-130m | stablelm-3b |
                                     deepseek-v2-lite-16b | deepseek-v3-671b |
-                                    jamba-1.5-large-398b] [--src DIR]
+                                    jamba-1.5-large-398b | command-r-35b |
+                                    starcoder2-15b | pixtral-12b |
+                                    musicgen-large] [--src DIR]
 
-Builds a full-width model (chatglm3-6b by default, mamba2-130m, stablelm-3b,
-deepseek-v2-lite-16b, deepseek-v3-671b or jamba-1.5-large-398b, the last two
-cut as `chip_smoke.py`'s serve_v3 and serve_hybrid cut them, read from its
-`V3_SERVE_LAYERS` and `hybrid_serve_config`; random weights from seed 0),
+Builds a full-width model (chatglm3-6b by default, or any arch above;
+deepseek-v3-671b and jamba-1.5-large-398b cut as `chip_smoke.py`'s
+serve_v3 and serve_hybrid cut them, read from its `V3_SERVE_LAYERS` and
+`hybrid_serve_config`; random weights from seed 0; pixtral-12b and
+musicgen-large fed their stub frontend's embeds, as `Server` feeds them),
 prefills 4 prompts
 (512 tokens, 8192 for mamba2-130m, as `chip_smoke.py` serves them) and
 decodes 8 tokens, each phase under `torch.profiler`.  For each phase it
@@ -25,7 +28,11 @@ time by layer kind instead (`hybrid_split_ms`): the Mamba layers (`ssm_fwd`,
 and within them the SSD scan's kernel and the gated out_norm's RMSNorm),
 the attention layer (`attention_fwd`), the MoE FFNs (`apply_moe`), the
 dense FFNs (`apply_mlp`), and the rest (the embedding, the layer norms
-outside those, the head).  Each of those functions runs inside
+outside those, the head).  For a dense model (`dense_split_ms`): attention
+(`attention_fwd`: projections, rope, the flash or decode kernel, the cache
+writes), the MLP (`apply_mlp`), the norms (`apply_norm`: the RMSNorm
+kernel, or LayerNorm's plain torch ops), and the rest (the embedding and
+positions, the head, the argmax).  Each of those functions runs inside
 a `record_function` range for the profile; the device time of a range
 sums the kernels of every op it called.  `--src DIR` profiles the
 `repro_torch` under DIR (default: this checkout's `src`).  The card's name
@@ -53,6 +60,8 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 
 # inside a range of their name
 SCOPES = ("apply_moe", "moe_route", "moe_slots", "apply_mlp", "mla_fwd")
 HYBRID_SCOPES = ("ssm_fwd", "attention_fwd", "apply_moe", "apply_mlp")
+DENSE_SCOPES = ("attention_fwd", "apply_mlp", "apply_norm")
+RANGES = set(SCOPES + HYBRID_SCOPES + DENSE_SCOPES)
 
 
 def _scope(mod, names) -> None:
@@ -68,7 +77,7 @@ def _device_ms(ev) -> float:
     """Device ms of the kernels an op launched, its children's included.  A
     range's own span on the device, which the profiler lists beside the
     kernels under the range's name, is left out."""
-    return (sum(k.duration for k in ev.kernels if k.name not in SCOPES + HYBRID_SCOPES)
+    return (sum(k.duration for k in ev.kernels if k.name not in RANGES)
             / 1e3 + sum(_device_ms(ch) for ch in ev.cpu_children))
 
 
@@ -98,25 +107,29 @@ def _kernel_ms(ev, name) -> float:
             + sum(_kernel_ms(ch, name) for ch in ev.cpu_children))
 
 
-def _hybrid_split(prof, busy_ms) -> dict:
-    """Device ms of a hybrid model's layer kinds, and within the Mamba layers
-    the SSD scan's and the RMSNorm's kernels (their other ops: in_proj and
-    out_proj, the conv, the gate; a decode step's recurrence)."""
-    ms = dict.fromkeys(HYBRID_SCOPES, 0.0)
-    inner = {"ssd_scan_kernel": 0.0, "rmsnorm_kernel": 0.0}
+def _scope_split(prof, busy_ms, scopes) -> dict:
+    """Device ms of each range in `scopes`, and of the rest."""
+    ms = dict.fromkeys(scopes, 0.0)
     for ev in prof.events():
         if ev.name in ms:
             ms[ev.name] += _device_ms(ev)
-        if ev.name == "ssm_fwd":
-            for k in inner:
-                inner[k] += _kernel_ms(ev, k)
     out = {f"{k}_ms": v for k, v in ms.items()}
-    out.update({f"ssm_fwd.{k}_ms": v for k, v in inner.items()})
     out["rest_ms"] = busy_ms - sum(ms.values())
     return out
 
 
-def _phase(name, fn, n_items, moe=False, hybrid=False):
+def _hybrid_split(prof, busy_ms) -> dict:
+    """Device ms of a hybrid model's layer kinds, and within the Mamba layers
+    the SSD scan's and the RMSNorm's kernels (their other ops: in_proj and
+    out_proj, the conv, the gate; a decode step's recurrence)."""
+    out = _scope_split(prof, busy_ms, HYBRID_SCOPES)
+    for k in ("ssd_scan_kernel", "rmsnorm_kernel"):
+        out[f"ssm_fwd.{k}_ms"] = sum(_kernel_ms(ev, k) for ev in prof.events()
+                                     if ev.name == "ssm_fwd")
+    return out
+
+
+def _phase(name, fn, n_items, moe=False, hybrid=False, dense=False):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -124,12 +137,14 @@ def _phase(name, fn, n_items, moe=False, hybrid=False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in SCOPES + HYBRID_SCOPES]
+               if e.device_type == DeviceType.CUDA and e.key not in RANGES]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     copies = [e for e in kernels if "copy" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     split = ({"hybrid_split_ms": _hybrid_split(prof, busy_ms)} if hybrid
-             else {"moe_split_ms": _moe_split(prof)} if moe else {})
+             else {"moe_split_ms": _moe_split(prof)} if moe
+             else {"dense_split_ms": _scope_split(prof, busy_ms, DENSE_SCOPES)} if dense
+             else {})
     print(json.dumps({
         "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
@@ -143,7 +158,8 @@ def _phase(name, fn, n_items, moe=False, hybrid=False):
 
 PROMPT = {"chatglm3-6b": 512, "mamba2-130m": 8192, "stablelm-3b": 512,
           "deepseek-v2-lite-16b": 512, "deepseek-v3-671b": 512,
-          "jamba-1.5-large-398b": 512}
+          "jamba-1.5-large-398b": 512, "command-r-35b": 512, "starcoder2-15b": 512,
+          "pixtral-12b": 512, "musicgen-large": 512}
 
 
 def main() -> int:
@@ -156,6 +172,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_table
     from repro_torch.models import init_cache, init_model
     from repro_torch.models import layers, ssm
     from repro_torch.runtime.steps import prefill_step, serve_step
@@ -173,37 +190,45 @@ def main() -> int:
         cfg = hybrid_serve_config()
     hybrid = cfg.family == "hybrid"
     moe = cfg.moe is not None and not hybrid
+    dense = cfg.family != "ssm" and not (hybrid or moe)
     if moe:
         _scope(layers, SCOPES)
     if hybrid:
         _scope(layers, HYBRID_SCOPES[1:])
         _scope(ssm, HYBRID_SCOPES[:1])
+    if dense:
+        _scope(layers, DENSE_SCOPES)
     b, s0, steps, seed = 4, PROMPT[args.arch], 8, 0
     max_len = 2 * s0
     with torch.inference_mode():
         params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
             1, cfg.vocab_size, size=(b, s0))).to(dev)
+        # a stub frontend's embeds: each token's row of its table, as Server
+        stub = (None if cfg.frontend is None
+                else stub_table(cfg.vocab_size, cfg.d_model, dev))
+
+        def batch(t):
+            return {"tokens": t} if stub is None else {"tokens": t, "embeds": stub[t]}
+
         cache = init_cache(cfg, b, max_len, dev)
-        prefill_step(params, cache, {"tokens": toks}, cfg)      # warm-up
+        prefill_step(params, cache, batch(toks), cfg)      # warm-up
         cache = init_cache(cfg, b, max_len, dev)    # an ssm prefill starts from the cache's state
         state = {}
 
         def run_prefill():
-            state["logits"], state["cache"] = prefill_step(
-                params, cache, {"tokens": toks}, cfg)
+            state["logits"], state["cache"] = prefill_step(params, cache, batch(toks), cfg)
 
         def run_decode():
             tok = state["logits"][:, -1].argmax(-1)
             for i in range(steps):
-                lg, _ = serve_step(params, state["cache"], {"tokens": tok[:, None]},
-                                   s0 + i, cfg)
+                lg, _ = serve_step(params, state["cache"], batch(tok[:, None]), s0 + i, cfg)
                 tok = lg[:, -1].argmax(-1)
 
         print(json.dumps({"arch": args.arch, "n_layers": cfg.n_layers, "batch": b, "prompt": s0,
                           "src": os.path.abspath(args.src)}), flush=True)
-        _phase("prefill", run_prefill, 1, moe, hybrid)
-        _phase("decode", run_decode, steps, moe, hybrid)
+        _phase("prefill", run_prefill, 1, moe, hybrid, dense)
+        _phase("decode", run_decode, steps, moe, hybrid, dense)
     return 0
 
 
