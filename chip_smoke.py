@@ -131,7 +131,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    train_ssm — full-width mamba2-130m (24 layers, d 768, 24 SSD heads of
    dim 64, d_state 128, tied embeddings; 129 M params), nothing cut: 8
    steps of batch 8 x 2048 tokens (the Mamba-2 paper's training context),
-   fp32 moments, the same checks.  train_moe — deepseek-v2-lite-16b at
+   fp32 moments, the same checks.  train_resume — the same model and
+   shape through the Trainer's BuffetFS data path and checkpoints, on
+   DirLib in a temp dir (removed at the end): the Trainer's own corpus of
+   128 samples of 2049 tokens, one 8,208-byte file each; run A stops at
+   step 8 of 12 (async checkpoints at 4 and 8: 34 leaves, 133 part files
+   and a MANIFEST, ~1.29 GB each), run B resumes from it and runs 9-12, run
+   C runs 12 steps uninterrupted under another run name.  B's restored
+   state must be A's final state bitwise, leaf by leaf; B's batches C's
+   at steps 9-12 bitwise; B's losses within TOL_RESUME_LOSS of C's
+   (whether bitwise is printed); every loss finite; each run's launches
+   train_ssm's per step.  Printed: each save's blocking copy to the host,
+   its wait for the previous write and its writes, the last wait, the
+   restore, bytes and files written, the pipelines' batches, samples and
+   hedged reads, peak host and device memory.  train_moe — deepseek-v2-lite-16b at
    full width, cut to its first 6 of 27 layers (the dense layer and 5 MoE
    layers, ~3.42 B params), fp32 moments: 8 steps of 8 x 512 tokens, the
    same checks (MLA's expanded branch through the <192, 128> flash kernels,
@@ -160,8 +173,11 @@ import json
 import math
 import os
 import re
+import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -217,6 +233,14 @@ SSD_CHUNK = 64           # the SSD-scan kernel's chunk (csrc/ssd_scan.cu)
 # the train_ssm phase: mamba2-130m at 8 x 2048 tokens (the Mamba-2 paper's
 # training context, arXiv:2405.21060), 8 steps
 SSM_TRAIN_S, SSM_TRAIN_STEPS = 2048, 8
+# the train_resume phase: full-width mamba2-130m at train_ssm's shape over a
+# corpus of small sample files (the Trainer's own: 128 samples of 2049
+# tokens) and checkpoints in a temp dir through DirLib.  Run A is stopped at
+# step RESUME_STOP of RESUME_STEPS (checkpoints at 4 and 8), run B resumes
+# from A's checkpoint and runs the steps left, run C runs them all
+# uninterrupted; B's losses within TOL_RESUME_LOSS (relative) of C's
+RESUME_STOP, RESUME_STEPS, RESUME_CKPT_EVERY = 8, 12, 4
+TOL_RESUME_LOSS = 1e-3
 # the serve_stablelm and train_stablelm phases: stablelm-3b, head dim 80
 LM_ARCH, LM_TRAIN_STEPS = "stablelm-3b", 4
 # decode attention's lengths in the serve runs: cache_pos + 1, 513 to 576
@@ -1096,6 +1120,167 @@ def upstream_of(flip, changes, seq) -> list:
     row, pos = divmod(flip["token"], seq)
     return [f for f in changes if f["layer"] < flip["layer"]
             and f["token"] // seq == row and f["token"] % seq <= pos]
+
+
+def ssm_train_launches(cfg) -> dict:
+    """A mamba2 train step's launches: per layer the norm and the gated
+    out_norm, each recomputed, and the scan (forward, recompute, backward);
+    final_norm; the CE's chunks (forward twice, backward once)."""
+    return {"rmsnorm": 4 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
+            "ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers,
+            "fused_ce": 2 * CE_CHUNKS, "fused_ce_bwd": CE_CHUNKS}
+
+
+def host_copy(state):
+    """A train state's leaves copied to the host, by dotted name."""
+    from repro_torch.tree import tree_leaves
+    return dict(zip(leaf_names(state), (t.detach().to("cpu", copy=True)
+                                        for t in tree_leaves(state))))
+
+
+def host_peak_gb():
+    """The process's peak resident memory in GB and where it was read:
+    /proc's VmHWM where the kernel keeps it, else getrusage's ru_maxrss
+    (which counts from the process's start)."""
+    with open("/proc/self/status") as f:
+        m = re.search(r"VmHWM:\s+(\d+) kB", f.read())
+    if m:
+        return int(m.group(1)) * 1024 / 1e9, "VmHWM"
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9, "ru_maxrss"
+
+
+def reset_host_peak() -> bool:
+    """Restart the peak resident memory count (Linux's clear_refs 5);
+    False where the kernel refuses, and the peak then runs from the
+    process's start."""
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+        return True
+    except OSError:
+        return False
+
+
+def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN_S,
+                 steps=RESUME_STEPS, stop=RESUME_STOP, ckpt_every=RESUME_CKPT_EVERY,
+                 counter=None) -> dict:
+    """The Trainer over its BuffetFS data path and checkpoints (DirLib on a
+    temp dir, removed at the end): run A is stopped at step `stop` of
+    `steps`, run B (a new Trainer over the same directory and run name)
+    resumes from A's checkpoint and runs the steps left, run C (another run
+    name, the same corpus) runs all `steps` uninterrupted.  The record
+    holds A's final state against B's restored one leaf by leaf, B's
+    batches and losses against C's at the same steps, every save's times
+    (the blocking copy to the host, the wait for the previous write, the
+    writes on the thread), the last wait, the restore, the bytes and files
+    written, the pipelines' counts, peak host and device memory, and each
+    run's launches (`counter`: a (reset, read) pair, by default the kernel
+    wrappers' counts).  `resume_failures` reads it."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    reset, read = counter or (reset_launches, launches)
+    root = tempfile.mkdtemp(prefix="train_resume_")
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rec = {"arch": arch, "reduced": reduced, "global_batch": batch, "seq_len": seq,
+           "steps": steps, "stop": stop, "ckpt_every": ckpt_every,
+           "disk_free_gb": shutil.disk_usage(root).free / 1e9,
+           "runs": {}}
+    host_reset = reset_host_peak()
+
+    def run(name, run_name, until=None):
+        tc = TrainerConfig(arch=arch, reduced=reduced, global_batch=batch, seq_len=seq,
+                           steps=steps, ckpt_every=ckpt_every, log_every=steps,
+                           run_name=run_name, data_dir=root, device=str(dev), seed=SEED)
+        tr = Trainer(tc)
+        seen, to_device = [], tr._to_device
+        tr._to_device = lambda b: (seen.append({k: np.array(v) for k, v in b.items()}),
+                                   to_device(b))[1]
+        t0 = time.perf_counter()
+        tr.init_or_restore()      # B's: the restore
+        if on_card:
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        restored = host_copy(tr.state) if tr.start_step else None
+        reset()
+        out = tr.run(until)
+        got = read()
+        tr.shutdown()
+        st = tr.pipeline.stats
+        rec["runs"][name] = {
+            "run_name": run_name, "start_step": tr.start_step, "init_or_restore_s": init_s,
+            "steps_run": len(out["losses"]), "losses": out["losses"],
+            "step_ms": out["step_s"] * 1e3,
+            "step_times_ms": [t * 1e3 for t in out["step_times_s"]], "saves": tr.ckpt.saves,
+            "last_wait_s": out["ckpt_wait_s"], "launches": got,
+            "bytes_written": sum(s["bytes"] for s in tr.ckpt.saves),
+            "files_written": sum(s["files"] for s in tr.ckpt.saves),
+            "pipeline": {"batches": st.batches, "samples": st.samples, "hedged": st.hedged}}
+        return tr, seen, restored
+
+    t_phase = time.perf_counter()
+    try:
+        a, a_seen, _ = run("A", "stopped", until=stop)
+        corpus = os.path.join(root, "corpus", "train", "shard_0000")
+        sizes = [os.path.getsize(os.path.join(corpus, f)) for f in os.listdir(corpus)]
+        rec["corpus"] = {"files": len(sizes), "bytes_each": sorted(set(sizes))}
+        a_final = host_copy(a.state)
+        del a
+        b, b_seen, b_restored = run("B", "stopped")
+        del b
+        c, c_seen, _ = run("C", "whole")
+        del c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["restored_diff_leaves"] = (
+        sorted(set(a_final) ^ set(b_restored or {})) + [
+            n for n in a_final if n in (b_restored or {})
+            and not torch.equal(a_final[n], b_restored[n])])
+    rec["state_leaves"] = len(a_final)
+    rec["batch_diffs"] = [stop + i + 1 for i, (x, y) in enumerate(zip(b_seen, c_seen[stop:]))
+                          if any(x[k].tobytes() != y[k].tobytes() for k in y)]
+    rec["batches_compared"] = min(len(b_seen), len(c_seen[stop:]))
+    lb, lc = rec["runs"]["B"]["losses"], rec["runs"]["C"]["losses"][stop:]
+    rec["loss_rel_err"] = [abs(x - y) / abs(y) for x, y in zip(lb, lc)]
+    rec["losses_bitwise"] = lb == lc
+    rec["stopped_losses_bitwise"] = rec["runs"]["A"]["losses"] == rec["runs"]["C"]["losses"][:stop]
+    rec["peak_host_gb"], source = host_peak_gb()
+    rec["peak_host_since"] = ("the phase's start" if host_reset and source == "VmHWM"
+                              else f"the process's start ({source})")
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    return rec
+
+
+def resume_failures(rec, per_step) -> list:
+    """Why `train_resume`'s record fails its checks (none: it passes): B
+    resumes at the stop; its restored state is A's final state bitwise,
+    every leaf; its batches are C's at the same steps bitwise; its losses
+    are within TOL_RESUME_LOSS of C's; every loss finite; every run's
+    launches `per_step` (name: count, every counted name) times its steps."""
+    runs, stop = rec["runs"], rec["stop"]
+    out = []
+    if runs["B"]["start_step"] != stop:
+        out.append(f"B resumed at step {runs['B']['start_step']}, not {stop}")
+    if rec["restored_diff_leaves"]:
+        out.append(f"B's restored state differs from A's final in {rec['restored_diff_leaves']}")
+    if rec["batch_diffs"] or rec["batches_compared"] != rec["steps"] - stop:
+        out.append(f"B's batches differ from C's at steps {rec['batch_diffs']} "
+                   f"({rec['batches_compared']} compared)")
+    if len(rec["loss_rel_err"]) != rec["steps"] - stop or not all(
+            e <= TOL_RESUME_LOSS for e in rec["loss_rel_err"]):
+        out.append(f"B's losses differ from C's: relative {rec['loss_rel_err']} "
+                   f"(tol {TOL_RESUME_LOSS})")
+    losses = [x for r in runs.values() for x in r["losses"]]
+    if not all(np.isfinite(losses)):
+        out.append(f"non-finite loss: {losses}")
+    for name, r in runs.items():
+        want = {k: 0 for k in r["launches"]}
+        want.update({k: v * r["steps_run"] for k, v in per_step.items()})
+        if r["launches"] != want:
+            out.append(f"run {name}'s launches {r['launches']} != {r['steps_run']} x {per_step}")
+    return out
 
 
 def train_check(dev, cfg, seed, seq=64, row1_len=40) -> dict:
@@ -2741,11 +2926,17 @@ def main() -> int:
     # layer the norm and the gated out_norm, each recomputed, and the scan
     # (forward, recompute, backward)
     by_path["train_ssm"] = train(
-        "train_ssm", SSM_ARCH, SSM_TRAIN_STEPS, torch.float32, [],
-        lambda c: {"rmsnorm": 4 * c.n_layers + 1, "rmsnorm_bwd": 2 * c.n_layers + 1,
-                   "ssd_scan": 2 * c.n_layers, "ssd_scan_bwd": c.n_layers,
-                   "fused_ce": 2 * CE_CHUNKS, "fused_ce_bwd": CE_CHUNKS}, SEED + 15,
-        seq=SSM_TRAIN_S)
+        "train_ssm", SSM_ARCH, SSM_TRAIN_STEPS, torch.float32, [], ssm_train_launches,
+        SEED + 15, seq=SSM_TRAIN_S)
+    # mamba2-130m again, over the Trainer's BuffetFS data path (DirLib) with
+    # checkpoints: stopped at step 8 of 12, resumed, against 12 uninterrupted
+    rec = train_resume(dev)
+    failures = resume_failures(rec, ssm_train_launches(get_config(SSM_ARCH)))
+    emit({"phase": "train_resume", **rec, "failures": failures})
+    if failures:
+        raise AssertionError(f"train_resume: {failures}")
+    by_path["train_resume"] = {k: sum(r["launches"][k] for r in rec["runs"].values())
+                               for k in rec["runs"]["A"]["launches"]}
     # deepseek-v2-lite-16b: the dense layer and 5 MoE layers at full width,
     # fp32 moments; per layer attn_norm, kv_norm (at its row pitch) and
     # ffn_norm, each recomputed, and the three flash passes at <192, 128>

@@ -368,6 +368,7 @@ def _spy_kernels(monkeypatch):
     from repro_torch.kernels.cross_entropy import ops as ce_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import layers
     calls = {}
 
@@ -387,6 +388,8 @@ def _spy_kernels(monkeypatch):
     spy(layers, "decode_attention", ["decode_attention"])
     spy(ce_ops, "fused_ce", ["fused_ce"])
     spy(ce_ops, "fused_ce_bwd", ["fused_ce_bwd"])
+    spy(ssd_ops, "ssd_scan", ["ssd_scan"])
+    spy(ssd_ops, "ssd_scan_bwd", ["ssd_scan_bwd"])
     return calls
 
 
@@ -469,3 +472,64 @@ def test_starcoder2_small_config_runs_rep_12_at_d_128():
     cfg = cs.starcoder2_small_config()
     assert (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim) == (12, 128)
     assert cfg.act == "gelu" and cfg.qkv_bias and cfg.norm == "layernorm"
+
+
+# ---------------------------------------------------------------------------
+# train_resume: the Trainer stopped and resumed over its BuffetFS data path
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def one_thread():
+    """One intra-op thread for 24 tiny train steps: the suite runs its files
+    in parallel workers, where more threads only contend."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_train_resume_counts_train_ssms_launches_and_fails_a_planted_leaf(monkeypatch,
+                                                                         one_thread, fault):
+    """`train_resume` on the CPU at the reduced size: each run calls the
+    kernel wrappers `ssm_train_launches` times a step (train_ssm's counts),
+    B resumes at the stop with A's state, C's batches and losses, and
+    `resume_failures` finds nothing.  With one leaf of the restored state
+    changed (one element of final_norm's scale), the checks name that leaf."""
+    import torch
+    from repro_torch.ckpt import manager
+    from repro_torch.configs import get_config
+
+    cs = _chip_smoke()
+    cfg = get_config(cs.SSM_ARCH).reduced()
+    # a train step's counts are train_ssm's, for any depth
+    assert cs.ssm_train_launches(cfg)["ssd_scan"] == 2 * cfg.n_layers
+    if fault:
+        restore = manager.CheckpointManager.restore
+
+        def planted(self, *a, **k):
+            step, tree = restore(self, *a, **k)
+            with torch.no_grad():
+                tree["params"]["final_norm"]["scale"][0] += 1.0
+            return step, tree
+        monkeypatch.setattr(manager.CheckpointManager, "restore", planted)
+    calls = _spy_kernels(monkeypatch)
+    rec = cs.train_resume(torch.device("cpu"), reduced=True, batch=2, seq=64,
+                          counter=(calls.clear, lambda: dict(calls)))
+    failures = cs.resume_failures(rec, cs.ssm_train_launches(cfg))
+    assert rec["runs"]["B"]["start_step"] == cs.RESUME_STOP
+    assert [r["steps_run"] for r in rec["runs"].values()] == [8, 4, 12]
+    assert rec["corpus"] == {"files": 128, "bytes_each": [12 + 65 * 4]}
+    assert rec["runs"]["A"]["launches"] == {k: 8 * v for k, v in
+                                            cs.ssm_train_launches(cfg).items()}
+    if not fault:
+        assert failures == [] and rec["losses_bitwise"]
+        assert [s["step"] for s in rec["runs"]["C"]["saves"]] == [4, 8, 12]
+        # 11 param leaves in each of params, opt.m and opt.v (the blocks
+        # stacked), opt.step; 133 part files and the MANIFEST
+        assert all((s["leaves"], s["files"]) == (34, 134)
+                   for r in rec["runs"].values() for s in r["saves"])
+    else:
+        assert rec["restored_diff_leaves"] == ["params.final_norm.scale"]
+        assert any("params.final_norm.scale" in f for f in failures)

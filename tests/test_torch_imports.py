@@ -1,6 +1,7 @@
 """Rules of the port, checked on the CPU.
 
-* `repro_torch` and `chip_smoke.py` import neither JAX nor the JAX package.
+* `repro_torch` and `chip_smoke.py` import neither JAX nor the JAX package,
+  nor `ml_dtypes` (the card's machine has none).
 * A kernel wrapper dispatches on `tensor.is_cuda` alone: a CUDA tensor goes
   to the kernel or raises, and never reaches the plain version.
 * The kernels are built from the repo's CUDA sources, at first use only.
@@ -49,11 +50,15 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
             "repro_torch.configs.deepseek_v2_lite_16b",
-            "repro_torch.configs.deepseek_v3_671b"} <= set(mods)
+            "repro_torch.configs.deepseek_v3_671b", "repro_torch.ckpt.manager",
+            "repro_torch.data.dataset", "repro_torch.data.dirfs"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'repro' or m.startswith('repro.')]\n"
+            "import importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'repro', 'ml_dtypes')]\n"
             "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)
@@ -72,7 +77,7 @@ def test_no_source_names_jax_or_repro(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {n}"
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path}: imports {n}"
 
 
 # ---------------------------------------------------------------------------
