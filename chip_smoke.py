@@ -160,6 +160,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    train_command_r — command-r-35b at full width cut to 2 of 40 layers,
    fp32 moments: the CE at vocab 256000 and the tied table's two gradient
    paths.  Every launch count per step: `dense_train_launches`.
+   train_sharded — the train phase's chatglm3-6b run again (its weights,
+   fixed batch and 8 steps) with the state through `shard_train_state` on
+   a 1 x 1 (data, model) DeviceMesh of a one-rank NCCL process group and
+   the batch through `shard_batch`, each step under `activation_specs_for`:
+   each loss within TOL_SHARDED_LOSS of the train phase's and each param
+   leaf after the last step within TOL_SHARDED_PARAM (relative L2; whether
+   all are bitwise printed), every param and moment leaf at its spec's
+   placements, `dense_train_launches` a step (`sharded_failures`); printed:
+   the step ms beside the train phase's (DTensor's host cost), peak
+   memory, the NCCL version.  compress — one train step's gradient tree
+   from the same weights and batch through `compressed_all_reduce` (the
+   reduction `compressed_psum_tree` maps, which is the identity on a dim
+   of size 1) over a one-dim "pod" mesh of the same group: every leaf
+   bitwise plain `_dequantize(_quantize(g))` and within half a
+   quantization step of g (`compress_failures`); printed: its ms beside a
+   plain bf16 all-reduce of the tree, and the bytes each sends.
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -175,6 +191,7 @@ import os
 import re
 import resource
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -300,6 +317,11 @@ CR_TRAIN_CUT = ["n_layers 2 of 40 (the full model's 30.3 B params hold 60.6 GB i
 # train_check_starcoder2: reduced starcoder2-15b with 12 query heads over 1 kv
 # head at D 128 (rep 12, as 48 over 4 at full width)
 SC_ARCH = "starcoder2-15b"
+# train_sharded: the train phase's chatglm3-6b run again with its state on a
+# 1 x 1 (data, model) DeviceMesh over NCCL (world 1): each loss within
+# TOL_SHARDED_LOSS (relative) of the train phase's, each param leaf after the
+# last step within TOL_SHARDED_PARAM (relative L2) of the train phase's
+TOL_SHARDED_LOSS, TOL_SHARDED_PARAM = 1e-5, 1e-3
 
 
 def emit(obj) -> None:
@@ -1280,6 +1302,247 @@ def resume_failures(rec, per_step) -> list:
         want.update({k: v * r["steps_run"] for k, v in per_step.items()})
         if r["launches"] != want:
             out.append(f"run {name}'s launches {r['launches']} != {r['steps_run']} x {per_step}")
+    return out
+
+
+def fixed_batch(vocab, batch, seq, seed) -> dict:
+    """The train phases' fixed batch (numpy, as `DataPipeline` yields it):
+    tokens drawn from `seed`, every position counted."""
+    toks = np.random.default_rng(seed).integers(1, vocab, size=(batch, seq + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "loss_mask": np.ones((batch, seq), np.float32)}
+
+
+def init_world(dev) -> str:
+    """A one-rank process group on `dev` (NCCL on a card, gloo on the CPU)
+    over an in-memory store: no address, no network.  Returns the NCCL
+    version on a card."""
+    import torch.distributed as dist
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0 if dev.index is None else dev.index)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        return ".".join(map(str, torch.cuda.nccl.version()))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    return None
+
+
+def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S,
+                  steps=TRAIN_STEPS, moment_dtype=torch.bfloat16, batch_seed=SEED + 4,
+                  counter=None) -> dict:
+    """The train phase's run again on a DeviceMesh: the same weights (the
+    Trainer's init from SEED) and fixed batch, the state through
+    `shard_train_state` on a 1 x 1 (data, model) mesh of the process group
+    (`init_world`), the batch through `shard_batch`, `steps` train steps
+    under `activation_specs_for`.  `ref` is the unsharded run: its losses
+    and its final params (`host_copy`).  The record holds each loss's
+    relative error and whether all are bitwise, each param leaf's relative
+    L2 error and whether all are bitwise, the leaves not at their spec's
+    placements, the launches (`counter`: a (reset, read) pair, by default
+    the kernel wrappers' counts), step times and peak memory.
+    `sharded_failures` reads it."""
+    from repro_torch.configs import InputShape
+    from repro_torch.context import activation_specs
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.steps import (shard_batch, shard_train_state, train_state_specs,
+                                           train_step)
+    from repro_torch.tree import tree_leaves
+    reset, read = counter or (reset_launches, launches)
+    on_card = torch.device(dev).type == "cuda"
+    tc = TrainerConfig(arch=arch, reduced=reduced, global_batch=batch, seq_len=seq,
+                       steps=steps, device=str(dev), seed=SEED, moment_dtype=moment_dtype)
+    fixed = fixed_batch(get_config_of(arch, reduced).vocab_size, batch, seq, batch_seed)
+    tr = Trainer(tc, batches=[fixed])
+    cfg, opt_cfg = tr.cfg, tr.opt_cfg
+    tr.init_state()
+    mesh = make_host_mesh(1, 1, device_type=torch.device(dev).type)
+    ms = sh.mesh_shape(mesh)
+    shape = InputShape("train", seq, batch, "train")
+    specs = train_state_specs(tr.state["params"], cfg, ms)
+    state = shard_train_state(tr.state, cfg, mesh)
+    tr.state = None
+    sbatch = shard_batch(tr._to_device(fixed), mesh, shape)
+    faults = sh.misplaced(state, specs, mesh)
+    act = sh.activation_specs_for(ms, shape, cfg)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with activation_specs(act):
+            state, metrics = train_step(state, sbatch, cfg, opt_cfg)
+        losses.append(float(metrics["loss"]))          # waits for the step
+        times.append(time.perf_counter() - t0)
+    got = read()
+    faults += sh.misplaced(state, specs, mesh, prefix="after.")
+    names = leaf_names(state["params"])
+    final = {nm: t.detach().full_tensor() for nm, t in zip(names, tree_leaves(state["params"]))}
+    rel = {}
+    bitwise = True
+    for nm, want in ref["params"].items():
+        g = final[nm].cpu() if nm in final else None
+        rel[nm] = (math.inf if g is None or g.shape != want.shape
+                   else float((g.float() - want.float()).norm()
+                              / max(float(want.float().norm()), 1e-30)))
+        bitwise = bitwise and g is not None and torch.equal(g, want)
+    return {"arch": arch, "reduced": reduced, "mesh": ms, "global_batch": batch,
+            "seq_len": seq, "steps": steps, "steps_run": len(losses),
+            "ref_step_ms": ref.get("step_ms"),
+            "moment_dtype": str(moment_dtype).split(".")[-1],
+            "activation_specs": {k: v and list(v) for k, v in act.items()},
+            "losses": losses, "ref_losses": ref["losses"],
+            "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])],
+            "losses_bitwise": losses == ref["losses"],
+            "param_rel_l2": rel, "params_bitwise": bitwise, "placement_faults": faults,
+            "launches": got, "step_ms": statistics.median(times[1:] or times) * 1e3,
+            "step_times_ms": [t * 1e3 for t in times],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None}
+
+
+def get_config_of(arch, reduced):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.reduced() if reduced else cfg
+
+
+def sharded_failures(rec, per_step) -> list:
+    """Why `train_sharded`'s record fails its checks (none: it passes):
+    every step ran; each loss finite and within TOL_SHARDED_LOSS (relative)
+    of the unsharded run's; each param leaf of the unsharded run present
+    and within TOL_SHARDED_PARAM (relative L2); every param and moment leaf
+    at its spec's placements, before and after; the launches `per_step`
+    (name: count, every counted name) times the steps."""
+    out = []
+    if rec["steps_run"] != rec["steps"] or len(rec["ref_losses"]) != rec["steps"]:
+        out.append(f"{rec['steps_run']} steps run, {len(rec['ref_losses'])} to compare, "
+                   f"of {rec['steps']}")
+    if not all(np.isfinite(rec["losses"])):
+        out.append(f"non-finite loss: {rec['losses']}")
+    if len(rec["loss_rel_err"]) != rec["steps"] or not all(
+            e <= TOL_SHARDED_LOSS for e in rec["loss_rel_err"]):
+        out.append(f"losses differ from the unsharded run's: relative {rec['loss_rel_err']} "
+                   f"(tol {TOL_SHARDED_LOSS})")
+    bad = {k: v for k, v in rec["param_rel_l2"].items() if not v <= TOL_SHARDED_PARAM}
+    if bad:
+        out.append(f"params differ from the unsharded run's (relative L2, tol "
+                   f"{TOL_SHARDED_PARAM}): {bad}")
+    if rec["placement_faults"]:
+        out.append(f"leaves not at their spec's placements: {rec['placement_faults']}")
+    want = {k: 0 for k in rec["launches"]}
+    want.update({k: v * rec["steps"] for k, v in per_step.items()})
+    if rec["launches"] != want:
+        out.append(f"launches {rec['launches']} != {rec['steps']} x {per_step}")
+    return out
+
+
+def compress_leaf_errors(names, grads, outs) -> dict:
+    """Each compressed leaf against plain torch `_dequantize(_quantize(g))`
+    on the same device (bitwise), and against g: within half a quantization
+    step (its block's max |g| / 254) plus the leaf dtype's rounding of the
+    result.  Returns the leaves not bitwise and, for those past the bound,
+    the largest excess."""
+    from repro_torch.runtime.compression import BLOCK, _dequantize, _quantize
+    not_bitwise, over = [], {}
+    for nm, g, out in zip(names, grads, outs):
+        q, scale = _quantize(g)
+        if out.dtype != g.dtype or not torch.equal(out, _dequantize(q, scale, g.shape, g.dtype)):
+            not_bitwise.append(nm)
+        n = g.numel()
+        flat = torch.nn.functional.pad(g.float().reshape(-1), (0, (-n) % BLOCK))
+        half = (flat.reshape(-1, BLOCK).abs().amax(dim=1) / 254.0).repeat_interleave(BLOCK)[:n]
+        gf = g.float().reshape(-1)
+        tol = half + torch.finfo(g.dtype).eps / 2 * (gf.abs() + half)
+        excess = float(((out.float().reshape(-1) - gf).abs() - tol).max())
+        if excess > 0:
+            over[nm] = excess
+    return {"not_bitwise": not_bitwise, "over_bound": over}
+
+
+def compress(dev, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S, batch_seed=SEED + 4,
+             counter=None) -> dict:
+    """The gradient tree of one train step of `arch` (the train phase's
+    weights and fixed batch) reduced over the "pod" dim of a one-dim mesh
+    of the process group (`init_world`, world 1).  `compressed_psum_tree`
+    is the identity there, as JAX's is at size 1; the phase runs the
+    reduction it maps over the leaves, `compressed_all_reduce` (the int8
+    blocks summed as int32 and the scales' max, by the process group's
+    all-reduces), on every leaf.  The record holds `compress_leaf_errors`,
+    the launches of the phase (the step's; the reduction launches no
+    kernel of the port), the bytes each reduction sends, and on a card the
+    compressed tree's ms beside a plain bf16 all-reduce of the same tree."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.runtime.compression import (BLOCK, compressed_all_reduce,
+                                                 compressed_psum_tree)
+    from repro_torch.runtime.steps import param_grads
+    from repro_torch.tree import tree_leaves
+    reset, read = counter or (reset_launches, launches)
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    cfg = get_config_of(arch, reduced)
+    with torch.no_grad():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    fixed = fixed_batch(cfg.vocab_size, batch, seq, batch_seed)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in fixed.items()}
+    tb["tokens"], tb["labels"] = tb["tokens"].long(), tb["labels"].long()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset()
+    with torch.enable_grad():
+        loss, _ = loss_fn(params, tb, cfg)
+        grads = [g.detach() for g in param_grads(loss, leaves)]
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+    group = mesh.get_group("pod")
+    identity = compressed_psum_tree(grads, mesh, axis="pod") is grads
+    outs = [compressed_all_reduce(g, group, 1) for g in grads]
+    got = read()
+    names = leaf_names(params)
+    rec = {"arch": arch, "reduced": reduced, "leaves": len(grads),
+           "elements": sum(g.numel() for g in grads), "loss": float(loss.detach()),
+           "identity_at_size_1": identity, **compress_leaf_errors(names, grads, outs),
+           "launches": got}
+    del outs
+    blocks = sum(-(-g.numel() // BLOCK) for g in grads)
+    rec.update(int8_payload_bytes=blocks * BLOCK, scale_bytes=4 * blocks,
+               compressed_all_reduce_bytes=4 * blocks * BLOCK + 4 * blocks,
+               bf16_all_reduce_bytes=sum(2 * g.numel() for g in grads),
+               grad_dtypes=sorted({str(g.dtype).split(".")[-1] for g in grads}))
+    if on_card:
+        def compressed():
+            for g in grads:
+                compressed_all_reduce(g, group, 1)
+
+        def plain():           # a one-rank SUM leaves every leaf as it is
+            for g in grads:
+                dist.all_reduce(g, group=group)
+        rec["compressed_ms"] = time_ms(compressed, lambda: None, reps=5, warmup=1)
+        rec["plain_bf16_all_reduce_ms"] = time_ms(plain, lambda: None, reps=5, warmup=1)
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def compress_failures(rec, per_step) -> list:
+    """Why `compress`'s record fails its checks (none: it passes)."""
+    out = []
+    if not rec["identity_at_size_1"]:
+        out.append("compressed_psum_tree is not the identity on a dim of size 1")
+    if rec["not_bitwise"]:
+        out.append(f"leaves not bitwise _dequantize(_quantize(g)): {rec['not_bitwise']}")
+    if rec["over_bound"]:
+        out.append(f"leaves past half a quantization step: {rec['over_bound']}")
+    want = {k: 0 for k in rec["launches"]}
+    want.update(per_step)
+    if rec["launches"] != want:
+        out.append(f"launches {rec['launches']} != {per_step}")
     return out
 
 
@@ -2856,22 +3119,19 @@ def main() -> int:
 
     # -- the train paths: Trainer.run on one fixed batch ------------------------
     def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S,
-              n_layers=None):
+              n_layers=None, keep=None):
         """Full-width `arch` (its first `n_layers` layers when given) trains
         `steps` steps of TRAIN_B x `seq` tokens (remat per layer, CE_CHUNKS
         cross-entropy chunks, AdamW) on one fixed batch, repeated: a
         learnable target.  Every loss finite, the last below the first (and
         so the MTP head's mtp_ce, where the model has one), every launch
-        count per step `want`(cfg)."""
+        count per step `want`(cfg).  `keep` (a dict) receives the losses,
+        the median step ms and a host copy of the final params."""
         t_phase = time.perf_counter()
         tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
                            moment_dtype=moment_dtype, n_layers=n_layers)
-        cfg = get_config(arch)
-        toks = np.random.default_rng(batch_seed).integers(
-            1, cfg.vocab_size, size=(TRAIN_B, seq + 1)).astype(np.int32)
-        fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                 "loss_mask": np.ones((TRAIN_B, seq), np.float32)}
+        fixed = fixed_batch(get_config(arch).vocab_size, TRAIN_B, seq, batch_seed)
         t0 = time.perf_counter()
         tr = Trainer(tc, batches=itertools.repeat(fixed))
         cfg = tr.cfg
@@ -2912,12 +3172,40 @@ def main() -> int:
                                  f"{out.get('mtp_ces')}")
         if got != {k: v * steps for k, v in per_step.items()}:
             raise AssertionError(f"{phase} launch counts {got} != {steps} x {per_step}")
+        if keep is not None:
+            keep.update(losses=losses, step_ms=out["step_s"] * 1e3,
+                        params=host_copy(tr.state["params"]))
         del tr
         torch.cuda.empty_cache()
         return got
 
+    unsharded = {}
     by_path["train"] = train(
-        "train", ARCH, TRAIN_STEPS, torch.bfloat16, TRAIN_CUT, dense_train_launches, SEED + 4)
+        "train", ARCH, TRAIN_STEPS, torch.bfloat16, TRAIN_CUT, dense_train_launches, SEED + 4,
+        keep=unsharded)
+    # the same run with its state on a 1 x 1 DeviceMesh over NCCL (world 1),
+    # then one step's gradient tree through the int8 compressed all-reduce
+    nccl = init_world(dev)
+    rec = train_sharded(dev, unsharded)
+    del unsharded
+    failures = sharded_failures(rec, dense_train_launches(get_config(ARCH)))
+    worst = sorted(rec["param_rel_l2"], key=rec["param_rel_l2"].get, reverse=True)[:4]
+    emit({"phase": "train_sharded", "nccl": nccl, "reduced": TRAIN_CUT,
+          **{k: v for k, v in rec.items() if k != "param_rel_l2"},
+          "worst_param_rel_l2": {k: rec["param_rel_l2"][k] for k in worst},
+          "unsharded_step_ms": rec["ref_step_ms"], "failures": failures})
+    if failures:
+        raise AssertionError(f"train_sharded: {failures}")
+    by_path["train_sharded"] = rec["launches"]
+    torch.cuda.empty_cache()
+    rec = compress(dev)
+    failures = compress_failures(rec, dense_train_launches(get_config(ARCH)))
+    emit({"phase": "compress", **rec, "failures": failures})
+    if failures:
+        raise AssertionError(f"compress: {failures}")
+    by_path["compress"] = rec["launches"]
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
     # stablelm-3b: the Trainer's default fp32 moments (~34 GB of state)
     by_path["train_stablelm"] = train(
         "train_stablelm", LM_ARCH, LM_TRAIN_STEPS, torch.float32, [], dense_train_launches,

@@ -1,5 +1,6 @@
 """Architecture configuration schema (the port's own copy of
-`repro/configs/base.py`: same fields, same defaults, same `reduced()`)."""
+`repro/configs/base.py`: same fields, same defaults, same `reduced()`, and
+the input shapes a cell runs)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -99,3 +100,17 @@ class ModelConfig:
             small["ssm"] = replace(self.ssm, d_state=32, head_dim=32, chunk=32)
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")

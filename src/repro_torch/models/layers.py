@@ -17,23 +17,35 @@ combine stay plain torch too: JAX computes them in jnp, with no Pallas
 kernel.  MLA's expanded (no-cache) branch, the train path, attends through
 the flash kernels at q/k head dim qk_nope + qk_rope against v head dim
 v_head_dim, where JAX runs `blocked_causal_attention` (jnp): the port puts
-a kernel there, as for the dense family.  The activation-sharding constraints of `repro.context`
-are single-device no-ops and have no counterpart here.
+a kernel there, as for the dense family.
+
+Each `init_*` has an `*_axes(cfg)` beside it that gives the logical axes
+of every leaf, JAX's tuples (its `init_*` returns them with the params),
+which `runtime.sharding` maps to mesh axes.  The activation constraints of
+`repro_torch.context` sit where JAX's do; they are no-ops unless the
+activations are DTensors and specs are installed.  Under a mesh the kernels
+run on each rank's local shard through `local_map` (`_rmsnorm_sharded`,
+`_flash_sharded`): a kernel wrapper reads `data_ptr` and cannot take a
+DTensor.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..context import constrain, constrain_heads, constrain_kv, keep_shards, replicated
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention, flash_attention_fwd
 from ..kernels.rmsnorm import rmsnorm_op
 
 Params = Dict[str, torch.Tensor]
+Axes = Dict[str, Any]
 
 # ---------------------------------------------------------------------------
 # init helpers: the JAX init's distributions, drawn from a torch.Generator
@@ -62,6 +74,12 @@ def init_norm(cfg: ModelConfig, device, d: Optional[int] = None) -> Params:
     return {"scale": torch.ones(d, dtype=torch.bfloat16, device=device)}
 
 
+def norm_axes(cfg: ModelConfig) -> Axes:
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     if "bias" in p:
         xf = x.float()
@@ -69,7 +87,23 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
         return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    if isinstance(x, DTensor):
+        return _rmsnorm_sharded(x, p["scale"], eps)
     return rmsnorm_op(x, p["scale"], eps=eps)
+
+
+def _rmsnorm_sharded(x: DTensor, scale: DTensor, eps: float) -> DTensor:
+    """The RMSNorm op on each rank's rows: x keeps its row shards (D
+    whole), scale is gathered whole; the local dscale is a partial sum on
+    the mesh dims that split the rows."""
+    mesh = x.device_mesh
+    pl = keep_shards(x, range(x.ndim - 1))
+    rep_ = [Replicate()] * mesh.ndim
+    fn = local_map(lambda a, s: rmsnorm_op(a, s, eps=eps), out_placements=pl,
+                   in_placements=(pl, rep_), device_mesh=mesh,
+                   in_grad_placements=(pl, [Partial() if isinstance(p, Shard) else p
+                                            for p in pl]))
+    return fn(x.redistribute(mesh, pl), scale.redistribute(mesh, rep_))
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +127,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = rope_freqs(rot, theta, x.device)                 # [rot/2]
     ang = positions[..., None].float() * freqs               # [..., S, rot/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    cos, sin = replicated(cos, x), replicated(sin, x)
     x1, x2 = x_rot.float().chunk(2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([y.to(x.dtype), x_pass], dim=-1)
@@ -125,6 +160,15 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
         p["bk"] = _zeros((hkv, dh), device)
         p["bv"] = _zeros((hkv, dh), device)
     return p
+
+
+def attention_axes(cfg: ModelConfig) -> Axes:
+    a = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        a.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    return a
 
 
 def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -178,8 +222,9 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     scale = 1.0 / math.sqrt(cfg.head_dim)
     s = x.shape[1]
     if kv_cache is None:
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), scale).transpose(1, 2)
+        # the seq -> heads transition for the attention interior
+        q, k, v = constrain_heads(q), constrain_kv(k), constrain_kv(v)
+        out = constrain_heads(_flash(q, k, v, scale))
     else:
         ck, cv = kv_cache["k"], kv_cache["v"]
         ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
@@ -196,6 +241,38 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
             out = out.transpose(1, 2)
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return y, kv_cache
+
+
+def _flash_bshd(q, k, v, scale):
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           scale).transpose(1, 2)
+
+
+def _flash(q, k, v, scale):
+    """Causal flash attention in the model's layout (q [B,S,H,dh], k and v
+    [B,S,Hkv,dh]), differentiable."""
+    if isinstance(q, DTensor):
+        return _flash_sharded(q, k, v, scale)
+    return _flash_bshd(q, k, v, scale)
+
+
+def _flash_sharded(q: DTensor, k: DTensor, v: DTensor, scale) -> DTensor:
+    """The flash op on each rank's shard: a mesh dim keeps a batch split
+    where q, k and v all have one, or a head split where all three have one
+    (the kv heads divide it too, so every query head's group stays on its
+    rank); every other mesh dim, a sequence split among them, is gathered,
+    as the causal mask needs the whole sequence.  dq, dk and dv are exact
+    on each shard."""
+    mesh = q.device_mesh
+    pl = []
+    for i, ps in enumerate(zip(q.placements, k.placements, v.placements)):
+        n = mesh.size(i)
+        keep = ps[0] == ps[1] == ps[2] and (
+            ps[0] == Shard(0) or ps[0] == Shard(2) and q.shape[2] % n == k.shape[2] % n == 0)
+        pl.append(ps[0] if keep else Replicate())
+    fn = local_map(lambda a, b, c: _flash_bshd(a, b, c, scale), out_placements=pl,
+                   in_placements=(pl, pl, pl), device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in (q, k, v)))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -225,6 +302,18 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     p["wv_b"] = _dense_init(gen, (m.kv_lora_rank, h, m.v_head_dim), m.kv_lora_rank, device)
     p["wo"] = _dense_init(gen, (h, m.v_head_dim, d), h * m.v_head_dim, device)
     return p
+
+
+def mla_axes(cfg: ModelConfig) -> Axes:
+    if cfg.mla.q_lora_rank:
+        a = {"wq_a": ("embed", "lora"), "q_norm": ("lora",),
+             "wq_b": ("lora", "heads", "head_dim")}
+    else:
+        a = {"wq": ("embed", "heads", "head_dim")}
+    a.update({"wkv_a": ("embed", "lora"), "kv_norm": ("lora",),
+              "wk_b": ("lora", "heads", "head_dim"), "wv_b": ("lora", "heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed")})
+    return a
 
 
 def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
@@ -269,8 +358,8 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
         q_cat = torch.cat([q_nope, q_rope], dim=-1)
         k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_rope.shape[:2], h,
                                                                  m.qk_rope_dim)], dim=-1)
-        out = flash_attention(q_cat.transpose(1, 2), k_cat.transpose(1, 2),
-                              v.transpose(1, 2), scale).transpose(1, 2)
+        out = constrain_heads(_flash(constrain_heads(q_cat), constrain_heads(k_cat),
+                                     constrain_heads(v), scale))
         y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
         return y, None
 
@@ -315,13 +404,20 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
             "wo": _dense_init(gen, (ff, d), ff, device)}
 
 
+def mlp_axes(cfg: ModelConfig) -> Axes:
+    if cfg.act == "gelu":
+        return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # the [B,S,ff] intermediates stay token-sharded ("bsf")
     if "wi" in p:
-        h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"]).float(),
+        h = F.gelu(constrain(torch.einsum("bsd,df->bsf", x, p["wi"]), "bsf").float(),
                    approximate="tanh")
         return torch.einsum("bsf,fd->bsd", h.to(x.dtype), p["wo"])
-    g = F.silu(torch.einsum("bsd,df->bsf", x, p["wi_gate"]).float())
-    u = torch.einsum("bsd,df->bsf", x, p["wi_up"]).float()
+    g = F.silu(constrain(torch.einsum("bsd,df->bsf", x, p["wi_gate"]), "bsf").float())
+    u = constrain(torch.einsum("bsd,df->bsf", x, p["wi_up"]), "bsf").float()
     return torch.einsum("bsf,fd->bsd", (g * u).to(x.dtype), p["wo"])
 
 
@@ -342,6 +438,17 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     if mo.n_shared:
         p["shared"] = init_mlp(cfg, gen, device, d_ff=ff * mo.n_shared)
     return p
+
+
+def moe_axes(cfg: ModelConfig) -> Axes:
+    a: Axes = {"router": ("embed", "experts_nosplit"),
+               "wi_gate": ("experts", "embed", "mlp"), "wi_up": ("experts", "embed", "mlp"),
+               "wo": ("experts", "mlp", "embed")}
+    if cfg.moe.router == "sigmoid":
+        a["router_bias"] = ("experts_nosplit",)
+    if cfg.moe.n_shared:
+        a["shared"] = mlp_axes(cfg)
+    return a
 
 
 def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig
@@ -443,8 +550,32 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     return p
 
 
+def embed_axes(cfg: ModelConfig) -> Axes:
+    a = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        a["head"] = ("embed", "vocab")
+    return a
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(tokens, DTensor):
+        return _embed_sharded(p["tok"], tokens)
     return F.embedding(tokens, p["tok"])
+
+
+def _embed_sharded(table: DTensor, tokens: DTensor) -> DTensor:
+    """The lookup of each rank's tokens in the whole table (gathered; a
+    lookup in a vocab-sharded table, DTensor's masked partial, fails beside
+    batch-sharded tokens): the rows take the tokens' placements, and the
+    local table gradient is a partial sum on the mesh dims that split the
+    tokens."""
+    mesh = tokens.device_mesh
+    pl = list(tokens.placements)
+    rep_ = [Replicate()] * mesh.ndim
+    fn = local_map(F.embedding, out_placements=pl, in_placements=(pl, rep_),
+                   in_grad_placements=(pl, [Partial() if isinstance(q, Shard) else q
+                                            for q in pl]), device_mesh=mesh)
+    return fn(tokens, table.redistribute(mesh, rep_))
 
 
 def head_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

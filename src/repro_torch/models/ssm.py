@@ -53,6 +53,14 @@ def init_ssm(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     }
 
 
+def ssm_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of `init_ssm`'s leaves, JAX's."""
+    return {"in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "A_log": ("heads_nosplit",), "D": ("heads_nosplit",),
+            "dt_bias": ("heads_nosplit",), "out_norm": ("mlp",),
+            "out_proj": ("mlp", "embed")}
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     dm = ssm_dims(cfg)
     di, gn = dm["d_inner"], dm["n_groups"] * dm["d_state"]

@@ -23,6 +23,13 @@ a list of per-layer param dicts (`params["blocks"][i]`, and the MoE family's den
 `jax.checkpoint` becomes `torch.utils.checkpoint` (non-reentrant): around
 each layer (each whole period block of a hybrid model) when
 `cfg.remat == "layer"`, and around each cross-entropy chunk always.
+The activation constraints of `repro_torch.context` sit where JAX's do
+(no-ops without a mesh); under a mesh the CE kernel runs on each rank's
+rows through `local_map` (`_ce_sharded`), and the tensors the model makes
+itself (positions' tables, the aux and CE zeros, the default mask) are
+replicated DTensors beside DTensor activations.  `_tf_layer_axes`,
+`_ssm_layer_axes` and `_hybrid_block_axes` give each layer's logical axes,
+as JAX's `init_*` return them (`runtime.steps.model_axes` assembles them).
 
 Public entry points (used by runtime/launch):
   init_model(cfg, gen, device)                 -> params
@@ -39,9 +46,12 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..context import constrain_bsd, keep_shards, recompute_kwargs, replicated
 from ..kernels.cross_entropy import fused_ce_op
 from . import layers as L
 from . import ssm as S
@@ -69,6 +79,13 @@ def _init_tf_layer(cfg: ModelConfig, gen: torch.Generator, device, *,
             "ffn": L.init_moe(cfg, gen, device) if moe else L.init_mlp(cfg, gen, device)}
 
 
+def _tf_layer_axes(cfg: ModelConfig, *, moe: bool = False) -> Dict[str, Any]:
+    return {"attn_norm": L.norm_axes(cfg),
+            "attn": L.mla_axes(cfg) if cfg.mla is not None else L.attention_axes(cfg),
+            "ffn_norm": L.norm_axes(cfg),
+            "ffn": L.moe_axes(cfg) if moe else L.mlp_axes(cfg)}
+
+
 def _apply_tf_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
                     *, moe: bool = False, cache=None, cache_pos=None):
     """-> (h, new_cache, aux): aux is the MoE load-balancing loss, None
@@ -77,13 +94,14 @@ def _apply_tf_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
     attn = L.mla_fwd if cfg.mla is not None else L.attention_fwd
     y, new_cache = attn(p["attn"], attn_in, cfg, positions, kv_cache=cache,
                         cache_pos=cache_pos)
-    h = h + y
+    # the contraction's output takes the residual layout before the add
+    h = h + constrain_bsd(y)
     ffn_in = L.apply_norm(p["ffn_norm"], h)
     if moe:
         y, aux = L.apply_moe(p["ffn"], ffn_in, cfg)
     else:
         y, aux = L.apply_mlp(p["ffn"], ffn_in, cfg), None
-    return h + y, new_cache, aux
+    return h + constrain_bsd(y), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -94,9 +112,13 @@ def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     return {"norm": L.init_norm(cfg, device), "ssm": S.init_ssm(cfg, gen, device)}
 
 
+def _ssm_layer_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"norm": L.norm_axes(cfg), "ssm": S.ssm_axes(cfg)}
+
+
 def _apply_ssm_layer(cfg: ModelConfig, p: Params, h: torch.Tensor, *, state=None):
     y, new_state = S.ssm_fwd(p["ssm"], L.apply_norm(p["norm"], h), cfg, state=state)
-    return h + y, new_state
+    return h + constrain_bsd(y), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +145,16 @@ def _init_hybrid_block(cfg: ModelConfig, gen: torch.Generator, device) -> Params
     return {"layers": layers}
 
 
+def _hybrid_block_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    hy = cfg.hybrid
+    return {"layers": [{"mixer_norm": L.norm_axes(cfg),
+                        "mixer": (L.attention_axes(cfg) if i == hy.attn_index
+                                  else S.ssm_axes(cfg)),
+                        "ffn_norm": L.norm_axes(cfg),
+                        "ffn": L.moe_axes(cfg) if _hybrid_moe(cfg, i) else L.mlp_axes(cfg)}
+                       for i in range(hy.period)]}
+
+
 def _apply_hybrid_layer(cfg: ModelConfig, lp: Params, i: int, h: torch.Tensor, positions,
                         *, kv_cache=None, state=None, cache_pos=None):
     """Layer i of a period block: its mixer (attention at `attn_index`,
@@ -138,14 +170,14 @@ def _apply_hybrid_layer(cfg: ModelConfig, lp: Params, i: int, h: torch.Tensor, p
                                cache_pos=cache_pos)
     else:
         y, nst = S.ssm_fwd(lp["mixer"], x, cfg, state=state)
-    h = h + y
+    h = h + constrain_bsd(y)
     x = L.apply_norm(lp["ffn_norm"], h)
     if _hybrid_moe(cfg, i):
         y, aux = L.apply_moe(lp["ffn"], x, cfg)
     else:
         y, aux = L.apply_mlp(lp["ffn"], x, cfg), torch.zeros((), dtype=torch.float32,
                                                              device=h.device)
-    return h + y, aux, nst
+    return h + constrain_bsd(y), aux, nst
 
 
 def _apply_hybrid_block(cfg: ModelConfig, p: Params, h: torch.Tensor, positions, *,
@@ -219,7 +251,7 @@ def _embed_inputs(params: Params, batch: Dict[str, Any], cfg: ModelConfig) -> to
         h = L.embed_tokens(params["embed"], batch["tokens"])
     if cfg.pos_embed == "sinusoidal":
         positions = batch.get("pos0", 0) + torch.arange(h.shape[1], device=h.device)
-        h = h + L.sinusoidal_embed(positions, cfg.d_model)
+        h = h + replicated(L.sinusoidal_embed(positions, cfg.d_model), h)
     return h
 
 
@@ -232,30 +264,30 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     gradient flows.  The hybrid family does the same a period block at a
     time, each whole block checkpointed, as JAX's remat wraps its scanned
     block body."""
-    h = _embed_inputs(params, batch, cfg)
+    h = constrain_bsd(_embed_inputs(params, batch, cfg))
     positions = torch.arange(h.shape[1], device=h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = replicated(torch.zeros((), dtype=torch.float32, device=h.device), h)
 
     def run(body, hh, lp):
         # activation checkpointing: backward recomputes each layer from its
         # input, so only the [B,S,D] carry per layer is kept
-        return (checkpoint(body, hh, lp, use_reentrant=False) if cfg.remat == "layer"
-                else body(hh, lp))
+        return (checkpoint(body, hh, lp, use_reentrant=False, **recompute_kwargs())
+                if cfg.remat == "layer" else body(hh, lp))
 
     if cfg.family == "ssm":
         def body(hh, lp):
-            return _apply_ssm_layer(cfg, lp, hh)[0]
+            return constrain_bsd(_apply_ssm_layer(cfg, lp, hh)[0])
     else:
         def body(hh, lp):
-            return _apply_tf_layer(cfg, lp, hh, positions)[0]
+            return constrain_bsd(_apply_tf_layer(cfg, lp, hh, positions)[0])
 
     def moe_body(hh, lp):
         hh, _, a = _apply_tf_layer(cfg, lp, hh, positions, moe=True)
-        return hh, a
+        return constrain_bsd(hh), a
 
     def hybrid_body(hh, bp):        # a period block, its MoE layers' aux summed
         hh, _, a = _apply_hybrid_block(cfg, bp, hh, positions)
-        return hh, a
+        return constrain_bsd(hh), a
 
     for lp in params.get("prefix", []):
         h = run(body, h, lp)
@@ -268,7 +300,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             aux = aux + a
         else:
             h = run(body, h, lp)
-    return L.apply_norm(params["final_norm"], h), aux
+    return constrain_bsd(L.apply_norm(params["final_norm"], h)), aux
 
 
 def _chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor,
@@ -284,15 +316,35 @@ def _chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor,
 
     def chunk_nll(hc, lc, mc):
         logits = L.head_logits(embed_params, hc, cfg)        # [B,cs,V]
-        return fused_ce_op(logits.reshape(-1, logits.shape[-1]), lc.reshape(-1),
-                           mc.reshape(-1))
+        if isinstance(logits, DTensor):
+            return _ce_sharded(logits, lc, mc)
+        return _ce_rows(logits, lc, mc)
 
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    total = replicated(torch.zeros((), dtype=torch.float32, device=h.device), h)
     for c in range(n_chunks):
         sl = slice(c * cs, (c + 1) * cs)
         total = total + checkpoint(chunk_nll, h[:, sl], labels[:, sl], mask[:, sl],
                                    use_reentrant=False)
     return total, mask.sum()
+
+
+def _ce_rows(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return fused_ce_op(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                       mask.reshape(-1))
+
+
+def _ce_sharded(logits: DTensor, labels: DTensor, mask: DTensor) -> DTensor:
+    """The CE op on each rank's rows: logits [B, cs, V] keep their batch
+    and sequence splits and are gathered whole over the vocab (the table
+    shards it over "model"); labels and mask take the same placements.
+    Each rank's masked NLL sum is a partial sum on the mesh dims that split
+    the rows."""
+    mesh = logits.device_mesh
+    pl = keep_shards(logits, (0, 1))
+    out = [Partial() if isinstance(p, Shard) else p for p in pl]
+    fn = local_map(_ce_rows, out_placements=out, in_placements=(pl, pl, pl),
+                   device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in (logits, labels, mask)))
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -310,7 +362,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        mask = replicated(torch.ones(labels.shape, dtype=torch.float32,
+                                     device=labels.device), labels)
     nll_sum, msum = _chunked_ce(params["embed"], h, labels, mask, cfg,
                                 n_chunks=ce_chunks)
     ce = nll_sum / torch.clamp(msum, min=1.0)
@@ -363,7 +416,7 @@ def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     sinusoidal positions start at `cache_pos`."""
     if cfg.pos_embed == "sinusoidal":
         batch = dict(batch, pos0=cache_pos)
-    h = _embed_inputs(params, batch, cfg)
+    h = constrain_bsd(_embed_inputs(params, batch, cfg))
     s = h.shape[1]
     positions = cache_pos + torch.arange(s, device=h.device)
     if cfg.family == "ssm":
@@ -385,6 +438,7 @@ def _serve_ssm(params, h, cfg, states):
     for i, lp in enumerate(params["blocks"]):
         st = {"conv": states["conv"][i], "ssm": states["ssm"][i]}
         h, nst = _apply_ssm_layer(cfg, lp, h, state=st)
+        h = constrain_bsd(h)
         st["conv"].copy_(nst["conv"])
         st["ssm"].copy_(nst["ssm"])
     return h
@@ -397,6 +451,7 @@ def _serve_hybrid(params, h, cfg, cache, cache_pos, positions):
         bc = {"kv": {name: c[i] for name, c in cache["kv"].items()},
               "conv": cache["conv"][i], "ssm": cache["ssm"][i]}
         h, _, _ = _apply_hybrid_block(cfg, bp, h, positions, cache=bc, cache_pos=cache_pos)
+        h = constrain_bsd(h)
     return h
 
 
@@ -410,6 +465,7 @@ def _serve_tf(params, h, cfg, cache, cache_pos, positions):
         layer_cache = {name: c[i] for name, c in cache.items()}
         h, _, _ = _apply_tf_layer(cfg, lp, h, positions, moe=moe, cache=layer_cache,
                                   cache_pos=cache_pos)
+        h = constrain_bsd(h)
     return h, cache
 
 

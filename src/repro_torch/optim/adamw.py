@@ -14,6 +14,14 @@ the params' device, so an update never waits for the host.
 Unlike the JAX version, `adamw_update` writes the new params and moments
 into the given tensors in place (a full-width train state has no room for
 a second copy) and returns them.
+
+A sharded state (DTensor params, their gradients at the params' placements)
+takes the same update on each rank's local shards: the moments are made at
+the params' placements, the global grad norm counts a leaf replicated over
+a mesh dim once (each rank's local sums of squares are summed over the mesh
+dims that split their leaves, one all-reduce a group of leaves split
+alike), and the elementwise update runs on `to_local()` shards.  A plain
+state takes exactly the path it always took.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from ..tree import tree_leaves, tree_map
 
@@ -72,13 +81,37 @@ def init_opt_state(params: PyTree, cfg: AdamWConfig) -> Dict[str, Any]:
     device = tree_leaves(params)[0].device
 
     def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=cfg.moment_dtype, requires_grad=False)
         return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
+    leaves = tree_leaves(tree)
+    if not any(isinstance(g, DTensor) for g in leaves):
+        return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    # DTensor leaves: the local sums of squares of the leaves split over the
+    # same mesh dims (of size > 1), summed over those dims in one all-reduce;
+    # the others' in leaf order, as a plain state's
+    groups: Dict[Any, Any] = {}
+    for g in leaves:
+        split, local = (), g
+        if isinstance(g, DTensor):
+            split = tuple(not isinstance(p, Replicate) and g.device_mesh.size(i) > 1
+                          for i, p in enumerate(g.placements))
+            local = g.to_local()
+        key = (g.device_mesh, split) if any(split) else None
+        groups[key] = groups.get(key, 0) + local.float().square().sum()
+    total = 0
+    for key, sq in groups.items():
+        if key is not None:
+            mesh, split = key
+            pl = [Partial() if s else Replicate() for s in split]
+            sq = DTensor.from_local(sq, mesh, pl, run_check=False).full_tensor()
+        total = total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -92,6 +125,8 @@ def adamw_update(grads: PyTree, opt: Dict[str, Any], params: PyTree,
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
 
     def upd(p, g, m, v, decay):
+        if isinstance(p, DTensor):          # g, m and v at p's placements
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         if p.dim() == 0:
             p, g, m, v = (t.unsqueeze(0) for t in (p, g, m, v))
         rows = max(1, BLOCK // max(1, p[0].numel()))

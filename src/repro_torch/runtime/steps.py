@@ -1,16 +1,89 @@
 """Step functions of the port: the counterpart of `repro/runtime/steps.py`
-(train and serve; the abstract-state builders have no counterpart yet)."""
+(train and serve; the abstract-state builders have no counterpart yet), the
+logical-axes tree (`model_axes`) and the placement of a train state and a
+batch on a `DeviceMesh` (`shard_train_state`, `shard_batch`).
+
+A sharded train step is the same `train_step` on a state of DTensors,
+called inside `context.activation_specs(sharding.activation_specs_for(
+mesh_shape(mesh), shape, cfg))`, as JAX's dry run jits it under them: the
+state comes out at the placements it went in with (`launch/dryrun.py`'s
+train cell).  The dense family runs under a mesh; the ssm, moe and hybrid
+families only on a mesh whose every dim is 1 (their Mamba scan, MoE
+dispatch and decode paths have no sharded form yet).
+"""
 from __future__ import annotations
 
 import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..configs.base import ModelConfig
-from ..models.transformer import decode_step, init_model, loss_fn, prefill
+from ..configs.base import InputShape, ModelConfig
+from ..models import layers as L
+from ..models.transformer import (_hybrid_block_axes, _layer_is_moe, _ssm_layer_axes,
+                                  _tf_layer_axes, decode_step, init_model, loss_fn, prefill)
 from ..optim import AdamWConfig, adamw_update, init_opt_state
 from ..tree import tree_leaves, tree_unflatten
+from . import sharding as sh
+
+# ---------------------------------------------------------------------------
+# logical axes and placement
+# ---------------------------------------------------------------------------
+
+
+def model_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical-axes tree of `init_model(cfg, ...)`'s params, in the
+    port's list layout (`blocks[i]`, `prefix[i]`, a hybrid block's
+    `layers[j]`, `mtp`): every leaf's tuple is JAX's (whose stacked tree
+    keeps one entry for all blocks)."""
+    axes: Dict[str, Any] = {"embed": L.embed_axes(cfg), "final_norm": L.norm_axes(cfg)}
+    if cfg.family == "ssm":
+        axes["blocks"] = [_ssm_layer_axes(cfg) for _ in range(cfg.n_layers)]
+        return axes
+    if cfg.family == "hybrid":
+        axes["blocks"] = [_hybrid_block_axes(cfg)
+                          for _ in range(cfg.n_layers // cfg.hybrid.period)]
+        return axes
+    n_prefix = cfg.moe.n_dense_prefix if cfg.moe else 0
+    if n_prefix:
+        axes["prefix"] = [_tf_layer_axes(cfg) for _ in range(n_prefix)]
+    axes["blocks"] = [_tf_layer_axes(cfg, moe=_layer_is_moe(cfg, i))
+                      for i in range(n_prefix, cfg.n_layers)]
+    if cfg.mtp:
+        axes["mtp"] = {"layer": _tf_layer_axes(cfg), "norm": L.norm_axes(cfg)}
+    return axes
+
+
+def train_state_specs(params: Any, cfg: ModelConfig, mesh: sh.MeshShape,
+                      policy: sh.ShardingPolicy = sh.ShardingPolicy()) -> Dict[str, Any]:
+    """The spec tree of a train state with these params: both moments at
+    their param's spec, the step counter None (a plain tensor, the same on
+    every rank), as JAX's train cell places the state."""
+    specs = sh.param_specs(params, model_axes(cfg), mesh, policy)
+    return {"params": specs, "opt": {"m": specs, "v": specs, "step": None}}
+
+
+def shard_train_state(state: Dict[str, Any], cfg: ModelConfig, mesh,
+                      policy: sh.ShardingPolicy = sh.ShardingPolicy()) -> Dict[str, Any]:
+    """`state` (the same on every rank) on the `DeviceMesh`: every param
+    and both moments a DTensor at the placements the table gives the param
+    (no collective: each rank keeps its shard).  The ssm, moe and hybrid
+    families raise on a mesh with a dim larger than 1."""
+    if cfg.family in ("ssm", "moe", "hybrid") and mesh.size() > 1:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run under a mesh "
+                         f"larger than 1 yet (mesh {sh.mesh_shape(mesh)})")
+    return sh.distribute_tree(
+        state, train_state_specs(state["params"], cfg, sh.mesh_shape(mesh), policy), mesh)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh, shape: InputShape
+                ) -> Dict[str, torch.Tensor]:
+    """`batch` (the same on every rank) as DTensors placed by `batch_spec`."""
+    specs = sh.batch_shardings(sh.mesh_shape(mesh), shape)
+    return {k: sh.distribute(v, mesh, sh.placements(specs.get(k, ()), mesh))
+            for k, v in batch.items()}
+
 
 # ---------------------------------------------------------------------------
 # train
@@ -33,15 +106,25 @@ def make_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
 def param_grads(loss: torch.Tensor, leaves) -> Tuple[torch.Tensor, ...]:
     """The gradient of `loss` in every leaf, as `jax.grad` gives it: a leaf
     the loss does not reach (the sigmoid router's `router_bias`, which only
-    shifts the selection) gets zeros of its shape and dtype."""
-    return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    shifts the selection) gets zeros of its shape and dtype (and of its
+    placements, for a DTensor leaf).  A DTensor leaf's gradient comes at
+    the leaf's placements."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return tuple(g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(g, DTensor) and g.placements != p.placements else g
+                 for g, p in zip(grads, leaves))
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, opt_cfg: AdamWConfig
                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """Gradients of `loss_fn` over every param leaf, then one AdamW update
-    (in place, see `adamw_update`).  Metrics are detached device tensors."""
+    (in place, see `adamw_update`).  Metrics are detached plain device
+    tensors (a sharded step's are gathered)."""
     params = state["params"]
     leaves = tree_leaves(params)
     with torch.enable_grad():
@@ -49,7 +132,7 @@ def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
         grads = param_grads(loss, leaves)
     new_params, new_opt, opt_metrics = adamw_update(
         tree_unflatten(params, list(grads)), state["opt"], params, opt_cfg)
-    metrics = {k: v.detach() for k, v in {**metrics, **opt_metrics}.items()}
+    metrics = {k: _plain(v.detach()) for k, v in {**metrics, **opt_metrics}.items()}
     return {"params": new_params, "opt": new_opt}, metrics
 
 

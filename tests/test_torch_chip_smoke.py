@@ -533,3 +533,112 @@ def test_train_resume_counts_train_ssms_launches_and_fails_a_planted_leaf(monkey
     else:
         assert rec["restored_diff_leaves"] == ["params.final_norm.scale"]
         assert any("params.final_norm.scale" in f for f in failures)
+
+
+# ---------------------------------------------------------------------------
+# train_sharded and compress: the phases on the CPU over a one-rank gloo
+# group, and their failure checks on planted faults
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def world_of_one(tmp_path):
+    """A one-rank gloo process group for the test, destroyed after it."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_train_sharded_and_compress_run_on_a_one_rank_mesh(monkeypatch, one_thread,
+                                                           world_of_one):
+    """Reduced chatglm3-6b: the unsharded Trainer's 3 steps, then
+    `train_sharded` from the same weights and batch on a 1 x 1 mesh (every
+    loss and param leaf bitwise on the CPU, every leaf at its placements,
+    `dense_train_launches` a step) and `compress` (every leaf bitwise the
+    plain algebra and within half a quantization step; one step's launches)."""
+    import itertools
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, TrainerConfig
+
+    cs = _chip_smoke()
+    cfg = get_config(cs.ARCH).reduced()
+    b, s, steps = 2, 64, 3
+    tc = TrainerConfig(arch=cs.ARCH, reduced=True, global_batch=b, seq_len=s, steps=steps,
+                       log_every=steps, device="cpu", seed=cs.SEED,
+                       moment_dtype=torch.bfloat16)
+    tr = Trainer(tc, batches=itertools.repeat(cs.fixed_batch(cfg.vocab_size, b, s,
+                                                             cs.SEED + 4)))
+    out = tr.run()
+    ref = {"losses": out["losses"], "params": cs.host_copy(tr.state["params"])}
+    calls = _spy_kernels(monkeypatch)
+    counter = (calls.clear, lambda: dict(calls))
+    rec = cs.train_sharded(torch.device("cpu"), ref, reduced=True, batch=b, seq=s, steps=steps,
+                           counter=counter)
+    per_step = cs.dense_train_launches(cfg)
+    assert cs.sharded_failures(rec, per_step) == []
+    assert rec["losses_bitwise"] and rec["params_bitwise"]
+    assert rec["mesh"] == {"data": 1, "model": 1}
+    rec = cs.compress(torch.device("cpu"), reduced=True, batch=b, seq=s, counter=counter)
+    assert cs.compress_failures(rec, per_step) == []
+    assert rec["compressed_all_reduce_bytes"] > 2 * rec["bf16_all_reduce_bytes"]
+
+
+def _sharded_record(per_step, steps=2):
+    return {"steps": steps, "steps_run": steps, "losses": [6.0, 5.5],
+            "ref_losses": [6.0, 5.5], "loss_rel_err": [0.0, 0.0],
+            "param_rel_l2": {"embed.tok": 0.0, "final_norm.scale": 0.0},
+            "placement_faults": [],
+            "launches": {"ssd_scan": 0, **{k: v * steps for k, v in per_step.items()}}}
+
+
+@pytest.mark.parametrize("fault", [None, "loss", "placement", "launch", "param"])
+def test_sharded_failures_name_each_planted_fault(fault):
+    from repro_torch.configs import get_config
+    cs = _chip_smoke()
+    per_step = cs.dense_train_launches(get_config(cs.ARCH))
+    rec = _sharded_record(per_step)
+    if fault == "loss":          # just past 1e-5 relative
+        rec["losses"][1] = 5.5 * (1 + 1.5e-5)
+        rec["loss_rel_err"][1] = 1.5e-5
+    elif fault == "placement":
+        rec["placement_faults"] = ["params.blocks.0.attn.wq"]
+    elif fault == "launch":      # one launch missing
+        rec["launches"]["flash_attention_bwd_dq"] -= 1
+    elif fault == "param":
+        rec["param_rel_l2"]["embed.tok"] = 2e-3
+    failures = cs.sharded_failures(rec, per_step)
+    if fault is None:
+        assert failures == []
+    else:
+        assert len(failures) == 1, failures
+        assert {"loss": "losses differ", "placement": "params.blocks.0.attn.wq",
+                "launch": "launches", "param": "embed.tok"}[fault] in failures[0]
+
+
+@pytest.mark.parametrize("fault", [None, "ulp", "dtype"])
+def test_compress_checks_fail_a_leaf_one_ulp_off(fault):
+    """The compressed leaves against plain `_dequantize(_quantize(g))`: one
+    element of one leaf one bf16 ulp off (or the leaf in another dtype) is
+    named; the unperturbed leaves pass, each within half a step."""
+    import torch
+    from repro_torch.runtime.compression import _dequantize, _quantize
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(0)
+    grads = [torch.randn(300, generator=g).to(torch.bfloat16),
+             torch.randn(4, 256, generator=g) * 1e-3, torch.zeros(7)]
+    outs = [_dequantize(*_quantize(x), x.shape, x.dtype) for x in grads]
+    if fault == "ulp":               # the next bf16 value away from zero, by its bits
+        outs[0].view(torch.int16)[5] += 1
+    elif fault == "dtype":
+        outs[1] = outs[1].double()
+    errs = cs.compress_leaf_errors(["a", "b", "c"], grads, outs)
+    rec = {"identity_at_size_1": True, "launches": {"fused_ce": 1}, **errs}
+    failures = cs.compress_failures(rec, {"fused_ce": 1})
+    if fault is None:
+        assert failures == [] and errs["over_bound"] == {}
+    else:
+        assert errs["not_bitwise"] == (["a"] if fault == "ulp" else ["b"])
+        assert len(failures) >= 1

@@ -51,7 +51,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
             "repro_torch.configs.deepseek_v2_lite_16b",
             "repro_torch.configs.deepseek_v3_671b", "repro_torch.ckpt.manager",
-            "repro_torch.data.dataset", "repro_torch.data.dirfs"} <= set(mods)
+            "repro_torch.data.dataset", "repro_torch.data.dirfs",
+            "repro_torch.context", "repro_torch.runtime.sharding",
+            "repro_torch.runtime.compression", "repro_torch.runtime.pipeline_par",
+            "repro_torch.runtime.elastic", "repro_torch.launch.mesh"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import importlib.util\n"
