@@ -26,7 +26,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    dk/dv pass at every cluster size it takes, the whole flash backward (dq,
    then dk/dv) beside SDPA's backward.  Decode
    attention runs at the serve paths' own lengths (513-576 of a 1024-row
-   cache) for chatglm3-6b and stablelm-3b, at every cluster size; RMSNorm
+   cache) for chatglm3-6b and stablelm-3b, at every cluster size, the
+   output and each row's lse (for the merge over a sequence-split cache;
+   at TOL_LSE) against the plain version, the output bitwise the same with
+   and without the lse; RMSNorm
    also at the decode steps' [4, d], and at deepseek-v2-lite-16b's shapes
    (d 2048, and kv_norm's 512 columns of each 576-column row, read at that
    pitch), and the RMSNorm backward at its d 2048 and at kv_norm's [4096,
@@ -176,6 +179,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    bitwise plain `_dequantize(_quantize(g))` and within half a
    quantization step of g (`compress_failures`); printed: its ms beside a
    plain bf16 all-reduce of the tree, and the bytes each sends.
+   serve_sharded — the serve phase's chatglm3-6b run again (its weights, 4 x
+   512 prompts, 64 new tokens, cache 1024) through `Server(..., mesh=...)`
+   on the same 1 x 1 mesh of the one-rank NCCL group: params by
+   `shard_params`, the cache by `shard_cache`, each step under its
+   activation specs; the same tokens as the serve phase's, the last step's
+   logits bitwise or within TOL_SHARDED_LOGITS, `dense_serve_launches`
+   (`sharded_serve_failures`); printed: prefill ms and decode tokens/s
+   beside the serve phase's (DTensor's host cost), peak GB.
+   dryrun — with the NCCL group destroyed, `repro_torch.launch.dryrun`
+   traces on a fake process group (fake tensors of the card's device; no
+   launch, no allocation): chatglm3-6b's cells on a 1 x 1 mesh at the
+   phases' own shapes, the train cell (8 x 512, bf16 moments) held to what
+   the train phase measured (argument bytes exactly the state and batch
+   bytes; peak within TOL_DRYRUN_PEAK of `max_memory_allocated()`; kernel
+   calls `dense_train_launches`; FLOPs within TOL_DRYRUN_FLOPS of
+   `dense_train_flops`), the prefill and decode cells (B 4, S 512) held to
+   one prefill's and one decode step's launches, their peaks printed beside
+   the serve phase's (JAX's serve cells size the cache at the shape's
+   seq_len, the serve phase's is 1024: not gated); then chatglm3-6b's
+   train_4k, prefill_32k and decode_32k cells at 16x16 (256 fake ranks),
+   each ok, its record printed: per-device counts of a mesh the card cannot
+   form, traced, not run (`dryrun_failures`).
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -322,6 +347,14 @@ SC_ARCH = "starcoder2-15b"
 # TOL_SHARDED_LOSS (relative) of the train phase's, each param leaf after the
 # last step within TOL_SHARDED_PARAM (relative L2) of the train phase's
 TOL_SHARDED_LOSS, TOL_SHARDED_PARAM = 1e-5, 1e-3
+# serve_sharded: the serve phase's chatglm3-6b run again with its params and
+# cache on the same 1 x 1 mesh: the same tokens, the last step's logits
+# bitwise or within TOL_SHARDED_LOGITS (max |diff| over max |logit|)
+TOL_SHARDED_LOGITS = 1e-5
+# dryrun: the 1 x 1 train cell's traced peak within TOL_DRYRUN_PEAK
+# (relative) of the train phase's max_memory_allocated(), its FLOPs within
+# TOL_DRYRUN_FLOPS of `dense_train_flops`
+TOL_DRYRUN_PEAK, TOL_DRYRUN_FLOPS = 0.10, 0.05
 
 
 def emit(obj) -> None:
@@ -594,43 +627,18 @@ def ssd_grads_f64(scan_ref, args, h0, dy, dh_final, chunk=256):
 
 
 def ssd_fwd_work(b, s, h, p, n, chunk=SSD_CHUNK) -> tuple:
-    """(bytes, tensor-core operations) of the SSD scan's forward.  Bytes: x
-    (bf16) and dt read, y (fp32) written, a_log, B and C read, h0 read and
-    h_final written (fp32).  Operations: the kernel runs its products on the
-    tensor cores in bf16, each fp32 operand split into hi + lo; per (batch,
-    head, 64-row chunk) C B^T (1 product, L L N), C h^T (2, L P N), att (x
-    dt) (3, L L P) and the state update (2, P N L), with P padded to 64."""
-    tok_heads, nc, pk = b * s * h, -(-s // chunk), max(p, 64)
-    nbytes = (tok_heads * p * (2 + 4) + tok_heads * 4 + h * 4 + 2 * b * s * n * 2
-              + 2 * b * h * p * n * 4)
-    ops = 2 * b * h * nc * (chunk * chunk * n + 2 * chunk * pk * n + 3 * chunk * chunk * pk
-                            + 2 * pk * n * chunk)
-    return nbytes, ops
+    """(bytes, tensor-core operations) of the SSD scan's forward
+    (`repro_torch.kernels.ssd_scan.kernel.fwd_work`, which the dry run's
+    abstract path counts too)."""
+    from repro_torch.kernels.ssd_scan.kernel import fwd_work
+    return fwd_work(b, s, h, p, n, chunk)
 
 
 def ssd_bwd_work(b, s, h, p, n, chunk=SSD_CHUNK) -> tuple:
     """(bytes, tensor-core operations, fp32 operations) the SSD scan's
-    backward needs.  Bytes: x, dy, B, C, dt read and dx, dB, dC, ddt written
-    once.  Operations: the products of `ssd_scan_bwd_ref`'s formulas, the
-    intra-chunk ones over the causal pairs j <= i only (T = L(L+1)/2 per
-    chunk), two operations a multiply-add.  Per (batch, head, chunk): dy u^T
-    and att^T dy (T P each), the E-weighted sums of C and of B for dB and dC
-    (T N each), and the chunk's state update, its chain share, G B_j, u^T G
-    and H^T dy (L P N each); per (batch, chunk) C B^T (T N).
-    The tensor-core count is that of bf16 operands with every fp32 operand
-    split into hi + lo, as the kernels run their products: fp32 x fp32
-    three products (att^T dy, H^T dy), fp32 x bf16 two (the E-weighted sums
-    against C and B, the state update and chain share against B and C,
-    G B_j, and dy u^T and u^T G, whose u = dt x is the exact bf16 x scaled
-    by a row's dt), bf16 x bf16 one (C B^T).  The fp32 count is each
-    product once, as fp32 CUDA cores would run it: a yardstick."""
-    nc = -(-s // chunk)
-    tri, lpn = chunk * (chunk + 1) // 2, chunk * p * n
-    nbytes = b * s * h * p * (2 + 2 + 4) + 4 * b * s * n * 2 + 2 * b * s * h * 4 + 2 * h * 4
-    cbt = b * nc * tri * n
-    tc_macs = b * h * nc * (tri * (2 * p + 3 * p + 2 * n + 2 * n) + lpn * (2 + 2 + 2 + 2 + 3)) + cbt
-    f32_macs = b * h * nc * (tri * (2 * p + 2 * n) + 5 * lpn) + cbt
-    return nbytes, 2 * tc_macs, 2 * f32_macs
+    backward needs (`repro_torch.kernels.ssd_scan.kernel.bwd_work`)."""
+    from repro_torch.kernels.ssd_scan.kernel import bwd_work
+    return bwd_work(b, s, h, p, n, chunk)
 
 
 def mla_moe_serve_bound(cfg, params, batch, prompt) -> dict:
@@ -1010,15 +1018,32 @@ def hybrid_serve_bound(cfg, params, batch, prompt) -> dict:
             "decode_step_bound_ms": read / PEAK_BYTES * 1e3, "decode_bound_by": "bytes"}
 
 
-def dense_serve_launches(cfg) -> dict:
-    """Kernel launches of a serve run (a prefill and NEW decode steps) of a
-    dense model: the prefill's attention through the flash forward and each
-    decode step's through decode attention, a layer each; with RMS norms
-    (not LayerNorm, which stays plain torch as JAX computes it in jnp)
-    attn_norm and ffn_norm a layer and final_norm, every forward."""
-    out = {"flash_attention_fwd": cfg.n_layers, "decode_attention": cfg.n_layers * NEW}
+def dense_prefill_launches(cfg) -> dict:
+    """Kernel launches of one prefill of a dense model: its attention
+    through the flash forward a layer; with RMS norms (not LayerNorm, which
+    stays plain torch as JAX computes it in jnp) attn_norm and ffn_norm a
+    layer and final_norm."""
+    out = {"flash_attention_fwd": cfg.n_layers}
     if cfg.norm == "rmsnorm":
-        out["rmsnorm"] = (2 * cfg.n_layers + 1) * (1 + NEW)
+        out["rmsnorm"] = 2 * cfg.n_layers + 1
+    return out
+
+
+def dense_decode_launches(cfg) -> dict:
+    """Kernel launches of one decode step of a dense model: decode attention
+    a layer, and the norms as a prefill's."""
+    out = {"decode_attention": cfg.n_layers}
+    if cfg.norm == "rmsnorm":
+        out["rmsnorm"] = 2 * cfg.n_layers + 1
+    return out
+
+
+def dense_serve_launches(cfg, new=NEW) -> dict:
+    """Kernel launches of a serve run of a dense model: a prefill and `new`
+    decode steps."""
+    out = dict(dense_prefill_launches(cfg))
+    for k, v in dense_decode_launches(cfg).items():
+        out[k] = out.get(k, 0) + new * v
     return out
 
 
@@ -1034,6 +1059,30 @@ def dense_train_launches(cfg) -> dict:
     if cfg.norm == "rmsnorm":
         out.update(rmsnorm=4 * cfg.n_layers + 1, rmsnorm_bwd=2 * cfg.n_layers + 1)
     return out
+
+
+def dense_train_flops(cfg, batch, seq, ce_chunks=CE_CHUNKS) -> float:
+    """The FLOPs one train step of a dense model executes (remat per layer,
+    chunked CE): every product of the forward (q, k, v and o projections;
+    the MLP's two (GELU) or three (SwiGLU) products; the head) four times,
+    for the forward, the recompute (each layer's and each CE chunk's) and
+    the backward's two, less the MLP's last product once a layer (the
+    recompute stops at the last tensor the backward saved, as
+    `torch.utils.checkpoint` does); the flash passes by causal pairs P = B
+    H S (S + 1) / 2 a layer: 4 D P forward and again in the recompute, dq
+    6 D P, dk/dv 8 D P; the kernels' elementwise work: RMSNorm 4 an element
+    forward (twice a layer's norm, once the final), 10 backward; the CE 4 a
+    logit forward (twice) and backward."""
+    d, h, hkv, dh, t = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, batch * seq
+    attn = 2 * t * d * dh * (2 * h + 2 * hkv)
+    mlp = 2 * t * (2 if cfg.act == "gelu" else 3) * d * cfg.d_ff
+    forward = cfg.n_layers * (attn + mlp) + 2 * t * d * cfg.vocab_size
+    pairs = batch * h * seq * (seq + 1) // 2
+    flops = (4 * forward - cfg.n_layers * 2 * t * cfg.d_ff * d
+             + cfg.n_layers * 22 * dh * pairs + 3 * 4 * t * cfg.vocab_size)
+    if cfg.norm == "rmsnorm":
+        flops += ((4 * cfg.n_layers + 1) * 4 + (2 * cfg.n_layers + 1) * 10) * t * d
+    return flops
 
 
 def dense_serve_bound(cfg, params, batch, prompt) -> dict:
@@ -1402,6 +1451,156 @@ def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S
             "launches": got, "step_ms": statistics.median(times[1:] or times) * 1e3,
             "step_times_ms": [t * 1e3 for t in times],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None}
+
+
+def serve_sharded(dev, ref, arch=ARCH, reduced=False, prompt=PROMPT, max_len=MAX_LEN,
+                  new=NEW, prompt_seed=SEED + 1, counter=None) -> dict:
+    """The serve phase's run again on a DeviceMesh: the same weights (the
+    Server's init from SEED), prompts (from `prompt_seed`) and cache length,
+    through `Server(..., mesh=...)`: params by `shard_params` and the cache
+    by `shard_cache` on a 1 x 1 (data, model) mesh of the process group
+    (`init_world`), each step under its activation specs.  `ref` is the
+    serve phase's record: its tokens, its last step's logits, prefill ms,
+    decode tokens/s and peak GB.  The record holds the tokens' match, the
+    logits' max |diff| over their max |value| and whether they are bitwise,
+    the launches of the run (`counter`: a (reset, read) pair, by default the
+    kernel wrappers' counts), the times and the peak.
+    `sharded_serve_failures` reads it."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.tree import tree_leaves
+    reset, read = counter or (reset_launches, launches)
+    on_card = torch.device(dev).type == "cuda"
+    mesh = make_host_mesh(1, 1, device_type=torch.device(dev).type)
+    srv = Server(arch, reduced=reduced, max_len=max_len, device=str(dev), seed=SEED, mesh=mesh)
+    prompts = np.random.default_rng(prompt_seed).integers(
+        1, srv.cfg.vocab_size, size=(BATCH, prompt + 1)).astype(np.int32)[:, :prompt]
+    # warm-up at the served shape: DTensor's sharding propagation runs once
+    # for each new op shape (~0.5 s at the first 4 x 512 prefill), and a
+    # batch of 1 (the serve phase's warm-up) split over a mesh dim, even of
+    # size 1, is a reshape DTensor refuses
+    srv.generate(prompts, 2)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset()
+    out = srv.generate(prompts, new)
+    got = read()
+    logits = out["last_logits"].float().cpu()
+    want = ref["last_logits"].float()
+    scale = float(want.abs().max())
+    return {"arch": arch, "reduced": reduced, "mesh": sh.mesh_shape(mesh), "batch": BATCH,
+            "prompt": prompt, "new_tokens": new, "max_len": max_len,
+            "param_placements": sorted({str(getattr(t, "placements", None))
+                                        for t in tree_leaves(srv.params)}),
+            "tokens_equal": bool(np.array_equal(out["tokens"], ref["tokens"])),
+            "logits_rel_err": float((logits - want).abs().max()) / max(scale, 1e-30),
+            "logits_bitwise": bool(torch.equal(logits, want)), "finite": out["finite"],
+            "launches": got, "prefill_ms": out["prefill_s"] * 1e3,
+            "decode_tok_per_s": out["decode_tok_per_s"],
+            "ref_prefill_ms": ref.get("prefill_ms"),
+            "ref_decode_tok_per_s": ref.get("decode_tok_per_s"),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+            "ref_peak_mem_gb": ref.get("peak_mem_gb")}
+
+
+def sharded_serve_failures(rec, want) -> list:
+    """Why `serve_sharded`'s record fails its checks (none: it passes): the
+    same tokens as the serve phase's, finite logits, the last step's within
+    TOL_SHARDED_LOGITS, the launches `want` (name: count, every counted
+    name), every param a DTensor."""
+    out = []
+    if not rec["tokens_equal"]:
+        out.append("tokens differ from the serve phase's")
+    if not rec["finite"]:
+        out.append("non-finite logits")
+    if not rec["logits_rel_err"] <= TOL_SHARDED_LOGITS:
+        out.append(f"last logits differ from the serve phase's: max |diff| / max |logit| "
+                   f"{rec['logits_rel_err']} (tol {TOL_SHARDED_LOGITS})")
+    expect = {k: 0 for k in rec["launches"]}
+    expect.update(want)
+    if rec["launches"] != expect:
+        out.append(f"launches {rec['launches']} != {expect}")
+    if not all(p.startswith("(") for p in rec["param_placements"]):
+        out.append(f"params not DTensors: {rec['param_placements']}")
+    return out
+
+
+def dryrun_cells(dev, train_ref, serve_ref, arch=ARCH, reduced=False) -> dict:
+    """The dry run (`repro_torch.launch.dryrun.run_cell`, on a fake process
+    group; no real one may be up) of `arch`'s cells on a 1 x 1 mesh at the
+    phases' own shapes: the train phase's (TRAIN_B x TRAIN_S, bf16
+    moments) and the serve phase's prefill (BATCH x PROMPT) and decode
+    (BATCH, one token against a PROMPT-row cache), traced with `dev`'s
+    device type; `train_ref` is the train phase's measured argument bytes
+    (state and batch) and peak, `serve_ref` the serve phase's peak.
+    `dryrun_failures` reads the record."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import run_cell
+    device = torch.device(dev).type
+    cfg = get_config_of(arch, reduced)
+    cells = {
+        "train": run_cell(arch, InputShape("train", TRAIN_S, TRAIN_B, "train"),
+                          mesh_shape=(1, 1), device=device, moment_dtype=torch.bfloat16,
+                          reduced=reduced),
+        "prefill": run_cell(arch, InputShape("prefill", PROMPT, BATCH, "prefill"),
+                            mesh_shape=(1, 1), device=device, reduced=reduced),
+        "decode": run_cell(arch, InputShape("decode", PROMPT, BATCH, "decode"),
+                           mesh_shape=(1, 1), device=device, reduced=reduced)}
+    train = cells["train"]
+    flops = dense_train_flops(cfg, TRAIN_B, TRAIN_S)
+    peak = train["memory"]["peak_bytes"]
+    return {"arch": arch, "reduced": reduced, "cells": cells,
+            "train_argument_bytes": train["memory"]["argument_bytes"],
+            "measured_argument_bytes": train_ref["argument_bytes"],
+            "train_peak_bytes": peak, "measured_peak_bytes": train_ref["peak_bytes"],
+            "peak_rel_err": abs(peak - train_ref["peak_bytes"]) / train_ref["peak_bytes"],
+            "train_flops": train["flops_per_device"], "analytic_flops": flops,
+            "flops_rel_err": abs(train["flops_per_device"] - flops) / flops,
+            "prefill_peak_gb": cells["prefill"]["memory"]["peak_bytes"] / 1e9,
+            "decode_peak_gb": cells["decode"]["memory"]["peak_bytes"] / 1e9,
+            "serve_phase_peak_gb": serve_ref.get("peak_mem_gb"),
+            "kernel_calls": {k: c["kernel_calls"] for k, c in cells.items()},
+            "expected_kernel_calls": {"train": dense_train_launches(cfg),
+                                      "prefill": dense_prefill_launches(cfg),
+                                      "decode": dense_decode_launches(cfg)}}
+
+
+def production_cells(arch=ARCH, device="cuda") -> dict:
+    """`arch`'s cells at the production 16x16 mesh (`shapes_for`), as the
+    dry run's sweep traces them: shape name -> record."""
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.launch.dryrun import run_cell
+    return {shp.name: run_cell(arch, shp, mesh_shape=(16, 16), device=device)
+            for shp in shapes_for(get_config(arch))}
+
+
+def dryrun_failures(rec, production=None) -> list:
+    """Why `dryrun_cells`'s record (and the production cells, if given)
+    fails its checks (none: it passes): every cell ok; the train cell's
+    argument bytes equal to the measured state and batch bytes, exactly;
+    its peak within TOL_DRYRUN_PEAK of the measured peak; its FLOPs within
+    TOL_DRYRUN_FLOPS of `dense_train_flops`; each cell's kernel calls those
+    of one train step, one prefill, one decode step."""
+    out = []
+    for name, c in list(rec["cells"].items()) + list((production or {}).items()):
+        if not c.get("ok"):
+            out.append(f"cell {name} not ok: {c.get('error')}")
+    if rec["train_argument_bytes"] != rec["measured_argument_bytes"]:
+        out.append(f"train argument bytes {rec['train_argument_bytes']} != measured "
+                   f"{rec['measured_argument_bytes']}")
+    if not rec["peak_rel_err"] <= TOL_DRYRUN_PEAK:
+        out.append(f"train peak {rec['train_peak_bytes']} vs measured "
+                   f"{rec['measured_peak_bytes']}: {rec['peak_rel_err']} > {TOL_DRYRUN_PEAK}")
+    if not rec["flops_rel_err"] <= TOL_DRYRUN_FLOPS:
+        out.append(f"train FLOPs {rec['train_flops']} vs analytic {rec['analytic_flops']}: "
+                   f"{rec['flops_rel_err']} > {TOL_DRYRUN_FLOPS}")
+    for name, want in rec["expected_kernel_calls"].items():
+        if rec["kernel_calls"][name] != want:
+            out.append(f"{name} cell's kernel calls {rec['kernel_calls'][name]} != {want}")
+    return out
 
 
 def get_config_of(arch, reduced):
@@ -2215,20 +2414,32 @@ def main() -> int:
 
     def decode_case(what, q_, ck_, cv_, lens_np_):
         """The kernel, its plain version and masked SDPA (the group expanded)
-        at these inputs, checked: other_shape's arguments."""
+        at these inputs, checked: other_shape's arguments.  The lse output
+        (for the merge over a sequence-split cache) and the fp32 output that
+        comes with it are held to the plain version's at TOL_LSE and
+        TOL_BF16 at every cluster size, and the fp32 output rounded is the
+        bf16 output bit for bit."""
         lens_ = torch.from_numpy(lens_np_).to(dev)
         h_, d_, hkv_ = q_.shape[1], q_.shape[2], ck_.shape[2]
-        out_, ref_ = decode_attention(q_, ck_, cv_, lens_), decode_attention_ref(q_, ck_, cv_,
-                                                                                   lens_)
+        out_ = decode_attention(q_, ck_, cv_, lens_)
+        out32_, lse_ = decode_attention(q_, ck_, cv_, lens_, return_lse=True)
+        ref_ = decode_attention_ref(q_, ck_, cv_, lens_)
+        ref32_, rlse_ = decode_attention_ref(q_, ck_, cv_, lens_, return_lse=True)
         torch.cuda.synchronize()
+        if not torch.equal(out32_.to(out_.dtype), out_):
+            raise AssertionError(f"decode_attention ({what}): the fp32 output with the lse, "
+                                 "rounded, differs from the output without")
         kd_, vd_ = (c.transpose(1, 2).repeat_interleave(h_ // hkv_, dim=1) for c in (ck_, cv_))
         mask_ = (torch.arange(t, device=dev)[None, :] < lens_[:, None])[:, None, None, :]
         used = int(lens_np_.sum())
         clusters = {}
         for c in DECODE_CLUSTERS:
-            oc = decode_attention(q_, ck_, cv_, lens_, cluster=c)
+            oc, lc = decode_attention(q_, ck_, cv_, lens_, cluster=c, return_lse=True)
             torch.cuda.synchronize()
-            over_c = excess(oc, ref_, TOL_BF16)
+            over_c = max(excess(oc, ref32_, TOL_BF16), excess(lc, rlse_, TOL_LSE))
+            if not torch.equal(oc.to(out_.dtype), decode_attention(q_, ck_, cv_, lens_,
+                                                                   cluster=c)):
+                over_c = max(over_c, float("inf"))
             if not over_c <= 0:
                 raise AssertionError(f"decode_attention ({what}) with cluster {c} disagrees "
                                      f"with its plain version (excess {over_c})")
@@ -2238,7 +2449,8 @@ def main() -> int:
         for _ in range(3):
             if not torch.equal(decode_attention(q_, ck_, cv_, lens_), out_):
                 raise AssertionError(f"decode_attention ({what}) is not bitwise repeatable")
-        args = (f"decode_attention ({what})", excess(out_, ref_, TOL_BF16),
+        args = (f"decode_attention ({what})",
+                max(excess(out_, ref_, TOL_BF16), excess(lse_, rlse_, TOL_LSE)),
                 lambda: decode_attention(q_, ck_, cv_, lens_),
                 lambda: decode_attention_ref(q_, ck_, cv_, lens_),
                 lambda: F.scaled_dot_product_attention(q_[:, :, None], kd_, vd_,
@@ -2248,7 +2460,9 @@ def main() -> int:
         extra = {"shape": {"B": b, "H": h_, "Hkv": hkv_, "T": t, "D": d_,
                            "lengths": lens_np_.tolist()},
                  "cluster": decode_cluster_size(b * hkv_ * decode_head_chunks(h_ // hkv_)),
-                 "cluster_ms": clusters, "bitwise_repeatable": True}
+                 "cluster_ms": clusters, "bitwise_repeatable": True,
+                 "lse_max_abs_err": float((lse_ - rlse_).abs().max()), "lse_tol": TOL_LSE,
+                 "out32_max_abs_err": float((out32_ - ref32_).abs().max())}
         return args, extra
 
     serve_lens = np.random.default_rng(SEED + 10).integers(
@@ -2907,12 +3121,14 @@ def main() -> int:
     # -- the serve paths: Server.generate, launch counts, then prefill(S + 1)
     # against prefill(S) + decode(1) -----------------------------------------
     def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup, config=None,
-              cut=()):
+              cut=(), keep=None):
         """Full-width `arch` (or `config`, a cut of it: the config the Server
         reads is that one, for the time it builds) serves BATCH prompts of
         `prompt` tokens and NEW more through Server.generate; every launch
         count must be `want`(cfg).  Returns the server, the prompts (one
-        token longer) and the counts."""
+        token longer) and the counts; `keep` (a dict) receives the tokens,
+        a host copy of the last step's logits, prefill ms, decode tokens/s
+        and peak GB."""
         from repro_torch.configs import REGISTRY
         t0 = time.perf_counter()
         full = REGISTRY[arch]
@@ -2949,6 +3165,11 @@ def main() -> int:
             raise AssertionError(f"non-finite logits in the {phase} run")
         if out["tokens"].shape != (BATCH, NEW):
             raise AssertionError(f"{phase} tokens shape {out['tokens'].shape}")
+        if keep is not None:
+            keep.update(tokens=out["tokens"], last_logits=out["last_logits"].float().cpu(),
+                        prefill_ms=out["prefill_s"] * 1e3,
+                        decode_tok_per_s=out["decode_tok_per_s"],
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         return srv, prompts, got
 
     def cross_check(phase, srv, prompts, cache_len, noise_floor=False):
@@ -2981,10 +3202,12 @@ def main() -> int:
                                  f"{err} > {TOL_CROSS} * {scale}")
 
     by_path = {}
-    # chatglm3-6b: 4 x 512 prompt tokens, 64 new, KV cache 1024
+    # chatglm3-6b: 4 x 512 prompt tokens, 64 new, KV cache 1024; its tokens,
+    # last logits and peak are serve_sharded's and dryrun's reference
+    served = {}
     srv, prompts, by_path["serve"] = serve(
         "serve", ARCH, PROMPT, MAX_LEN, SEED + 1, dense_serve_launches,
-        lambda p: (p[:1, :16], 2))
+        lambda p: (p[:1, :16], 2), keep=served)
     cross_check("cross_check", srv, prompts, MAX_LEN, noise_floor=True)
     del srv
     torch.cuda.empty_cache()
@@ -3140,6 +3363,8 @@ def main() -> int:
         init_s = time.perf_counter() - t0
         n_params = sum(t.numel() for t in tree_leaves(tr.state["params"]))
         state_gb = torch.cuda.memory_allocated() / 1e9
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(tr.state) + list(tr._to_device(fixed).values()))
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         out = tr.run()
@@ -3174,7 +3399,8 @@ def main() -> int:
             raise AssertionError(f"{phase} launch counts {got} != {steps} x {per_step}")
         if keep is not None:
             keep.update(losses=losses, step_ms=out["step_s"] * 1e3,
-                        params=host_copy(tr.state["params"]))
+                        params=host_copy(tr.state["params"]), argument_bytes=arg_bytes,
+                        peak_bytes=torch.cuda.max_memory_allocated())
         del tr
         torch.cuda.empty_cache()
         return got
@@ -3183,6 +3409,7 @@ def main() -> int:
     by_path["train"] = train(
         "train", ARCH, TRAIN_STEPS, torch.bfloat16, TRAIN_CUT, dense_train_launches, SEED + 4,
         keep=unsharded)
+    unsharded_ref = {k: unsharded[k] for k in ("argument_bytes", "peak_bytes")}
     # the same run with its state on a 1 x 1 DeviceMesh over NCCL (world 1),
     # then one step's gradient tree through the int8 compressed all-reduce
     nccl = init_world(dev)
@@ -3204,8 +3431,31 @@ def main() -> int:
     if failures:
         raise AssertionError(f"compress: {failures}")
     by_path["compress"] = rec["launches"]
+    torch.cuda.empty_cache()
+    # the serve phase's run again with params and cache on the same mesh
+    rec = serve_sharded(dev, served)
+    failures = sharded_serve_failures(rec, dense_serve_launches(get_config(ARCH)))
+    emit({"phase": "serve_sharded", "nvidia_smi": smi, **rec, "failures": failures})
+    if failures:
+        raise AssertionError(f"serve_sharded: {failures}")
+    by_path["serve_sharded"] = rec["launches"]
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
+    # the dry run on its own fake process group (no real one up): the 1 x 1
+    # cells at the train and serve phases' shapes against what they measured,
+    # then chatglm3-6b's production cells at 16x16 (traced, not run)
+    t0 = time.perf_counter()
+    rec = dryrun_cells(dev, unsharded_ref, served)
+    production = production_cells()
+    failures = dryrun_failures(rec, production)
+    emit({"phase": "dryrun", "nvidia_smi": smi,
+          **{k: v for k, v in rec.items() if k != "cells"},
+          "failures": failures, "seconds": time.perf_counter() - t0})
+    for name, cell in list(rec["cells"].items()) + list(production.items()):
+        emit({"phase": "dryrun_cell", "cell": name, **cell})
+    if failures:
+        raise AssertionError(f"dryrun: {failures}")
+    del served, unsharded_ref
     # stablelm-3b: the Trainer's default fp32 moments (~34 GB of state)
     by_path["train_stablelm"] = train(
         "train_stablelm", LM_ARCH, LM_TRAIN_STEPS, torch.float32, [], dense_train_launches,

@@ -1,10 +1,10 @@
 """Architecture configuration schema (the port's own copy of
 `repro/configs/base.py`: same fields, same defaults, same `reduced()`, and
-the input shapes a cell runs)."""
+the input shapes a cell runs, `shapes_for`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -114,3 +114,12 @@ TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
 PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
 DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
 LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[InputShape, ...]:
+    """long_500k only for sub-quadratic (SSM/hybrid) architectures."""
+    if cfg.sub_quadratic:
+        return ALL_SHAPES
+    return (TRAIN_4K, PREFILL_32K, DECODE_32K)

@@ -25,6 +25,7 @@ from pathlib import Path
 from typing import Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -142,9 +143,10 @@ def kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """`t` itself if its last dim is contiguous and its strides and data
     pointer keep 16-byte loads aligned (what `require` takes), else a
     contiguous copy.  For tensors the caller does not control the layout
-    of, such as the gradients autograd hands to a backward."""
+    of, such as the gradients autograd hands to a backward.  A fake tensor
+    (the dry run's) has no data pointer: its strides alone decide."""
     vec = 16 // t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    if (t.stride(-1) == 1 and (isinstance(t, FakeTensor) or t.data_ptr() % 16 == 0)
             and all(st % vec == 0 for st in t.stride()[:-1])):
         return t
     return t.contiguous()

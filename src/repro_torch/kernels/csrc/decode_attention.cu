@@ -31,6 +31,10 @@
 //   in rank order.  Every sum has a fixed order: the same inputs give the
 //   same bits.
 // * Length 0 gives zeros (l = 0).  T need not be a multiple of any tile.
+// * Optionally each row's log-sum-exp (natural log, fp32; -inf at length 0),
+//   which block 0 of the cluster writes from the combine's max and sum, and
+//   then the output in fp32, unrounded: what a merge of partials over a
+//   cache split by its sequence needs, so that it rounds once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,7 +59,9 @@ struct Params {
     const bf16* k;
     const bf16* v;
     const int* lengths;
-    bf16* out;                  // [B, H, D] contiguous
+    bf16* out;                  // [B, H, D] contiguous; null when out32 is written
+    float* out32;               // [B, H, D] contiguous fp32, with the lse only
+    float* lse;                 // [B, H] contiguous fp32, natural log; null: not written
     int H, Hkv, rep, T, chunks; // chunks: blocks' head chunks per kv head
     float scale_log2;
     int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
@@ -319,10 +325,14 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
             l += f * *rank_ptr(ml + tid, c, C);
         }
         cl[tid] = l;
+        // the row's log-sum-exp of its scaled scores: m is in base 2
+        if (p.lse != nullptr && rank == 0)
+            p.lse[int64_t(b) * p.H + int64_t(g) * p.rep + h0 + tid] =
+                l > 0.f ? (mx + log2f(l)) * 0.6931471805599453f : -INFINITY;
     }
     __syncthreads();
     const int units = nh * D / 4;
-    bf16* og = p.out + (int64_t(b) * p.H + int64_t(g) * p.rep + h0) * D;
+    const int64_t o0 = (int64_t(b) * p.H + int64_t(g) * p.rep + h0) * D;
     for (int u = rank * units / C + tid; u < (rank + 1) * units / C; u += kThreads) {
         const int r = u / (D / 4);
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -335,12 +345,17 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
             a.w += f * x.w;
         }
         const float inv = cl[r] > 0.f ? 1.f / cl[r] : 0.f;
+        if (p.out32 != nullptr) {
+            *reinterpret_cast<float4*>(p.out32 + o0 + 4 * u) =
+                make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+            continue;
+        }
         const __nv_bfloat162 lo2 = __floats2bfloat162_rn(a.x * inv, a.y * inv);
         const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a.z * inv, a.w * inv);
         uint2 o;
         o.x = *reinterpret_cast<const uint32_t*>(&lo2);
         o.y = *reinterpret_cast<const uint32_t*>(&hi2);
-        *reinterpret_cast<uint2*>(og + 4 * u) = o;
+        *reinterpret_cast<uint2*>(p.out + o0 + 4 * u) = o;
     }
     if (C > 1) cluster_sync();   // no block leaves while another reads its partials
 }
@@ -376,13 +391,15 @@ int launch_d(const Params& p, int B, int cluster, cudaStream_t stream) {
 }  // namespace
 
 // q [B,H,D] and k/v [B,T,Hkv,D] as strided bf16 views with the last dim
-// contiguous; lengths [B] int32; out [B,H,D] contiguous bf16.  strides
+// contiguous; lengths [B] int32; out [B,H,D] contiguous, bf16, or fp32
+// where lse [B,H] contiguous fp32 is given (null: not written).  strides
 // holds q (batch, head), k (batch, row, head), v (batch, row, head).
 // `cluster` (1, 2, 4 or 8) blocks split each sequence's live rows.  The
 // wrapper checks shapes, 16-byte alignment, D in {32, 64, 80, 128} and
 // rep <= 32 * (128 / D).
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* lengths, void* out, int B, int H, int Hkv,
+                                     const void* lengths, void* out, void* lse, int B, int H,
+                                     int Hkv,
                                      int T, int D, int cluster, float scale,
                                      const int64_t* strides, void* stream) {
     if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
@@ -392,7 +409,9 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
     p.k = static_cast<const bf16*>(k);
     p.v = static_cast<const bf16*>(v);
     p.lengths = static_cast<const int*>(lengths);
-    p.out = static_cast<bf16*>(out);
+    p.lse = static_cast<float*>(lse);
+    p.out = lse == nullptr ? static_cast<bf16*>(out) : nullptr;
+    p.out32 = lse == nullptr ? nullptr : static_cast<float*>(out);
     p.H = H;
     p.Hkv = Hkv;
     p.rep = H / Hkv;

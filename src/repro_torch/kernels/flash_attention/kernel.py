@@ -28,7 +28,9 @@ the pair: MLA's expanded branch attends at D 192 ([nope | rope]) against
 DV 128 (deepseek-v2-lite-16b).  out, dO and dv are [..., DV]; q, k, dq and
 dk [..., D].  Every pass takes it natively: v is not padded.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+A fake tensor takes the abstract path (`kernels/abstract.py`: outputs
+without a launch, counted in `<wrapper>.traced`, the work by causal pairs);
+a CPU tensor the plain version; a CUDA tensor launches the kernel or
 raises.  `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from ..abstract import FakeTensor, causal_pairs, traced
 from .ref import attention_bwd_dkv_ref, attention_bwd_dq_ref, attention_with_lse_ref
 
 HEAD_DIMS = (32, 64, 80, 128)      # every pass's kernel takes each of them
@@ -153,7 +156,20 @@ def _empty_like_heads(x: torch.Tensor, d: Optional[int] = None) -> torch.Tensor:
     free."""
     b, h, s, dx = x.shape
     d = dx if d is None else d
-    return torch.empty((b, s, h, d), dtype=x.dtype, device=x.device).transpose(1, 2)
+    return x.new_empty((b, s, h, d)).transpose(1, 2)
+
+
+def _fake_work(q, k, v, kv_len, q_offset, causal, n_qk, n_v, qk_rows, kv_rows):
+    """(flops, bytes) of a pass: 2 (n_qk D + n_v DV) flops a causal pair;
+    `qk_rows` [B,H,S] tensors of D and DV columns each read or written
+    (q and dq; out and dO), `kv_rows` of K and V ([B,Hkv,kv_len]), and two
+    fp32 [B,H,S] rows (lse, delta)."""
+    b, h, s, d = q.shape
+    dv = v.shape[-1]
+    pairs = causal_pairs(b, h, s, kv_len=kv_len, q_offset=q_offset, causal=causal)
+    nbytes = (qk_rows * b * h * s * (d + dv) + kv_rows * b * k.shape[1] * kv_len * (d + dv)
+              ) * q.element_size() + 2 * b * h * s * 4
+    return 2 * pairs * (n_qk * d + n_v * dv), nbytes
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -173,6 +189,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = t if kv_len is None else int(kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if isinstance(q, FakeTensor):       # q read, out and lse written, K and V read
+        out, lse = _empty_like_heads(q, v.shape[-1]), q.new_empty((b, h, s), dtype=torch.float32)
+        flops, nbytes = _fake_work(q, k, v, kv_len, q_offset, causal, 1, 1, 1, 1)
+        return traced(flash_attention_fwd, (out, lse), flops, nbytes - b * h * s * 4)
     if not q.is_cuda:
         return attention_with_lse_ref(q, k, v, scale, causal=causal,
                                       q_offset=q_offset, kv_len=kv_len)
@@ -190,6 +210,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.traced = 0
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -206,6 +227,10 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = t if kv_len is None else int(kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if isinstance(q, FakeTensor):       # q, out, dO read, dq written; lse read, delta written
+        outs = (_empty_like_heads(q), q.new_empty((b, h, s), dtype=torch.float32))
+        return traced(flash_attention_bwd_dq, outs,
+                      *_fake_work(q, k, v, kv_len, q_offset, causal, 2, 1, 2, 1))
     if not q.is_cuda:
         return attention_bwd_dq_ref(q, k, v, out, do, lse, scale, causal=causal,
                                     q_offset=q_offset, kv_len=kv_len)
@@ -227,6 +252,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.traced = 0
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,6 +271,9 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = t if kv_len is None else int(kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if isinstance(q, FakeTensor):       # q, dO read; K, V read, dk, dv written
+        return traced(flash_attention_bwd_dkv, (_empty_like_heads(k), _empty_like_heads(v)),
+                      *_fake_work(q, k, v, kv_len, q_offset, causal, 2, 2, 1, 2))
     if not q.is_cuda:
         return attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal=causal,
                                      q_offset=q_offset, kv_len=kv_len)
@@ -269,6 +298,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.traced = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, scale: Optional[float] = None,

@@ -3,9 +3,10 @@
 
 `rmsnorm` is the counterpart of `repro/kernels/rmsnorm/kernel.py::rmsnorm`;
 `rmsnorm_bwd` has no Pallas counterpart (JAX differentiates the jnp
-reference) and gives the gradients of both inputs.  A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
-`<wrapper>.launches` counts kernel launches.
+reference) and gives the gradients of both inputs.  A fake tensor takes
+the abstract path (`kernels/abstract.py`: outputs without a launch, counted
+in `<wrapper>.traced`); a CPU tensor the plain version; a CUDA tensor
+launches the kernel or raises.  `<wrapper>.launches` counts kernel launches.
 
 Both directions read x's rows in place at any uniform pitch (`row_pitch`):
 a slice of the first D columns of wider rows, such as MLA's `kv_norm` input
@@ -19,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import _build
+from ..abstract import FakeTensor, traced
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _ARGTYPES = (_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
@@ -72,6 +74,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     """x [..., D], its rows at any uniform pitch; scale [D] -> contiguous
     [..., D] in x's dtype (fp32 math)."""
+    if isinstance(x, FakeTensor):       # 4 flops an element; x read, out written, scale
+        return traced(rmsnorm, x.new_empty(x.shape), 4 * x.numel(),
+                      2 * x.numel() * x.element_size() + scale.numel() * scale.element_size())
     if not x.is_cuda:
         return rmsnorm_ref(x, scale, eps)
     d = x.shape[-1]
@@ -91,6 +96,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
 
 
 rmsnorm.launches = 0
+rmsnorm.traced = 0
 
 
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
@@ -100,6 +106,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     [D]), each in its input's dtype (fp32 math; dscale summed over rows in a
     fixed order).  One launch: a cooperative grid whose blocks meet at a
     grid barrier (`csrc/rmsnorm.cu`)."""
+    if isinstance(x, FakeTensor):       # 10 flops an element; x, dy read, dx written
+        return traced(rmsnorm_bwd, (x.new_empty(x.shape), scale.new_empty(scale.shape)),
+                      10 * x.numel(), 3 * x.numel() * x.element_size()
+                      + 2 * scale.numel() * scale.element_size())
     if not x.is_cuda:
         return rmsnorm_bwd_ref(x, scale, dy, eps)
     d = x.shape[-1]
@@ -132,4 +142,5 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
 
 
 rmsnorm_bwd.launches = 0
+rmsnorm_bwd.traced = 0
 

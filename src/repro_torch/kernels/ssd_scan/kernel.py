@@ -11,8 +11,10 @@ gradients of the scan (no TPU counterpart: JAX differentiates the jnp scan).
 The kernels' chunk length is their own (64 rows); `chunk` is that of the
 plain versions.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `ssd_scan.launches` and `ssd_scan_bwd.launches` count calls that
+A fake tensor takes the abstract path (`kernels/abstract.py`: outputs
+without a launch, counted in `<wrapper>.traced`, the work by `fwd_work` and
+`bwd_work`); a CPU tensor the plain version; a CUDA tensor launches the
+kernel or raises.  `ssd_scan.launches` and `ssd_scan_bwd.launches` count calls that
 launch (the backward makes three CUDA launches a call: the state walkers, the
 gradients, da_log's sum).
 """
@@ -24,12 +26,53 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ..abstract import FakeTensor, traced
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 HEAD_DIMS = (16, 32, 64)            # P
 STATE_DIMS = (16, 32, 64, 128)      # N
 KERNEL_CHUNK = 64                   # rows a chunk in both kernels
 _ARGTYPES = (_build.PTR,) * 9 + (_build.INT,) * 5 + (_build.PTR,)
+
+
+def fwd_work(b, s, h, p, n, chunk=KERNEL_CHUNK) -> tuple:
+    """(bytes, tensor-core operations) of the SSD scan's forward.  Bytes: x
+    (bf16) and dt read, y (fp32) written, a_log, B and C read, h0 read and
+    h_final written (fp32).  Operations: the kernel runs its products on the
+    tensor cores in bf16, each fp32 operand split into hi + lo; per (batch,
+    head, 64-row chunk) C B^T (1 product, L L N), C h^T (2, L P N), att (x
+    dt) (3, L L P) and the state update (2, P N L), with P padded to 64."""
+    tok_heads, nc, pk = b * s * h, -(-s // chunk), max(p, 64)
+    nbytes = (tok_heads * p * (2 + 4) + tok_heads * 4 + h * 4 + 2 * b * s * n * 2
+              + 2 * b * h * p * n * 4)
+    ops = 2 * b * h * nc * (chunk * chunk * n + 2 * chunk * pk * n + 3 * chunk * chunk * pk
+                            + 2 * pk * n * chunk)
+    return nbytes, ops
+
+
+def bwd_work(b, s, h, p, n, chunk=KERNEL_CHUNK) -> tuple:
+    """(bytes, tensor-core operations, fp32 operations) the SSD scan's
+    backward needs.  Bytes: x, dy, B, C, dt read and dx, dB, dC, ddt written
+    once.  Operations: the products of `ssd_scan_bwd_ref`'s formulas, the
+    intra-chunk ones over the causal pairs j <= i only (T = L(L+1)/2 per
+    chunk), two operations a multiply-add.  Per (batch, head, chunk): dy u^T
+    and att^T dy (T P each), the E-weighted sums of C and of B for dB and dC
+    (T N each), and the chunk's state update, its chain share, G B_j, u^T G
+    and H^T dy (L P N each); per (batch, chunk) C B^T (T N).
+    The tensor-core count is that of bf16 operands with every fp32 operand
+    split into hi + lo, as the kernels run their products: fp32 x fp32
+    three products (att^T dy, H^T dy), fp32 x bf16 two (the E-weighted sums
+    against C and B, the state update and chain share against B and C,
+    G B_j, and dy u^T and u^T G, whose u = dt x is the exact bf16 x scaled
+    by a row's dt), bf16 x bf16 one (C B^T).  The fp32 count is each
+    product once, as fp32 CUDA cores would run it: a yardstick."""
+    nc = -(-s // chunk)
+    tri, lpn = chunk * (chunk + 1) // 2, chunk * p * n
+    nbytes = b * s * h * p * (2 + 2 + 4) + 4 * b * s * n * 2 + 2 * b * s * h * 4 + 2 * h * 4
+    cbt = b * nc * tri * n
+    tc_macs = b * h * nc * (tri * (2 * p + 3 * p + 2 * n + 2 * n) + lpn * (2 + 2 + 2 + 2 + 3)) + cbt
+    f32_macs = b * h * nc * (tri * (2 * p + 2 * n) + 5 * lpn) + cbt
+    return nbytes, 2 * tc_macs, 2 * f32_macs
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -45,6 +88,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise NotImplementedError(
             "ssd_scan does not differentiate: call ssd_scan_op (the autograd op "
             "whose backward is ssd_scan_bwd), or this under torch.no_grad()")
+    if isinstance(x, FakeTensor):
+        b, s, h, p = x.shape
+        n = B.shape[-1]
+        nbytes, ops = fwd_work(b, s, h, p, n)
+        return traced(ssd_scan, (x.new_empty((b, s, h, p), dtype=torch.float32),
+                                 x.new_empty((b, h, p, n), dtype=torch.float32)), ops, nbytes)
     if not x.is_cuda:
         return ssd_scan_ref(x, dt, a_log, B, C, chunk=chunk, h0=h0)
     b, s, h, p = x.shape
@@ -64,6 +113,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.traced = 0
 
 
 def _check(name, x, dt, a_log, B, C, **states) -> None:
@@ -104,6 +154,15 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     fp32 or None when h0 is None), as `ssd_scan_bwd_ref`.  The inputs are
     those `ssd_scan` takes; dy and dh_final are contiguous.  Deterministic:
     the sums over heads, batches and chunks run in a fixed order."""
+    if isinstance(x, FakeTensor):
+        b, s, h, p = x.shape
+        n = B.shape[-1]
+        nbytes, ops, _ = bwd_work(b, s, h, p, n)
+        f32 = dict(dtype=torch.float32)
+        outs = (x.new_empty((b, s, h, p)), x.new_empty((b, s, h), **f32),
+                x.new_empty((h,), **f32), B.new_empty((b, s, n)), B.new_empty((b, s, n)),
+                None if h0 is None else x.new_empty((b, h, p, n), **f32))
+        return traced(ssd_scan_bwd, outs, ops, nbytes)
     if not x.is_cuda:
         return ssd_scan_bwd_ref(x, dt, a_log, B, C, h0, dy, dh_final, chunk=chunk)
     b, s, h, p = x.shape
@@ -138,3 +197,4 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.traced = 0

@@ -13,9 +13,15 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+def make_production_mesh(*, multi_pod: bool = False, shape=None, device_type: str = "cuda"):
+    """The production mesh, (16, 16) ("data", "model") or with `multi_pod`
+    (2, 16, 16) ("pod", "data", "model"); `shape` gives another of two or
+    three dims with the same names (the dry run's (1, 1) and (2, 2) cells).
+    The process group must have exactly that many ranks."""
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    shape = tuple(shape)
+    axes = ("pod", "data", "model")[-len(shape):]
     n = 1
     for s in shape:
         n *= s
@@ -23,7 +29,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     if world != n:
         raise ValueError(f"the production mesh {shape} needs a world size of {n}, "
                          f"not {world}")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):

@@ -5,6 +5,11 @@ the card, serves a batch of token prompts against a KV cache, and returns
 the greedy tokens.  Runs on `cuda` unless the caller passes `device="cpu"`.
 An arch with a stub frontend (pixtral-12b's vit, musicgen-large's encodec)
 takes each token's row of a seeded table as its `embeds`, as JAX's Server.
+Given a `DeviceMesh` (`mesh=`), the Server runs the sharded serve path, as
+JAX's dry run lowers it (JAX's own Server never shards): params at
+`param_specs` (`shard_params`), the cache at `cache_specs` (`shard_cache`),
+each batch at `batch_shardings`, every step under the cell's activation
+specs; the logits come back whole.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --tokens 32
 """
@@ -17,9 +22,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..configs import get_config
+from ..configs import InputShape, get_config
+from ..context import activation_specs
 from ..models import init_cache, init_model
-from ..runtime.steps import prefill_step, serve_step
+from ..runtime import sharding as sh
+from ..runtime.steps import prefill_step, serve_step, shard_batch, shard_cache, shard_params
 
 
 def resolve_device(device) -> torch.device:
@@ -55,7 +62,7 @@ def stub_table(vocab: int, d: int, device) -> torch.Tensor:
 
 class Server:
     def __init__(self, arch: str, *, reduced: bool = True, max_len: int = 512,
-                 params=None, device="cuda", seed: int = 0) -> None:
+                 params=None, device="cuda", seed: int = 0, mesh=None) -> None:
         self.device = resolve_device(device)
         cfg = get_config(arch)
         self.cfg = cfg.reduced() if reduced else cfg
@@ -64,7 +71,8 @@ class Server:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             with torch.inference_mode():
                 params = init_model(self.cfg, gen, self.device)
-        self.params = params
+        self.mesh = mesh
+        self.params = params if mesh is None else shard_params(params, self.cfg, mesh)
         # JAX rebuilds the stub table on the host at every call (every decode
         # step); the port builds it once and gathers each step's rows on the
         # device
@@ -86,26 +94,50 @@ class Server:
             out["embeds"] = emb
         return out
 
+    def _step(self, fn, cache, batch: Dict[str, torch.Tensor], shape: InputShape, *args):
+        """One prefill or decode step; under a mesh the batch is placed by
+        `batch_shardings` and the step runs under the shape's activation
+        specs, and the logits come back whole."""
+        if self.mesh is None:
+            return fn(self.params, cache, batch, *args, self.cfg)
+        decode = shape.kind == "decode"
+        batch = shard_batch(batch, self.mesh, shape, for_decode=decode)
+        with activation_specs(sh.activation_specs_for(sh.mesh_shape(self.mesh), shape,
+                                                      self.cfg)):
+            logits, cache = fn(self.params, cache, batch, *args, self.cfg)
+        return logits.full_tensor(), cache
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_tokens: int) -> Dict[str, object]:
         """prompts [B, S0] int -> generated [B, n_tokens], greedy.
 
         Returns the JAX Server's dict (tokens, prefill_s, decode_tok_per_s)
-        plus `finite`: whether every logit of the run was finite."""
+        plus `finite`: whether every logit of the run was finite, and
+        `last_logits`: the last step's logits [B, 1, V].  Runs under
+        inference mode, or under a mesh under no_grad: in inference mode
+        DTensor meets composite ops (einsum) undecomposed and decomposes
+        them anew at every call, an order of magnitude more host time."""
+        with torch.inference_mode() if self.mesh is None else torch.no_grad():
+            return self._generate(prompts, n_tokens)
+
+    def _generate(self, prompts: np.ndarray, n_tokens: int) -> Dict[str, object]:
         b, s0 = prompts.shape
         if s0 + n_tokens > self.max_len:
             raise ValueError(f"{s0} prompt + {n_tokens} new tokens exceed "
                              f"max_len {self.max_len}")
         cache = init_cache(self.cfg, b, self.max_len, self.device)
+        if self.mesh is not None:
+            cache = shard_cache(cache, self.cfg, self.mesh, b, self.max_len)
+        prefill = InputShape("prefill", s0, b, "prefill")
+        decode = InputShape("decode", self.max_len, b, "decode")
         batch = self.batch(torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                            device=self.device))
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = prefill_step(self.params, cache, batch, self.cfg)
+        logits, cache = self._step(prefill_step, cache, batch, prefill)
         self._sync()
         prefill_s = time.perf_counter() - t0
 
@@ -116,8 +148,8 @@ class Server:
         t0 = time.perf_counter()
         for i in range(n_tokens):
             outs.append(tok)
-            logits, cache = serve_step(self.params, cache, self.batch(tok[:, None]),
-                                       s0 + i, self.cfg)
+            logits, cache = self._step(serve_step, cache, self.batch(tok[:, None]), decode,
+                                       s0 + i)
             finite &= torch.isfinite(logits).all()
             tok = logits[:, -1].argmax(-1)
         self._sync()
@@ -127,7 +159,7 @@ class Server:
         return {"tokens": tokens.cpu().numpy().astype(np.int32),
                 "prefill_s": prefill_s,
                 "decode_tok_per_s": b * n_tokens / max(decode_s, 1e-9),
-                "finite": bool(finite)}
+                "finite": bool(finite), "last_logits": logits}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

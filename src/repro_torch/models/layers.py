@@ -25,8 +25,10 @@ which `runtime.sharding` maps to mesh axes.  The activation constraints of
 `repro_torch.context` sit where JAX's do; they are no-ops unless the
 activations are DTensors and specs are installed.  Under a mesh the kernels
 run on each rank's local shard through `local_map` (`_rmsnorm_sharded`,
-`_flash_sharded`): a kernel wrapper reads `data_ptr` and cannot take a
-DTensor.
+`_flash_sharded`, `_decode_sharded`, `_prefill_cached_sharded`): a kernel
+wrapper reads `data_ptr` and cannot take a DTensor.  A cache of DTensors (at
+`runtime.sharding.cache_specs`) is written in place by each rank at its own
+rows (`_cache_write`), never gathered for a write.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from ..context import constrain, constrain_heads, constrain_kv, keep_shards, rep
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention, flash_attention_fwd
 from ..kernels.rmsnorm import rmsnorm_op
+from ..runtime.sharding import product_plan
 
 Params = Dict[str, torch.Tensor]
 Axes = Dict[str, Any]
@@ -208,12 +211,34 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Causal self-attention.  If `kv_cache` ({"k", "v"}: one layer's
     [B, T, Hkv, dh] bf16 slices) is given, x is the new token chunk and its
     keys and values are written into the cache at `cache_pos` IN PLACE (the
-    JAX version returns an updated copy).  Returns (y, kv_cache)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    JAX version returns an updated copy).  A cache of DTensors takes the
+    sharded path: `_cache_write`, then `_decode_sharded` or
+    `_prefill_cached_sharded`.  Returns (y, kv_cache)."""
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias else (None, None)
+    x_kv = x
+    if isinstance(x, DTensor):
+        # the sequence-parallel gather before the head projections (as
+        # Megatron's): x keeps its batch split only, so the projections
+        # split the heads over "model" (`_product`) rather than run each
+        # rank's tokens against whole weights
+        x = _placed(x, keep_shards(x, (0,)))
+        # where the kv heads are too few to split with the query heads:
+        # without a cache each rank projects only the kv heads its query
+        # heads read; a cache (then split by its sequence) takes the keys
+        # and values of each rank's own tokens, where x splits them
+        few_kv = _kv_heads_whole(p["wq"], wk)
+        if few_kv and kv_cache is None:
+            wk, wv = _kv_weight(wk, p["wq"], 1), _kv_weight(wv, p["wq"], 1)
+            if cfg.qkv_bias:
+                bk, bv = _kv_weight(bk, p["wq"], 0), _kv_weight(bv, p["wq"], 0)
+        if not (few_kv and kv_cache is not None and _sequence_split(x_kv)):
+            x_kv = x
+    q = _product("bsd,dhk->bshk", x, p["wq"])
+    k = _product("bsd,dhk->bshk", x_kv, wk)
+    v = _product("bsd,dhk->bshk", x_kv, wv)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     if cfg.rope != "none":
         frac = cfg.rope_fraction if cfg.rope == "partial" else 1.0
         q = apply_rope(q, positions, cfg.rope_theta, frac)
@@ -225,6 +250,14 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
         # the seq -> heads transition for the attention interior
         q, k, v = constrain_heads(q), constrain_kv(k), constrain_kv(v)
         out = constrain_heads(_flash(q, k, v, scale))
+    elif isinstance(kv_cache["k"], DTensor):
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        _cache_write(ck, k, cache_pos)
+        _cache_write(cv, v, cache_pos)
+        if s == 1:
+            out = _decode_sharded(q[:, 0], ck, cv, cache_pos + 1, scale)[:, None]
+        else:
+            out = _prefill_cached_sharded(q, ck, cv, cache_pos, scale)
     else:
         ck, cv = kv_cache["k"], kv_cache["v"]
         ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
@@ -239,8 +272,133 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
                 scale=scale, q_offset=cache_pos, kv_len=cache_pos + s)
             out = out.transpose(1, 2)
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    y = _product("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return y, kv_cache
+
+
+def _product(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum(eq, x, w) of an activation x and a weight w; under a mesh both
+    are placed first by `sharding.product_plan`.  A row-parallel product's
+    local partial products are fp32 results of the bf16 operands, summed in
+    fp32 (reduced into the residual's "bsd" layout, or all-reduced where no
+    spec splits it) and rounded to x's dtype once, as the unsharded product
+    rounds (DTensor would round each partial first).  Where x's sequence is
+    split, `_token_product`.  A plain x takes the plain einsum."""
+    if not isinstance(x, DTensor):
+        return torch.einsum(eq, x, w)
+    if _sequence_split(x):
+        return _token_product(eq, x, w)
+    mesh = x.device_mesh
+    plan = product_plan(eq, tuple(x.placements), tuple(w.placements),
+                        tuple(mesh.size(i) for i in range(mesh.ndim)), tuple(x.shape),
+                        tuple(w.shape), w.element_size())
+    x, w = _placed(x, plan.x), _placed(w, plan.w)
+    if not plan.row:
+        return torch.einsum(eq, x, w)
+    y = local_map(lambda a, b: _einsum_f32(eq, a, b), out_placements=list(plan.out),
+                  in_placements=(list(plan.x), list(plan.w)),
+                  in_grad_placements=(list(plan.x_grad), list(plan.w_grad)),
+                  device_mesh=mesh)(x, w)
+    y = constrain(y, "bsd")
+    y = y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in y.placements])
+    return y.to(x.dtype)
+
+
+class _MmF32(torch.autograd.Function):
+    """a @ b with an fp32 result of bf16 operands, rounded nowhere:
+    `torch.mm`'s `out_dtype` on the card; the CPU has no such kernel, so
+    there the operands are widened first (the same values).  The gradients
+    are products in the operands' dtype, as the unsplit product's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda and a.dtype != torch.float32:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.mm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ b.t(), a.t() @ g
+
+
+def _einsum_f32(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum(eq, x, w) in fp32 by `_MmF32`, for an `eq` whose output is x's
+    kept dims then w's (every product of the model's)."""
+    (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
+    kept, con = [c for c in xs if c not in ws], [c for c in xs if c in ws]
+    wo = [c for c in ws if c not in xs]
+    assert out == "".join(kept + wo), eq
+    xm = x.permute([xs.index(c) for c in kept + con])
+    wm = w.permute([ws.index(c) for c in con + wo])
+    lead, tail = xm.shape[:len(kept)], wm.shape[len(con):]
+    y = _MmF32.apply(xm.reshape(math.prod(lead), -1), wm.reshape(-1, math.prod(tail)))
+    return y.reshape(*lead, *tail)
+
+
+def _placed(t: DTensor, pl) -> DTensor:
+    """`t` redistributed to `pl`, or `t` itself where they differ on no mesh
+    dim larger than 1 (a placement there moves nothing, and DTensor's
+    redistribute costs host time on every call)."""
+    mesh = t.device_mesh
+    if all(p == q or mesh.size(i) == 1 for i, (p, q) in enumerate(zip(t.placements, pl))):
+        return t
+    return t.redistribute(mesh, pl)
+
+
+def _kv_heads_whole(wq: torch.Tensor, wk: torch.Tensor) -> bool:
+    """Whether a mesh dim (of size > 1) splits wq's query heads [d, H, dh]
+    but not wk's kv heads [d, Hkv, dh] (they do not divide it)."""
+    if not isinstance(wq, DTensor):
+        return False
+    mesh = wq.device_mesh
+    return any(mesh.size(i) > 1 and p == Shard(1) and q != Shard(1)
+               for i, (p, q) in enumerate(zip(wq.placements, wk.placements)))
+
+
+def _kv_weight(w: DTensor, wq: DTensor, hdim: int) -> DTensor:
+    """w, a kv projection [d, Hkv, dh] (or its bias [Hkv, dh]: the heads at
+    `hdim`) whole on a mesh dim that splits wq's query heads, as the
+    projection of the kv heads each rank's query heads read: Megatron's
+    duplication of kv heads, a split of (ranks x heads a rank) heads whose
+    part on each rank is a slice of its own w, with no copy moved.  Its
+    gradient is a partial sum over those dims.  `w` itself where a rank's
+    query heads straddle two kv groups."""
+    mesh, h, hkv = wq.device_mesh, wq.shape[1], w.shape[hdim]
+    (h0, hl), rep = _local_rows(wq, 1), h // hkv
+    if rep % hl and hl % rep:
+        return w
+    lo, c = h0 // rep, max(1, hl // rep)
+    dup = [mesh.size(i) > 1 and p == Shard(1) for i, p in enumerate(wq.placements)]
+    out = [Shard(hdim) if d else p for d, p in zip(dup, w.placements)]
+    grad = [Partial() if d else p for d, p in zip(dup, w.placements)]
+    return local_map(lambda t: t.narrow(hdim, lo, c), out_placements=out,
+                     in_placements=(list(w.placements),), in_grad_placements=(grad,),
+                     device_mesh=mesh)(w)
+
+
+def _sequence_split(x: torch.Tensor) -> bool:
+    """Whether x [B, S, ...] is a DTensor whose sequence dim is split."""
+    return isinstance(x, DTensor) and any(p.is_shard(1) for p in x.placements)
+
+
+def _token_product(eq: str, x: DTensor, w: DTensor) -> DTensor:
+    """einsum(eq, x, w) on each rank's tokens: x [B, S, ...] keeps its batch
+    and sequence splits, w is gathered whole (its FSDP and tensor-parallel
+    splits), so the product's other dims are whole on every rank, JAX's
+    token-sharded layout ("bsf").  w's local gradient is a partial sum over
+    the mesh dims that split the tokens.  Where x's batch and sequence are
+    both split, DTensor's own einsum flattens them into one dim, which it
+    cannot always split again (torch 2.11 refuses)."""
+    mesh = x.device_mesh
+    xpl = keep_shards(x, (0, 1))
+    rep = [Replicate()] * mesh.ndim
+    wgrad = [Partial() if isinstance(p, Shard) else Replicate() for p in xpl]
+    fn = local_map(lambda a, b: torch.einsum(eq, a, b), out_placements=xpl,
+                   in_placements=(xpl, rep), in_grad_placements=(xpl, wgrad), device_mesh=mesh)
+    return fn(x.redistribute(mesh, xpl), w.redistribute(mesh, rep))
 
 
 def _flash_bshd(q, k, v, scale):
@@ -256,23 +414,163 @@ def _flash(q, k, v, scale):
     return _flash_bshd(q, k, v, scale)
 
 
-def _flash_sharded(q: DTensor, k: DTensor, v: DTensor, scale) -> DTensor:
-    """The flash op on each rank's shard: a mesh dim keeps a batch split
-    where q, k and v all have one, or a head split where all three have one
-    (the kv heads divide it too, so every query head's group stays on its
-    rank); every other mesh dim, a sequence split among them, is gathered,
-    as the causal mask needs the whole sequence.  dq, dk and dv are exact
-    on each shard."""
-    mesh = q.device_mesh
-    pl = []
-    for i, ps in enumerate(zip(q.placements, k.placements, v.placements)):
+def _attention_placements(q: DTensor, k: DTensor, v: DTensor) -> Tuple[list, list, list]:
+    """(q's, k and v's, k and v's gradient's) placements for attention on
+    each rank's shard.  A mesh dim keeps a batch split where all three have
+    one.  It keeps q's head split where q's heads divide it, k's and v's
+    where theirs divide it too and are split, else k and v are whole on it
+    and each rank attends with the kv heads its query heads read (GQA's
+    tensor parallelism; their gradients are then partial sums), as long as
+    a rank's query heads fill one kv group or whole groups.  Every other
+    mesh dim, a sequence split among them, is gathered, as the causal mask
+    needs the whole sequence."""
+    mesh, h, hkv = q.device_mesh, q.shape[2], k.shape[2]
+    qpl, kvpl, grad = [], [], []
+    split = 1
+    for i, (a, b, c) in enumerate(zip(q.placements, k.placements, v.placements)):
         n = mesh.size(i)
-        keep = ps[0] == ps[1] == ps[2] and (
-            ps[0] == Shard(0) or ps[0] == Shard(2) and q.shape[2] % n == k.shape[2] % n == 0)
-        pl.append(ps[0] if keep else Replicate())
-    fn = local_map(lambda a, b, c: _flash_bshd(a, b, c, scale), out_placements=pl,
-                   in_placements=(pl, pl, pl), device_mesh=mesh)
-    return fn(*(t.redistribute(mesh, pl) for t in (q, k, v)))
+        if a == b == c == Shard(0):
+            kv = g = a
+        elif a == Shard(2) and h % (split * n) == 0:
+            split *= n
+            kv = a if b == c == a and hkv % n == 0 else Replicate()
+            g = kv if kv == a else Partial()
+        else:
+            a = kv = g = Replicate()
+        qpl.append(a), kvpl.append(kv), grad.append(g)
+    rep, local = h // hkv, h // split
+    if rep % local and local % rep:            # a rank's heads would straddle two groups
+        qpl, kvpl, grad = ([Replicate() if p == Shard(2) else p for p in pl]
+                           for pl in (qpl, kvpl, kvpl))
+    return qpl, kvpl, grad
+
+
+def _kv_heads(q: DTensor, k: DTensor) -> Tuple[int, int]:
+    """(offset, count) of the kv heads, in k's local part, that the query
+    heads of q's local part read."""
+    (h0, hl), (k0, _) = _local_rows(q, 2), _local_rows(k, 2)
+    rep = q.shape[2] // k.shape[2]
+    return h0 // rep - k0, max(1, hl // rep)
+
+
+def _attention_args(q: DTensor, k: DTensor, v: DTensor):
+    """q, k and v at `_attention_placements`, the placements, and a
+    function that cuts a rank's local k or v to the kv heads its local q
+    reads (itself where it reads them all)."""
+    mesh = q.device_mesh
+    qpl, kvpl, grad = _attention_placements(q, k, v)
+    q, k, v = q.redistribute(mesh, qpl), k.redistribute(mesh, kvpl), v.redistribute(mesh, kvpl)
+    lo, n = _kv_heads(q, k)
+    n_local = _local_rows(k, 2)[1]
+
+    def heads(t):
+        return t if (lo, n) == (0, n_local) else t[:, :, lo:lo + n]
+    return (q, k, v), (qpl, kvpl, grad), heads
+
+
+def _flash_sharded(q: DTensor, k: DTensor, v: DTensor, scale) -> DTensor:
+    """The flash op on each rank's shard, at `_attention_placements`.  dq,
+    dk and dv are exact on each shard (dk and dv partial sums over the
+    ranks that share a kv head)."""
+    args, (qpl, kvpl, grad), heads = _attention_args(q, k, v)
+    fn = local_map(lambda a, b, c: _flash_bshd(a, heads(b), heads(c), scale),
+                   out_placements=qpl, in_placements=(qpl, kvpl, kvpl),
+                   in_grad_placements=(qpl, grad, grad), device_mesh=q.device_mesh)
+    return fn(*args)
+
+
+def _local_rows(t: DTensor, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's part of `t`'s dim `dim`, split in
+    mesh-dim order by each `Shard(dim)` as `torch.chunk` splits (DTensor's
+    even sharding: chunks of ceil(n / size), the last ones short or empty).
+    DTensor's own `compute_local_shape_and_global_offset` reads index
+    tensors back to the host, which fails on the dry run's fake tensors."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    off, n = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            size = -(-n // mesh.size(i))
+            start = min(coord[i] * size, n)
+            off, n = off + start, min(size, n - start)
+    return off, n
+
+
+def _cache_write(cache: DTensor, new: DTensor, pos: int) -> None:
+    """new [B, s, Hkv, dh] into one layer's cache [B, T, Hkv, dh] at rows
+    pos .. pos + s, in place: each rank writes the rows of its own part of
+    the sequence, the rest of the cache untouched, and nothing of the cache
+    moves.  `new` takes the cache's batch and head splits; on a mesh dim
+    that splits the cache's sequence it stays split only where its rows
+    line up with the cache's (pos 0, s = T), else each rank gets it whole."""
+    mesh, s = cache.device_mesh, new.shape[1]
+    pl = [p if not p.is_shard(1) else
+          (p if q == p and pos == 0 and s == cache.shape[1] else Replicate())
+          for p, q in zip(cache.placements, new.placements)]
+    new = new.to(cache.dtype).redistribute(mesh, pl)
+    c0, cn = _local_rows(cache, 1)
+    n0, nn = _local_rows(new, 1)
+
+    def write(c, n):
+        lo, hi = max(pos + n0, c0), min(pos + n0 + nn, c0 + cn)
+        if lo < hi:
+            c[:, lo - c0:hi - c0] = n[:, lo - pos - n0:hi - pos - n0]
+    local_map(write, out_placements=None, in_placements=(cache.placements, pl),
+              device_mesh=mesh)(cache, new)
+
+
+def _decode_sharded(q: DTensor, ck: DTensor, cv: DTensor, length: int, scale) -> DTensor:
+    """Decode attention of q [B,H,dh] against the first `length` rows of a
+    cache [B,T,Hkv,dh] of DTensors: each rank runs the kernel over its own
+    rows, the lengths clipped to its part of the sequence.  q takes the
+    cache's batch and kv-head splits and is whole on a mesh dim that splits
+    the cache's sequence; there each rank's (out, lse) partial is gathered
+    ([n, B, H, dh] and [n, B, H] fp32, never the cache) and merged by
+    log-sum-exp, then rounded once, as the unsplit kernel rounds.  With no
+    sequence split the kernel's output is the answer."""
+    mesh = ck.device_mesh
+    qpl = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate()
+           for p in ck.placements]
+    split = [p.is_shard(1) for p in ck.placements]
+    c0, cn = _local_rows(ck, 1)
+    n_local = min(max(length - c0, 0), cn)
+
+    def attend(qq, kk, vv):
+        lens = torch.full((qq.shape[0],), n_local, dtype=torch.int32, device=qq.device)
+        if not any(split):
+            return decode_attention(qq, kk, vv, lens, scale=scale)
+        out, lse = decode_attention(qq, kk, vv, lens, scale=scale, return_lse=True)
+        return out[None], lse[None]
+
+    args = (q.redistribute(mesh, qpl), ck, cv)
+    inp = (qpl, ck.placements, cv.placements)
+    if not any(split):
+        return local_map(attend, out_placements=qpl, in_placements=inp, device_mesh=mesh)(*args)
+    part = [Shard(0) if sp else Shard(p.dim + 1) if p.is_shard() else p
+            for p, sp in zip(qpl, split)]
+    outs, lses = local_map(attend, out_placements=(part, part), in_placements=inp,
+                           device_mesh=mesh)(*args)
+    whole = [Replicate() if sp else p for p, sp in zip(part, split)]
+    outs, lses = outs.redistribute(mesh, whole), lses.redistribute(mesh, whole)
+    lse = torch.logsumexp(lses, dim=0)
+    w = torch.exp(lses - lse)                                  # 0 where a part is empty
+    return (w[..., None] * outs).sum(0).to(q.dtype)
+
+
+def _prefill_cached_sharded(q: DTensor, ck: DTensor, cv: DTensor, pos: int, scale) -> DTensor:
+    """The flash forward of q [B,s,H,dh] at positions pos .. pos + s against
+    the cache's first pos + s rows, on each rank's shard at
+    `_attention_placements` (a sequence split of the cache is gathered, the
+    query heads kept split)."""
+    s = q.shape[1]
+    args, (qpl, kvpl, _), heads = _attention_args(q, ck, cv)
+
+    def attend(qq, kk, vv):
+        out, _ = flash_attention_fwd(qq.transpose(1, 2), heads(kk).transpose(1, 2),
+                                     heads(vv).transpose(1, 2), scale=scale, q_offset=pos,
+                                     kv_len=pos + s)
+        return out.transpose(1, 2)
+    return local_map(attend, out_placements=qpl, in_placements=(qpl, kvpl, kvpl),
+                     device_mesh=ck.device_mesh)(*args)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -411,14 +709,16 @@ def mlp_axes(cfg: ModelConfig) -> Axes:
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # the [B,S,ff] intermediates stay token-sharded ("bsf")
+    # the [B,S,ff] intermediates stay token-sharded ("bsf"): where x's
+    # sequence is split, each rank runs the whole FFN on its tokens; else
+    # (decode) the ff dim stays split over "model" (`_product`)
     if "wi" in p:
-        h = F.gelu(constrain(torch.einsum("bsd,df->bsf", x, p["wi"]), "bsf").float(),
+        h = F.gelu(constrain(_product("bsd,df->bsf", x, p["wi"]), "bsf").float(),
                    approximate="tanh")
-        return torch.einsum("bsf,fd->bsd", h.to(x.dtype), p["wo"])
-    g = F.silu(constrain(torch.einsum("bsd,df->bsf", x, p["wi_gate"]), "bsf").float())
-    u = constrain(torch.einsum("bsd,df->bsf", x, p["wi_up"]), "bsf").float()
-    return torch.einsum("bsf,fd->bsd", (g * u).to(x.dtype), p["wo"])
+        return _product("bsf,fd->bsd", h.to(x.dtype), p["wo"])
+    g = F.silu(constrain(_product("bsd,df->bsf", x, p["wi_gate"]), "bsf").float())
+    u = constrain(_product("bsd,df->bsf", x, p["wi_up"]), "bsf").float()
+    return _product("bsf,fd->bsd", (g * u).to(x.dtype), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -582,8 +882,8 @@ def head_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The output head's product in the params' dtype: what the fused
     cross-entropy reads (JAX casts it to fp32 first, which changes no value)."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", h, p["tok"])
-    return torch.einsum("bsd,dv->bsv", h, p["head"])
+        return _product("bsd,vd->bsv", h, p["tok"])
+    return _product("bsd,dv->bsv", h, p["head"])
 
 
 def lm_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -24,7 +24,8 @@ the JAX version: an entry is None, an axis name, or a tuple of two or more
 axis names (a one-name tuple reads as the name, an empty one as None); a
 param's spec has its trailing Nones trimmed, as `spec_for` trims JAX's.
 `placements` turns a spec into DTensor placements on a `DeviceMesh`, and
-`distribute_tree` and `distribute_params` place a tree.
+`distribute_tree` and `distribute_params` place a tree.  `product_plan`
+places the two operands of each of the model's products for it.
 
 The port keeps one param dict a layer (`params["blocks"][i]`), where JAX
 stacks the blocks into `[L, ...]` leaves: JAX's spec of a stacked leaf is
@@ -32,6 +33,8 @@ stacks the blocks into `[L, ...]` leaves: JAX's spec of a stacked leaf is
 """
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -74,8 +77,9 @@ class ShardingPolicy:
 
 
 def mesh_shape(device_mesh) -> Dict[str, int]:
-    """{axis name: size} of a `DeviceMesh` with named dims."""
-    return dict(zip(device_mesh.mesh_dim_names, device_mesh.mesh.shape))
+    """{axis name: size} of a `DeviceMesh` with named dims (read without
+    touching its rank tensor, so it works under a fake tensor mode)."""
+    return {name: device_mesh.size(i) for i, name in enumerate(device_mesh.mesh_dim_names)}
 
 
 def _entry(e):
@@ -343,3 +347,70 @@ def distribute_params(params: PyTree, axes_tree: PyTree, device_mesh,
     """`params` (the same on every rank) as DTensors placed by the table."""
     return distribute_tree(params, param_specs(params, axes_tree, mesh_shape(device_mesh),
                                                policy), device_mesh)
+
+
+# ---------------------------------------------------------------------------
+# the placement of a product's operands
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ProductPlan:
+    """How einsum(eq, x, w) of an activation x and a weight w runs on a
+    mesh: x and w redistributed to `x` and `w`.  With `row` set, a mesh dim
+    splits a contracted dim of both, and each rank's product is a partial
+    sum of placements `out` (`Partial` on those dims), computed as an fp32
+    result of the operands as they are and summed in fp32; `x_grad` and
+    `w_grad` are the placements of the local gradients.  Without it the
+    product is DTensor's own einsum of the two."""
+    x: Tuple[Any, ...]
+    w: Tuple[Any, ...]
+    row: bool = False
+    out: Tuple[Any, ...] = ()
+    x_grad: Tuple[Any, ...] = ()
+    w_grad: Tuple[Any, ...] = ()
+
+
+@functools.lru_cache(maxsize=None)
+def product_plan(eq: str, x_pl: Tuple[Any, ...], w_pl: Tuple[Any, ...], sizes: Tuple[int, ...],
+                 x_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
+                 w_itemsize: int) -> ProductPlan:
+    """The operands' placements for einsum(eq, x, w), per mesh dim of size
+    `sizes[i]` (a dim of size 1 keeps both as they are), worked out once a
+    layout.  Where x splits a dim the product contracts (heads, ff: the
+    row-parallel half of tensor parallelism), w keeps its own split there
+    and the product is a partial sum (`row`); where x splits another dim
+    (its batch), w is whole on it (the FSDP split of d_model is gathered at
+    use); where x is whole, w keeps a split of an output dim (heads, ff,
+    vocab: column parallel), and a split of a contracted dim is either
+    gathered or, where the fp32 sum of the output moves fewer bytes than
+    the gather (a decode step's few tokens), taken as a row split by
+    splitting x there, a local slice."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
+    split = math.prod(n for n, p in zip(sizes, x_pl) if p.is_shard())
+    tokens = math.prod(x_shape) // split // math.prod(
+        x_shape[i] for i, c in enumerate(xs) if c in ws)
+    small_out = 8 * tokens * math.prod(
+        w_shape[i] for i, c in enumerate(ws) if c in out) < math.prod(w_shape) * w_itemsize
+    xpl = list(x_pl)
+    for i, (p, q) in enumerate(zip(x_pl, w_pl)):
+        if (sizes[i] > 1 and not p.is_shard() and q.is_shard() and ws[q.dim] not in out
+                and small_out):
+            xpl[i] = Shard(xs.index(ws[q.dim]))
+    rows = [sizes[i] > 1 and p.is_shard() and xs[p.dim] in ws and xs[p.dim] not in out
+            for i, p in enumerate(xpl)]
+    wpl = [q if sizes[i] == 1 or rows[i] else
+           Replicate() if p.is_shard() or (q.is_shard() and ws[q.dim] not in out) else q
+           for i, (p, q) in enumerate(zip(xpl, w_pl))]
+    if not any(rows):
+        return ProductPlan(tuple(xpl), tuple(wpl))
+    outs, xg, wg = [], [], []
+    for i, (p, q) in enumerate(zip(xpl, wpl)):
+        x_tokens = p.is_shard() and xs[p.dim] not in ws       # x split on its batch or sequence
+        w_out = q.is_shard() and ws[q.dim] in out              # w split on an output dim
+        outs.append(Partial() if rows[i] else
+                    Shard(out.index(xs[p.dim])) if x_tokens else
+                    Shard(out.index(ws[q.dim])) if w_out else Replicate())
+        xg.append(Partial() if sizes[i] > 1 and w_out else p)
+        wg.append(Partial() if sizes[i] > 1 and x_tokens else q)
+    return ProductPlan(tuple(xpl), tuple(wpl), True, tuple(outs), tuple(xg), tuple(wg))

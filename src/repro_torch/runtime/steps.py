@@ -1,15 +1,23 @@
 """Step functions of the port: the counterpart of `repro/runtime/steps.py`
-(train and serve; the abstract-state builders have no counterpart yet), the
-logical-axes tree (`model_axes`) and the placement of a train state and a
-batch on a `DeviceMesh` (`shard_train_state`, `shard_batch`).
+(train, serve, and the abstract-state functions), the logical-axes tree
+(`model_axes`) and the placement of a train state, params, a serve cache and
+a batch on a `DeviceMesh` (`shard_train_state`, `shard_params`,
+`shard_cache`, `shard_batch`).
 
-A sharded train step is the same `train_step` on a state of DTensors,
-called inside `context.activation_specs(sharding.activation_specs_for(
-mesh_shape(mesh), shape, cfg))`, as JAX's dry run jits it under them: the
-state comes out at the placements it went in with (`launch/dryrun.py`'s
-train cell).  The dense family runs under a mesh; the ssm, moe and hybrid
-families only on a mesh whose every dim is 1 (their Mamba scan, MoE
-dispatch and decode paths have no sharded form yet).
+A sharded step is the same `train_step`, `prefill_step` or `serve_step` on
+DTensors, called inside `context.activation_specs(sharding.
+activation_specs_for(mesh_shape(mesh), shape, cfg))`, as JAX's dry run jits
+it under them: the state and the cache come out at the placements they went
+in with (`launch/dryrun.py`'s cells).  The dense family runs under a mesh;
+the ssm, moe and hybrid families only on a mesh whose every dim is 1 (their
+Mamba scan, MoE dispatch and MLA cache have no sharded form yet).
+
+The abstract-state functions (`abstract_params`, `abstract_opt_state`,
+`abstract_state`, `abstract_cache`, `abstract_batch`) build the same trees
+as `init_model`, `init_opt_state`, `init_cache` and the batches the entry
+points feed, as fake tensors of a `FakeTensorMode` (the analogue of
+`jax.eval_shape`): shapes, dtypes and a device, no memory.  Every draw of
+`init_model` runs under the mode, so a full-size model allocates nothing.
 """
 from __future__ import annotations
 
@@ -17,12 +25,14 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import InputShape, ModelConfig
 from ..models import layers as L
 from ..models.transformer import (_hybrid_block_axes, _layer_is_moe, _ssm_layer_axes,
-                                  _tf_layer_axes, decode_step, init_model, loss_fn, prefill)
+                                  _tf_layer_axes, decode_step, init_cache, init_model,
+                                  loss_fn, prefill)
 from ..optim import AdamWConfig, adamw_update, init_opt_state
 from ..tree import tree_leaves, tree_unflatten
 from . import sharding as sh
@@ -64,23 +74,48 @@ def train_state_specs(params: Any, cfg: ModelConfig, mesh: sh.MeshShape,
     return {"params": specs, "opt": {"m": specs, "v": specs, "step": None}}
 
 
+def _require_meshable(cfg: ModelConfig, mesh) -> None:
+    """The ssm, moe and hybrid families raise on a mesh with a dim larger
+    than 1."""
+    if cfg.family in ("ssm", "moe", "hybrid") and mesh.size() > 1:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run under a mesh "
+                         f"larger than 1 yet (mesh {sh.mesh_shape(mesh)})")
+
+
 def shard_train_state(state: Dict[str, Any], cfg: ModelConfig, mesh,
                       policy: sh.ShardingPolicy = sh.ShardingPolicy()) -> Dict[str, Any]:
     """`state` (the same on every rank) on the `DeviceMesh`: every param
     and both moments a DTensor at the placements the table gives the param
     (no collective: each rank keeps its shard).  The ssm, moe and hybrid
     families raise on a mesh with a dim larger than 1."""
-    if cfg.family in ("ssm", "moe", "hybrid") and mesh.size() > 1:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run under a mesh "
-                         f"larger than 1 yet (mesh {sh.mesh_shape(mesh)})")
+    _require_meshable(cfg, mesh)
     return sh.distribute_tree(
         state, train_state_specs(state["params"], cfg, sh.mesh_shape(mesh), policy), mesh)
 
 
-def shard_batch(batch: Dict[str, torch.Tensor], mesh, shape: InputShape
-                ) -> Dict[str, torch.Tensor]:
-    """`batch` (the same on every rank) as DTensors placed by `batch_spec`."""
-    specs = sh.batch_shardings(sh.mesh_shape(mesh), shape)
+def shard_params(params: Any, cfg: ModelConfig, mesh,
+                 policy: sh.ShardingPolicy = sh.ShardingPolicy()) -> Any:
+    """`params` (the same on every rank) as DTensors at `param_specs`, as
+    JAX's serve cells place them; the other families raise as
+    `shard_train_state` does."""
+    _require_meshable(cfg, mesh)
+    return sh.distribute_params(params, model_axes(cfg), mesh, policy)
+
+
+def shard_cache(cache: Any, cfg: ModelConfig, mesh, batch: int, max_len: int) -> Any:
+    """`cache` (`init_cache(cfg, batch, max_len, ...)`, the same on every
+    rank) as DTensors at `cache_specs`; the other families raise as
+    `shard_train_state` does."""
+    _require_meshable(cfg, mesh)
+    return sh.distribute_tree(cache, sh.cache_specs(cfg, sh.mesh_shape(mesh), batch, max_len),
+                              mesh)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh, shape: InputShape, *,
+                for_decode: bool = False) -> Dict[str, torch.Tensor]:
+    """`batch` (the same on every rank) as DTensors placed by
+    `batch_shardings` (a decode step's one-token batch with `for_decode`)."""
+    specs = sh.batch_shardings(sh.mesh_shape(mesh), shape, for_decode=for_decode)
     return {k: sh.distribute(v, mesh, sh.placements(specs.get(k, ()), mesh))
             for k, v in batch.items()}
 
@@ -153,3 +188,59 @@ def serve_step(params: Any, cache: Any, batch: Dict[str, torch.Tensor],
                pos: int, cfg: ModelConfig):
     """One-token decode against a cache filled to `pos`."""
     return decode_step(params, batch, cfg, cache, pos)
+
+
+# ---------------------------------------------------------------------------
+# abstract (fake tensor) state: no allocation
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(cfg: ModelConfig, device="cuda", mode: Optional[FakeTensorMode] = None):
+    """`init_model(cfg, ...)`'s tree as fake tensors of `mode` (a new one by
+    default)."""
+    with mode or FakeTensorMode(), torch.no_grad():
+        return init_model(cfg, torch.Generator(device=device).manual_seed(0), device)
+
+
+def abstract_opt_state(params: Any, opt_cfg: AdamWConfig,
+                       mode: Optional[FakeTensorMode] = None) -> Dict[str, Any]:
+    """`init_opt_state(params, opt_cfg)` for fake `params`."""
+    with mode or FakeTensorMode():
+        return init_opt_state(params, opt_cfg)
+
+
+def abstract_state(cfg: ModelConfig, opt_cfg: AdamWConfig, device="cuda",
+                   mode: Optional[FakeTensorMode] = None) -> Dict[str, Any]:
+    """`make_train_state`'s state (params that require grad, the optimizer
+    state) as fake tensors."""
+    mode = mode or FakeTensorMode()
+    params = abstract_params(cfg, device, mode)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return {"params": params, "opt": abstract_opt_state(params, opt_cfg, mode)}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+                   mode: Optional[FakeTensorMode] = None) -> Any:
+    """`init_cache(cfg, batch, max_len, ...)` as fake tensors."""
+    with mode or FakeTensorMode():
+        return init_cache(cfg, batch, max_len, device)
+
+
+def abstract_batch(cfg: ModelConfig, shape: InputShape, *, for_decode: bool = False,
+                   device="cuda", mode: Optional[FakeTensorMode] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The batch the entry points feed a step of `shape`, as fake tensors:
+    tokens [B, S] (S 1 `for_decode`) int64, as `Server` and the Trainer
+    make them (JAX's are int32); a train shape's labels int64 and loss_mask
+    fp32; a stub frontend's embeds [B, S, D] bf16."""
+    b, s = shape.global_batch, 1 if for_decode else shape.seq_len
+    with mode or FakeTensorMode():
+        batch = {"tokens": torch.zeros((b, s), dtype=torch.long, device=device)}
+        if shape.kind == "train":
+            batch["labels"] = torch.zeros((b, s), dtype=torch.long, device=device)
+            batch["loss_mask"] = torch.zeros((b, s), dtype=torch.float32, device=device)
+        if cfg.frontend is not None:
+            batch["embeds"] = torch.zeros((b, s, cfg.d_model), dtype=torch.bfloat16,
+                                          device=device)
+    return batch

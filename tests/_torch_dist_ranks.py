@@ -18,7 +18,14 @@ The checks, in one spawn:
 * pipeline — `pipeline_forward` over the 4 stages of a ("pod",) mesh;
 * elastic — `elastic_restore` of a checkpoint the test saved, onto (2, 2);
 * constrain — `context.constrain` with and without specs, counted by
-  DTensor's `CommDebugMode`.
+  DTensor's `CommDebugMode`;
+* serve — the sharded serve path: reduced chatglm3-6b on (1, 4), whose 2
+  kv heads leave the cache split by its sequence, and on (2, 2), heads
+  split, and reduced stablelm-3b on (1, 4), heads split: params and cache
+  placed by `shard_params` and `shard_cache`, a prefill and 4 decode steps
+  (teacher-forced) under their activation specs beside the plain port on
+  the same weights (fp32 and bf16), every collective of the decode steps
+  recorded with its output's shape (a `CommDebugMode`).
 """
 from __future__ import annotations
 
@@ -30,6 +37,10 @@ import torch.distributed as dist
 
 WORLD = 4
 TRAIN_CASES = (("chatglm3-6b", (2, 2)), ("stablelm-3b", (2, 2)), ("chatglm3-6b", (1, 4)))
+SERVE_CASES = (("chatglm3-6b", (1, 4)), ("chatglm3-6b", (2, 2)), ("stablelm-3b", (1, 4)))
+# the serve cases' batch, prompt, decode steps and cache rows (no other dim
+# of the reduced models is 40, so a gathered cache would show in a shape)
+SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_T = 2, 12, 4, 40
 COMPRESS_SHAPES = ((3, 300), (1000,), (7, 5, 11))   # none a multiple of 256 elements
 
 
@@ -66,6 +77,8 @@ def main(rank: int, tmp: str) -> None:
         out["elastic"] = elastic_case(tmp, inputs["elastic"])
         out["constrain"] = constrain_case()
         out["raises"] = raises_case()
+        out["serve"] = {(*case, dt): serve_case(*case, dt, inputs)
+                        for case in SERVE_CASES for dt in ("f32", "bf16")}
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -261,3 +274,62 @@ def raises_case() -> dict:
         except ValueError as e:
             out[arch] = str(e)
     return out
+
+
+def serve_case(arch, shape, dt, inputs) -> dict:
+    """The sharded prefill and decode steps of `arch` on a `shape` mesh
+    beside the plain port on the same `dt` weights and tokens; each step's
+    logits (whole), the cache's placements, and the shape of every
+    collective's output in the decode steps."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.context import activation_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.steps import shard_batch, shard_cache, shard_params
+
+    class Shapes(CommDebugMode):
+        """CommDebugMode that also keeps each collective's output shape."""
+
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func.overloadpacket in self.comm_registry and isinstance(out, torch.Tensor):
+                self.shapes.append((func.name(), tuple(out.shape)))
+            return out
+
+    cfg = get_config(arch).reduced()
+    mesh = make_host_mesh(*shape, device_type="cpu")
+    ms = sh.mesh_shape(mesh)
+    params = _clone(inputs["params"][arch][dt])
+    toks = inputs["serve"]["tokens"]
+    p, t = SERVE_PROMPT, SERVE_T
+    pre, dec = InputShape("prefill", p, SERVE_B, "prefill"), InputShape("decode", t, SERVE_B,
+                                                                       "decode")
+    rec = {"logits": [], "plain_logits": []}
+    with torch.no_grad():
+        sparams = shard_params(params, cfg, mesh)
+        cache = shard_cache(init_cache(cfg, SERVE_B, t, "cpu"), cfg, mesh, SERVE_B, t)
+        plain = init_cache(cfg, SERVE_B, t, "cpu")
+        rec["cache_placements"] = [str(x) for x in cache["kv"]["k"].placements]
+        with activation_specs(sh.activation_specs_for(ms, pre, cfg)):
+            lg, cache = prefill(sparams, shard_batch({"tokens": toks[:, :p]}, mesh, pre), cfg,
+                                cache)
+        rec["logits"].append(lg.full_tensor())
+        rec["plain_logits"].append(prefill(params, {"tokens": toks[:, :p]}, cfg, plain)[0])
+        comm = Shapes()
+        for i in range(SERVE_STEPS):
+            batch = shard_batch({"tokens": toks[:, p + i:p + i + 1]}, mesh, dec, for_decode=True)
+            with comm, activation_specs(sh.activation_specs_for(ms, dec, cfg)):
+                lg, cache = decode_step(sparams, batch, cfg, cache, p + i)
+            rec["logits"].append(lg.full_tensor())
+            rec["plain_logits"].append(
+                decode_step(params, {"tokens": toks[:, p + i:p + i + 1]}, cfg, plain, p + i)[0])
+        rec["decode_collectives"] = comm.shapes
+        rec["cache_is_dtensor"] = isinstance(cache["kv"]["k"], DTensor)
+    return rec

@@ -642,3 +642,4 @@ def test_compress_checks_fail_a_leaf_one_ulp_off(fault):
     else:
         assert errs["not_bitwise"] == (["a"] if fault == "ulp" else ["b"])
         assert len(failures) >= 1
+

@@ -199,6 +199,33 @@ def test_decode_kernel_every_cluster_size_matches_plain(dev, d, h, hkv):
         _close(decode_attention(q, k, v, lens, cluster=c), ref, **TOL_BF16)
 
 
+@pytest.mark.parametrize("d,h,hkv", [(128, 32, 2), (80, 32, 32), (64, 6, 2), (128, 64, 8),
+                                     (128, 48, 4), (64, 32, 32), (32, 128, 1)])
+def test_decode_kernel_lse_matches_plain_at_every_cluster_size(dev, d, h, hkv):
+    """The lse output (the merge of a sequence-split cache reads it): each
+    row's log-sum-exp of its scaled scores against the plain version's at
+    chip_smoke's TOL_LSE, -inf at length 0, at every cluster size, with the
+    output in fp32 within TOL_BF16 of the plain version's fp32 one and, rounded, the
+    bf16 output's bits, in one launch."""
+    rng = np.random.default_rng(19)
+    b, t = 4, 1024
+    q = _rand(rng, (b, h, d), dev)
+    k, v = _rand(rng, (b, t, hkv, d), dev), _rand(rng, (b, t, hkv, d), dev)
+    lens = torch.tensor([513, 9, 0, 1000], dtype=torch.int32, device=dev)
+    ref_out, ref = decode_attention_ref(q, k, v, lens, return_lse=True)
+    tol = _chip_smoke().TOL_LSE
+    for c in DECODE_CLUSTERS:
+        before = decode_attention.launches
+        out, lse = decode_attention(q, k, v, lens, cluster=c, return_lse=True)
+        assert decode_attention.launches == before + 1
+        assert out.dtype == torch.float32
+        _close(out, ref_out, **TOL_BF16)
+        assert torch.equal(out.to(q.dtype), decode_attention(q, k, v, lens, cluster=c))
+        assert torch.equal(torch.isinf(lse), lens[:, None].expand(b, h) == 0)
+        fin = torch.isfinite(ref)
+        _close(lse[fin], ref[fin], rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("d,hkv", [(128, 2), (80, 32), (128, 8), (64, 32)])
 def test_decode_kernel_is_bitwise_repeatable(dev, d, hkv):
     """One launch combines its partials in a fixed order: the same inputs

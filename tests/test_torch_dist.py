@@ -24,8 +24,19 @@ Tolerances.  Sharded and plain differ in where sums are split and rounded:
   step turns every gradient element into +-lr whatever its size, and the
   elements of chatglm3-6b's kv bias on the unrotated half, whose exact
   gradient is 0 (a key bias there shifts every score of a query alike),
-  take the sign of rounding noise (7.6 % relative L2 apart even in fp32).
+  take the sign of rounding noise (7.6 % relative L2 apart even in fp32);
+* the sharded serve path: each step's logits against the plain port's and
+  JAX's (jitted with `xla_allow_excess_precision` off, as
+  tests/test_torch_serve.py's), with fp32 weights elementwise at
+  rtol = atol = 1e-2, that file's fp32 bound (the bf16 cache is where all
+  sides round), and with bf16 weights at rtol = atol = 3e-2, that file's
+  bf16 bound.  A sum that a mesh splits (the merge of a sequence-split
+  cache's partial attention outputs, a row-parallel product) is summed in
+  fp32 and rounded once, where the unsharded one rounds: the sharded and
+  plain ports' bf16 logits then sit ~1e-4 apart.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,10 +44,14 @@ import pytest
 import torch
 from torch.distributed.tensor import Shard
 
-from _torch_dist_ranks import COMPRESS_SHAPES, TRAIN_CASES, WORLD, join, start
+from _torch_dist_ranks import (COMPRESS_SHAPES, SERVE_B, SERVE_CASES, SERVE_PROMPT, SERVE_STEPS,
+                               SERVE_T, TRAIN_CASES, WORLD, join, start)
 from repro.configs import get_config as jax_get_config
+from repro.models import decode_step as jax_decode_step
+from repro.models import init_cache as jax_init_cache
 from repro.models import init_model as jax_init_model
 from repro.models import loss_fn as jax_loss_fn
+from repro.models import prefill as jax_prefill
 from repro.runtime.compression import _dequantize as jax_dequantize
 from repro.runtime.compression import _quantize as jax_quantize
 from repro.runtime.pipeline_par import pipeline_forward as jax_pipeline_forward
@@ -53,6 +68,7 @@ from repro_torch.tree import tree_unflatten
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)
 TOL_BF16_LOSS = 2e-2
 TOL_GRAD = 3e-2
+TOL_SERVE_BF16 = 3e-2   # tests/test_torch_serve.py's bf16 bound, elementwise
 STRICT_BF16 = {"xla_allow_excess_precision": False}
 B, S = 2, 48
 OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10)
@@ -122,7 +138,10 @@ def world(tmp_path_factory):
     CheckpointManager(DirLib(str(tmp / "ckpt")), "elastic", parts=3).save(
         3, state, extra={"train_step": 3, "sampler": {"step": 5, "seed": 7}})
     batch = _batch(1, cfg.vocab_size)
+    serve_tokens = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (SERVE_B, SERVE_PROMPT + SERVE_STEPS)).astype(np.int32)
     inputs = {"params": params, "opt": OPT,
+              "serve": {"tokens": torch.as_tensor(serve_tokens).long()},
               "batch": {"tokens": torch.as_tensor(batch["tokens"]).long(),
                         "labels": torch.as_tensor(batch["labels"]).long(),
                         "loss_mask": torch.as_tensor(batch["loss_mask"])},
@@ -133,6 +152,7 @@ def world(tmp_path_factory):
     ctx = start(str(tmp))
     try:        # JAX's side while the ranks run
         ref = _jax_ref(jax_params, batch)
+        ref["serve"] = _jax_serve_ref(jax_params, serve_tokens)
     finally:
         join(ctx)
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
@@ -151,6 +171,26 @@ def _jax_ref(jax_params, batch) -> dict:
         for dt, fn in (("f32", vg), ("bf16", vg_bf16)):
             (loss, _), grads = fn(jax_params[arch][dt], batch, jcfg)
             out[(arch, dt)] = (float(loss), grads)
+    return out
+
+
+def _jax_serve_ref(jax_params, tokens) -> dict:
+    """JAX's logits of the serve cases' prefill and teacher-forced decode
+    steps, per (arch, weights' dtype)."""
+    prefill = jax.jit(jax_prefill, static_argnums=(2,), compiler_options=STRICT_BF16)
+    decode = jax.jit(jax_decode_step, static_argnums=(2,), compiler_options=STRICT_BF16)
+    out = {}
+    for arch, dt in itertools.product(sorted({a for a, _ in SERVE_CASES}), ("f32", "bf16")):
+        jcfg, p = jax_get_config(arch).reduced(), jax_params[arch][dt]
+        cache = jax_init_cache(jcfg, SERVE_B, SERVE_T)
+        lg, cache = prefill(p, {"tokens": jnp.asarray(tokens[:, :SERVE_PROMPT])}, jcfg, cache)
+        logits = [np.asarray(lg, np.float32)]
+        for i in range(SERVE_STEPS):
+            pos = SERVE_PROMPT + i
+            lg, cache = decode(p, {"tokens": jnp.asarray(tokens[:, pos:pos + 1])}, jcfg, cache,
+                               jnp.int32(pos))
+            logits.append(np.asarray(lg, np.float32))
+        out[(arch, dt)] = logits
     return out
 
 
@@ -329,3 +369,47 @@ def test_shard_train_state_refuses_the_other_families_on_a_mesh(world):
     for arch, msg in world["ranks"][0]["raises"].items():
         family = get_config(arch).family
         assert msg is not None and family in msg and arch in msg
+
+
+# ---------------------------------------------------------------------------
+# the sharded serve path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", SERVE_CASES, ids=str)
+def test_sharded_prefill_and_decode_match_the_plain_port_and_jax(world, jax_ref, case, dt):
+    """Every rank's logits of the prefill and the 4 decode steps against the
+    plain port's and JAX's, elementwise (fp32 at 1e-2, bf16 at 3e-2: the
+    module's docstring); the cache stays a DTensor at
+    `cache_specs`' placements: chatglm3-6b's 2 kv heads on (1, 4) leave its
+    sequence split over "model", on (2, 2) and stablelm-3b's 32 heads split
+    the heads."""
+    want_pl = [str(Shard(1)), str(Shard(2 if case == ("chatglm3-6b", (1, 4)) else 3))]
+    worst = 0.0
+    for r in world["ranks"]:
+        rec = r["serve"][(*case, dt)]
+        assert rec["cache_is_dtensor"] and rec["cache_placements"] == want_pl
+        assert len(rec["logits"]) == 1 + SERVE_STEPS
+        for got, plain, want in zip(rec["logits"], rec["plain_logits"],
+                                    jax_ref["serve"][(case[0], dt)]):
+            got = got.float().numpy()
+            for ref in (plain.float().numpy(), want):
+                tol = 1e-2 if dt == "f32" else TOL_SERVE_BF16
+                worst = max(worst, float((np.abs(got - ref) - tol * np.abs(ref)).max()))
+                np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
+    print(f"{case} {dt}: worst |diff| - rtol |want| {worst:.4g}")
+
+
+@pytest.mark.parametrize("case", SERVE_CASES, ids=str)
+def test_decode_never_gathers_the_cache(world, case):
+    """No collective of a decode step outputs a tensor with the cache's
+    SERVE_T rows; on the sequence-split cache each step gathers the
+    partials' [4, B, H] lse and [4, B, H, D] outputs of every layer, the
+    merge by log-sum-exp; a head-split cache needs no merge."""
+    cfg = get_config(case[0]).reduced()
+    n_merge = 2 * cfg.n_layers * SERVE_STEPS if case == ("chatglm3-6b", (1, 4)) else 0
+    for r in world["ranks"]:
+        shapes = r["serve"][(*case, "bf16")]["decode_collectives"]
+        assert shapes and not [s for s in shapes if SERVE_T in s[1]], shapes
+        merges = [s for _, s in shapes if s[0] == WORLD and s[1:3] == (SERVE_B, cfg.n_heads)]
+        assert len(merges) == n_merge, shapes

@@ -2,8 +2,10 @@
 
 * `repro_torch` and `chip_smoke.py` import neither JAX nor the JAX package,
   nor `ml_dtypes` (the card's machine has none).
-* A kernel wrapper dispatches on `tensor.is_cuda` alone: a CUDA tensor goes
-  to the kernel or raises, and never reaches the plain version.
+* A kernel wrapper dispatches on `tensor.is_cuda` alone, after its one
+  test for a fake tensor (the abstract path): a CUDA tensor goes to the
+  kernel or raises, and never reaches the plain version; a fake tensor
+  launches nothing and reaches neither.
 * The kernels are built from the repo's CUDA sources, at first use only.
 * `chip_smoke.py` exits non-zero and prints no result without a card or
   without the repo around it.
@@ -54,7 +56,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.dataset", "repro_torch.data.dirfs",
             "repro_torch.context", "repro_torch.runtime.sharding",
             "repro_torch.runtime.compression", "repro_torch.runtime.pipeline_par",
-            "repro_torch.runtime.elastic", "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.runtime.elastic", "repro_torch.launch.mesh",
+            "repro_torch.analysis.model_math", "repro_torch.analysis.trace",
+            "repro_torch.launch.dryrun", "repro_torch.kernels.abstract"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import importlib.util\n"
@@ -209,14 +213,17 @@ def test_cpu_tensor_takes_the_plain_version_without_building(name, fake_kernels)
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_dispatch_reads_only_is_cuda_and_never_falls_back(name):
     """Structurally: the wrapper's first statement after its argument
-    unpacking that branches is `if not <first arg>.is_cuda: return <plain>`,
-    no other branch returns the plain version, and there is no try."""
+    unpacking that branches and returns is `if isinstance(<first arg>,
+    FakeTensor): return <abstract path>`, the next `if not <first
+    arg>.is_cuda: return <plain>`, no other branch returns the plain
+    version, and there is no try."""
     mod = importlib.import_module(WRAPPERS[name][0])
     fn = ast.parse(inspect.getsource(getattr(mod, name))).body[0]
     first_arg = fn.args.args[0].arg
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     ifs = [n for n in fn.body if isinstance(n, ast.If)]
-    dispatch = next(n for n in ifs if isinstance(n.body[-1], ast.Return))
+    fake, dispatch = [n for n in ifs if isinstance(n.body[-1], ast.Return)][:2]
+    assert ast.unparse(fake.test) == f"isinstance({first_arg}, FakeTensor)"
     assert ast.unparse(dispatch.test) == f"not {first_arg}.is_cuda"
     ref = WRAPPERS[name][1]
     calls_ref = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
@@ -224,6 +231,39 @@ def test_dispatch_reads_only_is_cuda_and_never_falls_back(name):
     assert len(calls_ref) == 1
     assert calls_ref[0] in list(ast.walk(dispatch))
     assert "environ" not in ast.unparse(fn)
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_fake_tensor_takes_the_abstract_path(name, fake_kernels, monkeypatch):
+    """A fake tensor (a CPU one, as the dry run's tests trace) reaches
+    neither the kernel nor the plain version: fake outputs of the shapes
+    and dtypes the plain version gives, `.traced` counts the call,
+    `.launches` does not, and the recorded work is positive."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch.kernels import abstract
+    mod_name, ref_name, _ = WRAPPERS[name]
+    mod = importlib.import_module(mod_name)
+    args, kw = _args(name)
+    plain = [a.as_subclass(torch.Tensor) for a in args]
+    kw = {k: v.as_subclass(torch.Tensor) for k, v in kw.items()}
+    wrapper = getattr(mod, name)
+    want = wrapper(*plain, **kw)
+    monkeypatch.setattr(mod, ref_name, lambda *a, **k: pytest.fail(
+        "a fake tensor reached the plain version"))
+    before, traced = wrapper.launches, wrapper.traced
+    work = []
+    with FakeTensorMode() as mode, abstract.recording(lambda *w: work.append(w)):
+        got = wrapper(*(mode.from_tensor(a) for a in plain),
+                      **{k: mode.from_tensor(v) for k, v in kw.items()})
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) if w is None else (
+            isinstance(g, FakeTensor) and g.shape == w.shape and g.dtype == w.dtype)
+    assert wrapper.launches == before and wrapper.traced == traced + 1
+    assert not fake_kernels
+    [(wname, flops, nbytes)] = work
+    assert wname == name and flops > 0 and nbytes > 0
 
 
 # the autograd ops of the train path: forward and backward both reach the

@@ -223,6 +223,38 @@ def test_decode_plain_length_zero_gives_zeros():
     np.testing.assert_allclose(_np(out)[1:], _np(ref), **TOL)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_plain_lse_is_the_logsumexp_of_the_masked_scores(dt):
+    """The plain version's lse (what the merge of a sequence-split cache's
+    partials reads): each row's log-sum-exp of its scaled fp32 scores over
+    the first `length` rows, within 1e-5 of a numpy one, -inf at length 0;
+    the output comes with it in fp32 and, rounded, is the output without."""
+    b, h, hkv, t, d = 3, 8, 2, 40, 32
+    rng = np.random.default_rng(11)
+    q = _rand(rng, (b, h, d), DTYPES[dt])
+    k = _rand(rng, (b, t, hkv, d), DTYPES[dt])
+    v = _rand(rng, (b, t, hkv, d), DTYPES[dt])
+    lengths = np.array([0, 17, 40], np.int32)
+    out, lse = decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), to_tensor(lengths),
+                                return_lse=True)
+    assert lse.dtype == out.dtype == torch.float32 and tuple(lse.shape) == (b, h)
+    assert torch.equal(out.to(to_tensor(q).dtype),
+                       decode_attention(to_tensor(q), to_tensor(k), to_tensor(v),
+                                        to_tensor(lengths)))
+    qf, kf = q.astype(np.float32), k.astype(np.float32)
+    rep = h // hkv
+    scores = np.einsum("bgrd,btgd->bgrt", qf.reshape(b, hkv, rep, d), kf) / np.sqrt(d)
+    for i, n in enumerate(lengths):
+        got = lse.numpy()[i]
+        if n == 0:
+            assert np.all(got == -np.inf)
+            continue
+        s = scores[i, ..., :n].astype(np.float64)
+        m = s.max(-1, keepdims=True)
+        want = (m[..., 0] + np.log(np.exp(s - m).sum(-1))).reshape(h)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_decode_plain_t_not_multiple_of_tile():
     """T = 100: the Pallas kernel asserts T % block == 0; held to the oracle."""
     rng = np.random.default_rng(10)
