@@ -201,6 +201,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    train_4k, prefill_32k and decode_32k cells at 16x16 (256 fake ranks),
    each ok, its record printed: per-device counts of a mesh the card cannot
    form, traced, not run (`dryrun_failures`).
+   train_sharded_ssm — train_ssm's run again (its weights, fixed batch and 8
+   steps of 8 x 2048) with the state on a 1 x 1 mesh of a one-rank NCCL
+   group: the Mamba mixer's sharded path (`models/ssm.py`: heads over
+   "model", a dim of size 1 here), each loss and param leaf within
+   `sharded_failures`' bounds (bitwise so far), `ssm_train_launches` a step,
+   the peak within TOL_SHARDED_PEAK of train_ssm's.  dryrun_ssm —
+   mamba2-130m's 1 x 1 train cell traced at train_ssm's shape (fp32
+   moments), held as chatglm3-6b's is: argument bytes exactly train_ssm's
+   state and batch, the traced peak within TOL_DRYRUN_PEAK of train_ssm's
+   `max_memory_allocated()`, the FLOPs within TOL_DRYRUN_FLOPS of
+   `ssm_train_flops`, the kernel calls `ssm_train_launches`.
+   train_sharded_moe — train_moe's run again (6 layers, 8 x 512, 8 steps)
+   on the same kind of mesh: the MoE's expert-parallel path and MLA's
+   sharded branches, `sharded_failures`' bounds, `moe_train_launches` a
+   step, and every route of every MoE call (a RouteRecorder on both runs)
+   the unsharded run's.  serve_sharded_ssm, serve_sharded_moe — serve_ssm's
+   and serve_moe's runs again through `Server(..., mesh=...)` on that mesh
+   (the mixer's decode path against a cache of DTensors; MLA's absorbed
+   attention on the sharded latent cache): the same tokens, the last logits
+   bitwise or within TOL_SHARDED_LOGITS, the unsharded phase's launches.
+   The run's total wall time is printed last of the phases ("total").
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -209,6 +230,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -347,6 +369,9 @@ SC_ARCH = "starcoder2-15b"
 # TOL_SHARDED_LOSS (relative) of the train phase's, each param leaf after the
 # last step within TOL_SHARDED_PARAM (relative L2) of the train phase's
 TOL_SHARDED_LOSS, TOL_SHARDED_PARAM = 1e-5, 1e-3
+# train_sharded_ssm and train_sharded_moe: the peak device memory within
+# TOL_SHARDED_PEAK (relative) of the unsharded run's (the same device work)
+TOL_SHARDED_PEAK = 0.01
 # serve_sharded: the serve phase's chatglm3-6b run again with its params and
 # cache on the same 1 x 1 mesh: the same tokens, the last step's logits
 # bitwise or within TOL_SHARDED_LOGITS (max |diff| over max |logit|)
@@ -1085,6 +1110,30 @@ def dense_train_flops(cfg, batch, seq, ce_chunks=CE_CHUNKS) -> float:
     return flops
 
 
+def ssm_train_flops(cfg, batch, seq, ce_chunks=CE_CHUNKS) -> float:
+    """The FLOPs one train step of a mamba2 model executes (remat per
+    layer, chunked CE), as the dry run counts them: in_proj and out_proj
+    four times (the forward, the recompute and the backward's two) less
+    out_proj once a layer (the recompute stops at the last tensor the
+    backward saved); the tied head four times; the SSD scan's forward
+    (`fwd_work`'s tensor-core operations) twice a layer and its backward
+    (`bwd_work`'s) once; RMSNorm 4 an element forward (the layer's norm at d
+    and the gated out_norm at d_inner, twice each; final_norm once), 10
+    backward; the CE 4 a logit forward (twice) and backward.  The conv and
+    the gating are elementwise, not counted."""
+    from repro_torch.kernels.ssd_scan.kernel import bwd_work, fwd_work
+    s_ = cfg.ssm
+    d, t, layers = cfg.d_model, batch * seq, cfg.n_layers
+    di = s_.expand * d
+    h, gn = di // s_.head_dim, s_.n_groups * s_.d_state
+    proj, out = 2 * t * d * (2 * di + 2 * gn + h), 2 * t * di * d
+    scan = (2 * fwd_work(batch, seq, h, s_.head_dim, s_.d_state)[1]
+            + bwd_work(batch, seq, h, s_.head_dim, s_.d_state)[1])
+    norms = 4 * t * (2 * layers * (d + di) + d) + 10 * t * (layers * (d + di) + d)
+    return (layers * (4 * (proj + out) - out + scan) + 4 * 2 * t * d * cfg.vocab_size
+            + norms + 3 * 4 * t * cfg.vocab_size)
+
+
 def dense_serve_bound(cfg, params, batch, prompt) -> dict:
     """The least time of a dense model's serve steps.  Prefill of batch x
     prompt tokens: the bf16 products (q, k, v and o projections, the causal
@@ -1378,13 +1427,14 @@ def init_world(dev) -> str:
 
 def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S,
                   steps=TRAIN_STEPS, moment_dtype=torch.bfloat16, batch_seed=SEED + 4,
-                  counter=None) -> dict:
+                  counter=None, n_layers=None) -> dict:
     """The train phase's run again on a DeviceMesh: the same weights (the
     Trainer's init from SEED) and fixed batch, the state through
     `shard_train_state` on a 1 x 1 (data, model) mesh of the process group
     (`init_world`), the batch through `shard_batch`, `steps` train steps
-    under `activation_specs_for`.  `ref` is the unsharded run: its losses
-    and its final params (`host_copy`).  The record holds each loss's
+    under `activation_specs_for` (the first `n_layers` layers where given,
+    as the Trainer cuts them).  `ref` is the unsharded run: its losses, its
+    final params (`host_copy`) and its peak bytes, where it kept them.  The record holds each loss's
     relative error and whether all are bitwise, each param leaf's relative
     L2 error and whether all are bitwise, the leaves not at their spec's
     placements, the launches (`counter`: a (reset, read) pair, by default
@@ -1402,7 +1452,8 @@ def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S
     reset, read = counter or (reset_launches, launches)
     on_card = torch.device(dev).type == "cuda"
     tc = TrainerConfig(arch=arch, reduced=reduced, global_batch=batch, seq_len=seq,
-                       steps=steps, device=str(dev), seed=SEED, moment_dtype=moment_dtype)
+                       steps=steps, device=str(dev), seed=SEED, moment_dtype=moment_dtype,
+                       n_layers=n_layers)
     fixed = fixed_batch(get_config_of(arch, reduced).vocab_size, batch, seq, batch_seed)
     tr = Trainer(tc, batches=[fixed])
     cfg, opt_cfg = tr.cfg, tr.opt_cfg
@@ -1450,7 +1501,8 @@ def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S
             "param_rel_l2": rel, "params_bitwise": bitwise, "placement_faults": faults,
             "launches": got, "step_ms": statistics.median(times[1:] or times) * 1e3,
             "step_times_ms": [t * 1e3 for t in times],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None}
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+            "ref_peak_mem_gb": ref.get("peak_mem_gb")}
 
 
 def serve_sharded(dev, ref, arch=ARCH, reduced=False, prompt=PROMPT, max_len=MAX_LEN,
@@ -1603,19 +1655,45 @@ def dryrun_failures(rec, production=None) -> list:
     return out
 
 
+def dryrun_ssm_cell(dev, train_ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
+                    seq=SSM_TRAIN_S) -> dict:
+    """The dry run of `arch`'s (mamba2-130m's) train cell on a 1 x 1 mesh at
+    train_ssm's own shape (TRAIN_B x SSM_TRAIN_S, fp32 moments), traced
+    with `dev`'s device type, in the record `dryrun_failures` reads:
+    `train_ref` is train_ssm's measured argument bytes and peak, the FLOPs
+    are held to `ssm_train_flops` and the kernel calls to
+    `ssm_train_launches`."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import run_cell
+    cfg = get_config_of(arch, reduced)
+    cell = run_cell(arch, InputShape("train", seq, batch, "train"), mesh_shape=(1, 1),
+                    device=torch.device(dev).type, moment_dtype=torch.float32, reduced=reduced)
+    flops, peak = ssm_train_flops(cfg, batch, seq), cell["memory"]["peak_bytes"]
+    return {"arch": arch, "reduced": reduced, "cells": {"train": cell},
+            "train_argument_bytes": cell["memory"]["argument_bytes"],
+            "measured_argument_bytes": train_ref["argument_bytes"],
+            "train_peak_bytes": peak, "measured_peak_bytes": train_ref["peak_bytes"],
+            "peak_rel_err": abs(peak - train_ref["peak_bytes"]) / train_ref["peak_bytes"],
+            "train_flops": cell["flops_per_device"], "analytic_flops": flops,
+            "flops_rel_err": abs(cell["flops_per_device"] - flops) / flops,
+            "kernel_calls": {"train": cell["kernel_calls"]},
+            "expected_kernel_calls": {"train": ssm_train_launches(cfg)}}
+
+
 def get_config_of(arch, reduced):
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     return cfg.reduced() if reduced else cfg
 
 
-def sharded_failures(rec, per_step) -> list:
+def sharded_failures(rec, per_step, peak_tol=None) -> list:
     """Why `train_sharded`'s record fails its checks (none: it passes):
     every step ran; each loss finite and within TOL_SHARDED_LOSS (relative)
     of the unsharded run's; each param leaf of the unsharded run present
     and within TOL_SHARDED_PARAM (relative L2); every param and moment leaf
     at its spec's placements, before and after; the launches `per_step`
-    (name: count, every counted name) times the steps."""
+    (name: count, every counted name) times the steps; with `peak_tol`, the
+    peak device memory within it (relative) of the unsharded run's."""
     out = []
     if rec["steps_run"] != rec["steps"] or len(rec["ref_losses"]) != rec["steps"]:
         out.append(f"{rec['steps_run']} steps run, {len(rec['ref_losses'])} to compare, "
@@ -1636,6 +1714,10 @@ def sharded_failures(rec, per_step) -> list:
     want.update({k: v * rec["steps"] for k, v in per_step.items()})
     if rec["launches"] != want:
         out.append(f"launches {rec['launches']} != {rec['steps']} x {per_step}")
+    peak, ref_peak = rec.get("peak_mem_gb"), rec.get("ref_peak_mem_gb")
+    if peak_tol is not None and not abs(peak - ref_peak) <= peak_tol * ref_peak:
+        out.append(f"peak {peak} GB against the unsharded run's {ref_peak} GB (tol "
+                   f"{peak_tol})")
     return out
 
 
@@ -2135,6 +2217,7 @@ def ptxas_report(build) -> list:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2163,6 +2246,7 @@ def main() -> int:
     from repro_torch.launch.serve import Server
     from repro_torch.launch.train import Trainer, TrainerConfig
     from repro_torch.models import init_cache
+    from repro_torch.models import layers as L
     from repro_torch.runtime.steps import prefill_step, serve_step
     from repro_torch.tree import tree_leaves
 
@@ -3216,10 +3300,11 @@ def main() -> int:
     # against the scan's final state (its tail) and the recurrence.  The
     # warm-up is at the served shape: the first 4 x 8192 prefill also pays
     # the allocator's growth and cuBLAS's choices for its shapes.
+    served_ssm = {}
     srv, prompts, by_path["serve_ssm"] = serve(
         "serve_ssm", SSM_ARCH, SSM_PROMPT, SSM_PROMPT + NEW + 1, SEED + 5,
         lambda c: {"rmsnorm": (2 * c.n_layers + 1) * (1 + NEW), "ssd_scan": c.n_layers},
-        lambda p: (p[:, :SSM_PROMPT], 1))
+        lambda p: (p[:, :SSM_PROMPT], 1), keep=served_ssm)
     cross_check("cross_check_ssm", srv, prompts, 0)
     del srv
     torch.cuda.empty_cache()
@@ -3238,12 +3323,14 @@ def main() -> int:
     # warm-up is at the served shape: the prefill's expert products are
     # [64, 240, ...] (capacity 240), the decode steps' [64, 1, ...].
     def serve_moe_and_check(phase, check_phase, arch, prompt_seed, config=None, cut=(),
-                            want=moe_serve_launches, serve_bound=mla_moe_serve_bound):
+                            want=moe_serve_launches, serve_bound=mla_moe_serve_bound,
+                            keep=None):
         """An MoE model's serve phase (an MLA model's one kernel the RMSNorm),
         its serve bound, then moe_cross_check, gated with each MoE layer's
         selection pinned (no flip at a gap >= NEAR_TIE)."""
         srv, prompts, got = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed, want,
-                                  lambda p: (p[:, :PROMPT], 1), config=config, cut=cut)
+                                  lambda p: (p[:, :PROMPT], 1), config=config, cut=cut,
+                                  keep=keep)
         emit({"phase": f"{phase}_bound", "batch": BATCH, "prompt": PROMPT,
               **serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
         rec = moe_cross_check(srv, prompts, dev, MAX_LEN)
@@ -3259,8 +3346,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         return got
 
+    served_moe = {}
     by_path["serve_moe"] = serve_moe_and_check("serve_moe", "cross_check_moe", MOE_ARCH,
-                                               SEED + 11)
+                                               SEED + 11, keep=served_moe)
     # deepseek-v3-671b cut to its first 4 layers (31.4 GB of bf16 weights):
     # the sigmoid router at 256 experts top-8, q-LoRA, 128 MLA heads at d
     # 7168; norms attn, q, kv and ffn a layer, then final_norm.  Its
@@ -3342,19 +3430,24 @@ def main() -> int:
 
     # -- the train paths: Trainer.run on one fixed batch ------------------------
     def train(phase, arch, steps, moment_dtype, cut, want, batch_seed, seq=TRAIN_S,
-              n_layers=None, keep=None):
+              n_layers=None, keep=None, routes=False):
         """Full-width `arch` (its first `n_layers` layers when given) trains
         `steps` steps of TRAIN_B x `seq` tokens (remat per layer, CE_CHUNKS
         cross-entropy chunks, AdamW) on one fixed batch, repeated: a
         learnable target.  Every loss finite, the last below the first (and
         so the MTP head's mtp_ce, where the model has one), every launch
         count per step `want`(cfg).  `keep` (a dict) receives the losses,
-        the median step ms and a host copy of the final params."""
+        the median step ms, a host copy of the final params, the argument
+        bytes, the peak device memory (`peak_mem_gb`) and its part above
+        what the earlier phases still held (`peak_bytes`, the dry run's
+        reference), and with `routes` every MoE call's selection (a
+        RouteRecorder's calls)."""
         t_phase = time.perf_counter()
         tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
                            moment_dtype=moment_dtype, n_layers=n_layers)
         fixed = fixed_batch(get_config(arch).vocab_size, TRAIN_B, seq, batch_seed)
+        base = torch.cuda.memory_allocated()      # what earlier phases still hold
         t0 = time.perf_counter()
         tr = Trainer(tc, batches=itertools.repeat(fixed))
         cfg = tr.cfg
@@ -3367,7 +3460,8 @@ def main() -> int:
                         for t in tree_leaves(tr.state) + list(tr._to_device(fixed).values()))
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        out = tr.run()
+        with RouteRecorder(L) if routes else contextlib.nullcontext() as recorder:
+            out = tr.run()
         got = launches()
         per_step = {name: 0 for name in got}
         per_step.update(want(cfg))
@@ -3400,7 +3494,10 @@ def main() -> int:
         if keep is not None:
             keep.update(losses=losses, step_ms=out["step_s"] * 1e3,
                         params=host_copy(tr.state["params"]), argument_bytes=arg_bytes,
-                        peak_bytes=torch.cuda.max_memory_allocated())
+                        peak_bytes=torch.cuda.max_memory_allocated() - base,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if routes:
+                keep["routes"] = recorder.take()
         del tr
         torch.cuda.empty_cache()
         return got
@@ -3463,9 +3560,39 @@ def main() -> int:
     # mamba2-130m: 8 x 2048 tokens, the Trainer's default fp32 moments; per
     # layer the norm and the gated out_norm, each recomputed, and the scan
     # (forward, recompute, backward)
+    trained_ssm = {}
     by_path["train_ssm"] = train(
         "train_ssm", SSM_ARCH, SSM_TRAIN_STEPS, torch.float32, [], ssm_train_launches,
-        SEED + 15, seq=SSM_TRAIN_S)
+        SEED + 15, seq=SSM_TRAIN_S, keep=trained_ssm)
+    # the same run on the 1 x 1 mesh of one NCCL rank: the Mamba mixer's
+    # sharded path (heads over "model", a size-1 dim here)
+    nccl = init_world(dev)
+    rec = train_sharded(dev, trained_ssm, arch=SSM_ARCH, seq=SSM_TRAIN_S,
+                        steps=SSM_TRAIN_STEPS, moment_dtype=torch.float32,
+                        batch_seed=SEED + 15)
+    failures = sharded_failures(rec, ssm_train_launches(get_config(SSM_ARCH)),
+                                peak_tol=TOL_SHARDED_PEAK)
+    emit({"phase": "train_sharded_ssm", "nccl": nccl,
+          **{k: v for k, v in rec.items() if k != "param_rel_l2"},
+          "worst_param_rel_l2": dict(sorted(rec["param_rel_l2"].items(), key=lambda kv: -kv[1])[:4]),
+          "unsharded_step_ms": rec["ref_step_ms"], "failures": failures})
+    if failures:
+        raise AssertionError(f"train_sharded_ssm: {failures}")
+    by_path["train_sharded_ssm"] = rec["launches"]
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    # mamba2-130m's 1 x 1 train cell traced at train_ssm's shape, held to
+    # what train_ssm measured
+    t0 = time.perf_counter()
+    rec = dryrun_ssm_cell(dev, trained_ssm)
+    failures = dryrun_failures(rec)
+    emit({"phase": "dryrun_ssm", "nvidia_smi": smi,
+          **{k: v for k, v in rec.items() if k != "cells"},
+          "failures": failures, "seconds": time.perf_counter() - t0})
+    emit({"phase": "dryrun_cell", "cell": "ssm_train", **rec["cells"]["train"]})
+    if failures:
+        raise AssertionError(f"dryrun_ssm: {failures}")
+    del trained_ssm
     # mamba2-130m again, over the Trainer's BuffetFS data path (DirLib) with
     # checkpoints: stopped at step 8 of 12, resumed, against 12 uninterrupted
     rec = train_resume(dev)
@@ -3478,9 +3605,49 @@ def main() -> int:
     # deepseek-v2-lite-16b: the dense layer and 5 MoE layers at full width,
     # fp32 moments; per layer attn_norm, kv_norm (at its row pitch) and
     # ffn_norm, each recomputed, and the three flash passes at <192, 128>
+    trained_moe = {}
     by_path["train_moe"] = train(
         "train_moe", MOE_ARCH, MOE_TRAIN_STEPS, torch.float32, MOE_TRAIN_CUT,
-        lambda c: moe_train_launches(c, TRAIN_S), SEED + 19, n_layers=MOE_TRAIN_LAYERS)
+        lambda c: moe_train_launches(c, TRAIN_S), SEED + 19, n_layers=MOE_TRAIN_LAYERS,
+        keep=trained_moe, routes=True)
+    # the same run on the 1 x 1 mesh of one NCCL rank (the MoE's
+    # expert-parallel path, MLA's sharded branches), every route recorded;
+    # then serve_ssm's and serve_moe's runs through Server(mesh=...)
+    nccl = init_world(dev)
+    moe_cut = replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    with RouteRecorder(L) as recorder:
+        rec = train_sharded(dev, trained_moe, arch=MOE_ARCH, steps=MOE_TRAIN_STEPS,
+                            moment_dtype=torch.float32, batch_seed=SEED + 19,
+                            n_layers=MOE_TRAIN_LAYERS)
+    flips = route_flips(trained_moe.pop("routes"), recorder.take())
+    failures = sharded_failures(rec, moe_train_launches(moe_cut, TRAIN_S))
+    if flips:
+        failures.append(f"{len(flips)} routes differ from the unsharded run's: {flips[:4]}")
+    emit({"phase": "train_sharded_moe", "nccl": nccl, "reduced": MOE_TRAIN_CUT,
+          **{k: v for k, v in rec.items() if k != "param_rel_l2"},
+          "worst_param_rel_l2": dict(sorted(rec["param_rel_l2"].items(), key=lambda kv: -kv[1])[:4]),
+          "route_flips": len(flips), "unsharded_step_ms": rec["ref_step_ms"],
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"train_sharded_moe: {failures}")
+    by_path["train_sharded_moe"] = rec["launches"]
+    del trained_moe
+    torch.cuda.empty_cache()
+    for phase, arch, ref, prompt, max_len, prompt_seed, path in (
+            ("serve_sharded_ssm", SSM_ARCH, served_ssm, SSM_PROMPT, SSM_PROMPT + NEW + 1,
+             SEED + 5, "serve_ssm"),
+            ("serve_sharded_moe", MOE_ARCH, served_moe, PROMPT, MAX_LEN, SEED + 11,
+             "serve_moe")):
+        rec = serve_sharded(dev, ref, arch=arch, prompt=prompt, max_len=max_len,
+                            prompt_seed=prompt_seed)
+        failures = sharded_serve_failures(rec, by_path[path])
+        emit({"phase": phase, "nvidia_smi": smi, **rec, "failures": failures})
+        if failures:
+            raise AssertionError(f"{phase}: {failures}")
+        by_path[phase] = rec["launches"]
+        torch.cuda.empty_cache()
+    del served_ssm, served_moe
+    torch.distributed.destroy_process_group()
     # deepseek-v3-671b: its 3 dense layers at full width and the MTP layer,
     # fp32 moments; per layer attn_norm, q_norm (d 1536), kv_norm (at its
     # row pitch) and ffn_norm, each recomputed, the flash passes at <192,
@@ -3508,6 +3675,7 @@ def main() -> int:
         for key_h, path in (("dqk192_dv128", "train_moe"), ("dqk192_dv128_h128", "train_v3")):
             if key_h in row:
                 row[key_h]["launches_by_path"] = {path: by_path[path][row["name"]]}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -61,8 +61,12 @@ def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
     spec = specs.get(kind)
     if spec is None or len(spec) > x.ndim:
         return x       # no spec, or a rank mismatch: leave unconstrained, as JAX
-    pl = placements(spec, x.device_mesh)
-    return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
+    mesh = x.device_mesh
+    # a dim the mesh dim does not divide stays whole (as `spec_for` leaves a
+    # param's): long_500k's one decode token against a sequence split
+    pl = [Replicate() if isinstance(p, Shard) and x.shape[p.dim] % mesh.size(i) else p
+          for i, p in enumerate(placements(spec, mesh))]
+    return x if list(x.placements) == pl else x.redistribute(mesh, pl)
 
 
 def constrain_bsd(x: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,9 @@ The record keeps JAX's keys where they mean the same: `flops_per_device`,
 with `argument_bytes`, `output_bytes`, `temp_bytes` (the peak beyond the
 arguments and the outputs not updated in place) and `alias_bytes` (the state
 or cache updated in place, where JAX donates); `peak_bytes` beside them.
-JAX's `lower_s` and `compile_s` are one `trace_s`.
+JAX's `lower_s` and `compile_s` are one `trace_s`.  An MoE model's record
+carries a `note`: its layers' exchange is traced at a balanced routing's
+sizes (`models/layers.py::_moe_sharded`).
 """
 from __future__ import annotations
 
@@ -146,6 +148,9 @@ def run_cell(arch: str, shape: InputShape, *, mesh_shape: Sequence[int] = (16, 1
         counts = mode.totals()
         del step, args, out
     peak = counts["peak_bytes"]
+    note = ({"note": "MoE: the kept routes' all-to-all and each expert's buffer traced at a "
+                     "balanced routing's sizes (a fake tensor's counts cannot be read; a run "
+                     "reads them to the host once a layer)"} if cfg.moe is not None else {})
     return {
         "arch": arch, "reduced": reduced, "shape": shape.name, "kind": shape.kind,
         "mesh": mesh_name(mesh_shape),
@@ -161,6 +166,7 @@ def run_cell(arch: str, shape: InputShape, *, mesh_shape: Sequence[int] = (16, 1
                    "temp_bytes": max(0, peak - arg_bytes - out_bytes + alias),
                    "alias_bytes": alias, "peak_bytes": peak},
         "kernel_calls": {k: v for k, v in calls.items() if v},
+        **note,
         "ok": True,
     }
 

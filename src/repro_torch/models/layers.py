@@ -36,7 +36,9 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -338,6 +340,13 @@ def _einsum_f32(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, *tail)
 
 
+def _whole(t: DTensor) -> DTensor:
+    """t replicated on every mesh dim (a `local_map` input must be at the
+    placements it names, a dim of size 1 too)."""
+    rep = [Replicate()] * t.device_mesh.ndim
+    return t if list(t.placements) == rep else t.redistribute(t.device_mesh, rep)
+
+
 def _placed(t: DTensor, pl) -> DTensor:
     """`t` redistributed to `pl`, or `t` itself where they differ on no mesh
     dim larger than 1 (a placement there moves nothing, and DTensor's
@@ -614,14 +623,23 @@ def mla_axes(cfg: ModelConfig) -> Axes:
     return a
 
 
+def _seq_whole(t: torch.Tensor) -> torch.Tensor:
+    """t [B, S, ...] with its sequence gathered (its batch split kept), the
+    sequence-parallel gather before a head-split product; a plain t itself."""
+    return _placed(t, keep_shards(t, (0,))) if isinstance(t, DTensor) else t
+
+
 def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """(q_nope, q_rope) [B, S, H, .]: under a mesh q-LoRA's down projection
+    and q_norm run on each rank's tokens, and the head projection on the
+    gathered sequence splits the heads over "model" (`_product`)."""
     m = cfg.mla
     if m.q_lora_rank:
-        cq = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        cq = _product("bsd,dr->bsr", x, p["wq_a"])
         cq = apply_norm({"scale": p["q_norm"]}, cq)
-        q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+        q = _product("bsr,rhk->bshk", _seq_whole(cq), p["wq_b"])
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q = _product("bsd,dhk->bshk", _seq_whole(x), p["wq"])
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -638,32 +656,39 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
     cache at `cache_pos` IN PLACE, then attention runs ABSORBED in the
     latent space in fp32, as JAX's cache branch computes it.  The einsums
     read the first cache_pos + s rows; JAX reads all T, whose masked rows
-    weigh exactly 0.  Returns (y, kv_cache)."""
+    weigh exactly 0.  Under a mesh the latent projection and kv_norm run on
+    each rank's tokens, the heads split over "model" as the products place
+    them, and a cache of DTensors takes `_mla_absorbed_sharded`.  Returns
+    (y, kv_cache)."""
     m = cfg.mla
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
 
-    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv_full = _product("bsd,dr->bsr", x, p["wkv_a"])
     # the norm reads the latent columns in place, rows at the projection's pitch
     ckv = apply_norm({"scale": p["kv_norm"]}, ckv_full[..., :m.kv_lora_rank])
-    k_rope = apply_rope(ckv_full[..., None, m.kv_lora_rank:], positions,
+    k_rope = apply_rope(_seq_whole(ckv_full[..., m.kv_lora_rank:])[..., None, :], positions,
                         cfg.rope_theta)[..., 0, :]
 
     if kv_cache is None:
         h = cfg.n_heads
-        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
-        v = torch.einsum("bsr,rhk->bshk", ckv, p["wv_b"])
+        ckv = _seq_whole(ckv)
+        k_nope = _product("bsr,rhk->bshk", ckv, p["wk_b"])
+        v = _product("bsr,rhk->bshk", ckv, p["wv_b"])
         q_cat = torch.cat([q_nope, q_rope], dim=-1)
-        k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_rope.shape[:2], h,
-                                                                 m.qk_rope_dim)], dim=-1)
+        k_cat = torch.cat([k_nope, constrain_heads(k_rope[:, :, None, :].expand(
+            *k_rope.shape[:2], h, m.qk_rope_dim))], dim=-1)
         out = constrain_heads(_flash(constrain_heads(q_cat), constrain_heads(k_cat),
                                      constrain_heads(v), scale))
-        y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+        y = _product("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
         return y, None
 
     s = x.shape[1]
     kv_len = cache_pos + s
     cc, cr = kv_cache["ckv"], kv_cache["krope"]
+    if isinstance(cc, DTensor):
+        out = _mla_absorbed_sharded(p, q_nope, q_rope, ckv, k_rope, cc, cr, cache_pos, scale)
+        return _product("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), kv_cache
     cc[:, cache_pos:kv_len] = ckv.to(cc.dtype)
     cr[:, cache_pos:kv_len] = k_rope.to(cr.dtype)
     ccf, crf = cc[:, :kv_len].float(), cr[:, :kv_len].float()
@@ -678,6 +703,67 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
     out = torch.einsum("bshr,rhk->bshk", lat, p["wv_b"].float())
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return y, kv_cache
+
+
+def _mla_absorbed_sharded(p: Params, q_nope: DTensor, q_rope: DTensor, ckv: DTensor,
+                          k_rope: DTensor, cc: DTensor, cr: DTensor, pos: int,
+                          scale: float) -> DTensor:
+    """MLA's absorbed attention against a cache of DTensors at
+    `cache_specs`' mla entry ([B, T, kv_lora] and [B, T, rope], the last dim
+    split over "model" where it divides): x's latent and rotary keys written
+    by each rank into its own columns (`_cache_write`), then every product
+    on each rank's part (`local_map`), the cache never gathered.  q's latent
+    and rotary dims take the cache's split (an all-to-all from the head
+    split), so each rank's scores are a partial sum over its columns, in
+    fp32; they are reduced to a head split (a reduce-scatter), masked and
+    softmaxed there, gathered whole to weigh each rank's latent columns, and
+    the latent output goes back to the head split (an all-to-all) for wv_b.
+    Returns the attention output [B, s, H, v_head_dim] in fp32 at q's
+    placements."""
+    mesh = cc.device_mesh
+    if any(q.is_shard(1) for q in cc.placements):
+        raise NotImplementedError("an MLA cache split by its sequence (a batch that does not "
+                                  "divide the data axes) has no sharded path")
+    s = q_nope.shape[1]
+    kv_len = pos + s
+    _cache_write(cc, ckv, pos)
+    _cache_write(cr, k_rope, pos)
+    split = [c.is_shard(2) for c in cc.placements]      # mesh dims that split the columns
+    batch = [Shard(0) if c.is_shard(0) else Replicate() for c in cc.placements]
+    qpl = list(q_nope.placements)
+    heads = [Shard(1) if q.is_shard(2) else Replicate() for q in qpl]
+
+    def local(fn, out, *args):
+        return local_map(fn, out_placements=out, in_placements=tuple(
+            list(a.placements) for a in args), device_mesh=mesh)(*args)
+
+    def to(t, pl):
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+
+    def cols(t):        # [B, s, H, c] with its columns split as the cache's
+        return to(t, [Shard(3) if sp else b for sp, b in zip(split, batch)])
+
+    q_lat = local(lambda a, w: torch.einsum("bshk,rhk->bshr", a.float(), w.float()), qpl,
+                  q_nope, to(p["wk_b"], heads))
+
+    def scores_fn(ql, qr, c, r):
+        return (torch.einsum("bshr,btr->bhst", ql, c[:, :kv_len].float())
+                + torch.einsum("bshk,btk->bhst", qr, r[:, :kv_len].float())) * scale
+
+    scores = local(scores_fn, [Partial() if sp else b for sp, b in zip(split, batch)],
+                   cols(q_lat), cols(q_rope.float()), cc, cr)
+    scores = to(scores, [Shard(1) if sp else b for sp, b in zip(split, batch)])
+
+    def softmax(sc):
+        t_idx = torch.arange(kv_len, device=sc.device)
+        q_idx = pos + torch.arange(s, device=sc.device)
+        return torch.softmax(sc.masked_fill(t_idx[None, :] > q_idx[:, None], -1e30), dim=-1)
+
+    w = local(softmax, list(scores.placements), scores)
+    lat = local(lambda w_, c: torch.einsum("bhst,btr->bshr", w_, c[:, :kv_len].float()),
+                [Shard(3) if sp else b for sp, b in zip(split, batch)], to(w, batch), cc)
+    return local(lambda a, w_: torch.einsum("bshr,rhk->bshk", a, w_.float()), qpl,
+                 to(lat, qpl), to(p["wv_b"], heads))
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -794,6 +880,32 @@ def moe_slots(top_idx: torch.Tensor, n_experts: int, capacity: int
     return counts, keep, pos_flat.clamp(0, capacity - 1).reshape(top_idx.shape)
 
 
+def _expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                wo: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU FFNs on their buffers: [e, c, d] x [e, d, f];
+    silu in fp32, the product kept bf16."""
+    g = F.silu(torch.bmm(buf, wg).float()).to(buf.dtype)
+    return torch.bmm(g * torch.bmm(buf, wu), wo)
+
+
+def _route_rows(xt: torch.Tensor, k: int) -> torch.Tensor:
+    """xt [t, d] once a route, [t * k, d] (token-major, then j).  Its
+    gradient sums each token's k rows in a reduction (fp32, rounded once),
+    the same on every run: a gather's backward would accumulate them with
+    atomics into the bf16 gradient, in no fixed order."""
+    return xt[:, None].expand(xt.shape[0], k, xt.shape[1]).reshape(-1, xt.shape[1])
+
+
+def _combine(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The k rows of each token [t, k, d], weighted by w [t, k], summed in
+    fp32 in j order."""
+    rows = rows.float() * w.float()[..., None]
+    y = rows[:, 0]
+    for j in range(1, rows.shape[1]):
+        y = y + rows[:, j]
+    return y
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k MoE, as JAX's `apply_moe`.  Returns (y, aux).
@@ -803,7 +915,10 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     each kept route owns a distinct (expert, slot), which holds its token's
     row; a slot no route keeps holds zeros.  That is the buffer of JAX's k
     scatter-adds, where a dropped route adds a zero row at slot capacity - 1.
-    The combine sums the k weighted rows in fp32 in j order."""
+    The combine sums the k weighted rows in fp32 in j order.  A DTensor x
+    takes the expert-parallel path (`_moe_sharded`)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(p, x, cfg)
     mo = cfg.moe
     b, s, d = x.shape
     t, e, k = b * s, mo.n_experts, mo.top_k
@@ -814,28 +929,169 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     # load-balancing aux loss (switch-style)
     aux = (counts.float() / t * scores.mean(0)).sum() * e / k
 
-    # dispatch: the token of every (expert, slot), t (a zero row) where none;
-    # dropped routes write to one spare slot past the end, which is discarded
+    # dispatch: each kept route's row into its (expert, slot), zeros where
+    # none; dropped routes write to one spare slot past the end, discarded
     slot = top_idx * capacity + pos                                # [t, k]
-    tok = torch.arange(t, device=x.device)[:, None].expand(t, k)
-    src = torch.full((e * capacity + 1,), t, dtype=torch.long, device=x.device)
-    src.scatter_(0, torch.where(keep, slot, e * capacity).reshape(-1), tok.reshape(-1))
-    buf = torch.cat([xt, xt.new_zeros(1, d)])[src[:-1]].view(e, capacity, d)
-
-    # expert FFNs: [e, c, d] x [e, d, f]; silu in fp32, product kept bf16
-    g = F.silu(torch.bmm(buf, p["wi_gate"]).float()).to(xt.dtype)
-    u = torch.bmm(buf, p["wi_up"])
-    eo = torch.bmm(g * u, p["wo"])
+    at = torch.where(keep, slot, e * capacity).reshape(-1)
+    buf = xt.new_zeros(e * capacity + 1, d).index_copy(0, at, _route_rows(xt, k))
+    eo = _expert_ffn(buf[:-1].view(e, capacity, d), p["wi_gate"], p["wi_up"], p["wo"])
 
     # combine: the k rows of each token, weighted, summed in fp32 in j order
-    w = (top_w * keep).float()
-    rows = eo.reshape(e * capacity, d)[slot].float() * w[..., None]     # [t, k, d]
-    y = rows[:, 0]
-    for j in range(1, k):
-        y = y + rows[:, j]
+    y = _combine(eo.reshape(e * capacity, d)[slot], top_w * keep)
     if mo.n_shared:
         y = y + apply_mlp(p["shared"], xt[None], cfg)[0].float()
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_sharded(p: Params, x: DTensor, cfg: ModelConfig) -> Tuple[DTensor, DTensor]:
+    """`apply_moe` under a mesh, expert parallel: the experts split over
+    "model" (JAX's table), d_model over "data" gathered at use.
+
+    Each rank routes its own tokens.  The kept routes and their slots are
+    the unsharded step's, at JAX's capacity of the global token count: each
+    rank's per-row expert counts are gathered (a [B, pieces, e] table), and
+    a route's slot is its expert's count over every token before it in
+    global token-major order plus its rank among its own row's routes; the
+    aux loss reads the global counts and the global mean score (a partial
+    sum over the ranks that split the tokens).  Where "model" splits the
+    tokens (train, prefill) the kept routes' rows go to the rank holding
+    their expert and back by an uneven all-to-all over "model", whose sizes
+    (from the table) are read to the host once a layer (a fake tensor, in
+    the dry run, gives a balanced routing's sizes); where the tokens are
+    whole over "model" (decode) each rank takes the routes to its own
+    experts and the outputs are a partial sum.  Every rank runs only its
+    own experts, on one buffer per expert of its data group's kept routes
+    (the unsharded [e, capacity, d] buffer, slot for slot, where one group
+    holds every token).  The combine sums the k rows in fp32 in j order, the
+    shared experts are `apply_mlp` on the same tokens."""
+    mesh, mo = x.device_mesh, cfg.moe
+    b, s, d = x.shape
+    t, e, k = b * s, mo.n_experts, mo.top_k
+    capacity = int(max(1, math.ceil(t * k / e * mo.capacity_factor)))
+    x = _placed(x, keep_shards(x, (0, 1)))
+    xpl = list(x.placements)
+    names = mesh.mesh_dim_names or ()
+    mi = names.index("model") if "model" in names else None
+    m = mesh.size(mi) if mi is not None else 1
+    seq = [i for i, q in enumerate(xpl) if q.is_shard(1) and mesh.size(i) > 1]
+    if any(i != mi for i in seq):
+        raise NotImplementedError("an MoE layer whose sequence is split over a mesh dim "
+                                  "other than model has no sharded path")
+    tok_dims = {i for i, q in enumerate(xpl) if q.is_shard() and mesh.size(i) > 1}
+    n_tok = math.prod(mesh.size(i) for i in tok_dims)
+    ep = m > 1 and p["wi_gate"].placements[mi].is_shard(0)      # experts split over model
+    exchange = ep and mi in seq
+    el = e // m if ep else e
+    n_seq = m if mi in seq else 1
+    coord = mesh.get_coordinate()
+    me = coord[mi] if m > 1 else 0
+    piece = me if mi in seq else 0
+    b0, bl = _local_rows(x, 0)
+    rep = [Replicate()] * mesh.ndim
+    tok_grad = [Partial() if i in tok_dims else Replicate() for i in range(mesh.ndim)]
+
+    def route(xl, router, bias):
+        rl, sl = xl.shape[:2]
+        pr = {"router": router} if bias is None else {"router": router, "router_bias": bias}
+        scores, top_idx, top_w = moe_route(pr, xl.reshape(-1, d), cfg)
+        rows = torch.arange(rl * sl, device=xl.device)[:, None] // sl
+        key = (rows * e + top_idx).reshape(-1)
+        cnt = torch.zeros(rl * e, dtype=torch.long, device=xl.device).scatter_add_(
+            0, key, torch.ones_like(key))
+        mean = scores.mean(0) if n_tok == 1 else scores.sum(0) / t
+        return top_idx.view(rl, sl, k), top_w.view(rl, sl, k), cnt.view(rl, 1, e), mean
+
+    bias = p.get("router_bias")
+    out_mean = [Partial() if i in tok_dims else Replicate() for i in range(mesh.ndim)]
+    top_idx, top_w, cnt, mean = local_map(
+        route, out_placements=(xpl, xpl, xpl, out_mean),
+        in_placements=(xpl, rep, None if bias is None else rep),
+        in_grad_placements=(xpl, tok_grad, None if bias is None else tok_grad),
+        device_mesh=mesh)(x, _whole(p["router"]), None if bias is None else _whole(bias))
+    table = cnt.full_tensor()                                     # [B, pieces, e] counts
+    counts = table.sum((0, 1))
+    aux = _whole((replicated(counts.float() / t, mean) * mean).sum() * e / k)
+
+    # the kept routes of every (row, piece) block and expert, from the table
+    flat = table.reshape(-1, e)
+    off = torch.cumsum(flat, 0) - flat                            # global slot of a block's first
+    kept = flat.add(off).clamp(max=capacity) - off.clamp(max=capacity)
+    blocks = slice(b0 * n_seq, (b0 + bl) * n_seq)
+    start = off[b0 * n_seq]                                       # the data group's first slot
+    group = kept[blocks]
+    sizes = group.view(bl, n_seq, -1, el).sum((0, 3))             # [pieces, owners]
+    owners = sizes.shape[1]
+    r_rows, sizes_l = capacity, None           # one data group: the unsharded buffers
+    if isinstance(table, FakeTensor):          # the dry run: a balanced routing's sizes
+        sizes_l = [[bl * (s // n_seq) * k // owners] * owners] * n_seq
+        if bl != b:
+            r_rows = min(capacity, -(-bl * s * k // e))
+    elif exchange or bl != b:                  # read to the host once a layer
+        host = torch.cat([sizes.reshape(-1), group.sum(0).max().reshape(1)]).tolist()
+        sizes_l = [host[i * owners:(i + 1) * owners] for i in range(n_seq)]
+        if bl != b:
+            r_rows = max(1, host[-1])
+    send = sizes_l[piece] if exchange else None
+    recv = [sizes_l[i][me] for i in range(n_seq)] if exchange else None
+    mgroup = mesh.get_group(mi) if exchange else None
+
+    def dispatch(xl, idx, w, cnt_l, off_, start_, wg, wu, wo):
+        rl, sl = xl.shape[:2]
+        tl = rl * sl
+        xt, idx, w = xl.reshape(tl, d), idx.reshape(tl, k), w.reshape(tl, k)
+        # each route's global slot: its block's offset plus its rank among
+        # its row's routes to the same expert (token-major, then j)
+        rows = torch.arange(tl, device=xl.device)[:, None] // sl
+        key = (rows * e + idx).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        ranks = torch.empty_like(order).scatter_(
+            0, order, torch.arange(key.numel(), dtype=order.dtype, device=order.device))
+        cnt_l = cnt_l.reshape(-1)
+        first = (torch.cumsum(cnt_l, 0) - cnt_l)[key]
+        blk = off_.view(-1, n_seq, e)[b0:b0 + rl, piece]            # [rl, e]
+        pos = (blk.reshape(-1)[key] + ranks - first).view(tl, k)
+        keep = pos < capacity
+        slot = (idx % el) * r_rows + (pos - start_[idx])            # the owner's buffer row
+        owner = idx // el
+        routes = _route_rows(xt, k)
+        if exchange:
+            order = torch.argsort(torch.where(keep, owner, m).reshape(-1), stable=True)
+            sel = order[:sum(send)]
+            rows_in = _all_to_all(routes[sel], recv, send, mgroup)
+            slot_in = _all_to_all(slot.reshape(-1)[sel], recv, send, mgroup)
+            buf = xt.new_zeros(el * r_rows, d).index_copy(0, slot_in, rows_in)
+            eo = _expert_ffn(buf.view(el, r_rows, d), wg, wu, wo)
+            back = _all_to_all(eo.reshape(-1, d)[slot_in], send, recv, mgroup)
+            got = xt.new_zeros(tl * k, d).index_copy(0, sel, back)
+        else:
+            mine = keep & (owner == me) if ep else keep
+            spare = el * r_rows                                       # other routes' row
+            at = torch.where(mine, slot, spare).reshape(-1)
+            buf = xt.new_zeros(spare + 1, d).index_copy(0, at, routes)
+            eo = _expert_ffn(buf[:spare].view(el, r_rows, d), wg, wu, wo)
+            got = torch.cat([eo.reshape(spare, d), eo.new_zeros(1, d)])[at]
+        return _combine(got.view(tl, k, d), w * keep).view(rl, sl, d)
+
+    partial = ep and not exchange
+    ypl = [Partial() if i == mi and partial else q for i, q in enumerate(xpl)]
+    wpl = [Shard(0) if i == mi and ep else Replicate() for i in range(mesh.ndim)]
+    wgrad = [Shard(0) if i == mi and ep else tok_grad[i] for i in range(mesh.ndim)]
+    off_t, start_t = replicated(off, x), replicated(start, x)
+    experts = [p[n].redistribute(mesh, wpl) if list(p[n].placements) != wpl else p[n]
+               for n in ("wi_gate", "wi_up", "wo")]
+    y = local_map(dispatch, out_placements=ypl,
+                  in_placements=(xpl, xpl, xpl, xpl, rep, rep, wpl, wpl, wpl),
+                  in_grad_placements=(ypl, ypl, ypl, xpl, rep, rep, wgrad, wgrad, wgrad),
+                  device_mesh=mesh)(x, top_idx, top_w, cnt, off_t, start_t, *experts)
+    if mo.n_shared:
+        y = y + apply_mlp(p["shared"], x, cfg).float()
+    y = _placed(y, [Replicate() if q.is_partial() else q for q in y.placements])
+    return y.to(x.dtype), aux
+
+
+def _all_to_all(t: torch.Tensor, out_sizes, in_sizes, group) -> torch.Tensor:
+    """An uneven all-to-all of t's rows over `group`, differentiable."""
+    return funcol.all_to_all_single_autograd(t.contiguous(), out_sizes, in_sizes, group)
 
 
 # ---------------------------------------------------------------------------

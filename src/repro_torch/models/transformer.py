@@ -43,6 +43,7 @@ updated in place and returned.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -308,11 +309,17 @@ def _chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materialising the full [B,S,V] logits: the
     sequence is processed in recomputed chunks (peak memory = one chunk of
-    bf16 logits; backward recomputes them).  Returns (sum_nll, sum_mask)."""
+    bf16 logits; backward recomputes them).  Where a mesh splits h's
+    sequence, a chunk takes its rows from every rank's piece, so it stays
+    split and each rank runs the head and the CE on its own tokens (a slice
+    across the pieces would gather the chunk onto every rank).  Returns
+    (sum_nll, sum_mask)."""
     b, s, d = h.shape
-    while s % n_chunks:
+    pieces = (math.prod(h.device_mesh.size(i) for i, p in enumerate(h.placements)
+                        if p.is_shard(1)) if isinstance(h, DTensor) else 1)
+    while (s // pieces) % n_chunks:
         n_chunks -= 1
-    cs = s // n_chunks
+    cs = s // pieces // n_chunks
 
     def chunk_nll(hc, lc, mc):
         logits = L.head_logits(embed_params, hc, cfg)        # [B,cs,V]
@@ -320,10 +327,23 @@ def _chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor,
             return _ce_sharded(logits, lc, mc)
         return _ce_rows(logits, lc, mc)
 
+    if pieces > 1:
+        mesh, pl = h.device_mesh, list(h.placements)
+        rows = [t if list(t.placements) == pl else t.redistribute(mesh, pl)
+                for t in (h, labels, mask)]
+
+        def chunk(t, c):
+            return local_map(lambda a: a[:, c * cs:(c + 1) * cs], out_placements=pl,
+                             in_placements=(pl,), device_mesh=mesh)(t)
+    else:
+        rows = (h, labels, mask)
+
+        def chunk(t, c):
+            return t[:, c * cs:(c + 1) * cs]
+
     total = replicated(torch.zeros((), dtype=torch.float32, device=h.device), h)
     for c in range(n_chunks):
-        sl = slice(c * cs, (c + 1) * cs)
-        total = total + checkpoint(chunk_nll, h[:, sl], labels[:, sl], mask[:, sl],
+        total = total + checkpoint(chunk_nll, *(chunk(t, c) for t in rows),
                                    use_reentrant=False)
     return total, mask.sum()
 
@@ -347,6 +367,14 @@ def _ce_sharded(logits: DTensor, labels: DTensor, mask: DTensor) -> DTensor:
     return fn(*(t.redistribute(mesh, pl) for t in (logits, labels, mask)))
 
 
+def _shift_left(t: DTensor) -> DTensor:
+    """t [B, S] one position to the left, a zero at the end, at t's
+    placements (its sequence gathered for the shift: labels and a mask)."""
+    whole = L._seq_whole(t)
+    shifted = torch.cat([whole[:, 1:], torch.zeros_like(whole[:, :1])], dim=1)
+    return L._placed(shifted, list(t.placements))
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, aux_weight: float = 0.01, ce_chunks: int = 8
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -357,7 +385,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     more dense layer and its norm on `forward`'s final-normed h, then the
     chunked CE of its first S - 1 positions against labels shifted by one,
     0.1 x that CE added to the loss, as JAX's `loss_fn`.  The layer is not
-    checkpointed (JAX's is not); its CE chunks are, as the main loss's."""
+    checkpointed (JAX's is not); its CE chunks are, as the main loss's.
+    Under a mesh it reads all S positions against the labels shifted by one
+    with the last position masked (the same sum: `_shift_left`)."""
     h, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
@@ -374,8 +404,15 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         positions = torch.arange(h.shape[1], device=h.device)
         hm, _, _ = _apply_tf_layer(cfg, params["mtp"]["layer"], h, positions)
         hm = L.apply_norm(params["mtp"]["norm"], hm)
-        nll2, m2sum = _chunked_ce(params["embed"], hm[:, :-1], labels[:, 1:], mask[:, 1:],
-                                  cfg, n_chunks=ce_chunks)
+        if isinstance(hm, DTensor):
+            # every position against the label after its own, the last one
+            # masked: a split sequence stays split (a slice of it would be
+            # gathered onto every rank)
+            labels2, mask2 = _shift_left(labels), _shift_left(mask)
+        else:
+            hm, labels2, mask2 = hm[:, :-1], labels[:, 1:], mask[:, 1:]
+        nll2, m2sum = _chunked_ce(params["embed"], hm, labels2, mask2, cfg,
+                                  n_chunks=ce_chunks)
         mtp_ce = nll2 / torch.clamp(m2sum, min=1.0)
         loss = loss + 0.1 * mtp_ce
         metrics["mtp_ce"] = mtp_ce

@@ -260,7 +260,8 @@ def constrain_case() -> dict:
 
 
 def raises_case() -> dict:
-    """`shard_train_state` of each non-dense family on a (2, 2) mesh."""
+    """`shard_train_state` of each non-dense family on a (2, 2) mesh: the
+    refusal's message, or None where the family places."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_config
     from repro_torch.runtime.steps import shard_train_state

@@ -102,40 +102,6 @@ def test_ssd_bwd_work_at_the_train_shape():
     assert f32 == 2 * (8 * 24 * 32 * (2080 * (128 + 256) + 5 * 524288) + 8 * 32 * 2080 * 128)
 
 
-@pytest.mark.parametrize("arch,seq,row1_len", [
-    ("chatglm3-6b", 64, 40), ("mamba2-130m", 192, 40),
-    ("deepseek-v2-lite-16b", 192, 152),
-    ("deepseek-v3-671b", 192, 152),
-    ("jamba-1.5-large-398b", 192, 152)])       # as chip_smoke.py's five checks run
-def test_train_check_holds_each_family_by_one_rule(arch, seq, row1_len):
-    """`train_check` with the CPU on both sides: the same plain versions give
-    the same loss and gradients and no routing flip, pinned or unpinned; an
-    MoE model's route calls (the forward's and the remat recompute's) are
-    recorded, one per MoE layer each (a hybrid model's four a period block),
-    and a model without MoE makes none.  deepseek-v3-671b's sigmoid router
-    gets a nonzero router_bias, whose gradient is exactly zero on every side
-    (and gated so)."""
-    import torch
-
-    cs = _chip_smoke()
-    from repro_torch.configs import get_config
-    small = {cs.MOE_ARCH: cs.moe_small_config, cs.V3_ARCH: cs.v3_small_config,
-             cs.HYBRID_ARCH: cs.hybrid_small_config}
-    cfg = small[arch]() if arch in small else get_config(arch).reduced()
-    rec = cs.train_check(torch.device("cpu"), cfg, 3, seq, row1_len)
-    assert rec["ok"] and rec["rel_err_loss"] <= 1e-6 and rec["rel_l2_all_grads"] <= 1e-6
-    assert rec["route_flips"] == 0 and rec["unpinned_forward"]["route_flips"] == 0
-    n_moe = cs.moe_layer_count(cfg)
-    assert n_moe == {"deepseek-v2-lite-16b": 3, "deepseek-v3-671b": 1,
-                     "jamba-1.5-large-398b": 4}.get(arch, 0)
-    assert rec["moe_route_calls"] == 2 * n_moe
-    assert rec["routes"] == 2 * n_moe * 2 * seq * (cfg.moe.top_k if cfg.moe else 0)
-    sigmoid = cfg.moe is not None and cfg.moe.router == "sigmoid"
-    assert list(rec["zero_grad_leaves_max_abs"]) == (["blocks.0.ffn.router_bias"] if sigmoid
-                                                     else [])
-    assert all(v == 0.0 for z in rec["zero_grad_leaves_max_abs"].values() for v in z.values())
-
-
 def test_v3_small_config_keeps_the_full_head_dims_and_q_lora():
     cs = _chip_smoke()
     cfg = cs.v3_small_config()
@@ -190,146 +156,6 @@ def test_capacity_changes_finds_a_route_a_flip_pushed_past_capacity():
     assert cs.capacity_changes(a, b, cfg, 4) == [
         {"layer": 0, "token": 3, "kept_a": [1], "kept_b": []}]
     assert cs.capacity_changes(a, a, cfg, 4) == []
-
-
-def test_hybrid_serve_launches_per_run():
-    """serve_hybrid's one period block, per forward: mixer_norm and ffn_norm
-    of 8 layers, the 7 Mamba layers' gated out_norm and final_norm, 24
-    RMSNorm launches, 65 forwards (the prefill and 64 decode steps): 1,560;
-    the prefill's one flash forward and 7 SSD scans; one decode attention a
-    step.  Two blocks double every count but final_norm's."""
-    from dataclasses import replace
-
-    cs = _chip_smoke()
-    cfg = cs.hybrid_serve_config()
-    assert cs.NEW == 64
-    assert cs.hybrid_serve_launches(cfg) == {"rmsnorm": 1560, "flash_attention_fwd": 1,
-                                             "ssd_scan": 7, "decode_attention": 64}
-    assert cs.hybrid_serve_launches(replace(cfg, n_layers=16)) == {
-        "rmsnorm": 47 * 65, "flash_attention_fwd": 2, "ssd_scan": 14, "decode_attention": 128}
-
-
-def test_serve_hybrid_cut_keeps_every_width_and_holds_25_8_b_params():
-    """The serve_hybrid cut: one of the 9 period blocks and 8 of the 16
-    experts, every width of the full config kept; ~25.8 B params (51.6 GB
-    in bf16) as `init_model` makes them (on the meta device), the count
-    serve_hybrid's bound reads off the built params."""
-    from dataclasses import replace
-
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_model
-    from repro_torch.tree import tree_leaves
-    cs = _chip_smoke()
-    full, cfg = get_config(cs.HYBRID_ARCH), cs.hybrid_serve_config()
-    assert cfg == replace(full, n_layers=8, moe=replace(full.moe, n_experts=8))
-    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (8192, 64, 8, 128)
-    assert (cfg.d_ff, cfg.moe.d_expert_ff, cfg.moe.top_k, cfg.vocab_size) == (
-        24576, 24576, 2, 65536)
-    assert (cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.expand) == (64, 16, 2)
-    assert [c.split(":")[0] for c in cs.HYBRID_SERVE_CUT] == [
-        "n_layers 8 of 72", "n_experts 8 of 16 (top-2 kept)"]
-    params = init_model(cfg, torch.Generator(), "meta")
-    total = sum(t.numel() for t in tree_leaves(params))
-    assert abs(total - 25.8e9) <= 0.01 * 25.8e9
-    bound = cs.hybrid_serve_bound(cfg, params, cs.BATCH, cs.PROMPT)
-    assert bound["params"] == total and abs(bound["weights_gb"] - 51.6) <= 0.01 * 51.6
-    assert bound["decode_bound_by"] == "bytes"
-
-
-def test_train_check_hybrid_runs_rep_8_and_the_ssd_kernels_at_p64_n16():
-    cs = _chip_smoke()
-    cfg = cs.hybrid_small_config()
-    assert cfg.family == "hybrid" and cfg.n_layers == 8 and cfg.d_model == 128
-    assert (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim) == (8, 128)
-    assert (cfg.ssm.head_dim, cfg.ssm.d_state) == (64, 16)
-    assert cs.moe_layer_count(cfg) == 4
-
-
-def test_hybrid_layer_chain_is_loss_fn():
-    """`hybrid_layer_chain` (fp32 params, reduced jamba) gives `loss_fn`'s loss
-    and every gradient: the units' forwards and backwards chained are the
-    model's; and forced to its own chain it gives the same again."""
-    import numpy as np
-    import torch
-
-    cs = _chip_smoke()
-    from repro_torch.models import init_model, loss_fn
-    from repro_torch.runtime.steps import param_grads
-    from repro_torch.tree import tree_leaves, tree_map
-    cfg = cs.hybrid_small_config()
-    params = tree_map(lambda t: t.float(), init_model(cfg, torch.Generator().manual_seed(5),
-                                                      "cpu"))
-    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 65)))
-    mask = torch.ones(2, 64)
-    mask[1, 40:] = 0
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "loss_mask": mask}
-    loss, grads, chain = cs.hybrid_layer_chain(tree_map(torch.clone, params), batch, cfg)
-    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
-    want_loss, _ = loss_fn(params, batch, cfg)
-    want = param_grads(want_loss, leaves)
-    assert len(chain["ins"]) == len(chain["grads"]) == cfg.n_layers + 1
-    np.testing.assert_allclose(float(loss), float(want_loss.detach()), rtol=1e-6)
-    for g, w in zip(grads, want):
-        np.testing.assert_allclose(g.numpy(), w.detach().numpy(), rtol=1e-4,
-                                   atol=1e-6 * float(w.abs().max()))
-    again = cs.hybrid_layer_chain(tree_map(lambda t: t.detach().clone(), params), batch, cfg,
-                                  forced=chain)[1]
-    assert all(torch.equal(a, g) for a, g in zip(again, grads))
-
-
-def _planted(fault):
-    """A wrapper of `hybrid_layer_chain` that runs the unforced chain (the
-    card's side) with the flash backward's dk/dv taken from half of each GQA
-    group, as a cluster that drops half its partials would give them."""
-    import importlib
-
-    cs = _chip_smoke()
-    ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
-    real_chain, real_bwd = cs.hybrid_layer_chain, ops.flash_attention_bwd
-
-    def half_group(q, k, v, out, lse, do, **kw):
-        dq, _, _ = real_bwd(q, k, v, out, lse, do, **kw)
-        rep = q.shape[1] // k.shape[1]
-        do2 = do.clone()
-        do2[:, [h for h in range(q.shape[1]) if h % rep >= rep // 2]] = 0
-        return (dq, *real_bwd(q, k, v, out, lse, do2, **kw)[1:])
-
-    def chain(*a, forced=None, **kw):
-        if forced is not None or not fault:
-            return real_chain(*a, forced=forced, **kw)
-        ops.flash_attention_bwd = half_group
-        try:
-            return real_chain(*a, **kw)
-        finally:
-            ops.flash_attention_bwd = real_bwd
-    return chain
-
-
-@pytest.mark.parametrize("fault", [False, True])
-def test_hybrid_train_check_holds_each_unit(monkeypatch, fault):
-    """`hybrid_train_check` with the CPU on both sides: every unit (the
-    embedding, the 8 layers, the head) agrees exactly and no route flips,
-    one route call a MoE layer.  With a fault planted on one side (dk/dv
-    from half of each GQA group) the attention layer's unit fails the gate,
-    though all gradients together stay within TOL_GRAD."""
-    import torch
-
-    cs = _chip_smoke()
-    monkeypatch.setattr(cs, "hybrid_layer_chain", _planted(fault))
-    cfg = cs.hybrid_small_config()
-    rec = cs.hybrid_train_check(torch.device("cpu"), cfg, 3, 192, 152)
-    assert set(rec["unit_rel_l2"]) == {"embed", "head", *map(str, range(8))}
-    assert rec["moe_route_calls"] == cs.moe_layer_count(cfg) == 4
-    assert rec["route_flips"] == 0
-    if not fault:
-        assert rec["ok"] and max(rec["unit_rel_l2"].values()) == 0.0
-        assert rec["rel_err_loss"] == 0.0 and rec["unforced"]["rel_l2_all_grads"] == 0.0
-    else:
-        attn = str(cfg.hybrid.attn_index)
-        assert not rec["ok"] and rec["unit_rel_l2"][attn] > cs.TOL_GRAD
-        assert rec["rel_l2_all_grads"] <= cs.TOL_GRAD
-        assert max(v for u, v in rec["unit_rel_l2"].items() if u != attn) <= 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -643,3 +469,101 @@ def test_compress_checks_fail_a_leaf_one_ulp_off(fault):
         assert errs["not_bitwise"] == (["a"] if fault == "ulp" else ["b"])
         assert len(failures) >= 1
 
+
+
+# ---------------------------------------------------------------------------
+# train_sharded_ssm, train_sharded_moe, serve_sharded_ssm, serve_sharded_moe
+# and dryrun_ssm at the reduced size, over a one-rank gloo group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-lite-16b"])
+def test_train_sharded_runs_the_ssm_and_moe_families_on_a_one_rank_mesh(monkeypatch, one_thread,
+                                                                        world_of_one, arch):
+    """The unsharded Trainer's 2 steps of reduced mamba2-130m (train_ssm's
+    counts) or deepseek-v2-lite-16b (train_moe's), every route recorded,
+    then `train_sharded` from the same weights and batch on a 1 x 1 mesh:
+    every loss and param leaf bitwise on the CPU, the same launches a step,
+    the same routes call by call."""
+    import itertools
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.models import layers
+
+    cs = _chip_smoke()
+    cfg = get_config(arch).reduced()
+    b, s, steps = 2, 64, 2
+    tc = TrainerConfig(arch=arch, reduced=True, global_batch=b, seq_len=s, steps=steps,
+                       log_every=steps, device="cpu", seed=cs.SEED, moment_dtype=torch.float32)
+    tr = Trainer(tc, batches=itertools.repeat(cs.fixed_batch(cfg.vocab_size, b, s, cs.SEED + 4)))
+    with cs.RouteRecorder(layers) as recorder:
+        out = tr.run()
+    ref = {"losses": out["losses"], "params": cs.host_copy(tr.state["params"])}
+    unsharded_routes = recorder.take()
+    calls = _spy_kernels(monkeypatch)
+    with cs.RouteRecorder(layers) as recorder:
+        rec = cs.train_sharded(torch.device("cpu"), ref, arch=arch, reduced=True, batch=b, seq=s,
+                               steps=steps, moment_dtype=torch.float32,
+                               counter=(calls.clear, lambda: dict(calls)))
+    per_step = (cs.ssm_train_launches(cfg) if cfg.family == "ssm"
+                else cs.moe_train_launches(cfg, s))
+    assert cs.sharded_failures(rec, per_step) == []
+    assert rec["losses_bitwise"] and rec["params_bitwise"]
+    routes = recorder.take()
+    assert len(routes) == len(unsharded_routes) == 2 * steps * cs.moe_layer_count(cfg)
+    assert cs.route_flips(unsharded_routes, routes) == []
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-lite-16b"])
+def test_serve_sharded_runs_the_ssm_and_moe_families_on_a_one_rank_mesh(monkeypatch,
+                                                                        world_of_one, arch):
+    """Reduced mamba2-130m and deepseek-v2-lite-16b, 8 new tokens: Server.generate,
+    then `serve_sharded` with the same weights and prompts on a 1 x 1 mesh:
+    the same tokens, the last logits bitwise on the CPU, the same launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+
+    cs = _chip_smoke()
+    cfg = get_config(arch).reduced()
+    prompt, max_len, new = 16, 40, 8
+    srv = Server(arch, max_len=max_len, device="cpu", seed=cs.SEED)
+    prompts = np.random.default_rng(cs.SEED + 1).integers(
+        1, cfg.vocab_size, size=(cs.BATCH, prompt + 1)).astype(np.int32)[:, :prompt]
+    calls = _spy_kernels(monkeypatch)
+    out = srv.generate(prompts, new)
+    want = dict(calls)
+    ref = {"tokens": out["tokens"], "last_logits": out["last_logits"].float()}
+    rec = cs.serve_sharded(torch.device("cpu"), ref, arch=arch, reduced=True, prompt=prompt,
+                           max_len=max_len, new=new, counter=(calls.clear, lambda: dict(calls)))
+    assert cs.sharded_serve_failures(rec, want) == []
+    assert rec["tokens_equal"] and rec["logits_bitwise"] and want["rmsnorm"] > 0
+
+
+def test_dryrun_ssm_cell_holds_train_ssms_bytes_calls_and_flops():
+    """`dryrun_ssm_cell` at the reduced size on the CPU: the 1 x 1 train
+    cell's argument bytes equal a real state's (fp32 moments) and batch's,
+    its kernel calls `ssm_train_launches`, its FLOPs within
+    TOL_DRYRUN_FLOPS of `ssm_train_flops` (what the card's run gates)."""
+    import itertools
+
+    import torch
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    cs = _chip_smoke()
+    b, s = 2, 256
+    tc = TrainerConfig(arch=cs.SSM_ARCH, reduced=True, global_batch=b, seq_len=s,
+                       device="cpu", seed=cs.SEED, moment_dtype=torch.float32)
+    fixed = cs.fixed_batch(512, b, s, cs.SEED + 15)
+    tr = Trainer(tc, batches=itertools.repeat(fixed))
+    tr.init_state()
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(tr.state) + list(tr._to_device(fixed).values()))
+    rec = cs.dryrun_ssm_cell(torch.device("cpu"), {"argument_bytes": arg_bytes,
+                                                   "peak_bytes": 1}, reduced=True, batch=b, seq=s)
+    rec["peak_rel_err"] = 0.0                   # no allocator to read here
+    print({k: v for k, v in rec.items() if k != "cells"})
+    assert cs.dryrun_failures(rec) == []
+    assert rec["train_argument_bytes"] == arg_bytes

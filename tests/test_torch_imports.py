@@ -1,7 +1,8 @@
 """Rules of the port, checked on the CPU.
 
 * `repro_torch` and `chip_smoke.py` import neither JAX nor the JAX package,
-  nor `ml_dtypes` (the card's machine has none).
+  nor `ml_dtypes` (the card's machine has none); nor do the gloo tests'
+  rank modules.
 * A kernel wrapper dispatches on `tensor.is_cuda` alone, after its one
   test for a fake tensor (the abstract path): a CUDA tensor goes to the
   kernel or raises, and never reaches the plain version; a fake tensor
@@ -72,9 +73,13 @@ def test_every_module_imports_without_jax_or_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tests").glob("_torch_dist*_ranks.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_repro(path):
+    """No module of the port, nor chip_smoke.py, nor the gloo tests' rank
+    modules (which a spawned rank imports alone) names JAX or the JAX
+    package."""
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]

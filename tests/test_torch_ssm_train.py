@@ -342,18 +342,6 @@ def test_three_train_steps_match_jax(model):
             np.testing.assert_allclose(g, w, err_msg=name, **TOL_F32)
 
 
-def test_trainer_loss_decreases_on_cpu():
-    """The Trainer runs reduced mamba2-130m unchanged: a learnable corpus of
-    repeated short patterns, the loss falls."""
-    tc = TrainerConfig(arch=ARCH, steps=20, global_batch=4, seq_len=32, lr=1e-3,
-                       log_every=20, device="cpu")
-    rng = np.random.default_rng(0)
-    corpus = [np.tile(rng.integers(1, 64, size=8), 5).astype(np.uint32) for _ in range(64)]
-    out = Trainer(tc, corpus=corpus).run()
-    assert out["steps"] == 20 and len(out["losses"]) == 20
-    assert all(np.isfinite(out["losses"])) and out["final_loss"] < out["losses"][0]
-
-
 def test_fixed_batch_repeated_is_learnable_by_the_trainer():
     """chip_smoke.py's train_ssm phase on the CPU, at the reduced size: one
     fixed batch repeated, fp32 moments; the loss falls."""
