@@ -49,8 +49,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    at the serve lengths, every cluster size; the SSD scan at x [4, 512, 256,
    64], N 16 (and a 513-row tail from a nonzero state), held to the plain
    version and to the fp64 recurrence; the SSD backward at [8, 512, 256,
-   64], P 64, N 16, held as at mamba2-130m's shape.  The last four
-   families' shapes: RMSNorm at pixtral-12b's [2048, 5120] and [4, 5120];
+   64], P 64, N 16, held as at mamba2-130m's shape; the RMSNorm backward at
+   [4096, 16384] (the gated out_norm of a full-width train step, four
+   vectors a thread), bitwise repeatable, timed beside `F.rms_norm`'s
+   backward and its bytes bound, the card's name and power limit beside.
+   The last four families' shapes: RMSNorm at pixtral-12b's [2048, 5120] and [4, 5120];
    the flash forward from the 1024-row cache at B 4 for command-r-35b (64
    heads over 8), starcoder2-15b (48 over 4: rep 12), pixtral-12b (32 over
    8: rep 4) and musicgen-large (MHA, D 64), and at musicgen-large's train
@@ -221,6 +224,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (the mixer's decode path against a cache of DTensors; MLA's absorbed
    attention on the sharded latent cache): the same tokens, the last logits
    bitwise or within TOL_SHARDED_LOGITS, the unsharded phase's launches.
+   train_hybrid — `hybrid_small_config()` (one period block at d 128 with
+   the full model's head dims: GQA rep 8 at D 128, SSD P 64, N 16; a
+   full-width hybrid train state does not fit one card) trains 8 steps of 8
+   x 512 with bf16 moments, every route recorded; train_sharded_hybrid —
+   the same run on the 1 x 1 mesh of one NCCL rank (a period block's Mamba
+   mixer, expert-parallel MoE and GQA side by side): losses and params
+   bitwise, every leaf at its placements, `hybrid_train_launches` a step, no
+   route flipped.  serve_sharded_hybrid — serve_hybrid's run again through
+   `Server(..., mesh=...)` (its weights placed with no copy, 51.6 GB once;
+   the peak printed beside serve_hybrid's): the same tokens, the last
+   logits bitwise or within TOL_SHARDED_LOGITS, serve_hybrid's launches.
+   dryrun_hybrid — train_hybrid's 1 x 1 train cell traced: argument bytes
+   exactly the measured state and batch, the traced peak within
+   TOL_DRYRUN_PEAK of train_hybrid's, the kernel calls
+   `hybrid_train_launches`.
    The run's total wall time is printed last of the phases ("total").
 
 Before the last line it prints {"kernels": [...]} and the nvidia-smi line;
@@ -342,6 +360,16 @@ HYBRID_ARCH, HYBRID_SERVE_LAYERS, HYBRID_SERVE_EXPERTS = "jamba-1.5-large-398b",
 HYBRID_SERVE_CUT = ["n_layers 8 of 72: one of the 9 period blocks",
                     "n_experts 8 of 16 (top-2 kept): one block at 16 experts holds ~45 B "
                     "params, ~90 GB in bf16; at 8, ~25.8 B, ~51.6 GB"]
+# train_hybrid and train_sharded_hybrid: `hybrid_small_config()` (one period
+# block at d 128 with the full model's head dims), 8 steps of TRAIN_B x
+# HYBRID_TRAIN_S (8 SSD chunks of SSD_CHUNK), bf16 moments (as the
+# sweep's jamba cells): the unsharded run, then the same on a 1 x 1 mesh,
+# bitwise; dryrun_hybrid traces its cell
+HYBRID_TRAIN_STEPS, HYBRID_TRAIN_S = 8, 512
+HYBRID_TRAIN_CUT = ["hybrid_small_config: one period block at d_model 128 (8 query heads over "
+                    "1 kv head at D 128, SSD P 64 N 16, 8 experts top-2): one full-width "
+                    "period block with 2 experts holds ~11.3 B params, ~90 GB with bf16 "
+                    "AdamW moments, past one 80 GB card"]
 # the last four families, each served at full width and full depth:
 # command-r-35b (tied embeddings, vocab 256000, GQA 64 over 8), starcoder2-15b
 # (GELU, QKV bias, GQA 48 over 4: rep 12), pixtral-12b (the vit stub frontend,
@@ -417,6 +445,19 @@ def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
 def bound(nbytes: float, flops: float, peak_ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_ops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def warm_cublas(dev) -> int:
+    """One product and its backward in fp32 and in bf16, so that this
+    thread's and autograd's cuBLAS workspaces are held from here on; the
+    bytes that this left allocated (0 once an earlier phase ran both)."""
+    before = torch.cuda.memory_allocated(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = torch.ones(64, 64, device=dev, dtype=dtype, requires_grad=True)
+        (w @ w).sum().backward()
+    del w
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev) - before
 
 
 def grad_fn(out, inputs, grad):
@@ -841,10 +882,27 @@ def model_flops(cfg, n_params, batch, seq, chunk=SSD_CHUNK) -> float:
     the table is the head's matrix and counts): the SSD products as
     `ssd_chunked` runs them at `chunk`-row chunks, per (batch, chunk) C B^T
     (L L N) and per head att (x dt) (L L P), the chunk state and the
-    inter-chunk output (L N P each), 3x with the backward."""
+    inter-chunk output (L N P each), 3x with the backward.  hybrid: every
+    parameter a token reads (top_k experts of each MoE layer, not the
+    table), the SSD products of its Mamba layers and the causal attention of
+    its attention layers, as above."""
     tokens = batch * seq
     if cfg.family == "moe":
         return moe_model_flops(cfg, batch, seq)
+    if cfg.family == "hybrid":
+        # the top_k of each MoE layer's experts, not the table (a gather);
+        # the SSD products of each Mamba layer as the ssm family's, causal
+        # attention in each block's one attention layer
+        mo, p, n = cfg.moe, cfg.ssm.head_dim, cfg.ssm.d_state
+        idle = moe_layer_count(cfg) * (mo.n_experts - mo.top_k) * 3 * cfg.d_model * (
+            mo.d_expert_ff or cfg.d_ff)
+        h = cfg.ssm.expand * cfg.d_model // p
+        nc = -(-seq // chunk)
+        macs = batch * nc * (chunk * chunk * n + h * (chunk * chunk * p + 2 * chunk * n * p))
+        nb = cfg.n_layers // cfg.hybrid.period
+        pairs = batch * cfg.n_heads * seq * (seq + 1) // 2
+        return (6 * (n_params - idle - cfg.vocab_size * cfg.d_model) * tokens
+                + 3 * 2 * macs * nb * (cfg.hybrid.period - 1) + 12 * cfg.head_dim * pairs * nb)
     if cfg.family == "ssm":
         p, n = cfg.ssm.head_dim, cfg.ssm.d_state
         h = cfg.ssm.expand * cfg.d_model // p
@@ -1596,11 +1654,11 @@ def dryrun_cells(dev, train_ref, serve_ref, arch=ARCH, reduced=False) -> dict:
     cells = {
         "train": run_cell(arch, InputShape("train", TRAIN_S, TRAIN_B, "train"),
                           mesh_shape=(1, 1), device=device, moment_dtype=torch.bfloat16,
-                          reduced=reduced),
+                          config=cfg),
         "prefill": run_cell(arch, InputShape("prefill", PROMPT, BATCH, "prefill"),
-                            mesh_shape=(1, 1), device=device, reduced=reduced),
+                            mesh_shape=(1, 1), device=device, config=cfg),
         "decode": run_cell(arch, InputShape("decode", PROMPT, BATCH, "decode"),
-                           mesh_shape=(1, 1), device=device, reduced=reduced)}
+                           mesh_shape=(1, 1), device=device, config=cfg)}
     train = cells["train"]
     flops = dense_train_flops(cfg, TRAIN_B, TRAIN_S)
     peak = train["memory"]["peak_bytes"]
@@ -1634,8 +1692,9 @@ def dryrun_failures(rec, production=None) -> list:
     fails its checks (none: it passes): every cell ok; the train cell's
     argument bytes equal to the measured state and batch bytes, exactly;
     its peak within TOL_DRYRUN_PEAK of the measured peak; its FLOPs within
-    TOL_DRYRUN_FLOPS of `dense_train_flops`; each cell's kernel calls those
-    of one train step, one prefill, one decode step."""
+    TOL_DRYRUN_FLOPS of `dense_train_flops` (where the record has an
+    analytic count); each cell's kernel calls those of one train step, one
+    prefill, one decode step."""
     out = []
     for name, c in list(rec["cells"].items()) + list((production or {}).items()):
         if not c.get("ok"):
@@ -1646,7 +1705,7 @@ def dryrun_failures(rec, production=None) -> list:
     if not rec["peak_rel_err"] <= TOL_DRYRUN_PEAK:
         out.append(f"train peak {rec['train_peak_bytes']} vs measured "
                    f"{rec['measured_peak_bytes']}: {rec['peak_rel_err']} > {TOL_DRYRUN_PEAK}")
-    if not rec["flops_rel_err"] <= TOL_DRYRUN_FLOPS:
+    if rec["analytic_flops"] is not None and not rec["flops_rel_err"] <= TOL_DRYRUN_FLOPS:
         out.append(f"train FLOPs {rec['train_flops']} vs analytic {rec['analytic_flops']}: "
                    f"{rec['flops_rel_err']} > {TOL_DRYRUN_FLOPS}")
     for name, want in rec["expected_kernel_calls"].items():
@@ -1667,7 +1726,7 @@ def dryrun_ssm_cell(dev, train_ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
     from repro_torch.launch.dryrun import run_cell
     cfg = get_config_of(arch, reduced)
     cell = run_cell(arch, InputShape("train", seq, batch, "train"), mesh_shape=(1, 1),
-                    device=torch.device(dev).type, moment_dtype=torch.float32, reduced=reduced)
+                    device=torch.device(dev).type, moment_dtype=torch.float32, config=cfg)
     flops, peak = ssm_train_flops(cfg, batch, seq), cell["memory"]["peak_bytes"]
     return {"arch": arch, "reduced": reduced, "cells": {"train": cell},
             "train_argument_bytes": cell["memory"]["argument_bytes"],
@@ -1678,6 +1737,44 @@ def dryrun_ssm_cell(dev, train_ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
             "flops_rel_err": abs(cell["flops_per_device"] - flops) / flops,
             "kernel_calls": {"train": cell["kernel_calls"]},
             "expected_kernel_calls": {"train": ssm_train_launches(cfg)}}
+
+
+def dryrun_hybrid_cell(dev, train_ref, cfg, batch=TRAIN_B, seq=HYBRID_TRAIN_S) -> dict:
+    """The dry run of train_hybrid's train cell of `cfg` (a config of
+    HYBRID_ARCH: `hybrid_small_config()`) on a 1 x 1 mesh at its own shape
+    (TRAIN_B x HYBRID_TRAIN_S, bf16 moments, as the sweep's jamba cells),
+    traced with `dev`'s device type, in the record `dryrun_failures` reads:
+    `train_ref` is train_hybrid's measured argument bytes and peak, the
+    kernel calls are held to `hybrid_train_launches`; the FLOPs are printed,
+    with no analytic count to hold them to (the experts run at their
+    capacity)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import run_cell
+    cell = run_cell(HYBRID_ARCH, InputShape("train", seq, batch, "train"), mesh_shape=(1, 1),
+                    device=torch.device(dev).type, moment_dtype=torch.bfloat16, config=cfg)
+    peak = cell["memory"]["peak_bytes"]
+    return {"arch": HYBRID_ARCH, "reduced": True, "cells": {"train": cell},
+            "train_argument_bytes": cell["memory"]["argument_bytes"],
+            "measured_argument_bytes": train_ref["argument_bytes"],
+            "train_peak_bytes": peak, "measured_peak_bytes": train_ref["peak_bytes"],
+            "peak_rel_err": abs(peak - train_ref["peak_bytes"]) / train_ref["peak_bytes"],
+            "train_flops": cell["flops_per_device"], "analytic_flops": None,
+            "kernel_calls": {"train": cell["kernel_calls"]},
+            "expected_kernel_calls": {"train": hybrid_train_launches(cfg)}}
+
+
+@contextlib.contextmanager
+def config_as(arch, cfg):
+    """While entered, `get_config(arch)` returns `cfg` (a cut or a reduced
+    form of it): the Server, the Trainer and the dry run read that config
+    for the time they are built and run."""
+    from repro_torch.configs import REGISTRY
+    full = REGISTRY[arch]
+    REGISTRY[arch] = cfg
+    try:
+        yield cfg
+    finally:
+        REGISTRY[arch] = full
 
 
 def get_config_of(arch, reduced):
@@ -2175,15 +2272,16 @@ def check_no_spills(entry: dict) -> None:
     dim 192, v head dim 128 ones (MLA), which hold dq, dk, dv or O in
     registers, the SSD backward's at mamba2-130m's P 64, N 128 and at
     jamba-1.5-large-398b's P 64, N 16, which hold the states and the dB, dC
-    sums, the SSD scan's at jamba's N 16, the RMSNorm backward (one
-    instance for every d up to 8192, deepseek-v3-671b's 7168 among them),
-    which holds a row of x and of dy and its dscale partials, and every
+    sums, the SSD scan's at jamba's N 16, the RMSNorm backward (two
+    instances: two vectors a thread up to d 8192, deepseek-v3-671b's 7168
+    among them, and four up to 16384, jamba's gated out_norm), which holds a
+    row of x and of dy and its dscale partials, and every
     instance of decode attention, whose kv loop runs once per decode step
     and layer."""
     if not (entry.get("spill_stores") or entry.get("spill_loads")):
         return
     if entry["kernel"] == "rmsnorm_bwd_kernel":
-        raise AssertionError(f"rmsnorm_bwd_kernel spills: {entry}")
+        raise AssertionError(f"rmsnorm_bwd_kernel<{entry.get('V')}> spills: {entry}")
     if entry["kernel"] == "decode_kernel":
         raise AssertionError(f"decode_kernel<{entry.get('D')}, {entry.get('MT')}> spills: "
                              f"{entry}")
@@ -2200,7 +2298,7 @@ def check_no_spills(entry: dict) -> None:
 # Kernels of plain CUDA (mma.sync, cp.async): registers and spills of each
 # instance (template arguments named), from the `ptxas -v` report.
 PTXAS_KERNELS = (("decode_kernel", "decode_attention.cu", ("D", "MT")),
-                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ()))
+                 ("rmsnorm_bwd_kernel", "rmsnorm.cu", ("V",)))
 
 
 def ptxas_report(build) -> list:
@@ -2257,8 +2355,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    # the bytes of this thread's and autograd's cuBLAS workspaces, which a
+    # traced peak does not hold: `train()` warms them before its peak's base
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cublas_workspace_bytes": warm_cublas(dev)})
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2647,6 +2748,11 @@ def main() -> int:
     # two vectors of x and of dy a thread), q_norm at q-LoRA's 1536
     r["deepseek_v3_d7168"] = rms_bwd_case(SEED + 24, 7168)
     r["deepseek_v3_q_norm_d1536"] = rms_bwd_case(SEED + 25, 1536)
+    # jamba-1.5-large-398b's train step: each Mamba layer's gated out_norm
+    # over d_inner 16384 (four vectors of x and of dy a thread, the dscale
+    # partial in shared memory); no phase trains jamba at full width (its
+    # train state does not fit one card): the sweep's train_4k cells count it
+    r["jamba_d16384"] = rms_bwd_case(SEED + 61, 16384, nvidia_smi=smi)
     torch.cuda.empty_cache()
     emit({"phase": "kernel", **r, "shape": [rows_t, d],
           "dscale_max_abs_err": float((dsc.float() - rdsc.float()).abs().max())})
@@ -3213,15 +3319,9 @@ def main() -> int:
         token longer) and the counts; `keep` (a dict) receives the tokens,
         a host copy of the last step's logits, prefill ms, decode tokens/s
         and peak GB."""
-        from repro_torch.configs import REGISTRY
         t0 = time.perf_counter()
-        full = REGISTRY[arch]
-        if config is not None:
-            REGISTRY[arch] = config
-        try:
+        with (config_as(arch, config) if config is not None else contextlib.nullcontext()):
             srv = Server(arch, reduced=False, max_len=max_len, device="cuda", seed=SEED)
-        finally:
-            REGISTRY[arch] = full
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         cfg = srv.cfg
@@ -3362,11 +3462,13 @@ def main() -> int:
     # attention through the flash forward (rep 8) and its Mamba layers
     # through the SSD scan (N 16), each decode step's attention through
     # decode attention.  Its cross-check's prefill of 513 tokens has capacity
-    # 2052 at the factor 4
+    # 2052 at the factor 4.  Its tokens, last logits and peak are
+    # serve_sharded_hybrid's reference
+    served_hybrid = {}
     by_path["serve_hybrid"] = serve_moe_and_check(
         "serve_hybrid", "cross_check_hybrid", HYBRID_ARCH, SEED + 34,
         config=hybrid_serve_config(), cut=HYBRID_SERVE_CUT, want=hybrid_serve_launches,
-        serve_bound=hybrid_serve_bound)
+        serve_bound=hybrid_serve_bound, keep=served_hybrid)
 
     # the last four families at full width and full depth, one at a time
     # (command-r-35b's 60.6 GB of bf16 weights alone on the card): each serve
@@ -3440,13 +3542,15 @@ def main() -> int:
         the median step ms, a host copy of the final params, the argument
         bytes, the peak device memory (`peak_mem_gb`) and its part above
         what the earlier phases still held (`peak_bytes`, the dry run's
-        reference), and with `routes` every MoE call's selection (a
-        RouteRecorder's calls)."""
+        reference, read after `warm_cublas` so that no phase's peak holds
+        the cuBLAS workspaces, whatever ran before it), and with `routes`
+        every MoE call's selection (a RouteRecorder's calls)."""
         t_phase = time.perf_counter()
         tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
                            moment_dtype=moment_dtype, n_layers=n_layers)
         fixed = fixed_batch(get_config(arch).vocab_size, TRAIN_B, seq, batch_seed)
+        warm_bytes = warm_cublas(dev)
         base = torch.cuda.memory_allocated()      # what earlier phases still hold
         t0 = time.perf_counter()
         tr = Trainer(tc, batches=itertools.repeat(fixed))
@@ -3475,6 +3579,7 @@ def main() -> int:
               "step_ms": out["step_s"] * 1e3,
               "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "cublas_warm_bytes": warm_bytes,
               "model_tflops_per_step": flops / 1e12,
               "model_tflops_per_s": flops / out["step_s"] / 1e12,
               "launches_per_step": {k: v / steps for k, v in got.items()},
@@ -3514,8 +3619,8 @@ def main() -> int:
     del unsharded
     failures = sharded_failures(rec, dense_train_launches(get_config(ARCH)))
     worst = sorted(rec["param_rel_l2"], key=rec["param_rel_l2"].get, reverse=True)[:4]
-    emit({"phase": "train_sharded", "nccl": nccl, "reduced": TRAIN_CUT,
-          **{k: v for k, v in rec.items() if k != "param_rel_l2"},
+    emit({"phase": "train_sharded", "nccl": nccl,
+          **{k: v for k, v in rec.items() if k != "param_rel_l2"}, "reduced": TRAIN_CUT,
           "worst_param_rel_l2": {k: rec["param_rel_l2"][k] for k in worst},
           "unsharded_step_ms": rec["ref_step_ms"], "failures": failures})
     if failures:
@@ -3610,9 +3715,20 @@ def main() -> int:
         "train_moe", MOE_ARCH, MOE_TRAIN_STEPS, torch.float32, MOE_TRAIN_CUT,
         lambda c: moe_train_launches(c, TRAIN_S), SEED + 19, n_layers=MOE_TRAIN_LAYERS,
         keep=trained_moe, routes=True)
-    # the same run on the 1 x 1 mesh of one NCCL rank (the MoE's
-    # expert-parallel path, MLA's sharded branches), every route recorded;
-    # then serve_ssm's and serve_moe's runs through Server(mesh=...)
+    # reduced jamba-1.5-large-398b (hybrid_small_config), bf16 moments: the
+    # unsharded reference of train_sharded_hybrid and dryrun_hybrid, every
+    # route recorded
+    trained_hybrid = {}
+    with config_as(HYBRID_ARCH, hybrid_small_config()):
+        by_path["train_hybrid"] = train(
+            "train_hybrid", HYBRID_ARCH, HYBRID_TRAIN_STEPS, torch.bfloat16, HYBRID_TRAIN_CUT,
+            hybrid_train_launches, SEED + 62, seq=HYBRID_TRAIN_S, keep=trained_hybrid,
+            routes=True)
+    # the same runs on the 1 x 1 mesh of one NCCL rank (the MoE's
+    # expert-parallel path, MLA's sharded branches; a period block's Mamba,
+    # MoE and attention layers side by side), every route recorded; then
+    # serve_ssm's, serve_moe's and serve_hybrid's runs through
+    # Server(mesh=...)
     nccl = init_world(dev)
     moe_cut = replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
     with RouteRecorder(L) as recorder:
@@ -3623,8 +3739,8 @@ def main() -> int:
     failures = sharded_failures(rec, moe_train_launches(moe_cut, TRAIN_S))
     if flips:
         failures.append(f"{len(flips)} routes differ from the unsharded run's: {flips[:4]}")
-    emit({"phase": "train_sharded_moe", "nccl": nccl, "reduced": MOE_TRAIN_CUT,
-          **{k: v for k, v in rec.items() if k != "param_rel_l2"},
+    emit({"phase": "train_sharded_moe", "nccl": nccl,
+          **{k: v for k, v in rec.items() if k != "param_rel_l2"}, "reduced": MOE_TRAIN_CUT,
           "worst_param_rel_l2": dict(sorted(rec["param_rel_l2"].items(), key=lambda kv: -kv[1])[:4]),
           "route_flips": len(flips), "unsharded_step_ms": rec["ref_step_ms"],
           "failures": failures})
@@ -3633,21 +3749,60 @@ def main() -> int:
     by_path["train_sharded_moe"] = rec["launches"]
     del trained_moe
     torch.cuda.empty_cache()
-    for phase, arch, ref, prompt, max_len, prompt_seed, path in (
+    with config_as(HYBRID_ARCH, hybrid_small_config()) as small:
+        with RouteRecorder(L) as recorder:
+            rec = train_sharded(dev, trained_hybrid, arch=HYBRID_ARCH, seq=HYBRID_TRAIN_S,
+                                steps=HYBRID_TRAIN_STEPS, batch_seed=SEED + 62)
+    flips = route_flips(trained_hybrid.pop("routes"), recorder.take())
+    failures = sharded_failures(rec, hybrid_train_launches(small))
+    if not (rec["losses_bitwise"] and rec["params_bitwise"]):
+        failures.append("losses or params not bitwise the unsharded run's")
+    if flips:
+        failures.append(f"{len(flips)} routes differ from the unsharded run's: {flips[:4]}")
+    emit({"phase": "train_sharded_hybrid", "nccl": nccl,
+          **{k: v for k, v in rec.items() if k != "param_rel_l2"}, "reduced": HYBRID_TRAIN_CUT,
+          "worst_param_rel_l2": dict(sorted(rec["param_rel_l2"].items(), key=lambda kv: -kv[1])[:4]),
+          "route_flips": len(flips), "unsharded_step_ms": rec["ref_step_ms"],
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"train_sharded_hybrid: {failures}")
+    by_path["train_sharded_hybrid"] = rec["launches"]
+    torch.cuda.empty_cache()
+    # serve_hybrid's cut of jamba (51.6 GB of bf16 weights) is placed on the
+    # mesh leaf by leaf with no copy (a one-rank mesh keeps each leaf's
+    # storage): the peak is printed beside serve_hybrid's
+    for phase, arch, ref, prompt, max_len, prompt_seed, path, config in (
             ("serve_sharded_ssm", SSM_ARCH, served_ssm, SSM_PROMPT, SSM_PROMPT + NEW + 1,
-             SEED + 5, "serve_ssm"),
+             SEED + 5, "serve_ssm", None),
             ("serve_sharded_moe", MOE_ARCH, served_moe, PROMPT, MAX_LEN, SEED + 11,
-             "serve_moe")):
-        rec = serve_sharded(dev, ref, arch=arch, prompt=prompt, max_len=max_len,
-                            prompt_seed=prompt_seed)
+             "serve_moe", None),
+            ("serve_sharded_hybrid", HYBRID_ARCH, served_hybrid, PROMPT, MAX_LEN, SEED + 34,
+             "serve_hybrid", hybrid_serve_config())):
+        t_phase = time.perf_counter()
+        with config_as(arch, config) if config is not None else contextlib.nullcontext():
+            rec = serve_sharded(dev, ref, arch=arch, prompt=prompt, max_len=max_len,
+                                prompt_seed=prompt_seed)
         failures = sharded_serve_failures(rec, by_path[path])
-        emit({"phase": phase, "nvidia_smi": smi, **rec, "failures": failures})
+        emit({"phase": phase, "nvidia_smi": smi, **rec, "failures": failures,
+              "seconds": time.perf_counter() - t_phase})
         if failures:
             raise AssertionError(f"{phase}: {failures}")
         by_path[phase] = rec["launches"]
         torch.cuda.empty_cache()
-    del served_ssm, served_moe
+    del served_ssm, served_moe, served_hybrid
     torch.distributed.destroy_process_group()
+    # train_hybrid's 1 x 1 train cell traced at its shape, held to what
+    # train_hybrid measured
+    t0 = time.perf_counter()
+    rec = dryrun_hybrid_cell(dev, trained_hybrid, hybrid_small_config())
+    failures = dryrun_failures(rec)
+    emit({"phase": "dryrun_hybrid", "nvidia_smi": smi,
+          **{k: v for k, v in rec.items() if k != "cells"},
+          "failures": failures, "seconds": time.perf_counter() - t0})
+    emit({"phase": "dryrun_cell", "cell": "hybrid_train", **rec["cells"]["train"]})
+    if failures:
+        raise AssertionError(f"dryrun_hybrid: {failures}")
+    del trained_hybrid
     # deepseek-v3-671b: its 3 dense layers at full width and the MTP layer,
     # fp32 moments; per layer attn_norm, q_norm (d 1536), kv_norm (at its
     # row pitch) and ffn_norm, each recomputed, the flash passes at <192,

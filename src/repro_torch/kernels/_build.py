@@ -122,8 +122,12 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     """Raise unless `t` is a `dtype` tensor on `device` whose last dim is
     contiguous and, when the kernel reads it in 16-byte vectors (`vector`),
     whose other strides and data pointer keep those loads aligned.  Nothing
-    is cast or copied: a tensor the kernel cannot take is an error."""
-    if not t.is_cuda or t.device != device:
+    is cast or copied: a tensor the kernel cannot take is an error.  A fake
+    tensor (the dry run's, on any device) is held to the same rules but for
+    the data pointer, which it has not: its abstract path refuses what the
+    kernel's refuses."""
+    fake = isinstance(t, FakeTensor)
+    if not (fake or t.is_cuda) or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -134,7 +138,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the last dim must be contiguous")
     vec = 16 // t.element_size()
-    if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
+    if (not fake and t.data_ptr() % 16) or any(st % vec for st in t.stride()[:-1]):
         raise ValueError(f"{name}: data pointer and strides must keep 16-byte "
                          f"alignment (strides {t.stride()})")
 

@@ -12,8 +12,12 @@ the shapes it was given, to every recorder installed by `recording`
 once; attention by its causal pairs.
 
 The test is `isinstance(x, FakeTensor)`, made before the device test: a fake
-CPU tensor traces the card's path, not the plain version's.  A real tensor
-never reaches this module.
+CPU tensor traces the card's path, not the plain version's.  A fake call
+first meets every check a CUDA tensor meets (shapes, dtypes, strides, the
+kernel's limits; `_build.require` holds a fake tensor to all but the data
+pointer it lacks), so the dry run refuses, before it records any work,
+every call the card would refuse.  A real tensor never reaches this
+module.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ CUDA kernels in `csrc/cross_entropy.cu`.
 returns the rows, and lse for the backward, which has no Pallas
 counterpart.  The vocab need not be a multiple of any tile.  A fake tensor
 takes the abstract path (`kernels/abstract.py`: outputs without a launch,
-counted in `<wrapper>.traced`); a CPU tensor the plain version; a CUDA
+counted in `<wrapper>.traced`) after the checks a CUDA tensor meets; a CPU
+tensor the plain version; a CUDA
 tensor launches the kernel or raises.  `<wrapper>.launches` counts kernel
 launches.
 """
@@ -42,14 +43,15 @@ def fused_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits [R, V] bf16; labels [R] int64 in [0, V); mask [R] fp32 ->
     (nll * mask [R] fp32, lse [R] fp32)."""
-    if isinstance(logits, FakeTensor):  # logits read; labels, mask read, nll, lse written
+    fake = isinstance(logits, FakeTensor)
+    if not (fake or logits.is_cuda):
+        return ce_rows_ref(logits, labels, mask)
+    _check("fused_ce", logits, labels, mask)
+    if fake:                            # logits read; labels, mask read, nll, lse written
         r = logits.shape[0]
         return traced(fused_ce, (logits.new_empty((r,), dtype=torch.float32),
                                  logits.new_empty((r,), dtype=torch.float32)),
                       4 * logits.numel(), logits.numel() * logits.element_size() + r * 20)
-    if not logits.is_cuda:
-        return ce_rows_ref(logits, labels, mask)
-    _check("fused_ce", logits, labels, mask)
     r, v = logits.shape
     nll = torch.empty((r,), dtype=torch.float32, device=logits.device)
     lse = torch.empty_like(nll)
@@ -69,12 +71,13 @@ def fused_ce_bwd(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                  lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The gradient of `fused_ce`'s rows weighted by g [R] fp32:
     dlogits [R, V] bf16 = g mask (softmax(logits) - onehot(labels))."""
-    if isinstance(logits, FakeTensor):  # logits read, dlogits written, four [R] rows read
-        return traced(fused_ce_bwd, logits.new_empty(logits.shape), 4 * logits.numel(),
-                      2 * logits.numel() * logits.element_size() + logits.shape[0] * 20)
-    if not logits.is_cuda:
+    fake = isinstance(logits, FakeTensor)
+    if not (fake or logits.is_cuda):
         return ce_bwd_ref(logits, labels, mask, lse, g)
     _check("fused_ce_bwd", logits, labels, mask, ("lse", lse), ("g", g))
+    if fake:                            # logits read, dlogits written, four [R] rows read
+        return traced(fused_ce_bwd, logits.new_empty(logits.shape), 4 * logits.numel(),
+                      2 * logits.numel() * logits.element_size() + logits.shape[0] * 20)
     r, v = logits.shape
     dlogits = torch.empty_like(logits)
     fn = _build.function("ce_bwd_bf16", _BWD_ARGTYPES)

@@ -38,16 +38,25 @@
 // write dx: 6 bytes an element).  Design, one launch:
 // * A persistent grid (as many blocks of 512 threads as fit on the card at
 //   once, launched cooperatively so all are resident), each block cut into
-//   groups of G threads (a power of two from 32 to 512, G >= D / 16); a
-//   group holds one row of x and dy in registers, two 16-byte vectors of
-//   each a thread, while the next row's loads are in flight.  The row's two sums (x^2, dy s x)
-//   are one warp reduction, then across the group's warps through shared
-//   memory and a named barrier: each row is read from device memory once.
+//   groups of G threads (a power of two from 32 to 512, G >= D / (8 V)); a
+//   group holds one row of x and dy in registers, V 16-byte vectors of
+//   each a thread, while the next row's loads are in flight: V = 2 up to
+//   d 8192, V = 4 up to d 16384 (jamba's gated out_norm over d_inner).  The
+//   row's two sums (x^2, dy s x) are one warp reduction, then across the
+//   group's warps through shared memory and a named barrier: each row is
+//   read from device memory once.
 // * A thread owns the same columns in every row, so its dscale partial
-//   stays in registers across its rows.  At the end a block sums its groups'
-//   partials in group order and writes one partial row; after a grid-wide
-//   barrier each block sums 32-column slices of those rows, in block order,
-//   into dscale.  Every sum has a fixed order: the same inputs (on the same
+//   stays with it across its rows: in registers at V = 2; at V = 4, where
+//   two rows of x and dy in flight already take 64 of the 128 registers a
+//   thread of a 512-thread block may hold, in its own columns of the
+//   block's shared partial row (the same adds in the same order; element e
+//   of vector i at e * 2048 + i, so a warp's 32 lanes touch 32 banks and a
+//   thread's 8 columns are one base and constant offsets: at 8 i + e the
+//   adds conflict 8 ways and the kernel ran 1.42x slower, PERF.md), and the
+//   block reads `scale` from a copy in shared memory, not from registers.
+//   At the end a block sums its groups' partials in group order and writes
+//   one partial row; after a grid-wide barrier each block sums 32-column
+//   slices of those rows, in block order, into dscale.  Every sum has a fixed order: the same inputs (on the same
 //   card) give the same bits.
 // * x's rows may lie at a pitch wider than d, as the forward reads them
 //   (kv_norm's 512 of each 576-column row): the backward reads the same
@@ -137,7 +146,15 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 constexpr int kBwdThreads = 512;
-constexpr int kVec = 2;     // 16-byte vectors of x and of dy a thread holds of a row
+constexpr int kBwdNarrowD = 8192;   // the widest row at V = 2 (512 threads x 2 x 8)
+constexpr int kBwdMaxD = 16384;     // at V = 4
+constexpr int kBwdStride = kBwdMaxD / 8;   // a shared partial row's element stride (V = 4)
+
+// Where element e of vector i sits in a V = 4 group's shared partial row:
+// e kBwdStride + i, so the 32 lanes of a warp (32 consecutive i) touch 32
+// banks; at 8 i + e (`tools/kernel_ab.py --make-variant rms-bwd-lane-major`)
+// each shared add is an 8-way bank conflict
+__device__ __forceinline__ int part_at(int i, int e) { return e * kBwdStride + i; }
 
 // Every block of the grid waits here for all the others; the grid is
 // launched cooperatively, so all its blocks are resident.  bar[0] counts
@@ -165,6 +182,8 @@ __device__ __forceinline__ void grid_barrier(unsigned* bar) {
     __syncthreads();
 }
 
+// V 16-byte vectors of x and of dy a thread holds of a row
+template <int V>
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ scale,
@@ -172,40 +191,70 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                    __nv_bfloat16* __restrict__ dx, float* __restrict__ partial,
                    __nv_bfloat16* __restrict__ dscale, unsigned* barrier,
                    int rows, int d, int pitch, int G, float eps) {
-    extern __shared__ float part[];                  // [R][d]: the groups' dscale rows
+    // the dscale partial and scale in shared memory (V = 4: one group of 512
+    // threads, its row's element e of vector i at part_at(i, e)) or in
+    // registers (V = 2)
+    constexpr bool kSharedAcc = V > 2;
+    extern __shared__ float part[];   // [R][d] the groups' dscale rows, or (V = 4)
+                                      // [8][kBwdStride] and then scale
     __shared__ float2 red[2][kBwdThreads / 32];      // (ss, sd) per warp, by row parity
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int R = kBwdThreads / G, grp = tid / G, lg = tid % G;
     const int nvec = d / 8, stride = gridDim.x * R;
     const float inv_d = 1.f / static_cast<float>(d);
+    float* own = part + static_cast<int64_t>(grp) * d;   // this group's partial row
+    uint4* scale_sh = reinterpret_cast<uint4*>(part + kBwdMaxD);
 
-    uint4 sv[kVec];
-    float acc[kVec][8];
-    load_vecs<kVec>(reinterpret_cast<const uint4*>(scale), nvec, lg, G, sv);
+    uint4 sv[kSharedAcc ? 1 : V];
+    float acc[kSharedAcc ? 1 : V][8];
+    if constexpr (kSharedAcc) {
+        for (int i = tid; i < nvec; i += kBwdThreads)
+            scale_sh[i] = reinterpret_cast<const uint4*>(scale)[i];
 #pragma unroll
-    for (int k = 0; k < kVec; ++k)
+        for (int k = 0; k < V; ++k) {
+            const int i = k * G + lg;
+            if (i < nvec)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+                for (int e = 0; e < 8; ++e) own[part_at(i, e)] = 0.f;
+        }
+        __syncthreads();
+    } else {
+        load_vecs<V>(reinterpret_cast<const uint4*>(scale), nvec, lg, G, sv);
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+    }
+    // this thread's k-th 16-byte vector of scale (zeros past the row)
+    auto scale_vec = [&](int k) {
+        if constexpr (kSharedAcc) {
+            const int i = k * G + lg;
+            return i < nvec ? scale_sh[i] : make_uint4(0u, 0u, 0u, 0u);
+        } else {
+            return sv[k];
+        }
+    };
     int row = blockIdx.x * R + grp;
-    uint4 xc[kVec], gc[kVec];
+    uint4 xc[V], gc[V];
     if (row < rows) {
-        load_vecs<kVec>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * pitch),
-                        nvec, lg, G, xc);
-        load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + static_cast<int64_t>(row) * d), nvec,
-                        lg, G, gc);
+        load_vecs<V>(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * pitch),
+                     nvec, lg, G, xc);
+        load_vecs<V>(reinterpret_cast<const uint4*>(dy + static_cast<int64_t>(row) * d), nvec,
+                     lg, G, gc);
     }
     for (int it = 0; row < rows; ++it, row += stride) {
-        uint4 xn[kVec], gn[kVec];
+        uint4 xn[V], gn[V];
         if (row + stride < rows) {      // the next row's loads, in flight meanwhile
             const int64_t next = static_cast<int64_t>(row + stride);
-            load_vecs<kVec>(reinterpret_cast<const uint4*>(x + next * pitch), nvec, lg, G, xn);
-            load_vecs<kVec>(reinterpret_cast<const uint4*>(dy + next * d), nvec, lg, G, gn);
+            load_vecs<V>(reinterpret_cast<const uint4*>(x + next * pitch), nvec, lg, G, xn);
+            load_vecs<V>(reinterpret_cast<const uint4*>(dy + next * d), nvec, lg, G, gn);
         }
         float ss = 0.f, sd = 0.f;                    // sum x^2, sum dy s x
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) {
+        for (int k = 0; k < V; ++k) {
+            const uint4 sk = scale_vec(k);
             const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xc[k]);
-            const __nv_bfloat162* sh = reinterpret_cast<const __nv_bfloat162*>(&sv[k]);
+            const __nv_bfloat162* sh = reinterpret_cast<const __nv_bfloat162*>(&sk);
             const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&gc[k]);
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -231,10 +280,11 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
         const float m = sd * inv_d * r;              // mean(dy s x^)
         uint4* orow = reinterpret_cast<uint4*>(dx + static_cast<int64_t>(row) * d);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) {
+        for (int k = 0; k < V; ++k) {
             const int i = k * G + lg;
+            const uint4 sk = scale_vec(k);
             const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xc[k]);
-            const __nv_bfloat162* sh = reinterpret_cast<const __nv_bfloat162*>(&sv[k]);
+            const __nv_bfloat162* sh = reinterpret_cast<const __nv_bfloat162*>(&sk);
             const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&gc[k]);
             uint4 o;
             __nv_bfloat162* yo = reinterpret_cast<__nv_bfloat162*>(&o);
@@ -245,30 +295,40 @@ rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                 const float xa = f.x * r, xb = f.y * r;
                 yo[j] = __floats2bfloat162_rn(r * (g.x * s2.x - xa * m),
                                               r * (g.y * s2.y - xb * m));
-                acc[k][2 * j] += g.x * xa;
-                acc[k][2 * j + 1] += g.y * xb;
+                if constexpr (kSharedAcc) {
+                    if (i < nvec) {
+                        own[part_at(i, 2 * j)] += g.x * xa;
+                        own[part_at(i, 2 * j + 1)] += g.y * xb;
+                    }
+                } else {
+                    acc[k][2 * j] += g.x * xa;
+                    acc[k][2 * j + 1] += g.y * xb;
+                }
             }
             if (i < nvec) orow[i] = o;
         }
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) {
+        for (int k = 0; k < V; ++k) {
             xc[k] = xn[k];
             gc[k] = gn[k];
         }
     }
 
     // the block's partial row: its groups' partials, in group order
+    if constexpr (!kSharedAcc) {
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-        const int i = k * G + lg;
-        if (i < nvec)
+        for (int k = 0; k < V; ++k) {
+            const int i = k * G + lg;
+            if (i < nvec)
 #pragma unroll
-            for (int e = 0; e < 8; ++e) part[grp * d + 8 * i + e] = acc[k][e];
+                for (int e = 0; e < 8; ++e) own[8 * i + e] = acc[k][e];
+        }
     }
     __syncthreads();
     for (int c = tid; c < d; c += kBwdThreads) {
+        const int at = kSharedAcc ? part_at(c / 8, c % 8) : c;   // column c in a row
         float s = 0.f;
-        for (int q = 0; q < R; ++q) s += part[q * d + c];
+        for (int q = 0; q < R; ++q) s += part[q * d + at];
         partial[static_cast<int64_t>(blockIdx.x) * d + c] = s;
     }
     __threadfence();
@@ -319,15 +379,22 @@ FwdShape fwd_shape(int rows, int d, int sms) {
     return f;
 }
 
-// threads a row: a power of two from 32 to 512 with G * kVec * 8 >= d
+// vectors a thread of the backward holds of a row
+int bwd_vec(int d) { return d > kBwdNarrowD ? 4 : 2; }
+
+// threads a row: a power of two from 32 to 512 with G * V * 8 >= d
 int bwd_group(int d) {
     int g = 32;
-    while (g * kVec * 8 < d && g < kBwdThreads) g *= 2;
+    while (g * bwd_vec(d) * 8 < d && g < kBwdThreads) g *= 2;
     return g;
 }
 
-// the groups' partial rows, reused for dscale's [16][32] column sums
+// the groups' partial rows, reused for dscale's [16][32] column sums; at V =
+// 4 one transposed row at the widest d, then a copy of scale
 int bwd_smem(int d) {
+    if (bwd_vec(d) > 2)
+        return kBwdMaxD * static_cast<int>(sizeof(float)) +
+               d * static_cast<int>(sizeof(__nv_bfloat16));
     const int rows = (kBwdThreads / bwd_group(d)) * d;
     return (rows > kBwdThreads ? rows : kBwdThreads) * static_cast<int>(sizeof(float));
 }
@@ -367,20 +434,22 @@ extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
 // [n_part, d] fp32 scratch, n_part >= 1: the grid takes min(n_part, the
 // blocks the card holds at once, the rows' groups) blocks; barrier: two
 // uint32 that are 0 before the first launch on a stream, left for the next;
-// d % 8 == 0, d <= 8192, pointers 16-byte aligned (the wrapper checks).
+// d % 8 == 0, d <= 16384, pointers 16-byte aligned (the wrapper checks).
 extern "C" int rmsnorm_bwd_bf16(const void* x, const void* scale, const void* dy, void* dx,
                                 void* partial, void* dscale, void* barrier, int rows, int d,
                                 int pitch, int n_part, float eps, void* stream) {
-    if (pitch < d || pitch % 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (pitch < d || pitch % 8 || d > kBwdMaxD) return static_cast<int>(cudaErrorInvalidValue);
     const int smem = bwd_smem(d);
-    cudaError_t e = cudaFuncSetAttribute(rmsnorm_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    void (*kern)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                 __nv_bfloat16*, float*, __nv_bfloat16*, unsigned*, int, int, int, int,
+                 float) = bwd_vec(d) == 2 ? rmsnorm_bwd_kernel<2> : rmsnorm_bwd_kernel<4>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
     int dev = 0, sms = 0, per_sm = 0;
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_bwd_kernel,
-                                                          kBwdThreads, smem);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kBwdThreads, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (sms * per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int G = bwd_group(d), R = kBwdThreads / G;
@@ -391,7 +460,7 @@ extern "C" int rmsnorm_bwd_bf16(const void* x, const void* scale, const void* dy
     void* args[] = {const_cast<void**>(&x), const_cast<void**>(&scale),
                     const_cast<void**>(&dy), &dx, &partial, &dscale, &barrier,
                     &rows, &d, &pitch, const_cast<int*>(&G), &eps};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rmsnorm_bwd_kernel), dim3(blocks),
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(blocks),
                                     dim3(kBwdThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);

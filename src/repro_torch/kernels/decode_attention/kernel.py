@@ -11,9 +11,9 @@ writes each row's log-sum-exp ([B, H] fp32, natural log, -inf at length 0)
 and gives the output in fp32, unrounded: a merge of partials over a cache
 split by its sequence needs both, and then rounds once.
 
-A fake tensor takes the abstract path (`kernels/abstract.py`); a CPU tensor
-the plain version; a CUDA tensor launches the kernel or raises.
-`decode_attention.launches` counts calls that launched the kernel,
+A fake tensor takes the abstract path (`kernels/abstract.py`) after the
+checks a CUDA tensor meets; a CPU tensor the plain version; a CUDA tensor
+launches the kernel or raises.  `decode_attention.launches` counts calls that launched the kernel,
 `decode_attention.traced` fake calls.
 """
 from __future__ import annotations
@@ -78,19 +78,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if isinstance(q, FakeTensor):
-        if return_lse:
-            f32 = torch.float32
-            outs = (q.new_empty((b, h, d), dtype=f32), q.new_empty((b, h), dtype=f32))
-        else:
-            outs = q.new_empty((b, h, d))
-        return traced(decode_attention, outs, *work(q, k, return_lse))
-    if not q.is_cuda:
+    fake = isinstance(q, FakeTensor)
+    if not (fake or q.is_cuda):
         return decode_attention_ref(q, k, v, lengths, scale, return_lse=return_lse)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _build.require(x, name, torch.bfloat16, q.device)
-    if (not lengths.is_cuda or lengths.device != q.device
-            or lengths.dtype != torch.int32 or lengths.shape != (b,)
+    if (lengths.device != q.device or lengths.dtype != torch.int32 or lengths.shape != (b,)
             or not lengths.is_contiguous()):
         raise ValueError("decode_attention: lengths must be a contiguous int32 "
                          f"[{b}] tensor on {q.device}")
@@ -105,6 +98,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cluster not in CLUSTERS:
         raise ValueError(f"decode_attention: cluster must be one of {CLUSTERS}, "
                          f"got {cluster}")
+    if fake:
+        if return_lse:
+            f32 = torch.float32
+            outs = (q.new_empty((b, h, d), dtype=f32), q.new_empty((b, h), dtype=f32))
+        else:
+            outs = q.new_empty((b, h, d))
+        return traced(decode_attention, outs, *work(q, k, return_lse))
     out = torch.empty((b, h, d), dtype=torch.float32 if return_lse else q.dtype,
                       device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None

@@ -29,9 +29,10 @@ DV 128 (deepseek-v2-lite-16b).  out, dO and dv are [..., DV]; q, k, dq and
 dk [..., D].  Every pass takes it natively: v is not padded.
 
 A fake tensor takes the abstract path (`kernels/abstract.py`: outputs
-without a launch, counted in `<wrapper>.traced`, the work by causal pairs);
-a CPU tensor the plain version; a CUDA tensor launches the kernel or
-raises.  `<wrapper>.launches` counts kernel launches.
+without a launch, counted in `<wrapper>.traced`, the work by causal pairs)
+after the checks a CUDA tensor meets, so it refuses what the kernel
+refuses; a CPU tensor the plain version; a CUDA tensor launches the kernel
+or raises.  `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -189,14 +190,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = t if kv_len is None else int(kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if isinstance(q, FakeTensor):       # q read, out and lse written, K and V read
-        out, lse = _empty_like_heads(q, v.shape[-1]), q.new_empty((b, h, s), dtype=torch.float32)
-        flops, nbytes = _fake_work(q, k, v, kv_len, q_offset, causal, 1, 1, 1, 1)
-        return traced(flash_attention_fwd, (out, lse), flops, nbytes - b * h * s * 4)
-    if not q.is_cuda:
+    fake = isinstance(q, FakeTensor)
+    if not (fake or q.is_cuda):
         return attention_with_lse_ref(q, k, v, scale, causal=causal,
                                       q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_fwd", q, k, v, kv_len, q_offset)
+    if fake:                            # q read, out and lse written, K and V read
+        out, lse = _empty_like_heads(q, v.shape[-1]), q.new_empty((b, h, s), dtype=torch.float32)
+        flops, nbytes = _fake_work(q, k, v, kv_len, q_offset, causal, 1, 1, 1, 1)
+        return traced(flash_attention_fwd, (out, lse), flops, nbytes - b * h * s * 4)
     dv = v.shape[-1]
     out = _empty_like_heads(q, dv)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -227,11 +229,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = t if kv_len is None else int(kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if isinstance(q, FakeTensor):       # q, out, dO read, dq written; lse read, delta written
-        outs = (_empty_like_heads(q), q.new_empty((b, h, s), dtype=torch.float32))
-        return traced(flash_attention_bwd_dq, outs,
-                      *_fake_work(q, k, v, kv_len, q_offset, causal, 2, 1, 2, 1))
-    if not q.is_cuda:
+    fake = isinstance(q, FakeTensor)
+    if not (fake or q.is_cuda):
         return attention_bwd_dq_ref(q, k, v, out, do, lse, scale, causal=causal,
                                     q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_bwd_dq", q, k, v, kv_len, q_offset)
@@ -239,6 +238,10 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_like("out", out, (b, h, s, dv), torch.bfloat16, q.device)
     _check_like("do", do, (b, h, s, dv), torch.bfloat16, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
+    if fake:                            # q, out, dO read, dq written; lse read, delta written
+        outs = (_empty_like_heads(q), q.new_empty((b, h, s), dtype=torch.float32))
+        return traced(flash_attention_bwd_dq, outs,
+                      *_fake_work(q, k, v, kv_len, q_offset, causal, 2, 1, 2, 1))
     dq = _empty_like_heads(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd_dq_bf16", _BWD_ARGTYPES)
@@ -271,10 +274,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = t if kv_len is None else int(kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if isinstance(q, FakeTensor):       # q, dO read; K, V read, dk, dv written
-        return traced(flash_attention_bwd_dkv, (_empty_like_heads(k), _empty_like_heads(v)),
-                      *_fake_work(q, k, v, kv_len, q_offset, causal, 2, 2, 1, 2))
-    if not q.is_cuda:
+    fake = isinstance(q, FakeTensor)
+    if not (fake or q.is_cuda):
         return attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal=causal,
                                      q_offset=q_offset, kv_len=kv_len)
     _check("flash_attention_bwd_dkv", q, k, v, kv_len, q_offset)
@@ -286,6 +287,9 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cluster not in DKV_CLUSTERS:
         raise ValueError(f"flash_attention_bwd_dkv: cluster must be one of "
                          f"{DKV_CLUSTERS}, got {cluster}")
+    if fake:                            # q, dO read; K, V read, dk, dv written
+        return traced(flash_attention_bwd_dkv, (_empty_like_heads(k), _empty_like_heads(v)),
+                      *_fake_work(q, k, v, kv_len, q_offset, causal, 2, 2, 1, 2))
     dk, dv = _empty_like_heads(k), _empty_like_heads(v)
     fn = _build.function("flash_attention_bwd_dkv_bf16", _DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

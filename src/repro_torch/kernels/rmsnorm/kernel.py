@@ -5,7 +5,8 @@
 `rmsnorm_bwd` has no Pallas counterpart (JAX differentiates the jnp
 reference) and gives the gradients of both inputs.  A fake tensor takes
 the abstract path (`kernels/abstract.py`: outputs without a launch, counted
-in `<wrapper>.traced`); a CPU tensor the plain version; a CUDA tensor
+in `<wrapper>.traced`) after the checks a CUDA tensor meets, so it refuses
+what the kernel refuses; a CPU tensor the plain version; a CUDA tensor
 launches the kernel or raises.  `<wrapper>.launches` counts kernel launches.
 
 Both directions read x's rows in place at any uniform pitch (`row_pitch`):
@@ -29,9 +30,10 @@ _BWD_ARGTYPES = (_build.PTR,) * 7 + (_build.INT,) * 4 + (_build.FLOAT, _build.PT
 # the forward holds a row in the registers of at most 512 threads, at most
 # eight 16-byte vectors each
 MAX_D = 32768
-# the backward holds a row in the registers of at most 512 threads, two
-# 16-byte vectors of x and of dy each (the widest d_model of the configs)
-MAX_BWD_D = 8192
+# the backward holds a row in the registers of at most 512 threads, four
+# 16-byte vectors of x and of dy each (two up to d 8192): jamba's gated
+# out_norm over d_inner 16384 is the widest row of the configs
+MAX_BWD_D = 16384
 # the backward's partial dscale rows: at most one per block the card holds at
 # once, four 512-thread blocks an SM of an H100 (132 SMs); the kernel takes
 # as many blocks as fit
@@ -41,11 +43,18 @@ _BWD_BLOCKS = 4 * 132
 _BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, name: str) -> None:
+def _check(x: torch.Tensor, scale: torch.Tensor, name: str, max_d: int) -> None:
+    """Raise unless the kernel takes x and scale: bf16 on x's device, D % 8
+    == 0 and D <= max_d, x's rows at one uniform pitch (`row_pitch`)."""
     d = x.shape[-1]
+    _build.require(x, "x", torch.bfloat16, x.device)
+    _build.require(scale, "scale", torch.bfloat16, x.device)
     if scale.shape != (d,) or d % 8:
         raise ValueError(f"{name}: needs x [..., D] with D % 8 == 0 and scale [D]; "
                          f"got {tuple(x.shape)}, {tuple(scale.shape)}")
+    if d > max_d:
+        raise ValueError(f"{name}: D <= {max_d}; got {d}")
+    row_pitch(x)
 
 
 def row_pitch(x: torch.Tensor) -> int:
@@ -74,17 +83,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     """x [..., D], its rows at any uniform pitch; scale [D] -> contiguous
     [..., D] in x's dtype (fp32 math)."""
-    if isinstance(x, FakeTensor):       # 4 flops an element; x read, out written, scale
+    fake = isinstance(x, FakeTensor)
+    if not (fake or x.is_cuda):
+        return rmsnorm_ref(x, scale, eps)
+    _check(x, scale, "rmsnorm", MAX_D)
+    if fake:                            # 4 flops an element; x read, out written, scale
         return traced(rmsnorm, x.new_empty(x.shape), 4 * x.numel(),
                       2 * x.numel() * x.element_size() + scale.numel() * scale.element_size())
-    if not x.is_cuda:
-        return rmsnorm_ref(x, scale, eps)
     d = x.shape[-1]
-    _build.require(x, "x", torch.bfloat16, x.device)
-    _build.require(scale, "scale", torch.bfloat16, x.device)
-    _check(x, scale, "rmsnorm")
-    if d > MAX_D:
-        raise ValueError(f"rmsnorm: D <= {MAX_D}; got {d}")
     pitch = row_pitch(x)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     fn = _build.function("rmsnorm_bf16", _ARGTYPES)
@@ -106,21 +112,19 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     [D]), each in its input's dtype (fp32 math; dscale summed over rows in a
     fixed order).  One launch: a cooperative grid whose blocks meet at a
     grid barrier (`csrc/rmsnorm.cu`)."""
-    if isinstance(x, FakeTensor):       # 10 flops an element; x, dy read, dx written
-        return traced(rmsnorm_bwd, (x.new_empty(x.shape), scale.new_empty(scale.shape)),
-                      10 * x.numel(), 3 * x.numel() * x.element_size()
-                      + 2 * scale.numel() * scale.element_size())
-    if not x.is_cuda:
+    fake = isinstance(x, FakeTensor)
+    if not (fake or x.is_cuda):
         return rmsnorm_bwd_ref(x, scale, dy, eps)
-    d = x.shape[-1]
-    for name, t in (("x", x), ("scale", scale), ("dy", dy)):
-        _build.require(t, name, torch.bfloat16, x.device)
-    _check(x, scale, "rmsnorm_bwd")
+    _check(x, scale, "rmsnorm_bwd", MAX_BWD_D)
+    _build.require(dy, "dy", torch.bfloat16, x.device)
     if dy.shape != x.shape or not dy.is_contiguous():
         raise ValueError(f"rmsnorm_bwd: dy must be contiguous and shaped like x "
                          f"{tuple(x.shape)}; got {tuple(dy.shape)}")
-    if d > MAX_BWD_D:
-        raise ValueError(f"rmsnorm_bwd: D <= {MAX_BWD_D}; got {d}")
+    if fake:                            # 10 flops an element; x, dy read, dx written
+        return traced(rmsnorm_bwd, (x.new_empty(x.shape), scale.new_empty(scale.shape)),
+                      10 * x.numel(), 3 * x.numel() * x.element_size()
+                      + 2 * scale.numel() * scale.element_size())
+    d = x.shape[-1]
     pitch = row_pitch(x)
     rows = x.numel() // d
     n_part = max(1, min(rows, _BWD_BLOCKS))

@@ -13,9 +13,9 @@ plain versions.
 
 A fake tensor takes the abstract path (`kernels/abstract.py`: outputs
 without a launch, counted in `<wrapper>.traced`, the work by `fwd_work` and
-`bwd_work`); a CPU tensor the plain version; a CUDA tensor launches the
-kernel or raises.  `ssd_scan.launches` and `ssd_scan_bwd.launches` count calls that
-launch (the backward makes three CUDA launches a call: the state walkers, the
+`bwd_work`) after the checks a CUDA tensor meets; a CPU tensor the plain
+version; a CUDA tensor launches the kernel or raises.  `ssd_scan.launches`
+and `ssd_scan_bwd.launches` count calls that launch (the backward makes three CUDA launches a call: the state walkers, the
 gradients, da_log's sum).
 """
 from __future__ import annotations
@@ -88,18 +88,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise NotImplementedError(
             "ssd_scan does not differentiate: call ssd_scan_op (the autograd op "
             "whose backward is ssd_scan_bwd), or this under torch.no_grad()")
-    if isinstance(x, FakeTensor):
-        b, s, h, p = x.shape
-        n = B.shape[-1]
-        nbytes, ops = fwd_work(b, s, h, p, n)
-        return traced(ssd_scan, (x.new_empty((b, s, h, p), dtype=torch.float32),
-                                 x.new_empty((b, h, p, n), dtype=torch.float32)), ops, nbytes)
-    if not x.is_cuda:
+    fake = isinstance(x, FakeTensor)
+    if not (fake or x.is_cuda):
         return ssd_scan_ref(x, dt, a_log, B, C, chunk=chunk, h0=h0)
     b, s, h, p = x.shape
     n = B.shape[-1]
     dev = x.device
     _check("ssd_scan", x, dt, a_log, B, C, h0=h0)
+    if fake:
+        nbytes, ops = fwd_work(b, s, h, p, n)
+        return traced(ssd_scan, (x.new_empty((b, s, h, p), dtype=torch.float32),
+                                 x.new_empty((b, h, p, n), dtype=torch.float32)), ops, nbytes)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     h_final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 7)(*x.stride()[:3], *B.stride()[:2], *C.stride()[:2])
@@ -154,16 +153,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     fp32 or None when h0 is None), as `ssd_scan_bwd_ref`.  The inputs are
     those `ssd_scan` takes; dy and dh_final are contiguous.  Deterministic:
     the sums over heads, batches and chunks run in a fixed order."""
-    if isinstance(x, FakeTensor):
-        b, s, h, p = x.shape
-        n = B.shape[-1]
-        nbytes, ops, _ = bwd_work(b, s, h, p, n)
-        f32 = dict(dtype=torch.float32)
-        outs = (x.new_empty((b, s, h, p)), x.new_empty((b, s, h), **f32),
-                x.new_empty((h,), **f32), B.new_empty((b, s, n)), B.new_empty((b, s, n)),
-                None if h0 is None else x.new_empty((b, h, p, n), **f32))
-        return traced(ssd_scan_bwd, outs, ops, nbytes)
-    if not x.is_cuda:
+    fake = isinstance(x, FakeTensor)
+    if not (fake or x.is_cuda):
         return ssd_scan_bwd_ref(x, dt, a_log, B, C, h0, dy, dh_final, chunk=chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -172,6 +163,13 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     _build.require(dy, "dy", torch.float32, dev, vector=False)
     if dy.shape != x.shape:
         raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} is not x's {tuple(x.shape)}")
+    if fake:
+        nbytes, ops, _ = bwd_work(b, s, h, p, n)
+        f32 = dict(dtype=torch.float32)
+        outs = (x.new_empty((b, s, h, p)), x.new_empty((b, s, h), **f32),
+                x.new_empty((h,), **f32), B.new_empty((b, s, n)), B.new_empty((b, s, n)),
+                None if h0 is None else x.new_empty((b, h, p, n), **f32))
+        return traced(ssd_scan_bwd, outs, ops, nbytes)
     dx = torch.empty((b, s, h, p), dtype=torch.bfloat16, device=dev)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     da_log = torch.empty((h,), dtype=torch.float32, device=dev)

@@ -122,11 +122,12 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, mode: StepTrace, devic
 
 def run_cell(arch: str, shape: InputShape, *, mesh_shape: Sequence[int] = (16, 16),
              device: str = "cuda", moment_dtype: Optional[torch.dtype] = None,
-             reduced: bool = False) -> Dict[str, Any]:
+             config: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Trace one cell as rank 0 of a fake group of the mesh's size (any
     shape of two or three dims: (16, 16) and (2, 16, 16) as JAX's, (1, 1)
-    for one card) and return its record; `reduced` traces `cfg.reduced()`."""
-    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    for one card) and return its record; `config` traces a config of its
+    own in place of `arch`'s (its `reduced()` form, or a cut)."""
+    cfg = config or get_config(arch)
     mesh_shape = tuple(mesh_shape)
     n_dev = 1
     for m in mesh_shape:
@@ -152,7 +153,7 @@ def run_cell(arch: str, shape: InputShape, *, mesh_shape: Sequence[int] = (16, 1
                      "balanced routing's sizes (a fake tensor's counts cannot be read; a run "
                      "reads them to the host once a layer)"} if cfg.moe is not None else {})
     return {
-        "arch": arch, "reduced": reduced, "shape": shape.name, "kind": shape.kind,
+        "arch": arch, "reduced": cfg != get_config(arch), "shape": shape.name, "kind": shape.kind,
         "mesh": mesh_name(mesh_shape),
         "devices": n_dev, "device": str(device), "moment_dtype":
             str(opt_cfg.moment_dtype).split(".")[-1] if shape.kind == "train" else None,

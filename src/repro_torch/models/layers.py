@@ -350,9 +350,11 @@ def _whole(t: DTensor) -> DTensor:
 def _placed(t: DTensor, pl) -> DTensor:
     """`t` redistributed to `pl`, or `t` itself where they differ on no mesh
     dim larger than 1 (a placement there moves nothing, and DTensor's
-    redistribute costs host time on every call)."""
+    redistribute costs host time on every call) but for a split of a dim of
+    size 1 that `pl` makes whole (which some of DTensor's ops refuse)."""
     mesh = t.device_mesh
-    if all(p == q or mesh.size(i) == 1 for i, (p, q) in enumerate(zip(t.placements, pl))):
+    if all(p == q or (mesh.size(i) == 1 and not (p.is_shard() and t.shape[p.dim] == 1))
+           for i, (p, q) in enumerate(zip(t.placements, pl))):
         return t
     return t.redistribute(mesh, pl)
 

@@ -375,16 +375,18 @@ def product_plan(eq: str, x_pl: Tuple[Any, ...], w_pl: Tuple[Any, ...], sizes: T
                  x_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
                  w_itemsize: int) -> ProductPlan:
     """The operands' placements for einsum(eq, x, w), per mesh dim of size
-    `sizes[i]` (a dim of size 1 keeps both as they are), worked out once a
-    layout.  Where x splits a dim the product contracts (heads, ff: the
-    row-parallel half of tensor parallelism), w keeps its own split there
-    and the product is a partial sum (`row`); where x splits another dim
-    (its batch), w is whole on it (the FSDP split of d_model is gathered at
-    use); where x is whole, w keeps a split of an output dim (heads, ff,
-    vocab: column parallel), and a split of a contracted dim is either
-    gathered or, where the fp32 sum of the output moves fewer bytes than
-    the gather (a decode step's few tokens), taken as a row split by
-    splitting x there, a local slice."""
+    `sizes[i]` (a dim of size 1 keeps both as they are, but for a split of
+    a weight dim of size 1, made whole: one kv head on a 1 x 1 mesh, which
+    DTensor's einsum views away and its sharding propagation refuses),
+    worked out once a layout.  Where x splits a dim the product contracts
+    (heads, ff: the row-parallel half of tensor parallelism), w keeps its
+    own split there and the product is a partial sum (`row`); where x
+    splits another dim (its batch), w is whole on it (the FSDP split of
+    d_model is gathered at use); where x is whole, w keeps a split of an
+    output dim (heads, ff, vocab: column parallel), and a split of a
+    contracted dim is either gathered or, where the fp32 sum of the output
+    moves fewer bytes than the gather (a decode step's few tokens), taken
+    as a row split by splitting x there, a local slice."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
     split = math.prod(n for n, p in zip(sizes, x_pl) if p.is_shard())
@@ -399,7 +401,8 @@ def product_plan(eq: str, x_pl: Tuple[Any, ...], w_pl: Tuple[Any, ...], sizes: T
             xpl[i] = Shard(xs.index(ws[q.dim]))
     rows = [sizes[i] > 1 and p.is_shard() and xs[p.dim] in ws and xs[p.dim] not in out
             for i, p in enumerate(xpl)]
-    wpl = [q if sizes[i] == 1 or rows[i] else
+    wpl = [(Replicate() if q.is_shard() and w_shape[q.dim] == 1 else q) if sizes[i] == 1 else
+           q if rows[i] else
            Replicate() if p.is_shard() or (q.is_shard() and ws[q.dim] not in out) else q
            for i, (p, q) in enumerate(zip(xpl, w_pl))]
     if not any(rows):

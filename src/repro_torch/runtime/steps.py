@@ -8,9 +8,7 @@ A sharded step is the same `train_step`, `prefill_step` or `serve_step` on
 DTensors, called inside `context.activation_specs(sharding.
 activation_specs_for(mesh_shape(mesh), shape, cfg))`, as JAX's dry run jits
 it under them: the state and the cache come out at the placements they went
-in with (`launch/dryrun.py`'s cells).  The dense, ssm and moe families run
-under a mesh; the hybrid family only on a mesh whose every dim is 1 (its
-period blocks have no sharded form yet).
+in with (`launch/dryrun.py`'s cells).  Every family runs under a mesh.
 
 The abstract-state functions (`abstract_params`, `abstract_opt_state`,
 `abstract_state`, `abstract_cache`, `abstract_batch`) build the same trees
@@ -74,20 +72,11 @@ def train_state_specs(params: Any, cfg: ModelConfig, mesh: sh.MeshShape,
     return {"params": specs, "opt": {"m": specs, "v": specs, "step": None}}
 
 
-def _require_meshable(cfg: ModelConfig, mesh) -> None:
-    """The hybrid family raises on a mesh with a dim larger than 1."""
-    if cfg.family == "hybrid" and mesh.size() > 1:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run under a mesh "
-                         f"larger than 1 yet (mesh {sh.mesh_shape(mesh)})")
-
-
 def shard_train_state(state: Dict[str, Any], cfg: ModelConfig, mesh,
                       policy: sh.ShardingPolicy = sh.ShardingPolicy()) -> Dict[str, Any]:
     """`state` (the same on every rank) on the `DeviceMesh`: every param
     and both moments a DTensor at the placements the table gives the param
-    (no collective: each rank keeps its shard).  The hybrid family raises
-    on a mesh with a dim larger than 1."""
-    _require_meshable(cfg, mesh)
+    (no collective: each rank keeps its shard)."""
     return sh.distribute_tree(
         state, train_state_specs(state["params"], cfg, sh.mesh_shape(mesh), policy), mesh)
 
@@ -95,17 +84,13 @@ def shard_train_state(state: Dict[str, Any], cfg: ModelConfig, mesh,
 def shard_params(params: Any, cfg: ModelConfig, mesh,
                  policy: sh.ShardingPolicy = sh.ShardingPolicy()) -> Any:
     """`params` (the same on every rank) as DTensors at `param_specs`, as
-    JAX's serve cells place them; the hybrid family raises as
-    `shard_train_state` does."""
-    _require_meshable(cfg, mesh)
+    JAX's serve cells place them."""
     return sh.distribute_params(params, model_axes(cfg), mesh, policy)
 
 
 def shard_cache(cache: Any, cfg: ModelConfig, mesh, batch: int, max_len: int) -> Any:
     """`cache` (`init_cache(cfg, batch, max_len, ...)`, the same on every
-    rank) as DTensors at `cache_specs`; the hybrid family raises as
-    `shard_train_state` does."""
-    _require_meshable(cfg, mesh)
+    rank) as DTensors at `cache_specs`."""
     return sh.distribute_tree(cache, sh.cache_specs(cfg, sh.mesh_shape(mesh), batch, max_len),
                               mesh)
 

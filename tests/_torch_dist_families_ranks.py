@@ -77,6 +77,24 @@ def main(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
+def collective_shapes():
+    """A `CommDebugMode` that also keeps each collective's op name and
+    output shape, in order, in `.shapes`."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class Shapes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func.overloadpacket in self.comm_registry and isinstance(out, torch.Tensor):
+                self.shapes.append((func.name(), tuple(out.shape)))
+            return out
+    return Shapes()
+
+
 def _clone(tree):
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.detach().clone(), tree)
@@ -168,26 +186,12 @@ def serve_case(arch, shape, overrides, inputs) -> dict:
     logits (whole), the cache's leaves against `cache_specs`, every
     collective of the decode steps with its output's shape, and the kept
     routes of an MoE model."""
-    from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.configs import InputShape
     from repro_torch.context import activation_specs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.runtime import sharding as sh
     from repro_torch.runtime.steps import shard_batch, shard_cache, shard_params
-
-    class Shapes(CommDebugMode):
-        """CommDebugMode that also keeps each collective's output shape."""
-
-        def __init__(self):
-            super().__init__()
-            self.shapes = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            if func.overloadpacket in self.comm_registry and isinstance(out, torch.Tensor):
-                self.shapes.append((func.name(), tuple(out.shape)))
-            return out
 
     cfg = config(arch, overrides)
     mesh = make_host_mesh(*shape, device_type="cpu")
@@ -209,7 +213,7 @@ def serve_case(arch, shape, overrides, inputs) -> dict:
         with KeptRoutes() as kept:
             rec["plain_logits"].append(prefill(params, {"tokens": toks[:, :p]}, cfg, plain)[0])
         routes = [(sharded.calls, kept.calls, (SERVE_B, p), True)]
-        comm = Shapes()
+        comm = collective_shapes()
         for i in range(SERVE_STEPS):
             batch = shard_batch({"tokens": toks[:, p + i:p + i + 1]}, mesh, dec, for_decode=True)
             with KeptRoutes() as sharded, comm, activation_specs(

@@ -76,7 +76,7 @@ def main(rank: int, tmp: str) -> None:
         out["pipeline"] = pipeline_case(inputs["pipeline"])
         out["elastic"] = elastic_case(tmp, inputs["elastic"])
         out["constrain"] = constrain_case()
-        out["raises"] = raises_case()
+        out["families"] = families_case()
         out["serve"] = {(*case, dt): serve_case(*case, dt, inputs)
                         for case in SERVE_CASES for dt in ("f32", "bf16")}
         torch.save(out, f"{tmp}/rank{rank}.pt")
@@ -259,19 +259,34 @@ def constrain_case() -> dict:
     return rec
 
 
-def raises_case() -> dict:
-    """`shard_train_state` of each non-dense family on a (2, 2) mesh: the
-    refusal's message, or None where the family places."""
+def families_case() -> dict:
+    """`shard_train_state`, `shard_params` and `shard_cache` of each
+    non-dense family's reduced model on a (2, 2) mesh: per arch the leaves
+    not at their spec's placements, or the message of a refusal."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_config
-    from repro_torch.runtime.steps import shard_train_state
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.steps import (make_train_state, model_axes, shard_cache,
+                                           shard_params, shard_train_state, train_state_specs)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    ms = sh.mesh_shape(mesh)
     out = {}
     for arch in ("mamba2-130m", "deepseek-v2-lite-16b", "jamba-1.5-large-398b"):
         cfg = get_config(arch).reduced()
         try:
-            shard_train_state({"params": {}, "opt": {}}, cfg, mesh)
-            out[arch] = None
+            with torch.no_grad():
+                params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+            state = make_train_state(cfg, AdamWConfig(), params=params)
+            faults = sh.misplaced(shard_train_state(state, cfg, mesh),
+                                  train_state_specs(params, cfg, ms), mesh, prefix="state.")
+            faults += sh.misplaced(shard_params(params, cfg, mesh),
+                                   sh.param_specs(params, model_axes(cfg), ms,
+                                                  sh.ShardingPolicy()), mesh, prefix="params.")
+            faults += sh.misplaced(shard_cache(init_cache(cfg, 2, 16, "cpu"), cfg, mesh, 2, 16),
+                                   sh.cache_specs(cfg, ms, 2, 16), mesh, prefix="cache.")
+            out[arch] = faults
         except ValueError as e:
             out[arch] = str(e)
     return out

@@ -8,6 +8,7 @@ collectives' bytes by JAX's conventions (`repro/analysis/hlo.py:155-175`):
 an all-reduce twice its buffer, a reduce-scatter its operand, an
 all-gather its result.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import pytest
 import torch
 
@@ -133,7 +134,7 @@ def test_reduced_train_step_kernel_calls_are_dense_train_launches():
     cfg = get_config("chatglm3-6b").reduced()
     before = launches()
     rec = run_cell("chatglm3-6b", InputShape("train", 64, 2, "train"), mesh_shape=(1, 1),
-                   device="cpu", reduced=True)
+                   device="cpu", config=cfg)
     n = cfg.n_layers
     assert rec["ok"] and launches() == before
     assert rec["kernel_calls"] == {

@@ -1,6 +1,7 @@
 """`chip_smoke.py`'s bookkeeping that needs no card: the kernel resource
 report read from `ptxas -v` logs, its spill gate, and the SSD backward's
 count of work.  The logs here are written by the test in ptxas's format."""
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 import types
 from pathlib import Path

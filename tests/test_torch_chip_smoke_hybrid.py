@@ -3,6 +3,7 @@ serve_hybrid cut and its launch counts, train_check_hybrid's config, and
 `hybrid_train_check`, unit by unit, with and without a planted fault.  Its
 own file, apart from `tests/test_torch_chip_smoke.py`: a file runs on one
 worker, and these take a third of that file's time."""
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 from pathlib import Path
 

@@ -3,6 +3,7 @@ checks (train_check, train_check_ssm, train_check_moe, train_check_v3,
 train_check_hybrid's whole-model reading) held with the CPU on both sides.
 Its own file, apart from `tests/test_torch_chip_smoke.py`: its five cases
 take most of that file's time, and a file runs on one worker."""
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 from pathlib import Path
 

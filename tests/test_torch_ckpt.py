@@ -12,6 +12,7 @@ every family `convert.py` carries (dense, moe with its `prefix`, v3's
 port's Trainer and a port Trainer's restored by JAX, bitwise.  (The port's
 4 + 4 resumed run against 8 steps uninterrupted is in test_torch_data.py.)
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 import subprocess
 import sys

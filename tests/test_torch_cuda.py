@@ -243,7 +243,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.randn(4, 128, device=dev)
     with pytest.raises(TypeError):
         rmsnorm(x, torch.ones(128, device=dev))
-    wide = torch.ones(2, 16384, device=dev, dtype=torch.bfloat16)
+    wide = torch.ones(2, 16392, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):           # the backward holds a row in registers
         rmsnorm_bwd(wide, wide[0], wide)
     wider = torch.ones(2, 32776, device=dev, dtype=torch.bfloat16)
@@ -319,7 +319,10 @@ def test_reduced_frontend_server_on_card_matches_cpu(dev, arch):
 @pytest.mark.parametrize("shape", [(8, 128), (3, 4096), (4096, 4096), (2, 100, 256),
                                    (4097, 4096), (1, 4096), (333, 136), (5, 8192),
                                    (7, 8),
-                                   (4096, 2048)])     # deepseek-v2-lite-16b's train step
+                                   (4096, 2048),      # deepseek-v2-lite-16b's train step
+                                   # four vectors a thread: the widest, a tail
+                                   # of idle vectors, jamba's gated out_norm
+                                   (3, 8200), (5, 12288), (4096, 16384)])
 def test_rmsnorm_bwd_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(5)
     x = _rand(rng, shape, dev, 3.0)

@@ -10,6 +10,7 @@ BServer; the port's Trainer over the pipeline (the loss falls, a restart
 resumes at the checkpoint's step, the RPC report, a run stopped and
 resumed is the uninterrupted run bit for bit).
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import time
 
 import numpy as np

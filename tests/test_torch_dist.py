@@ -35,6 +35,7 @@ Tolerances.  Sharded and plain differ in where sums are split and rounded:
   fp32 and rounded once, where the unsharded one rounds: the sharded and
   plain ports' bf16 logits then sit ~1e-4 apart.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import itertools
 
 import jax
@@ -323,7 +324,7 @@ def test_compressed_psum_tree_is_the_int8_algebra(world):
 
 
 # ---------------------------------------------------------------------------
-# pipeline, elastic restore, constrain, refusals
+# pipeline, elastic restore, constrain, the other families' placement
 # ---------------------------------------------------------------------------
 
 def test_pipeline_forward_matches_sequential_and_jax(world):
@@ -366,15 +367,14 @@ def test_constrain_without_specs_returns_its_argument_and_issues_no_collective(w
 
 
 def test_shard_train_state_refuses_the_other_families_on_a_mesh(world):
-    """Of the other families only the hybrid one is refused on a mesh: the
-    ssm and moe families place (tests/test_torch_dist_families.py runs
-    them)."""
-    for arch, msg in world["ranks"][0]["raises"].items():
-        family = get_config(arch).family
-        if family == "hybrid":
-            assert msg is not None and family in msg and arch in msg
-        else:
-            assert msg is None
+    """No family is refused a mesh: the ssm, moe and hybrid families'
+    reduced train states, params and caches all place on (2, 2), every leaf
+    at its spec's placements (tests/test_torch_dist_families.py and
+    tests/test_torch_dist_hybrid.py run them)."""
+    placed = world["ranks"][0]["families"]
+    assert sorted(get_config(arch).family for arch in placed) == ["hybrid", "moe", "ssm"]
+    for arch, faults in placed.items():
+        assert faults == [], (arch, faults)
 
 
 # ---------------------------------------------------------------------------

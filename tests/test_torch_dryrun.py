@@ -19,6 +19,7 @@ Also here, at the reduced size: `chip_smoke.py`'s `dryrun` phase's cells
 and checks, and its `serve_sharded` phase over a one-rank gloo group (the
 sharded serve path on a 1 x 1 mesh, bitwise the unsharded Server).
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 from pathlib import Path
 
@@ -60,7 +61,7 @@ def records():
         for mesh in MESHES:
             for kind, shape in SHAPES.items():
                 out[(arch, mesh, kind)] = run_cell(arch, shape, mesh_shape=mesh, device="cpu",
-                                                   reduced=True)
+                                                   config=get_config(arch).reduced())
                 assert not dist.is_initialized()
     return out
 
@@ -146,22 +147,21 @@ def test_argument_bytes_are_jaxs_but_named_leaves(records, kind):
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-lite-16b",
                                   "jamba-1.5-large-398b"])
-def test_other_families_refuse_a_mesh_and_leave_no_group(arch):
-    """The hybrid family raises under a mesh larger than 1 (a reduced cell
-    on (2, 2)), and a sweep records the refusal as a failed cell; the ssm
-    and moe families trace that cell (tests/test_torch_dryrun_families.py
-    holds their cells); no process group is left either way."""
-    family = get_config(arch).family
-    if family != "hybrid":
-        assert run_cell(arch, SHAPES["decode"], mesh_shape=(2, 2), device="cpu",
-                        reduced=True)["ok"]
-        assert not dist.is_initialized()
-        return
-    with pytest.raises(ValueError, match=family):
-        run_cell(arch, SHAPES["train"], mesh_shape=(2, 2), device="cpu", reduced=True)
+def test_other_families_refuse_a_mesh_and_leave_no_group(arch, monkeypatch):
+    """No family is refused a mesh any more: each traces a reduced decode
+    cell on (2, 2) (tests/test_torch_dryrun_families.py holds their cells);
+    a sweep records a cell whose trace raises as a failed cell, with the
+    error; no process group is left either way."""
+    from repro_torch.launch import dryrun
+    assert run_cell(arch, SHAPES["decode"], mesh_shape=(2, 2), device="cpu",
+                    config=get_config(arch).reduced())["ok"]
     assert not dist.is_initialized()
+
+    def refused(cfg, *args, **kwargs):
+        raise ValueError(f"{cfg.name}: planted refusal")
+    monkeypatch.setattr(dryrun, "build_cell", refused)
     rec = cell_record(arch, "train_4k", "16x16", "cpu")
-    assert rec["ok"] is False and "ValueError" in rec["error"] and family in rec["error"]
+    assert rec["ok"] is False and "ValueError" in rec["error"] and arch in rec["error"]
     assert not dist.is_initialized()
 
 
@@ -171,7 +171,7 @@ def test_a_cell_refuses_to_replace_a_live_group(tmp_path):
     try:
         with pytest.raises(RuntimeError, match="already initialised"):
             run_cell("chatglm3-6b", SHAPES["decode"], mesh_shape=(1, 1), device="cpu",
-                     reduced=True)
+                     config=get_config("chatglm3-6b").reduced())
         assert dist.get_backend() == "gloo"
     finally:
         dist.destroy_process_group()

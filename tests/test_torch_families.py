@@ -26,6 +26,7 @@ positions are bitwise at the reduced width; at musicgen-large's d 2048 XLA's
 fp32 exp, sin and cos differ from torch's by an ulp here and there, which
 rounds one bf16 ulp apart at a few positions.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 from dataclasses import asdict, replace
 
 import jax

@@ -39,6 +39,7 @@ The JAX references (whole model, and each layer of the unit-by-unit test)
 are jitted with `xla_allow_excess_precision` off, as in
 tests/test_torch_serve.py.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 import itertools
 from dataclasses import asdict, replace

@@ -11,6 +11,7 @@
 * `chip_smoke.py` exits non-zero and prints no result without a card or
   without the repo around it.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import ast
 import importlib
 import inspect
@@ -217,19 +218,23 @@ def test_cpu_tensor_takes_the_plain_version_without_building(name, fake_kernels)
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_dispatch_reads_only_is_cuda_and_never_falls_back(name):
-    """Structurally: the wrapper's first statement after its argument
-    unpacking that branches and returns is `if isinstance(<first arg>,
-    FakeTensor): return <abstract path>`, the next `if not <first
-    arg>.is_cuda: return <plain>`, no other branch returns the plain
-    version, and there is no try."""
+    """Structurally: the wrapper reads `fake = isinstance(<first arg>,
+    FakeTensor)`; its first statement that branches and returns is `if not
+    (fake or <first arg>.is_cuda): return <plain>`, the next `if fake:
+    return traced(...)` (the abstract path, after the checks a CUDA tensor
+    meets); no other branch returns the plain version, and there is no
+    try."""
     mod = importlib.import_module(WRAPPERS[name][0])
     fn = ast.parse(inspect.getsource(getattr(mod, name))).body[0]
     first_arg = fn.args.args[0].arg
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    assigns = [ast.unparse(n) for n in fn.body if isinstance(n, ast.Assign)]
+    assert f"fake = isinstance({first_arg}, FakeTensor)" in assigns
     ifs = [n for n in fn.body if isinstance(n, ast.If)]
-    fake, dispatch = [n for n in ifs if isinstance(n.body[-1], ast.Return)][:2]
-    assert ast.unparse(fake.test) == f"isinstance({first_arg}, FakeTensor)"
-    assert ast.unparse(dispatch.test) == f"not {first_arg}.is_cuda"
+    dispatch, fake = [n for n in ifs if isinstance(n.body[-1], ast.Return)][:2]
+    assert ast.unparse(dispatch.test) == f"not (fake or {first_arg}.is_cuda)"
+    assert ast.unparse(fake.test) == "fake"
+    assert ast.unparse(fake.body[-1].value).startswith("traced(")
     ref = WRAPPERS[name][1]
     calls_ref = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
                  and isinstance(n.func, ast.Name) and n.func.id == ref]

@@ -12,6 +12,7 @@ backward in interpret mode.  The CUDA kernels themselves are checked
 against these plain versions on the card (tests/test_torch_cuda.py and
 chip_smoke.py).
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

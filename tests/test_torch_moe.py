@@ -23,6 +23,7 @@ TOL_BF16), params cast to fp32 at 1e-2, as tests/test_torch_serve.py; the
 aux loss at rtol 1e-5 (fp32 sums).  The whole-model JAX references are
 jitted with `xla_allow_excess_precision` off, as in tests/test_torch_serve.py.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 from dataclasses import asdict, replace
 from unittest import mock
 

@@ -30,6 +30,7 @@ below 3e-2 (here the router's, the experts', most of MLA's) to nothing.
 Each leaf's largest |gradient| is printed beside the atol it is held to,
 and must exceed it.  AdamW: 10 steps on fp32 moments at 1e-5.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import itertools
 from dataclasses import replace
 from unittest import mock

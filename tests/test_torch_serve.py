@@ -17,6 +17,7 @@ the logits differ by up to 0.047 (on logits of magnitude ~3.7), with 1 of
 1024 logits 0.0036 past the bound at the prefill and at one of 8 decode
 steps.  Strict, the largest difference is 0.031 and every logit is inside.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import itertools
 from dataclasses import asdict, fields, replace
 

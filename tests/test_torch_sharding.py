@@ -9,6 +9,7 @@ port keeps one param dict a layer, so JAX's spec of a stacked block leaf is
 `(None, *port_spec)`, trimmed.  Archs: all ten `ARCH_IDS`, reduced (the
 activation and cache specs also at full width, where head counts decide).
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import functools
 import types
 
@@ -238,3 +239,17 @@ def test_bubble_fraction_equals_jaxs():
     for s in range(1, 9):
         for m in range(1, 33):
             assert bubble_fraction(s, m) == jax_bubble_fraction(s, m)
+
+
+@pytest.mark.parametrize("kv_heads,whole", [(1, True), (2, False)])
+def test_product_plan_makes_a_split_weight_dim_of_size_1_whole_on_a_mesh_dim_of_size_1(
+        kv_heads, whole):
+    """wk [d, Hkv, dh] split (data, model) on a 1 x 1 mesh: one kv head is
+    made whole on "model" (DTensor's einsum views the dim away), more are
+    kept as they are; x's placements are kept either way."""
+    from torch.distributed.tensor import Replicate, Shard
+    x_pl, w_pl = (Shard(0), Replicate()), (Shard(0), Shard(1))
+    plan = sh.product_plan("bsd,dhk->bshk", x_pl, w_pl, (1, 1), (2, 8, 16),
+                           (16, kv_heads, 32), 2)
+    assert plan.x == x_pl and not plan.row
+    assert plan.w == ((Shard(0), Replicate()) if whole else w_pl)

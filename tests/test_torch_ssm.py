@@ -32,6 +32,7 @@ The whole-model JAX references are jitted with XLA's
 `xla_allow_excess_precision` off, as in tests/test_torch_serve.py, so that
 XLA rounds every bf16 op as the program states, as the port does.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 from dataclasses import asdict
 from pathlib import Path

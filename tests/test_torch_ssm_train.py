@@ -26,6 +26,7 @@ Tolerances, each with its reason:
 The bf16 JAX reference is jitted with `xla_allow_excess_precision` off, as
 in tests/test_torch_train.py.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import itertools
 from dataclasses import replace
 

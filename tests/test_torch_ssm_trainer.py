@@ -1,6 +1,7 @@
 """The port's Trainer on reduced mamba2-130m over a corpus, on the CPU.
 Its own file, apart from `tests/test_torch_ssm_train.py`: it takes half of
 that file's time, and a file runs on one worker."""
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 
 from repro_torch.launch.train import Trainer, TrainerConfig

@@ -21,6 +21,7 @@ against the JAX package, on the CPU.
   at 1e-2), as tests/test_torch_train.py and tests/test_torch_serve.py
   hold the other reduced models.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import math
 from dataclasses import asdict
 

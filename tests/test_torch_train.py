@@ -17,6 +17,7 @@ off (see tests/test_torch_serve.py).  AdamW updates at 1e-5 on fp32 state
 bf16 moments (whose params then agree to lr / 20 after 10 steps: an fp32
 rounding apart can round a moment one bf16 ulp apart).
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import itertools
 
 import jax

@@ -26,6 +26,7 @@ chip_smoke.NEAR_TIE fail); its tolerances and `_assert_trees_close` hold
 every gradient leaf, `router_bias` asserted exactly zero instead.  AdamW:
 10 steps on fp32 moments at 1e-5, weight decay judged on JAX's layout.
 """
+import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import itertools
 from dataclasses import replace
 from unittest import mock

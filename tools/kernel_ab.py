@@ -26,7 +26,9 @@ into its own `build/`.  The inputs, timer and accuracy measures are
 * `rmsnorm`: the RMSNorm forward at the serve prefill's [2048, 4096], the
   train step's [4096, 4096] and the decode steps' [4, 4096] and [4, 768],
   each checked against its plain version at `chip_smoke.TOL_RMSNORM`, and
-  the RMSNorm backward at the train step's [4096, 4096];
+  the RMSNorm backward at the train step's [4096, 4096] and, where the
+  tree takes it, at jamba's [4096, 16384] (checked by
+  `chip_smoke.rmsnorm_bwd_check`);
 * `decode`: decode attention at the serve runs' lengths (513-576 of a 1024-row cache):
   chatglm3-6b's B 4, H 32, Hkv 2, D 128 and, where the tree takes head dim
   80, stablelm-3b's B 4, H 32, Hkv 32, D 80; at every cluster size where
@@ -93,7 +95,11 @@ DROP_LO = ("\n    {   // control: plain bf16 operands, every lo term dropped\n"
 #   of a pair of heads, so at rep 1 the second warpgroup idles;
 # * rms-one-vector, rms-two-vectors, rms-eight-vectors: the RMSNorm forward
 #   at many rows with one, two or eight 16-byte vectors a thread (512, 256
-#   or 64 threads a row at d 4096) in place of four.
+#   or 64 threads a row at d 4096) in place of four;
+# * rms-bwd-lane-major: the RMSNorm backward's four-vector instance (d 8200
+#   to 16384) with each thread's dscale partial at 8 i + e of the shared
+#   row (its own 32 bytes, an 8-way bank conflict a shared add) in place of
+#   e * 2048 + i.
 VARIANTS = {
     "sw32": ("hopper_sm90.cuh",
              "static constexpr int SW = D * 2 < 128 ? D * 2 : 128;",
@@ -111,6 +117,8 @@ VARIANTS = {
                         "constexpr int kFwdManyRowsVec = 2;"),
     "rms-eight-vectors": ("rmsnorm.cu", "constexpr int kFwdManyRowsVec = 4;",
                           "constexpr int kFwdManyRowsVec = 8;"),
+    "rms-bwd-lane-major": ("rmsnorm.cu", "{ return e * kBwdStride + i; }",
+                           "{ return 8 * i + e; }"),
 }
 GROUPS = ("flash128", "head_dim_80", "rmsnorm", "decode", "ssd", "ssd_bwd")
 
@@ -257,6 +265,18 @@ def timings(dev, groups=GROUPS) -> dict:
         sc = 1.0 + 0.1 * randn(4096)
         res["rmsnorm_bwd_ms"] = cs.time_ms(lambda: rmsnorm_bwd(x, sc, dy), flush)
         del x, dy
+        # jamba-1.5-large-398b's gated out_norm at [4096, 16384], where the
+        # tree's wrapper takes d 16384: checked against its plain version as
+        # chip_smoke.py's row, then timed
+        from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+        if getattr(rms_kernel, "MAX_BWD_D", 0) >= 16384:
+            wrng = cs.bf16_normal(np.random.default_rng(cs.SEED + 61), dev)
+            x, sc = wrng(cs.TRAIN_B * cs.TRAIN_S, 16384, scale=3.0), 1.0 + 0.1 * wrng(16384)
+            dy = wrng(cs.TRAIN_B * cs.TRAIN_S, 16384)
+            res["rmsnorm_bwd_d16384"] = {
+                **cs.rmsnorm_bwd_check(x, sc, dy),
+                "ms": cs.time_ms(lambda: rmsnorm_bwd(x, sc, dy), flush)}
+            del x, dy
 
     if "decode" in groups:
         lens = torch.from_numpy(np.random.default_rng(cs.SEED + 10).integers(
