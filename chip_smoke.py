@@ -209,7 +209,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    group: the Mamba mixer's sharded path (`models/ssm.py`: heads over
    "model", a dim of size 1 here), each loss and param leaf within
    `sharded_failures`' bounds (bitwise so far), `ssm_train_launches` a step,
-   the peak within TOL_SHARDED_PEAK of train_ssm's.  dryrun_ssm —
+   the peak within TOL_SHARDED_PEAK of train_ssm's.  train_sharded_resume —
+   on the same group, train_sharded_ssm's run (its weights, fixed batch and
+   8 x 2048) stopped after step 4 and saved sharded, async, through
+   `CheckpointManager` over DirLib in a temp dir (removed at the end: 34
+   leaves gathered one by one onto rank 0, ~1.29 GB), then restored by
+   `elastic_restore` into a fresh sharded state from another seed, and
+   resumed for steps 5-8 (`sharded_resume_failures`): the restored state
+   bitwise A's at the save and at its placements; the save's MANIFEST a
+   plain save's of the same full tensors (names, shapes, dtypes, crc32s);
+   the checkpoint restored into a plain `like` bitwise too; every loss and
+   the final params bitwise train_sharded_ssm's; `ssm_train_launches` a
+   step; the peak device memory within TOL_SHARDED_PEAK of
+   train_sharded_ssm's plus the largest leaf's bytes.  Printed: the save's
+   gather, copy and write seconds, bytes and files, the restore's seconds,
+   peak host and device memory.  dryrun_ssm —
    mamba2-130m's 1 x 1 train cell traced at train_ssm's shape (fp32
    moments), held as chatglm3-6b's is: argument bytes exactly train_ssm's
    state and batch, the traced peak within TOL_DRYRUN_PEAK of train_ssm's
@@ -400,6 +414,11 @@ TOL_SHARDED_LOSS, TOL_SHARDED_PARAM = 1e-5, 1e-3
 # train_sharded_ssm and train_sharded_moe: the peak device memory within
 # TOL_SHARDED_PEAK (relative) of the unsharded run's (the same device work)
 TOL_SHARDED_PEAK = 0.01
+# train_sharded_resume: train_sharded_ssm's run stopped after step
+# SHARDED_RESUME_STOP, saved sharded (async), restored into a fresh sharded
+# state and resumed; everything bitwise, the peak within TOL_SHARDED_PEAK of
+# train_sharded_ssm's plus the largest leaf's bytes
+SHARDED_RESUME_STOP = 4
 # serve_sharded: the serve phase's chatglm3-6b run again with its params and
 # cache on the same 1 x 1 mesh: the same tokens, the last step's logits
 # bitwise or within TOL_SHARDED_LOGITS (max |diff| over max |logit|)
@@ -1310,10 +1329,13 @@ def ssm_train_launches(cfg) -> dict:
 
 
 def host_copy(state):
-    """A train state's leaves copied to the host, by dotted name."""
+    """A train state's leaves copied to the host, by dotted name (a DTensor
+    leaf gathered whole)."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.tree import tree_leaves
-    return dict(zip(leaf_names(state), (t.detach().to("cpu", copy=True)
-                                        for t in tree_leaves(state))))
+    return dict(zip(leaf_names(state), (
+        (t.full_tensor() if isinstance(t, DTensor) else t).detach().to("cpu", copy=True)
+        for t in tree_leaves(state))))
 
 
 def host_peak_gb():
@@ -1485,7 +1507,7 @@ def init_world(dev) -> str:
 
 def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S,
                   steps=TRAIN_STEPS, moment_dtype=torch.bfloat16, batch_seed=SEED + 4,
-                  counter=None, n_layers=None) -> dict:
+                  counter=None, n_layers=None, keep=None) -> dict:
     """The train phase's run again on a DeviceMesh: the same weights (the
     Trainer's init from SEED) and fixed batch, the state through
     `shard_train_state` on a 1 x 1 (data, model) mesh of the process group
@@ -1497,7 +1519,9 @@ def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S
     L2 error and whether all are bitwise, the leaves not at their spec's
     placements, the launches (`counter`: a (reset, read) pair, by default
     the kernel wrappers' counts), step times and peak memory.
-    `sharded_failures` reads it."""
+    `sharded_failures` reads it.  `keep`, a dict, gets the losses, the
+    final params (host copies, by dotted name) and the peak, for
+    `train_sharded_resume`."""
     from repro_torch.configs import InputShape
     from repro_torch.context import activation_specs
     from repro_torch.kernels import launches, reset_launches
@@ -1548,6 +1572,10 @@ def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S
                    else float((g.float() - want.float()).norm()
                               / max(float(want.float().norm()), 1e-30)))
         bitwise = bitwise and g is not None and torch.equal(g, want)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    if keep is not None:
+        keep.update(losses=losses, params={nm: t.cpu() for nm, t in final.items()},
+                    peak_mem_gb=peak)
     return {"arch": arch, "reduced": reduced, "mesh": ms, "global_batch": batch,
             "seq_len": seq, "steps": steps, "steps_run": len(losses),
             "ref_step_ms": ref.get("step_ms"),
@@ -1559,8 +1587,7 @@ def train_sharded(dev, ref, arch=ARCH, reduced=False, batch=TRAIN_B, seq=TRAIN_S
             "param_rel_l2": rel, "params_bitwise": bitwise, "placement_faults": faults,
             "launches": got, "step_ms": statistics.median(times[1:] or times) * 1e3,
             "step_times_ms": [t * 1e3 for t in times],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
-            "ref_peak_mem_gb": ref.get("peak_mem_gb")}
+            "peak_mem_gb": peak, "ref_peak_mem_gb": ref.get("peak_mem_gb")}
 
 
 def serve_sharded(dev, ref, arch=ARCH, reduced=False, prompt=PROMPT, max_len=MAX_LEN,
@@ -1815,6 +1842,205 @@ def sharded_failures(rec, per_step, peak_tol=None) -> list:
     if peak_tol is not None and not abs(peak - ref_peak) <= peak_tol * ref_peak:
         out.append(f"peak {peak} GB against the unsharded run's {ref_peak} GB (tol "
                    f"{peak_tol})")
+    return out
+
+
+def manifest_diffs(ckpt, other, step) -> list:
+    """The leaves of two managers' MANIFESTs at `step` that differ in name,
+    shape, dtype, part paths (within the step) or crc32s."""
+    def leaves(mgr):
+        return {lm["name"]: (lm["shape"], lm["dtype"],
+                             [(f["path"].split("/")[-2:], f["crc"]) for f in lm["files"]])
+                for lm in mgr.manifest(step).leaves}
+    a, b = leaves(ckpt), leaves(other)
+    return sorted(n for n in set(a) | set(b) if a.get(n) != b.get(n))
+
+
+def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
+                         seq=SSM_TRAIN_S, steps=SSM_TRAIN_STEPS, stop=SHARDED_RESUME_STOP,
+                         moment_dtype=torch.float32, batch_seed=SEED + 15, counter=None) -> dict:
+    """train_sharded's run (`ref`: its kept losses, final params and peak)
+    stopped and resumed through a sharded checkpoint, on a 1 x 1 mesh of
+    the process group (`init_world`): run A takes steps 1..`stop` from the
+    same weights (SEED) and fixed batch, then saves the sharded state async
+    through `CheckpointManager` over DirLib in a temp dir (removed at the
+    end); a fresh sharded state from another seed (SEED + 1) is the
+    `like_state` that `elastic_restore` restores the save into, with the
+    state's specs; run B takes steps `stop` + 1..`steps` from it.  The record
+    holds A's and B's losses beside train_sharded's, the restored state
+    against A's at the save leaf by leaf (bitwise) and its placements, the
+    save's MANIFEST against a plain save of the same state's full tensors,
+    the same checkpoint restored into a plain `like` on the host, B's final
+    params against train_sharded's (bitwise), the restored step and
+    sampler step, each run's launches (`counter`: a (reset, read) pair, by
+    default the kernel wrappers' counts), the save's record (gather, copy,
+    write seconds, bytes, files), the restores' seconds, and peak host and
+    device memory beside train_sharded's peak and the largest leaf's bytes.
+    `sharded_resume_failures` reads it."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import InputShape
+    from repro_torch.context import activation_specs
+    from repro_torch.data import DirLib
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.elastic import elastic_restore
+    from repro_torch.runtime.steps import (shard_batch, shard_train_state, train_state_specs,
+                                           train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    reset, read = counter or (reset_launches, launches)
+    on_card = torch.device(dev).type == "cuda"
+    root = tempfile.mkdtemp(prefix="train_sharded_resume_")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    host_reset = reset_host_peak()
+    t_phase = time.perf_counter()
+    fixed = fixed_batch(get_config_of(arch, reduced).vocab_size, batch, seq, batch_seed)
+    rec = {"arch": arch, "reduced": reduced, "global_batch": batch, "seq_len": seq,
+           "steps": steps, "stop": stop, "moment_dtype": str(moment_dtype).split(".")[-1],
+           "ref_losses": ref["losses"], "ref_peak_mem_gb": ref.get("peak_mem_gb")}
+
+    def trainer(seed):
+        tr = Trainer(TrainerConfig(arch=arch, reduced=reduced, global_batch=batch, seq_len=seq,
+                                   steps=steps, device=str(dev), seed=seed,
+                                   moment_dtype=moment_dtype), batches=[fixed])
+        tr.init_state()
+        return tr
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    try:
+        tr = trainer(SEED)
+        cfg, opt_cfg = tr.cfg, tr.opt_cfg
+        mesh = make_host_mesh(1, 1, device_type=torch.device(dev).type)
+        ms = sh.mesh_shape(mesh)
+        shape = InputShape("train", seq, batch, "train")
+        specs = train_state_specs(tr.state["params"], cfg, ms)
+        state = shard_train_state(tr.state, cfg, mesh)
+        rec["largest_leaf_gb"] = max(t.numel() * t.element_size()
+                                     for t in tree_leaves(state)) / 1e9
+        sbatch = shard_batch(tr._to_device(fixed), mesh, shape)
+        act = sh.activation_specs_for(ms, shape, cfg)
+        del tr
+
+        def run(state, n):
+            losses = []
+            reset()
+            for _ in range(n):
+                with activation_specs(act):
+                    state, metrics = train_step(state, sbatch, cfg, opt_cfg)
+                losses.append(float(metrics["loss"]))          # waits for the step
+            return state, losses, read()
+
+        state, rec["a_losses"], a_launches = run(state, stop)
+        ckpt = CheckpointManager(DirLib(root), "sharded", parts=4, keep_last=2)
+        extra = {"train_step": stop, "sampler": {"step": stop, "seed": SEED}}
+        ckpt.save(stop, state, block=False, extra=extra)
+        saved = host_copy(state)
+        t0 = time.perf_counter()
+        ckpt.wait()
+        rec["wait_s"] = time.perf_counter() - t0
+        rec["save"] = dict(ckpt.saves[-1])
+        # the same values saved plainly, from the host
+        plain = tree_map(lambda t: (t.full_tensor() if isinstance(t, DTensor) else t)
+                         .detach().to("cpu", copy=True), state)
+        CheckpointManager(DirLib(root), "plain", parts=4).save(stop, plain, extra=extra)
+        rec["manifest_diffs"] = manifest_diffs(
+            ckpt, CheckpointManager(DirLib(root), "plain", parts=4), stop)
+        del state
+        tr = trainer(SEED + 1)
+        like = shard_train_state(tr.state, cfg, mesh)
+        del tr
+        sync()
+        t0 = time.perf_counter()
+        res = elastic_restore(ckpt, like, batch, batch, mesh, specs)
+        sync()
+        rec["restore_s"] = time.perf_counter() - t0
+        del like
+        rec["restored_step"], rec["sampler_step"] = res.step, res.sampler.step
+        rec["placement_faults"] = sh.misplaced(res.state, specs, mesh)
+        got = host_copy(res.state)
+        rec["restored_diff_leaves"] = sorted(
+            n for n in set(saved) | set(got)
+            if n not in saved or n not in got or saved[n].dtype != got[n].dtype
+            or not torch.equal(saved[n], got[n]))
+        t0 = time.perf_counter()
+        _, back = ckpt.restore(like=plain)
+        rec["plain_restore_s"] = time.perf_counter() - t0
+        back = dict(zip(leaf_names(back), tree_leaves(back)))
+        rec["plain_restored_diff_leaves"] = sorted(
+            n for n in saved if n not in back or saved[n].dtype != back[n].dtype
+            or not torch.equal(saved[n], back[n]))
+        rec["state_leaves"] = len(saved)
+        del saved, got, back, plain
+        state, rec["b_losses"], b_launches = run(res.state, steps - stop)
+        del res
+        final = host_copy(state["params"])
+        rec["param_diff_leaves"] = sorted(
+            n for n in set(final) | set(ref["params"])
+            if n not in final or n not in ref["params"]
+            or not torch.equal(final[n], ref["params"][n]))
+        del state, final
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["launches"] = {"A": a_launches, "B": b_launches}
+    rec["losses_bitwise"] = rec["a_losses"] + rec["b_losses"] == ref["losses"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["peak_host_gb"], source = host_peak_gb()
+    rec["peak_host_since"] = ("the phase's start" if host_reset and source == "VmHWM"
+                              else f"the process's start ({source})")
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    return rec
+
+
+def sharded_resume_failures(rec, per_step) -> list:
+    """Why `train_sharded_resume`'s record fails its checks (none: it
+    passes): the restore stands at the stop (its step and sampler's); A's
+    losses and B's are train_sharded's, bitwise, and finite; the restored
+    state is A's at the save, every leaf bitwise and at its spec's
+    placements; the save's MANIFEST is a plain save's (names, shapes,
+    dtypes, part paths, crc32s); the checkpoint restored into a plain
+    `like` is the same state bitwise; B's final params are train_sharded's
+    bitwise; each run's launches `per_step` times its steps; the peak
+    device memory (where measured) within TOL_SHARDED_PEAK of
+    train_sharded's peak plus the largest leaf's bytes."""
+    stop, steps = rec["stop"], rec["steps"]
+    out = []
+    if rec["restored_step"] != stop or rec["sampler_step"] != stop:
+        out.append(f"restored at step {rec['restored_step']}, sampler at "
+                   f"{rec['sampler_step']}, not {stop}")
+    ref = rec["ref_losses"]
+    if len(ref) != steps or rec["a_losses"] != ref[:stop]:
+        out.append(f"run A's losses {rec['a_losses']} are not train_sharded's {ref[:stop]}")
+    if rec["b_losses"] != ref[stop:] or len(rec["b_losses"]) != steps - stop:
+        out.append(f"the resumed losses {rec['b_losses']} are not train_sharded's "
+                   f"{ref[stop:]}")
+    if not all(np.isfinite(rec["a_losses"] + rec["b_losses"])):
+        out.append(f"non-finite loss: {rec['a_losses'] + rec['b_losses']}")
+    for key, what in (("restored_diff_leaves", "the restored state differs from A's"),
+                      ("placement_faults", "restored leaves not at their spec's placements"),
+                      ("manifest_diffs", "the sharded save's MANIFEST differs from a plain "
+                                         "save's"),
+                      ("plain_restored_diff_leaves", "the save restored plainly differs"),
+                      ("param_diff_leaves", "the final params differ from train_sharded's")):
+        if rec[key]:
+            out.append(f"{what} in {rec[key]}")
+    for run, n in (("A", stop), ("B", steps - stop)):
+        want = {k: 0 for k in rec["launches"][run]}
+        want.update({k: v * n for k, v in per_step.items()})
+        if rec["launches"][run] != want:
+            out.append(f"run {run}'s launches {rec['launches'][run]} != {n} x {per_step}")
+    peak, ref_peak = rec.get("peak_mem_gb"), rec.get("ref_peak_mem_gb")
+    if peak is not None:
+        bound = (ref_peak + rec["largest_leaf_gb"]) * (1 + TOL_SHARDED_PEAK)
+        if not peak <= bound:
+            out.append(f"peak {peak} GB past {bound} GB (train_sharded's {ref_peak} + the "
+                       f"largest leaf's {rec['largest_leaf_gb']}, + {TOL_SHARDED_PEAK})")
     return out
 
 
@@ -3672,9 +3898,10 @@ def main() -> int:
     # the same run on the 1 x 1 mesh of one NCCL rank: the Mamba mixer's
     # sharded path (heads over "model", a size-1 dim here)
     nccl = init_world(dev)
+    sharded_ssm = {}
     rec = train_sharded(dev, trained_ssm, arch=SSM_ARCH, seq=SSM_TRAIN_S,
                         steps=SSM_TRAIN_STEPS, moment_dtype=torch.float32,
-                        batch_seed=SEED + 15)
+                        batch_seed=SEED + 15, keep=sharded_ssm)
     failures = sharded_failures(rec, ssm_train_launches(get_config(SSM_ARCH)),
                                 peak_tol=TOL_SHARDED_PEAK)
     emit({"phase": "train_sharded_ssm", "nccl": nccl,
@@ -3684,6 +3911,17 @@ def main() -> int:
     if failures:
         raise AssertionError(f"train_sharded_ssm: {failures}")
     by_path["train_sharded_ssm"] = rec["launches"]
+    torch.cuda.empty_cache()
+    # the same run stopped at step 4, saved sharded, restored into a fresh
+    # sharded state and resumed: bitwise train_sharded_ssm's
+    rec = train_sharded_resume(dev, sharded_ssm)
+    del sharded_ssm
+    failures = sharded_resume_failures(rec, ssm_train_launches(get_config(SSM_ARCH)))
+    emit({"phase": "train_sharded_resume", "nvidia_smi": smi, **rec, "failures": failures})
+    if failures:
+        raise AssertionError(f"train_sharded_resume: {failures}")
+    by_path["train_sharded_resume"] = {k: v + rec["launches"]["B"][k]
+                                       for k, v in rec["launches"]["A"].items()}
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
     # mamba2-130m's 1 x 1 train cell traced at train_ssm's shape, held to

@@ -14,9 +14,28 @@ Layout per step:
   must finish first: the port's AdamW writes params and moments in place
   (`optim/adamw.py`), so the next step would change a leaf still being
   read.
+* **Sharded save** — a tree with DTensor leaves (`runtime/steps.py::
+  shard_train_state`'s) is written as JAX's `np.array(x)` writes a sharded
+  `jax.Array`: whole, in the same files.  Each DTensor leaf is gathered
+  whole, one leaf (one block of a stack) at a time, by `full_tensor()`, in
+  `_flatten`'s order on every rank of the leaves' mesh (a collective); rank
+  0 of the mesh copies it to its host and writes every file, plain leaves
+  (`opt.step`) included, and the other ranks free it and write nothing.
+  So a device holds at most one gathered leaf beyond its own shards, and
+  the files are byte for byte a plain save's of the same values.  The
+  gathers finish on every rank before `save` returns; the writer thread
+  issues no collective.  `wait` (and the end of a blocking save) meets on
+  every rank: rank 0 joins its writer, then all ranks reduce a flag over
+  the mesh from the main thread, so that every rank sees the step
+  committed, or every rank raises.
 * **Elastic restore** — arrays are split over `parts` along axis 0 at save
   time; restore reassembles them from the manifest, whatever `parts` the
-  reading manager has.
+  reading manager has.  A leaf of `like` that is a DTensor (or a `Placed`,
+  `runtime/elastic.py`'s description of one) comes back as a DTensor at
+  its placements: each rank reads the leaf's parts one at a time, checks
+  their crc32s and shapes, and copies only its own shard to the device, cut
+  as `runtime/sharding.py::distribute` cuts it.  No collective, no whole
+  leaf on a device, at most the shard and one part file on the host.
 * **Fault tolerance** — shard files carry crc32s recorded in the manifest;
   `restore` verifies them, and `latest_step` skips uncommitted steps.
 
@@ -45,6 +64,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..tree import tree_map
 
@@ -92,16 +113,116 @@ def _flatten(tree: Any, keys: Tuple = ()) -> Iterator[Tuple[str, Any]]:
         yield _leaf_name(list(keys)), tree
 
 
-def _host_copy(leaf: Any) -> torch.Tensor:
-    """A leaf (a tensor, or a `_Stack` of tensors) copied to a new CPU
-    tensor, stacked on axis 0 for a `_Stack`; the copy has finished when
-    this returns."""
-    if isinstance(leaf, _Stack):
-        out = torch.empty((len(leaf), *leaf[0].shape), dtype=leaf[0].dtype)
-        for i, t in enumerate(leaf):
-            out[i].copy_(t.detach())
-        return out
-    return torch.as_tensor(leaf).detach().to("cpu", copy=True)
+def _blocks(leaf: Any) -> list:
+    return list(leaf) if isinstance(leaf, _Stack) else [leaf]
+
+
+def _mesh_of(flat: List[Tuple[str, Any]]) -> Any:
+    """The `DeviceMesh` of the tree's DTensor leaves (None where it has
+    none); they must all lie on one."""
+    mesh = None
+    for name, leaf in flat:
+        for t in _blocks(leaf):
+            if isinstance(t, DTensor):
+                if mesh is not None and t.device_mesh != mesh:
+                    raise ValueError(f"{name}: the DTensor leaves lie on more than one mesh")
+                mesh = t.device_mesh
+    return mesh
+
+
+def _host_copy(leaf: Any, rec: Dict[str, Any], writer: bool = True) -> Optional[torch.Tensor]:
+    """A leaf (a tensor, a DTensor, or a `_Stack` of them) copied to a new
+    CPU tensor, stacked on axis 0 for a `_Stack`, on the writer; None on
+    another rank.  A DTensor is gathered whole first (`full_tensor()`, a
+    collective every rank of its mesh makes), one block at a time, and
+    freed after its copy.  The copy has finished when this returns; `rec`
+    counts the gathers' and copies' seconds and the bytes gathered."""
+    stacked, out = isinstance(leaf, _Stack), None
+    for i, t in enumerate(_blocks(leaf)):
+        if isinstance(t, DTensor):
+            t0 = time.perf_counter()
+            t = t.detach().full_tensor()
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            rec["gather_s"] += time.perf_counter() - t0
+            rec["gathered_bytes"] += t.numel() * t.element_size()
+        if not writer:
+            continue
+        t0 = time.perf_counter()
+        t = torch.as_tensor(t).detach()
+        if not stacked:
+            out = t.to("cpu", copy=True)
+        else:
+            if out is None:
+                out = torch.empty((len(leaf), *t.shape), dtype=t.dtype)
+            out[i].copy_(t)
+        rec["copy_s"] += time.perf_counter() - t0
+    return out
+
+
+def _commit(mesh: Any, ok: bool) -> None:
+    """Every rank of `mesh` meets here, from the main thread: a flag reduced
+    (min) over each mesh dim's group in turn, which orders every rank after
+    rank 0's arrival; raises on every rank where any rank's write failed."""
+    flag = torch.tensor([int(ok)], device=mesh.device_type)
+    for i in range(mesh.ndim):
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.get_group(i))
+    if not int(flag.item()):
+        raise IOError("the sharded save's writer failed: the step is not committed")
+
+
+def _local_ranges(shape: Tuple[int, ...], mesh: Any, pl: Tuple[Any, ...]
+                  ) -> List[Tuple[int, int]]:
+    """[start, stop) of this rank's shard on each dim of a tensor of
+    `shape` at placements `pl` on `mesh`: torch.chunk along each `Shard`'s
+    dim, mesh dim by mesh dim, as `runtime/sharding.py::distribute` cuts
+    it."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the leaf's mesh")
+    rng = [(0, n) for n in shape]
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            if mesh.size(i) > 1:
+                a, b = rng[p.dim]
+                size = -(-(b - a) // mesh.size(i))
+                lo = min(a + coord[i] * size, b)
+                rng[p.dim] = (lo, min(lo + size, b))
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"cannot restore a leaf at placement {p}")
+    return rng
+
+
+def _narrow(t: torch.Tensor, rng: List[Tuple[int, int]], first: int = 0) -> torch.Tensor:
+    for d, (a, b) in enumerate(rng):
+        t = t.narrow(first + d, a, b - a)
+    return t
+
+
+@dataclass(frozen=True)
+class Placed:
+    """What `restore` needs of a leaf of `like`: its global shape, dtype,
+    device and requires_grad, and the mesh and placements of a DTensor
+    (None: a plain tensor).  `of` reads it from a tensor, a DTensor or a
+    fake tensor."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
+    requires_grad: bool = False
+    mesh: Any = None
+    placements: Tuple[Any, ...] = ()
+
+    @staticmethod
+    def of(t: Any) -> "Placed":
+        if isinstance(t, Placed):
+            return t
+        mesh, pl = (t.device_mesh, tuple(t.placements)) if isinstance(t, DTensor) else (None, ())
+        return Placed(tuple(t.shape), t.dtype, t.device, t.requires_grad, mesh, pl)
+
+    def same_layout(self, other: "Placed") -> bool:
+        return ((self.mesh is None) == (other.mesh is None)
+                and (self.mesh is None or self.mesh == other.mesh)
+                and self.placements == other.placements)
 
 
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -150,10 +271,14 @@ class CheckpointManager:
         self.keep_last = keep_last
         self.lib.makedirs(self.base)
         self._inflight: Optional[threading.Thread] = None
+        self._failed: Optional[BaseException] = None    # the writer thread's error
+        self._uncommitted: Any = None     # the mesh of a sharded async save in flight
         self._save_lock = threading.Lock()
         # one record a save: step, wait_s (for the previous async write),
-        # snapshot_s (the copy to host: what blocks the caller), write_s
-        # (the file writes), leaves, bytes and files written
+        # snapshot_s (the copy to host: what blocks the caller), of it
+        # gather_s (a sharded save's gathers) and copy_s (the copies to the
+        # host), gathered_bytes (the whole leaves gathered), write_s (the
+        # file writes), leaves, bytes and files written (0 off the writer)
         self.saves: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------------
@@ -205,30 +330,62 @@ class CheckpointManager:
         layout) as step `step`.  With `block=False` every leaf is copied to
         the host before this returns, and the files are written on a thread
         (`wait` joins it); the previous async save is waited for first, so
-        one copy of the state is held on the host at a time."""
+        one copy of the state is held on the host at a time.  A tree with
+        DTensor leaves is gathered leaf by leaf onto rank 0 of their mesh,
+        which writes it (every rank of the mesh calls `save`); see the
+        module's docstring."""
         extra = extra or {}
-        rec = {"step": step, "block": block, "bytes": 0, "files": 0}
+        rec = {"step": step, "block": block, "bytes": 0, "files": 0, "gather_s": 0.0,
+               "copy_s": 0.0, "gathered_bytes": 0}
         self.saves.append(rec)
         flat = list(_flatten(_jax_layout(tree)))
+        mesh = _mesh_of(flat)
+        writer = mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
         if block:
             # one leaf stacked on the host at a time
             rec["wait_s"] = rec["snapshot_s"] = 0.0
             with self._save_lock:
-                self._write_tree(step, ((n, _host_copy(x)) for n, x in flat), extra, rec)
+                if writer:
+                    self._write_tree(step, ((n, _host_copy(x, rec)) for n, x in flat), extra,
+                                     rec)
+                else:
+                    for _, x in flat:
+                        _host_copy(x, rec, writer=False)
+            if mesh is not None:
+                _commit(mesh, True)
             return
         t0 = time.perf_counter()
         self.wait()
         t1 = time.perf_counter()
-        snap = [(n, _host_copy(x)) for n, x in flat]
+        snap = [(n, _host_copy(x, rec, writer)) for n, x in flat]
         rec["wait_s"], rec["snapshot_s"] = t1 - t0, time.perf_counter() - t1
-        self._inflight = threading.Thread(
-            target=lambda: self._write_tree(step, iter(snap), extra, rec), daemon=True)
-        self._inflight.start()
+        self._uncommitted = mesh
+        if writer:
+            self._inflight = threading.Thread(
+                target=self._write_async, args=(step, snap, extra, rec), daemon=True)
+            self._inflight.start()
+
+    def _write_async(self, step: int, snap: list, extra: Dict[str, Any],
+                     rec: Dict[str, Any]) -> None:
+        try:
+            self._write_tree(step, iter(snap), extra, rec)
+        except BaseException as e:     # raised by `wait`, on the caller's thread
+            self._failed = e
 
     def wait(self) -> None:
+        """Returns once the last async save is committed: its writer thread
+        joined and, for a sharded save, every rank of the mesh met after it
+        (`_commit`).  Raises where the write failed (on every rank of the
+        mesh, for a sharded save)."""
         if self._inflight is not None:
             self._inflight.join()
             self._inflight = None
+        failed, self._failed = self._failed, None
+        mesh, self._uncommitted = self._uncommitted, None
+        if mesh is not None:
+            _commit(mesh, failed is None)
+        if failed is not None:
+            raise IOError("the async save's write failed") from failed
 
     # ------------------------------------------------------------------
     def steps(self) -> List[int]:
@@ -251,16 +408,58 @@ class CheckpointManager:
     def manifest(self, step: int) -> Manifest:
         return Manifest.from_bytes(self.lib.read_file(f"{self._step_dir(step)}/MANIFEST"))
 
-    def _read_leaf(self, lm: Dict[str, Any]) -> torch.Tensor:
-        parts = []
+    def _parts(self, lm: Dict[str, Any]) -> Iterator[Tuple[int, torch.Tensor]]:
+        """(first row on axis 0, part) of each part file of a leaf in turn,
+        its crc32 and its shape checked against the manifest."""
+        row, shape = 0, tuple(lm["shape"])
         for f in lm["files"]:
             blob = self.lib.read_file(f["path"])
             if zlib.crc32(blob) != f["crc"]:
                 raise IOError(f"checksum mismatch in {f['path']}")
-            parts.append(_from_numpy(np.load(io.BytesIO(blob), allow_pickle=False),
-                                     lm["dtype"]))
+            part = _from_numpy(np.load(io.BytesIO(blob), allow_pickle=False), lm["dtype"])
+            del blob
+            if tuple(part.shape[1:]) != shape[1:] or (not shape and part.shape):
+                raise ValueError(f"{f['path']}: part shape {tuple(part.shape)} in a leaf "
+                                 f"of shape {shape}")
+            yield row, part
+            row += part.shape[0] if shape else 1
+        if row != (shape[0] if shape else 1):
+            raise ValueError(f"{lm['name']}: the parts hold {row} rows of {shape}")
+
+    def _read_leaf(self, lm: Dict[str, Any]) -> torch.Tensor:
+        parts = [p for _, p in self._parts(lm)]
         t = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
         return t.reshape(lm["shape"])
+
+    def _read_placed(self, lm: Dict[str, Any], dsts: List[Placed], stacked: bool
+                     ) -> List[torch.Tensor]:
+        """The leaf `lm` read into `dsts` (one, or the blocks of a stack on
+        axis 0), part by part: each gets the rows of its own shard (the
+        whole leaf, where it is plain) copied into a new tensor on its
+        device, cast to its dtype; a DTensor of its mesh and placements,
+        with its requires_grad."""
+        d0 = dsts[0]
+        shape = tuple(d0.shape)
+        rng = _local_ranges(shape, d0.mesh, d0.placements) if d0.mesh is not None else [
+            (0, n) for n in shape]
+        outs = [torch.empty([b - a for a, b in rng], dtype=d.dtype, device=d.device)
+                for d in dsts]
+        for row, part in self._parts(lm):
+            if stacked:
+                for j in range(part.shape[0]):
+                    outs[row + j].copy_(_narrow(part[j], rng))
+            elif not shape:
+                outs[0].copy_(part)
+            else:
+                (a, b), n = rng[0], part.shape[0]
+                lo, hi = max(a, row), min(b, row + n)
+                if lo < hi:
+                    outs[0][lo - a:hi - a].copy_(_narrow(part[lo - row:hi - row], rng[1:], 1))
+        stride = torch.empty(shape, device="meta").stride()
+        return [(o if d.mesh is None else DTensor.from_local(
+                    o, d.mesh, d.placements, run_check=False, shape=torch.Size(shape),
+                    stride=stride)).requires_grad_(d.requires_grad)
+                for o, d in zip(outs, dsts)]
 
     def restore(self, step: Optional[int] = None, *, like: Any = None
                 ) -> Tuple[int, Any]:
@@ -269,8 +468,12 @@ class CheckpointManager:
         Without `like`, a dict of CPU tensors by leaf name (the JAX layout).
         With `like` (the port's layout), a tree of its structure: each leaf
         checked against the shape of `like`'s (stacked, for the blocks),
-        cast to its dtype, put on its device, with its `requires_grad`;
-        read one checkpoint leaf at a time."""
+        cast to its dtype, put on its device, with its `requires_grad`; a
+        DTensor leaf of `like` (or a `Placed` with a mesh) comes back as a
+        DTensor at its placements, each rank holding only its own shard.
+        `like` gives only shapes, dtypes, devices and placements: its leaves
+        may be fake tensors.  Read one checkpoint leaf, one part file at a
+        time; the blocks of a stack must share their placements."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -283,15 +486,16 @@ class CheckpointManager:
         for name, want in _flatten(_jax_layout(like)):
             if name not in by_name:
                 raise KeyError(f"checkpoint missing leaf {name}")
-            t = self._read_leaf(by_name[name])
-            dsts = want if isinstance(want, _Stack) else [want]
-            shape = (len(dsts), *dsts[0].shape) if isinstance(want, _Stack) else tuple(want.shape)
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"{name}: ckpt shape {tuple(t.shape)} != {tuple(shape)}")
-            for i, dst in enumerate(dsts):
-                src = t[i] if isinstance(want, _Stack) else t
-                restored[id(dst)] = src.to(device=dst.device, dtype=dst.dtype,
-                                           copy=True).requires_grad_(dst.requires_grad)
+            stacked = isinstance(want, _Stack)
+            dsts = [Placed.of(d) for d in _blocks(want)]
+            if not all(d.same_layout(dsts[0]) for d in dsts):
+                raise ValueError(f"{name}: the blocks of a stack differ in placements")
+            shape = (len(dsts), *dsts[0].shape) if stacked else dsts[0].shape
+            if tuple(by_name[name]["shape"]) != tuple(shape):
+                raise ValueError(f"{name}: ckpt shape {tuple(by_name[name]['shape'])} != "
+                                 f"{tuple(shape)}")
+            for dst, t in zip(_blocks(want), self._read_placed(by_name[name], dsts, stacked)):
+                restored[id(dst)] = t
         return step, tree_map(lambda x: restored[id(x)], like)
 
     # ------------------------------------------------------------------

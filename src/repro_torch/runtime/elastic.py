@@ -2,23 +2,28 @@
 count changes (node failure, pool resize).  The port of
 `repro/runtime/elastic.py`.
 
-The checkpoint layer already stores arrays whole (part-split along axis 0,
-reassembled on load), so elasticity is a host-side concern:
+The checkpoint layer stores arrays whole (part-split along axis 0; a
+sharded state is gathered leaf by leaf at save time), so elasticity is a
+host-side concern:
 
   1. detect the new device count,
   2. build the largest (data, model) mesh that fits it,
-  3. restore the latest checkpoint and place every leaf by the new mesh's
-     placements,
+  3. restore the latest checkpoint straight onto the new mesh's placements:
+     each rank reads every leaf's part files on its host and copies only its
+     own shard to its device (`CheckpointManager.restore` into `Placed`
+     leaves), as JAX's `device_put(state, shardings)` hands each device its
+     shard, so no device ever holds a whole sharded leaf,
   4. rebuild the sampler at the saved train step.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Optional, Tuple
 
 import torch.distributed as dist
 
 from ..ckpt import CheckpointManager
+from ..ckpt.manager import Placed
 from ..data import ShardedSampler
 from . import sharding as sh
 
@@ -56,11 +61,15 @@ def elastic_restore(ckpt: CheckpointManager, like_state: Any, global_batch: int,
                     n_samples: int, mesh, specs: Any = None) -> ElasticRestore:
     """Restore the latest checkpoint onto the `DeviceMesh` `mesh`.
 
-    `like_state` gives the structure, shapes, dtypes and device (plain
-    tensors); `specs` (optional) is a spec tree matching it built for the
-    NEW mesh (`steps.train_state_specs`), by which every leaf is placed
-    (each rank reads the whole checkpoint and keeps its shard; a leaf whose
-    spec is None stays plain); without it the state stays plain.
+    `like_state` gives only the structure, shapes, dtypes and device: plain
+    tensors, DTensors (on any mesh) or `steps.abstract_state`'s fake
+    tensors, so a state too large for one device needs no real copy of it.
+    `specs` (optional) is a spec tree matching it built for the NEW mesh
+    (`steps.train_state_specs`), by which every leaf is placed as it is
+    read: each rank copies only its own shard of it to the device (a leaf
+    whose spec is None comes back plain, whole on every rank).  Without
+    `specs` each leaf comes back as `like_state`'s is (a DTensor at its
+    placements, else plain).
 
     The sampler stands at the manifest's `train_step`, with the saved seed,
     as the port's `Trainer.init_or_restore` sets it: JAX's elastic restore
@@ -68,9 +77,11 @@ def elastic_restore(ckpt: CheckpointManager, like_state: Any, global_batch: int,
     ahead of training, and would skip batches that were read and never
     trained on.
     """
-    step, state = ckpt.restore(like=like_state)
-    if specs is not None:
-        state = sh.distribute_tree(state, specs, mesh)
+    like = like_state if specs is None else sh.map_specs(
+        like_state, specs, lambda t, s: replace(
+            Placed.of(t), mesh=None if s is None else mesh,
+            placements=() if s is None else tuple(sh.placements(s, mesh))))
+    step, state = ckpt.restore(like=like)
     man = ckpt.manifest(step)
     train_step = int(man.extra.get("train_step", step))
     s = ShardedSampler(n_samples=n_samples, global_batch=global_batch,

@@ -121,15 +121,15 @@ def spec_for(axes_entry: Tuple, shape: Tuple[int, ...], mesh: MeshShape,
     return _spec(*parts)
 
 
-def _walk_specs(params: PyTree, axes: PyTree, fn) -> PyTree:
+def map_specs(params: PyTree, axes: PyTree, fn) -> PyTree:
     """fn(leaf, its axes tuple or None) over the leaves of `params`, looking
     the axes up by the same keys (a leaf the axes tree lacks gets None)."""
     if isinstance(params, dict):
-        return {k: _walk_specs(v, axes.get(k) if isinstance(axes, dict) else None, fn)
+        return {k: map_specs(v, axes.get(k) if isinstance(axes, dict) else None, fn)
                 for k, v in params.items()}
     if isinstance(params, list):
         ok = isinstance(axes, list)
-        return [_walk_specs(v, axes[i] if ok and i < len(axes) else None, fn)
+        return [map_specs(v, axes[i] if ok and i < len(axes) else None, fn)
                 for i, v in enumerate(params)]
     return fn(params, axes if isinstance(axes, tuple) else None)
 
@@ -145,7 +145,7 @@ def param_specs(params: PyTree, axes_tree: PyTree, mesh: MeshShape,
             return ()
         shape = tuple(leaf.shape)
         return spec_for((None,) * (len(shape) - len(ax)) + tuple(ax), shape, mesh, policy)
-    return _walk_specs(params, axes_tree, one)
+    return map_specs(params, axes_tree, one)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +338,7 @@ def distribute_tree(tree: PyTree, specs: PyTree, device_mesh) -> PyTree:
     """Each leaf of `tree` (the same on every rank) as a DTensor placed by
     its spec in `specs`, a tree of the same structure; a leaf whose spec is
     None stays as it is."""
-    return _walk_specs(tree, specs, lambda t, s: t if s is None else distribute(
+    return map_specs(tree, specs, lambda t, s: t if s is None else distribute(
         t, device_mesh, placements(s, device_mesh)))
 
 
