@@ -138,19 +138,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    dim 64, d_state 128, tied embeddings; 129 M params), nothing cut: 8
    steps of batch 8 x 2048 tokens (the Mamba-2 paper's training context),
    fp32 moments, the same checks.  train_resume — the same model and
-   shape through the Trainer's BuffetFS data path and checkpoints, on
-   DirLib in a temp dir (removed at the end): the Trainer's own corpus of
-   128 samples of 2049 tokens, one 8,208-byte file each; run A stops at
-   step 8 of 12 (async checkpoints at 4 and 8: 34 leaves, 133 part files
-   and a MANIFEST, ~1.29 GB each), run B resumes from it and runs 9-12, run
-   C runs 12 steps uninterrupted under another run name.  B's restored
-   state must be A's final state bitwise, leaf by leaf; B's batches C's
-   at steps 9-12 bitwise; B's losses within TOL_RESUME_LOSS of C's
+   shape through the Trainer's BuffetFS data path and checkpoints, on the
+   Trainer's default storage, the port's BuffetFS (`repro_torch.core`: 4
+   in-process BServers backed by a temp dir, removed at the end): the
+   Trainer's own corpus of 128 samples of 2049 tokens, one 8,208-byte file
+   each, read back through the Trainer's client; run A stops at step 8 of
+   12 (async checkpoints at 4 and 8: 34 leaves, 133 part files and a
+   MANIFEST, ~1.29 GB each), run B (a new Trainer, so a new cluster that
+   restarts the servers from what they persisted) resumes from it and runs
+   9-12, run C runs 12 steps uninterrupted under another run name.  B's
+   restored state must be A's final state bitwise, leaf by leaf; B's
+   batches C's at steps 9-12 bitwise; B's losses within TOL_RESUME_LOSS of C's
    (whether bitwise is printed); every loss finite; each run's launches
-   train_ssm's per step.  Printed: each save's blocking copy to the host,
-   its wait for the previous write and its writes, the last wait, the
-   restore, bytes and files written, the pipelines' batches, samples and
-   hedged reads, peak host and device memory.  train_moe — deepseek-v2-lite-16b at
+   train_ssm's per step; every run sent RPCs and no OPEN_RECORD.  Printed:
+   each save's blocking copy to the host, its wait for the previous write
+   and its writes, the last wait, the restore, bytes and files written,
+   each run's critical and async RPCs by verb, the pipelines' batches,
+   samples and hedged reads, peak host and device memory.
+   buffetfs_ingest — the paper's mechanism at that file size on the card
+   machine's host: 4,096 samples of 2049 tokens (8,208-byte files) in 16
+   shard directories of a 4-server cluster, the directories warmed, one
+   epoch read through `DataPipeline` (prefetch, no hedging) with each
+   batch bitwise the batch from memory and its tokens copied to the card;
+   gated exactly (`ingest_failures`): READ RPCs = samples read = the
+   critical-path RPCs, no LOOKUP_DIR, LOOKUP_TREE or OPEN_RECORD, one async
+   CLOSE a READ.  Then every file opened, read and closed one by one
+   through BuffetFS, Lustre-Normal and Lustre-DoM (each baseline on a
+   cluster of its own, its namespace made by the baseline path): critical
+   and async RPCs per file and host wall microseconds per file, no latency
+   injected; BuffetFS's one READ and one CLOSE a file gated.
+   train_moe — deepseek-v2-lite-16b at
    full width, cut to its first 6 of 27 layers (the dense layer and 5 MoE
    layers, ~3.42 B params), fp32 moments: 8 steps of 8 x 512 tokens, the
    same checks (MLA's expanded branch through the <192, 128> flash kernels,
@@ -212,7 +229,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the peak within TOL_SHARDED_PEAK of train_ssm's.  train_sharded_resume —
    on the same group, train_sharded_ssm's run (its weights, fixed batch and
    8 x 2048) stopped after step 4 and saved sharded, async, through
-   `CheckpointManager` over DirLib in a temp dir (removed at the end: 34
+   `CheckpointManager` over the port's BuffetFS (4 in-process BServers in
+   a temp dir, removed at the end: 34
    leaves gathered one by one onto rank 0, ~1.29 GB), then restored by
    `elastic_restore` into a fresh sharded state from another seed, and
    resumed for steps 5-8 (`sharded_resume_failures`): the restored state
@@ -331,12 +349,20 @@ SSD_CHUNK = 64           # the SSD-scan kernel's chunk (csrc/ssd_scan.cu)
 SSM_TRAIN_S, SSM_TRAIN_STEPS = 2048, 8
 # the train_resume phase: full-width mamba2-130m at train_ssm's shape over a
 # corpus of small sample files (the Trainer's own: 128 samples of 2049
-# tokens) and checkpoints in a temp dir through DirLib.  Run A is stopped at
+# tokens) and checkpoints on the Trainer's own BuffetFS (4 in-process
+# BServers backed by a temp dir; each run's Trainer starts them anew over
+# it).  Run A is stopped at
 # step RESUME_STOP of RESUME_STEPS (checkpoints at 4 and 8), run B resumes
 # from A's checkpoint and runs the steps left, run C runs them all
 # uninterrupted; B's losses within TOL_RESUME_LOSS (relative) of C's
 RESUME_STOP, RESUME_STEPS, RESUME_CKPT_EVERY = 8, 12, 4
 TOL_RESUME_LOSS = 1e-3
+# the buffetfs_ingest phase: a corpus of INGEST_FILES samples of train_ssm's
+# 2049 tokens (8,208-byte files) in INGEST_DIRS shard directories on a
+# cluster of INGEST_SERVERS in-process BServers (the Trainer's default), read
+# for one epoch through DataPipeline; then the same files opened, read and
+# closed one by one through BuffetFS, Lustre-Normal and Lustre-DoM
+INGEST_FILES, INGEST_DIRS, INGEST_SERVERS = 4096, 16, 4
 # the serve_stablelm and train_stablelm phases: stablelm-3b, head dim 80
 LM_ARCH, LM_TRAIN_STEPS = "stablelm-3b", 4
 # decode attention's lengths in the serve runs: cache_pos + 1, 513 to 576
@@ -1364,18 +1390,23 @@ def reset_host_peak() -> bool:
 def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN_S,
                  steps=RESUME_STEPS, stop=RESUME_STOP, ckpt_every=RESUME_CKPT_EVERY,
                  counter=None) -> dict:
-    """The Trainer over its BuffetFS data path and checkpoints (DirLib on a
-    temp dir, removed at the end): run A is stopped at step `stop` of
-    `steps`, run B (a new Trainer over the same directory and run name)
-    resumes from A's checkpoint and runs the steps left, run C (another run
-    name, the same corpus) runs all `steps` uninterrupted.  The record
-    holds A's final state against B's restored one leaf by leaf, B's
-    batches and losses against C's at the same steps, every save's times
-    (the blocking copy to the host, the wait for the previous write, the
-    writes on the thread), the last wait, the restore, the bytes and files
-    written, the pipelines' counts, peak host and device memory, and each
-    run's launches (`counter`: a (reset, read) pair, by default the kernel
-    wrappers' counts).  `resume_failures` reads it."""
+    """The Trainer over its BuffetFS data path and checkpoints, on the
+    Trainer's default storage: the port's BuffetFS, a cluster of 4
+    in-process BServers backed by a temp dir (removed at the end).  Run A
+    is stopped at step `stop` of `steps`; run B (a new Trainer over the
+    same directory and run name, so a new cluster that restarts the servers
+    from what they persisted) resumes from A's checkpoint and runs the
+    steps left; run C (another run name, the same corpus) runs all `steps`
+    uninterrupted.  The record holds A's final state against B's restored
+    one leaf by leaf, B's batches and losses against C's at the same steps,
+    every save's times (the blocking copy to the host, the wait for the
+    previous write, the writes on the thread), the last wait, the restore,
+    the bytes and files written, the pipelines' counts, each run's RPCs
+    (the agent's critical and async counts and its count by verb, after its
+    async closes drained), the corpus as read through the Trainer's client,
+    peak host and device memory, and each run's launches (`counter`: a
+    (reset, read) pair, by default the kernel wrappers' counts).
+    `resume_failures` reads it."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.train import Trainer, TrainerConfig
     reset, read = counter or (reset_launches, launches)
@@ -1406,9 +1437,18 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
         reset()
         out = tr.run(until)
         got = read()
+        tr.agent.drain()
+        rpc = tr.agent.stats.snapshot()
+        if name == "A":     # the corpus, through the Trainer's client
+            paths = [p for p in tr.lib.walk_files("/corpus/train") if p.endswith(".tok")]
+            sizes = [len(tr.lib.read_file(p)) for p in paths]
+            rec["corpus"] = {"files": len(sizes), "bytes_each": sorted(set(sizes)),
+                             "shard_dirs": len({p.rsplit("/", 1)[0] for p in paths})}
         tr.shutdown()
         st = tr.pipeline.stats
         rec["runs"][name] = {
+            "n_servers": len(tr.cluster.servers), "critical_rpcs": rpc["critical_path"],
+            "async_rpcs": rpc["async_offpath"], "rpcs_by_type": rpc["by_type"],
             "run_name": run_name, "start_step": tr.start_step, "init_or_restore_s": init_s,
             "steps_run": len(out["losses"]), "losses": out["losses"],
             "step_ms": out["step_s"] * 1e3,
@@ -1422,9 +1462,6 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
     t_phase = time.perf_counter()
     try:
         a, a_seen, _ = run("A", "stopped", until=stop)
-        corpus = os.path.join(root, "corpus", "train", "shard_0000")
-        sizes = [os.path.getsize(os.path.join(corpus, f)) for f in os.listdir(corpus)]
-        rec["corpus"] = {"files": len(sizes), "bytes_each": sorted(set(sizes))}
         a_final = host_copy(a.state)
         del a
         b, b_seen, b_restored = run("B", "stopped")
@@ -1458,9 +1495,16 @@ def resume_failures(rec, per_step) -> list:
     resumes at the stop; its restored state is A's final state bitwise,
     every leaf; its batches are C's at the same steps bitwise; its losses
     are within TOL_RESUME_LOSS of C's; every loss finite; every run's
-    launches `per_step` (name: count, every counted name) times its steps."""
+    launches `per_step` (name: count, every counted name) times its steps;
+    every run went through BuffetFS RPCs and sent no OPEN_RECORD (BuffetFS
+    defers the open onto the first data RPC)."""
     runs, stop = rec["runs"], rec["stop"]
     out = []
+    for name, r in runs.items():
+        if not r["critical_rpcs"] > 0:
+            out.append(f"run {name} sent no critical RPC: {r['rpcs_by_type']}")
+        if r["rpcs_by_type"].get("OPEN_RECORD", 0):
+            out.append(f"run {name} sent {r['rpcs_by_type']['OPEN_RECORD']} OPEN_RECORD")
     if runs["B"]["start_step"] != stop:
         out.append(f"B resumed at step {runs['B']['start_step']}, not {stop}")
     if rec["restored_diff_leaves"]:
@@ -1480,6 +1524,231 @@ def resume_failures(rec, per_step) -> list:
         want.update({k: v * r["steps_run"] for k, v in per_step.items()})
         if r["launches"] != want:
             out.append(f"run {name}'s launches {r['launches']} != {r['steps_run']} x {per_step}")
+    return out
+
+
+def lustre_mkfiles(core, client, blobs, n_dirs, prefix="/corpus") -> list:
+    """The files `blobs` (as many a directory, in `n_dirs` directories under
+    `prefix`) in a namespace made by the Lustre baselines' own path, as
+    `benchmarks/common.py::mkfiles` makes it for them: the whole namespace
+    on the MDS (host 0), each file's object on an OSS (hosts 1.., round
+    robin) under Lustre-Normal and on the MDS under Lustre-DoM.  `client` is
+    a `core.LustreNormalClient` or `core.LustreDoMClient` of a cluster of
+    `core` (either package's BuffetFS); its dentry cache holds every
+    directory afterwards.  Returns the paths, in the order of `blobs`."""
+    Message, MsgType = core.Message, core.MsgType
+    n_servers = client.cluster.n_servers
+    oss = [0] if client.dom or n_servers == 1 else list(range(1, n_servers))
+    per_dir = len(blobs) // n_dirs
+    client.mkdir(prefix)
+    paths = []
+    for i, blob in enumerate(blobs):
+        dname = f"{prefix}/d{i // per_dir:03d}"
+        if i % per_dir == 0:
+            client.mkdir(dname)
+        parent_fid, _ = client._resolve_parent(dname + "/x")
+        path = f"{dname}/f{i % per_dir:05d}"
+        host = oss[i % len(oss)]
+        r = client._rpc(host, Message(MsgType.MKNOD_OBJ, {
+            "is_dir": False, "mode": 0o644, "uid": 0, "gid": 0}))
+        client._rpc(0, Message(MsgType.LINK_DENTRY, {
+            "parent": parent_fid, "name": path.rsplit("/", 1)[1],
+            "ino": r.header["ino"], "perm": r.header["perm"]}))
+        client._rpc(host, Message(MsgType.WRITE, {
+            "file_id": core.Inode.unpack(r.header["ino"]).file_id, "offset": 0}, blob))
+        paths.append(path)
+    client.drain()
+    return paths
+
+
+def open_read_close(client, paths, blobs, flags=0) -> dict:
+    """Each of `paths` opened, read whole and closed through `client` (a
+    BAgent or a Lustre baseline client), its async closes drained after:
+    the RPCs per file by kind and verb (the client's counts, reset first)
+    and the host's wall time per file (no latency injected), every read
+    checked against `blobs`."""
+    client.stats.reset()
+    bad = 0
+    t0 = time.perf_counter()
+    for path, blob in zip(paths, blobs):
+        fd = client.open(path, flags)
+        bad += client.read(fd) != blob
+        client.close(fd)
+    wall = time.perf_counter() - t0
+    client.drain()
+    snap = client.stats.snapshot()
+    n = len(paths)
+    return {"files": n, "bad_reads": bad, "critical_per_file": snap["critical_path"] / n,
+            "async_per_file": snap["async_offpath"] / n,
+            "by_type_per_file": {k: v / n for k, v in sorted(snap["by_type"].items())},
+            "host_wall_us_per_file": wall / n * 1e6}
+
+
+def write_corpus(lib, samples, name, shard_size, root="/corpus") -> None:
+    """`BuffetDataset.build`'s corpus of `samples` (the same paths, bytes
+    and INDEX; no replicas), written through `BLib.write_files`, one call a
+    shard directory, whose creates go to each host in one BATCH: the same
+    namespace in fewer round trips than a CREATE a file."""
+    from repro_torch.data import DatasetSpec, encode_sample
+    base = f"{root}/{name}"
+    lib.makedirs(base)
+    counts = []
+    for si in range(0, max(1, -(-len(samples) // shard_size))):
+        shard = samples[si * shard_size:(si + 1) * shard_size]
+        sdir = f"{base}/shard_{si:04d}"
+        lib.makedirs(sdir)
+        lib.write_files([f"{sdir}/s_{j:06d}.tok" for j in range(len(shard))],
+                        [encode_sample(x) for x in shard])
+        counts.append(len(shard))
+    spec = DatasetSpec(name=name, n_shards=len(counts), samples_per_shard=counts)
+    lib.write_file(f"{base}/INDEX", json.dumps(spec.__dict__).encode())
+
+
+def buffetfs_ingest(dev, n_files=INGEST_FILES, n_dirs=INGEST_DIRS, seq=SSM_TRAIN_S,
+                    batch=TRAIN_B, n_servers=INGEST_SERVERS, seed=SEED + 70,
+                    agent_cls=None) -> dict:
+    """The paper's mechanism at the Trainer's file size, on the host of the
+    card's machine.  A corpus of `n_files` samples of seq + 1 tokens (of
+    mamba2-130m's vocab, drawn from `seed`) is written in
+    `BuffetDataset.build`'s layout (`write_corpus`) into `n_dirs` shard
+    directories on a cluster of
+    `n_servers` in-process BServers (the port's BuffetFS, in a temp dir
+    removed at the end); the shard directories are warmed, the agent's
+    async closes drained and its counts reset; then one epoch (n_files //
+    batch batches) is read through `DataPipeline` (prefetch on, no
+    hedging), each batch held bitwise to the same batch built from the
+    samples in memory (`corpus_batches`) and its tokens copied to `dev`,
+    where they are summed.  The samples read are counted at the dataset
+    (the pipeline's thread reads ahead of the epoch), and the agent's RPCs
+    after the pipeline stops and its closes drain.  Then every file is
+    opened, read and closed one by one (`open_read_close`) through the same
+    agent, and through `core.LustreNormalClient` and `core.LustreDoMClient`,
+    each on a cluster of its own whose namespace the baseline path made
+    (`lustre_mkfiles`) with the same bytes.  `agent_cls` (default
+    `core.BAgent`) builds the BuffetFS agent.  `ingest_failures` reads the
+    record."""
+    import threading
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.data import (BuffetDataset, DataPipeline, ShardedSampler,
+                                  corpus_batches, encode_sample)
+    vocab = get_config(SSM_ARCH).vocab_size
+    corpus = list(np.random.default_rng(seed).integers(
+        1, vocab, size=(n_files, seq + 1)).astype(np.uint32))
+    root = tempfile.mkdtemp(prefix="buffetfs_ingest_")
+    rec = {"files": n_files, "shard_dirs": n_dirs, "n_servers": n_servers,
+           "tokens_each": seq + 1, "global_batch": batch, "seq_len": seq}
+    clusters, clients = [], []
+    t_phase = time.perf_counter()
+    try:
+        cluster = core.BuffetCluster(root_dir=os.path.join(root, "buffetfs"),
+                                     n_servers=n_servers)
+        clusters.append(cluster)
+        agent = (agent_cls or core.BAgent)(cluster)
+        clients.append(agent)
+        lib = core.BLib(agent)
+        t0 = time.perf_counter()
+        write_corpus(lib, corpus, "ingest", n_files // n_dirs)
+        agent.drain()
+        ds = BuffetDataset(lib, name="ingest")
+        rec["build_s"] = time.perf_counter() - t0
+        blobs = [encode_sample(s) for s in corpus]
+        rec["bytes_each"] = sorted({len(b) for b in blobs})
+        ds.warm_dirs()
+        agent.drain()
+        agent.stats.reset()
+        reads, lock, read_sample = [0], threading.Lock(), ds.read_sample
+
+        def counted(idx, **kw):
+            with lock:
+                reads[0] += 1
+            return read_sample(idx, **kw)
+        ds.read_sample = counted
+        n_batches = n_files // batch
+        pipe = DataPipeline(ds, ShardedSampler(n_samples=n_files, global_batch=batch,
+                                               dp_rank=0, dp_size=1),
+                            seq_len=seq, hedge_delay_s=None)
+        want = corpus_batches(corpus, ShardedSampler(n_samples=n_files, global_batch=batch,
+                                                     dp_rank=0, dp_size=1), seq)
+        mismatched, dev_sum, host_sum = 0, torch.zeros((), dtype=torch.long, device=dev), 0
+        t0 = time.perf_counter()
+        for b, w in zip(itertools.islice(pipe, n_batches), want):
+            mismatched += any(b[k].tobytes() != w[k].tobytes() for k in w)
+            dev_sum += torch.as_tensor(b["tokens"]).to(dev).sum()
+            host_sum += int(w["tokens"].sum())
+        dev_sum = int(dev_sum)          # waits for the copies
+        epoch_s = time.perf_counter() - t0
+        pipe.stop()
+        agent.drain()
+        snap = agent.stats.snapshot()
+        rec["epoch"] = {
+            "batches": n_batches, "batches_mismatched": mismatched,
+            "samples_read": reads[0], "pipeline_samples": pipe.stats.samples,
+            "token_sum_device": dev_sum, "token_sum_host": host_sum,
+            "critical_rpcs": snap["critical_path"], "async_rpcs": snap["async_offpath"],
+            "by_type": snap["by_type"], "host_wall_s": epoch_s,
+            "samples_per_s": n_batches * batch / epoch_s}
+        ds.read_sample = read_sample
+        paths = [ds.sample_path(i) for i in range(n_files)]
+        systems = {"buffetfs": open_read_close(agent, paths, blobs)}
+        for name, cls in (("lustre_normal", core.LustreNormalClient),
+                          ("lustre_dom", core.LustreDoMClient)):
+            cl = core.BuffetCluster(root_dir=os.path.join(root, name), n_servers=n_servers)
+            clusters.append(cl)
+            client = cls(cl)
+            clients.append(client)
+            t0 = time.perf_counter()
+            lpaths = lustre_mkfiles(core, client, blobs, n_dirs)
+            systems[name] = {"build_s": time.perf_counter() - t0,
+                             **open_read_close(client, lpaths, blobs)}
+        rec["systems"] = systems
+    finally:
+        for c in clients:
+            c.shutdown()
+        for c in clusters:
+            c.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def ingest_failures(rec) -> list:
+    """Why `buffetfs_ingest`'s record fails its checks (none: it passes):
+    over the epoch, READ RPCs equal the samples read, the critical-path
+    RPCs equal READ, no LOOKUP_DIR, LOOKUP_TREE or OPEN_RECORD, and the
+    async RPCs are CLOSEs, one a READ (`tests/test_data_and_ckpt.py`'s
+    pipeline property, exact); every sample was read at least once, every
+    batch is bitwise the batch from memory, the device's token sum the
+    host's; and BuffetFS's open, read and close of a file costs one
+    critical RPC (READ) and one async (CLOSE).  Every system read back its
+    files' bytes.  The Lustre counts are not gated here (the CPU tests hold
+    them to the JAX package's)."""
+    out = []
+    ep = rec["epoch"]
+    bt = ep["by_type"]
+    read = bt.get("READ", 0)
+    if read != ep["samples_read"]:
+        out.append(f"READ {read} != samples read {ep['samples_read']}")
+    if ep["critical_rpcs"] != read:
+        out.append(f"critical RPCs {ep['critical_rpcs']} != READ {read}")
+    for verb in ("LOOKUP_DIR", "LOOKUP_TREE", "OPEN_RECORD"):
+        if bt.get(verb, 0):
+            out.append(f"{bt[verb]} {verb} in the epoch")
+    if bt.get("CLOSE", 0) != read or ep["async_rpcs"] != read:
+        out.append(f"CLOSE {bt.get('CLOSE', 0)} / async {ep['async_rpcs']} != READ {read}")
+    if ep["samples_read"] < rec["files"]:
+        out.append(f"{ep['samples_read']} samples read of {rec['files']}")
+    if ep["batches_mismatched"]:
+        out.append(f"{ep['batches_mismatched']} batches differ from the corpus's")
+    if ep["token_sum_device"] != ep["token_sum_host"]:
+        out.append(f"device token sum {ep['token_sum_device']} != {ep['token_sum_host']}")
+    bfs = rec["systems"]["buffetfs"]
+    if bfs["critical_per_file"] != 1 or bfs["async_per_file"] != 1 or \
+            bfs["by_type_per_file"] != {"CLOSE": 1.0, "READ": 1.0}:
+        out.append(f"BuffetFS open/read/close per file: {bfs}")
+    for name, r in rec["systems"].items():
+        if r["bad_reads"] or r["files"] != rec["files"]:
+            out.append(f"{name}: {r['bad_reads']} of {r['files']} reads differ")
     return out
 
 
@@ -1863,9 +2132,10 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
     stopped and resumed through a sharded checkpoint, on a 1 x 1 mesh of
     the process group (`init_world`): run A takes steps 1..`stop` from the
     same weights (SEED) and fixed batch, then saves the sharded state async
-    through `CheckpointManager` over DirLib in a temp dir (removed at the
-    end); a fresh sharded state from another seed (SEED + 1) is the
-    `like_state` that `elastic_restore` restores the save into, with the
+    through `CheckpointManager` over the port's BuffetFS (4 in-process
+    BServers backed by a temp dir, removed at the end); a fresh sharded
+    state from another seed (SEED + 1) is the `like_state` that
+    `elastic_restore` restores the save into, with the
     state's specs; run B takes steps `stop` + 1..`steps` from it.  The record
     holds A's and B's losses beside train_sharded's, the restored state
     against A's at the save leaf by leaf (bitwise) and its placements, the
@@ -1874,14 +2144,15 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
     params against train_sharded's (bitwise), the restored step and
     sampler step, each run's launches (`counter`: a (reset, read) pair, by
     default the kernel wrappers' counts), the save's record (gather, copy,
-    write seconds, bytes, files), the restores' seconds, and peak host and
-    device memory beside train_sharded's peak and the largest leaf's bytes.
+    write seconds, bytes, files), the restores' seconds, the storage's RPCs
+    (critical, async, by verb), and peak host and device memory beside
+    train_sharded's peak and the largest leaf's bytes.
     `sharded_resume_failures` reads it."""
     from torch.distributed.tensor import DTensor
+    from repro_torch import core
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.configs import InputShape
     from repro_torch.context import activation_specs
-    from repro_torch.data import DirLib
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import Trainer, TrainerConfig
@@ -1893,6 +2164,7 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
     reset, read = counter or (reset_launches, launches)
     on_card = torch.device(dev).type == "cuda"
     root = tempfile.mkdtemp(prefix="train_sharded_resume_")
+    cluster = agent = None
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1915,6 +2187,9 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
             torch.cuda.synchronize()
 
     try:
+        cluster = core.BuffetCluster(root_dir=root, n_servers=INGEST_SERVERS)
+        agent = core.BAgent(cluster)
+        lib = core.BLib(agent)
         tr = trainer(SEED)
         cfg, opt_cfg = tr.cfg, tr.opt_cfg
         mesh = make_host_mesh(1, 1, device_type=torch.device(dev).type)
@@ -1938,7 +2213,7 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
             return state, losses, read()
 
         state, rec["a_losses"], a_launches = run(state, stop)
-        ckpt = CheckpointManager(DirLib(root), "sharded", parts=4, keep_last=2)
+        ckpt = CheckpointManager(lib, "sharded", parts=4, keep_last=2)
         extra = {"train_step": stop, "sampler": {"step": stop, "seed": SEED}}
         ckpt.save(stop, state, block=False, extra=extra)
         saved = host_copy(state)
@@ -1949,9 +2224,9 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
         # the same values saved plainly, from the host
         plain = tree_map(lambda t: (t.full_tensor() if isinstance(t, DTensor) else t)
                          .detach().to("cpu", copy=True), state)
-        CheckpointManager(DirLib(root), "plain", parts=4).save(stop, plain, extra=extra)
+        CheckpointManager(lib, "plain", parts=4).save(stop, plain, extra=extra)
         rec["manifest_diffs"] = manifest_diffs(
-            ckpt, CheckpointManager(DirLib(root), "plain", parts=4), stop)
+            ckpt, CheckpointManager(lib, "plain", parts=4), stop)
         del state
         tr = trainer(SEED + 1)
         like = shard_train_state(tr.state, cfg, mesh)
@@ -1986,7 +2261,15 @@ def train_sharded_resume(dev, ref, arch=SSM_ARCH, reduced=False, batch=TRAIN_B,
             if n not in final or n not in ref["params"]
             or not torch.equal(final[n], ref["params"][n]))
         del state, final
+        agent.drain()
+        rpc = agent.stats.snapshot()
+        rec["rpcs"] = {"critical": rpc["critical_path"], "async": rpc["async_offpath"],
+                       "by_type": rpc["by_type"]}
     finally:
+        if agent is not None:
+            agent.shutdown()
+        if cluster is not None:
+            cluster.shutdown()
         shutil.rmtree(root, ignore_errors=True)
     rec["launches"] = {"A": a_launches, "B": b_launches}
     rec["losses_bitwise"] = rec["a_losses"] + rec["b_losses"] == ref["losses"]
@@ -3936,15 +4219,25 @@ def main() -> int:
     if failures:
         raise AssertionError(f"dryrun_ssm: {failures}")
     del trained_ssm
-    # mamba2-130m again, over the Trainer's BuffetFS data path (DirLib) with
-    # checkpoints: stopped at step 8 of 12, resumed, against 12 uninterrupted
+    # mamba2-130m again, over the Trainer's own BuffetFS (4 BServers) with
+    # checkpoints: stopped at step 8 of 12, resumed over restarted servers,
+    # against 12 uninterrupted
     rec = train_resume(dev)
     failures = resume_failures(rec, ssm_train_launches(get_config(SSM_ARCH)))
-    emit({"phase": "train_resume", **rec, "failures": failures})
+    emit({"phase": "train_resume", "nvidia_smi": smi, **rec, "failures": failures})
     if failures:
         raise AssertionError(f"train_resume: {failures}")
     by_path["train_resume"] = {k: sum(r["launches"][k] for r in rec["runs"].values())
                                for k in rec["runs"]["A"]["launches"]}
+    # the paper's mechanism at the Trainer's file size: an epoch of 4,096
+    # samples through DataPipeline over the port's BuffetFS, one READ and
+    # one async CLOSE a sample; then the files opened, read and closed
+    # through BuffetFS and the two Lustre baselines
+    rec = buffetfs_ingest(dev)
+    failures = ingest_failures(rec)
+    emit({"phase": "buffetfs_ingest", "nvidia_smi": smi, **rec, "failures": failures})
+    if failures:
+        raise AssertionError(f"buffetfs_ingest: {failures}")
     # deepseek-v2-lite-16b: the dense layer and 5 MoE layers at full width,
     # fp32 moments; per layer attn_norm, kv_norm (at its row pitch) and
     # ffn_norm, each recomputed, and the three flash passes at <192, 128>

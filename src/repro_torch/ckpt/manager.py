@@ -50,7 +50,7 @@ bf16 leaf is written as its bits in a 2-byte void array (`.npy` descr
 `|V2`, manifest dtype "bfloat16"), which JAX's restore views as bfloat16;
 a void part is read back (JAX writes `<V2`) through an `int16` view into
 `torch.bfloat16`.  Nothing here needs `ml_dtypes`.  `lib` is the storage
-client the caller passes in (a `repro.core.BLib`, or `data.dirfs.DirLib`).
+client the caller passes in (a `repro_torch.core.BLib`, or `data.dirfs.DirLib`).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ Layout (directory-granular placement spreads shard dirs across BServers):
 
 Reading a sample is open()+read()+close() of one small file: under BuffetFS
 that is ONE critical-path RPC once shard directories are cached.  `lib` is
-the storage client the caller passes in (a `repro.core.BLib`, or
+the storage client the caller passes in (a `repro_torch.core.BLib`, or
 `dirfs.DirLib` on a local directory); this module makes on it exactly the
 calls the JAX module makes on a `BLib`.
 """

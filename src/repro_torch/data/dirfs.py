@@ -2,11 +2,11 @@
 code, on a local directory.
 
 The port's `BuffetDataset`, `DataPipeline` and `CheckpointManager` talk to
-a client object the caller passes in: a `repro.core.BLib` over a BuffetFS
-cluster, or, where the caller has none (the CLI, `chip_smoke.py`), this
-stand-in.  It offers the calls those modules make on a `BLib`, and no
-others: `makedirs`, `write_file`, `read_file`, `listdir`, `exists`,
-`unlink`, `walk_files`, and `agent.warm(dir)`.  A path `/a/b` is
+a client object the caller passes in: a `repro_torch.core.BLib` over a
+BuffetFS cluster (what the Trainer builds itself when it is given none),
+or this stand-in on a local directory.  It offers the calls those modules
+make on a `BLib`, and no others: `makedirs`, `write_file`, `read_file`,
+`listdir`, `exists`, `unlink`, `walk_files`, and `agent.warm(dir)`.  A path `/a/b` is
 `<root>/a/b`.  Its warm does nothing and it counts no RPCs: `agent.stats`
 is None, so the Trainer reports no RPC counts for it.  A file is written
 to a temporary name and renamed, so a reader never sees half of one.

@@ -19,13 +19,17 @@ Batches come from a corpus of small sample files read through BuffetFS,
 as the JAX Trainer reads them (`data.BuffetDataset`: one file a sample,
 shard directories warmed once, then `data.DataPipeline`'s prefetch thread
 and hedged reads), over the storage client the caller passes as `lib` (a
-`repro.core.BLib`), or else over `data.DirLib` on `tc.data_dir` (a temp
-dir when none is given).  The corpus found there is reused; else the given
-one, or one synthesised as the JAX Trainer does, is written.  Every
-`ckpt_every` steps and at the last step the state is saved to
-`/ckpt/<run_name>` through `ckpt.CheckpointManager` (async, atomic,
-crc-checked, in the JAX package's layout), and `init_or_restore` resumes
-from the latest one when `tc.resume` is set.  A caller that passes
+`core.BLib`, or `data.DirLib` on a local directory), or else, as the JAX
+Trainer does, over the port's own BuffetFS: a `core.BuffetCluster` of
+`tc.n_servers` in-process servers backed by `tc.data_dir` (a temp dir when
+none is given), a `core.BAgent` and a `core.BLib` over it, shut down with
+the Trainer.  A new Trainer over the same `data_dir` restarts the servers
+from what they persisted and resumes.  The corpus found there is reused;
+else the given one, or one synthesised as the JAX Trainer does, is
+written.  Every `ckpt_every` steps and at the last step the state is
+saved to `/ckpt/<run_name>` through `ckpt.CheckpointManager` (async,
+atomic, crc-checked, in the JAX package's layout), and `init_or_restore`
+resumes from the latest one when `tc.resume` is set.  A caller that passes
 `batches=` (any iterable of numpy batch dicts in the format `DataPipeline`
 yields: tokens, labels, loss_mask) gets no dataset and no checkpoint.
 Runs on `cuda` unless the config says `device="cpu"`.
@@ -59,9 +63,10 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import core
 from ..ckpt import CheckpointManager
 from ..configs import get_config
-from ..data import BuffetDataset, DataPipeline, DirLib, ShardedSampler
+from ..data import BuffetDataset, DataPipeline, ShardedSampler
 from ..optim import AdamWConfig
 from ..runtime.steps import make_train_state, make_train_step_fn
 from .serve import resolve_device
@@ -78,9 +83,10 @@ class TrainerConfig:
     ckpt_every: int = 20
     log_every: int = 10
     run_name: str = "run0"
+    n_servers: int = 4
     hedge_delay_s: Optional[float] = None
     resume: bool = True
-    data_dir: Optional[str] = None      # DirLib's directory when no lib is given
+    data_dir: Optional[str] = None      # the BuffetFS cluster's backing directory
     device: str = "cuda"
     seed: int = 0                       # random weights
     moment_dtype: torch.dtype = torch.float32
@@ -108,7 +114,8 @@ class Trainer:
                                    warmup_steps=max(1, tc.steps // 20),
                                    moment_dtype=tc.moment_dtype)
         self.lib = self.dataset = self.sampler = self.pipeline = self.ckpt = None
-        self._rm_root = None
+        self.cluster = self.agent = None
+        self._close_storage = None
         if batches is None:
             self._setup_storage(lib, corpus)
             self.batches = self._pipeline_batches()
@@ -123,11 +130,7 @@ class Trainer:
         JAX Trainer sets them up over its cluster."""
         tc = self.tc
         if lib is None:
-            root = tc.data_dir
-            if root is None:   # nothing could resume from it: removed with the Trainer
-                root = tempfile.mkdtemp(prefix="buffetfs_train_")
-                self._rm_root = weakref.finalize(self, shutil.rmtree, root, True)
-            lib = DirLib(root)
+            lib = self._start_buffetfs()
         self.lib = lib
         if corpus is None:   # synthesise one, as the JAX Trainer does
             rng = np.random.default_rng(0)
@@ -150,6 +153,28 @@ class Trainer:
                                      hedge_delay_s=tc.hedge_delay_s)
         self.ckpt = CheckpointManager(self.lib, tc.run_name, parts=4,
                                       keep_last=2)
+
+    def _start_buffetfs(self) -> Any:
+        """The port's BuffetFS over `tc.data_dir`, as the JAX Trainer builds
+        it: a cluster of `tc.n_servers` servers, an agent and a BLib.  A
+        cluster that cannot start raises.  The agent, the cluster and a temp
+        dir made here go with the Trainer (`shutdown`, or when it is
+        collected)."""
+        root = self.tc.data_dir
+        made = root is None     # nothing could resume from it: removed with the Trainer
+        if made:
+            root = tempfile.mkdtemp(prefix="buffetfs_train_")
+        cluster = agent = None
+        try:
+            cluster = core.BuffetCluster(root_dir=root, n_servers=self.tc.n_servers)
+            agent = core.BAgent(cluster)
+        except BaseException:
+            _close_storage(agent, cluster, root if made else None)
+            raise
+        self.cluster, self.agent = cluster, agent
+        self._close_storage = weakref.finalize(self, _close_storage, agent, cluster,
+                                               root if made else None)
+        return core.BLib(agent)
 
     def _pipeline_batches(self) -> Iterator[Dict[str, np.ndarray]]:
         # a generator: the pipeline's thread starts at the first batch, after
@@ -260,13 +285,25 @@ class Trainer:
         return out
 
     def shutdown(self) -> None:
-        """Stops the pipeline and waits for a save in flight; a temp dir the
-        Trainer made itself is removed.  The caller owns a `lib` it passed."""
+        """Stops the pipeline and waits for a save in flight; then shuts down
+        the agent and the cluster the Trainer built, as the JAX Trainer does,
+        and removes a temp dir it made.  The caller owns a `lib` it passed."""
         if self.pipeline is not None:
             self.ckpt.wait()
             self.pipeline.stop()
-        if self._rm_root is not None:
-            self._rm_root()
+        if self._close_storage is not None:
+            self._close_storage()
+
+
+def _close_storage(agent: Any, cluster: Any, rm_root: Optional[str]) -> None:
+    """Shuts down a Trainer's own BuffetFS (the agent drains its async
+    closes first) and removes its temp dir."""
+    if agent is not None:
+        agent.shutdown()
+    if cluster is not None:
+        cluster.shutdown()
+    if rm_root is not None:
+        shutil.rmtree(rm_root, ignore_errors=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -297,7 +334,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     finally:
         tr.shutdown()
     print(f"[trainer] done: final_loss={out['final_loss']:.4f} steps={out['steps']} "
-          f"step_s={out['step_s']:.3f} tokens_per_s={out['tokens_per_s']:.1f}")
+          f"step_s={out['step_s']:.3f} tokens_per_s={out['tokens_per_s']:.1f} "
+          f"critical_rpcs={out['critical_rpcs']} async_rpcs={out['async_rpcs']}")
 
 
 if __name__ == "__main__":

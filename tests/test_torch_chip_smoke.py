@@ -347,9 +347,18 @@ def test_train_resume_counts_train_ssms_launches_and_fails_a_planted_leaf(monkey
     failures = cs.resume_failures(rec, cs.ssm_train_launches(cfg))
     assert rec["runs"]["B"]["start_step"] == cs.RESUME_STOP
     assert [r["steps_run"] for r in rec["runs"].values()] == [8, 4, 12]
-    assert rec["corpus"] == {"files": 128, "bytes_each": [12 + 65 * 4]}
+    assert rec["corpus"] == {"files": 128, "bytes_each": [12 + 65 * 4], "shard_dirs": 1}
     assert rec["runs"]["A"]["launches"] == {k: 8 * v for k, v in
                                             cs.ssm_train_launches(cfg).items()}
+    # every run over the Trainer's own 4-server BuffetFS: RPCs counted, the
+    # samples read with no open RPC, the checkpoints written and B's read
+    for name, r in rec["runs"].items():
+        bt = r["rpcs_by_type"]
+        assert r["n_servers"] == 4 and r["critical_rpcs"] > 0 and r["async_rpcs"] > 0
+        assert "OPEN_RECORD" not in bt and bt["READ"] >= 2 * r["steps_run"], (name, bt)
+        assert bt["WRITE"] >= 134 * len(r["saves"]) and bt["CLOSE"] == r["async_rpcs"]
+    assert "CREATE" in rec["runs"]["A"]["rpcs_by_type"]
+    assert rec["runs"]["B"]["rpcs_by_type"]["READ"] > rec["runs"]["A"]["rpcs_by_type"]["READ"] / 2
     if not fault:
         assert failures == [] and rec["losses_bitwise"]
         assert [s["step"] for s in rec["runs"]["C"]["saves"]] == [4, 8, 12]

@@ -73,6 +73,10 @@ def test_train_sharded_resume_is_bitwise_train_sharded_on_a_one_rank_mesh(monkey
     # every param and both fp32 moments gathered whole; opt.step is plain
     assert save["gathered_bytes"] == sum(t.numel() * (t.element_size() + 8) for t in params)
     assert save["gather_s"] >= 0 and save["copy_s"] > 0 and save["write_s"] > 0
+    # the checkpoints went over the port's BuffetFS: RPCs counted, no open RPC
+    rpcs = rec["rpcs"]
+    assert rpcs["critical"] > 0 and rpcs["async"] == rpcs["by_type"]["CLOSE"]
+    assert "OPEN_RECORD" not in rpcs["by_type"] and rpcs["by_type"]["WRITE"] >= 2 * 134
 
 
 def _record(per_step, stop=4, steps=8):

@@ -61,6 +61,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.runtime.elastic", "repro_torch.launch.mesh",
             "repro_torch.analysis.model_math", "repro_torch.analysis.trace",
             "repro_torch.launch.dryrun", "repro_torch.kernels.abstract"} <= set(mods)
+    assert {f"repro_torch.core.{m}" for m in CORE_MODULES} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import importlib.util\n"
@@ -91,6 +92,40 @@ def test_no_source_names_jax_or_repro(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path}: imports {n}"
+
+
+# the port's BuffetFS: `repro.core`'s modules, one for one
+CORE_MODULES = ("wire", "perms", "inode", "service", "transport", "repl", "bserver",
+                "baselines", "cluster", "bagent", "blib", "failure")
+
+
+def test_core_holds_the_jax_packages_modules_and_public_names():
+    names = sorted(p.stem for p in (PKG / "core").glob("*.py"))
+    assert names == sorted(CORE_MODULES + ("__init__",))
+    jax_names = sorted(p.stem for p in (ROOT / "src" / "repro" / "core").glob("*.py"))
+    assert names == jax_names
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "core").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_core_imports_the_standard_library_and_itself_only(path):
+    """Every import of `repro_torch.core` is of the standard library or
+    relative (within the package): its servers register into its own
+    `SERVER_OPS` and never reach `repro.` or any other package."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top == "__future__" or top in sys.stdlib_module_names, \
+                f"{path}: imports {n}"
+            assert not n.startswith("repro"), f"{path}: imports {n}"
 
 
 # ---------------------------------------------------------------------------
