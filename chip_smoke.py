@@ -150,7 +150,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    restored state must be A's final state bitwise, leaf by leaf; B's
    batches C's at steps 9-12 bitwise; B's losses within TOL_RESUME_LOSS of C's
    (whether bitwise is printed); every loss finite; each run's launches
-   train_ssm's per step; every run sent RPCs and no OPEN_RECORD.  Printed:
+   train_ssm's per step; every run sent RPCs and no OPEN_RECORD; every
+   run's servers, instrumented by `repro_torch.core.analysis`'s
+   LockOrderRecorder once its Trainer is built (its saves, reads and
+   restarts, against the pipeline's prefetch thread, the checkpoint
+   writer's thread and the async CLOSEs), nested some pair of lock classes,
+   each class registered in the lint's LOCK_RANK and no pair against its
+   declared order.  Printed:
    each save's blocking copy to the host, its wait for the previous write
    and its writes, the last wait, the restore, bytes and files written,
    each run's critical and async RPCs by verb, the pipelines' batches,
@@ -162,7 +168,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    batch bitwise the batch from memory and its tokens copied to the card;
    gated exactly (`ingest_failures`): READ RPCs = samples read = the
    critical-path RPCs, no LOOKUP_DIR, LOOKUP_TREE or OPEN_RECORD, one async
-   CLOSE a READ.  Then every file opened, read and closed one by one
+   CLOSE a READ, and the agent's permission-check RPCs (`perm_check_rpcs`:
+   its group-table fetches) flat over the epoch and the pass below: warm
+   files serve their own permission checks.  Then every file opened, read
+   and closed one by one
    through BuffetFS, Lustre-Normal and Lustre-DoM (each baseline on a
    cluster of its own, its namespace made by the baseline path): critical
    and async RPCs per file and host wall microseconds per file, no latency
@@ -1404,9 +1413,13 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
     the bytes and files written, the pipelines' counts, each run's RPCs
     (the agent's critical and async counts and its count by verb, after its
     async closes drained), the corpus as read through the Trainer's client,
-    peak host and device memory, and each run's launches (`counter`: a
-    (reset, read) pair, by default the kernel wrappers' counts).
-    `resume_failures` reads it."""
+    peak host and device memory, each run's launches (`counter`: a
+    (reset, read) pair, by default the kernel wrappers' counts), and each
+    run's lock nestings: the (held, acquired) pairs of lock classes that a
+    `LockOrderRecorder` saw on its Trainer's servers from just after the
+    Trainer was built (so A's corpus build is not recorded; its saves,
+    reads and restarts are).  `resume_failures` reads it."""
+    from repro_torch.core.analysis import LockOrderRecorder
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.train import Trainer, TrainerConfig
     reset, read = counter or (reset_launches, launches)
@@ -1425,6 +1438,9 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
                            steps=steps, ckpt_every=ckpt_every, log_every=steps,
                            run_name=run_name, data_dir=root, device=str(dev), seed=SEED)
         tr = Trainer(tc)
+        locks = LockOrderRecorder()
+        for srv in tr.cluster.servers.values():
+            locks.instrument_server(srv)
         seen, to_device = [], tr._to_device
         tr._to_device = lambda b: (seen.append({k: np.array(v) for k, v in b.items()}),
                                    to_device(b))[1]
@@ -1454,6 +1470,7 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
             "step_ms": out["step_s"] * 1e3,
             "step_times_ms": [t * 1e3 for t in out["step_times_s"]], "saves": tr.ckpt.saves,
             "last_wait_s": out["ckpt_wait_s"], "launches": got,
+            "lock_pairs": sorted(locks.pairs),
             "bytes_written": sum(s["bytes"] for s in tr.ckpt.saves),
             "files_written": sum(s["files"] for s in tr.ckpt.saves),
             "pipeline": {"batches": st.batches, "samples": st.samples, "hedged": st.hedged}}
@@ -1497,7 +1514,11 @@ def resume_failures(rec, per_step) -> list:
     are within TOL_RESUME_LOSS of C's; every loss finite; every run's
     launches `per_step` (name: count, every counted name) times its steps;
     every run went through BuffetFS RPCs and sent no OPEN_RECORD (BuffetFS
-    defers the open onto the first data RPC)."""
+    defers the open onto the first data RPC); every run recorded lock
+    nestings (a silent recorder would make the next two checks vacuous),
+    of registered lock classes only, none against the declared order."""
+    from repro_torch.core.analysis import LockOrderRecorder
+    from repro_torch.core.analysis.buffetlint import LOCK_RANK
     runs, stop = rec["runs"], rec["stop"]
     out = []
     for name, r in runs.items():
@@ -1505,6 +1526,17 @@ def resume_failures(rec, per_step) -> list:
             out.append(f"run {name} sent no critical RPC: {r['rpcs_by_type']}")
         if r["rpcs_by_type"].get("OPEN_RECORD", 0):
             out.append(f"run {name} sent {r['rpcs_by_type']['OPEN_RECORD']} OPEN_RECORD")
+        pairs = {tuple(p) for p in r["lock_pairs"]}
+        unregistered = sorted({c for p in pairs for c in p} - LOCK_RANK.keys())
+        locks = LockOrderRecorder()     # its verdict on the registered pairs
+        locks.pairs = {p for p in pairs if not set(p) - LOCK_RANK.keys()}
+        inverted = locks.violations()
+        if not pairs:
+            out.append(f"run {name} recorded no lock nesting")
+        if unregistered:
+            out.append(f"run {name} nested unregistered lock classes {unregistered}")
+        if inverted:
+            out.append(f"run {name} nested locks against the declared order: {inverted}")
     if runs["B"]["start_step"] != stop:
         out.append(f"B resumed at step {runs['B']['start_step']}, not {stop}")
     if rec["restored_diff_leaves"]:
@@ -1614,8 +1646,9 @@ def buffetfs_ingest(dev, n_files=INGEST_FILES, n_dirs=INGEST_DIRS, seq=SSM_TRAIN
     directories on a cluster of
     `n_servers` in-process BServers (the port's BuffetFS, in a temp dir
     removed at the end); the shard directories are warmed, the agent's
-    async closes drained and its counts reset; then one epoch (n_files //
-    batch batches) is read through `DataPipeline` (prefetch on, no
+    async closes drained and its counts reset, and its `perm_check_rpcs`
+    (the group-table fetches of its permission checks) read; then one
+    epoch (n_files // batch batches) is read through `DataPipeline` (prefetch on, no
     hedging), each batch held bitwise to the same batch built from the
     samples in memory (`corpus_batches`) and its tokens copied to `dev`,
     where they are summed.  The samples read are counted at the dataset
@@ -1624,7 +1657,8 @@ def buffetfs_ingest(dev, n_files=INGEST_FILES, n_dirs=INGEST_DIRS, seq=SSM_TRAIN
     opened, read and closed one by one (`open_read_close`) through the same
     agent, and through `core.LustreNormalClient` and `core.LustreDoMClient`,
     each on a cluster of its own whose namespace the baseline path made
-    (`lustre_mkfiles`) with the same bytes.  `agent_cls` (default
+    (`lustre_mkfiles`) with the same bytes.  `perm_check_rpcs` is read
+    again after the epoch and after the agent's pass.  `agent_cls` (default
     `core.BAgent`) builds the BuffetFS agent.  `ingest_failures` reads the
     record."""
     import threading
@@ -1657,6 +1691,7 @@ def buffetfs_ingest(dev, n_files=INGEST_FILES, n_dirs=INGEST_DIRS, seq=SSM_TRAIN
         ds.warm_dirs()
         agent.drain()
         agent.stats.reset()
+        perm = {"warmed": agent.perm_check_rpcs}
         reads, lock, read_sample = [0], threading.Lock(), ds.read_sample
 
         def counted(idx, **kw):
@@ -1680,6 +1715,7 @@ def buffetfs_ingest(dev, n_files=INGEST_FILES, n_dirs=INGEST_DIRS, seq=SSM_TRAIN
         epoch_s = time.perf_counter() - t0
         pipe.stop()
         agent.drain()
+        perm["after_epoch"] = agent.perm_check_rpcs
         snap = agent.stats.snapshot()
         rec["epoch"] = {
             "batches": n_batches, "batches_mismatched": mismatched,
@@ -1691,6 +1727,8 @@ def buffetfs_ingest(dev, n_files=INGEST_FILES, n_dirs=INGEST_DIRS, seq=SSM_TRAIN
         ds.read_sample = read_sample
         paths = [ds.sample_path(i) for i in range(n_files)]
         systems = {"buffetfs": open_read_close(agent, paths, blobs)}
+        perm["after_open_read_close"] = agent.perm_check_rpcs
+        rec["perm_check_rpcs"] = perm
         for name, cls in (("lustre_normal", core.LustreNormalClient),
                           ("lustre_dom", core.LustreDoMClient)):
             cl = core.BuffetCluster(root_dir=os.path.join(root, name), n_servers=n_servers)
@@ -1720,11 +1758,21 @@ def ingest_failures(rec) -> list:
     pipeline property, exact); every sample was read at least once, every
     batch is bitwise the batch from memory, the device's token sum the
     host's; and BuffetFS's open, read and close of a file costs one
-    critical RPC (READ) and one async (CLOSE).  Every system read back its
-    files' bytes.  The Lustre counts are not gated here (the CPU tests hold
-    them to the JAX package's)."""
+    critical RPC (READ) and one async (CLOSE).  The agent's
+    `perm_check_rpcs` stays where warming left it over the epoch and over
+    its open/read/close pass: warm files serve their own permission checks
+    (the paper's "serve yourself").  Every system read back its files'
+    bytes.  The Lustre counts are not gated here (the CPU tests hold them
+    to the JAX package's)."""
     out = []
     ep = rec["epoch"]
+    perm = rec["perm_check_rpcs"]
+    if perm["after_epoch"] != perm["warmed"]:
+        out.append(f"perm_check_rpcs moved over the epoch: {perm['warmed']} -> "
+                   f"{perm['after_epoch']}")
+    if perm["after_open_read_close"] != perm["after_epoch"]:
+        out.append(f"perm_check_rpcs moved over the open/read/close pass: "
+                   f"{perm['after_epoch']} -> {perm['after_open_read_close']}")
     bt = ep["by_type"]
     read = bt.get("READ", 0)
     if read != ep["samples_read"]:

@@ -358,6 +358,10 @@ def test_train_resume_counts_train_ssms_launches_and_fails_a_planted_leaf(monkey
         assert "OPEN_RECORD" not in bt and bt["READ"] >= 2 * r["steps_run"], (name, bt)
         assert bt["WRITE"] >= 134 * len(r["saves"]) and bt["CLOSE"] == r["async_rpcs"]
     assert "CREATE" in rec["runs"]["A"]["rpcs_by_type"]
+    # the Trainer's servers nest a directory's or a file's lock around the
+    # server lock, nothing else (no striping, no group table)
+    assert all(r["lock_pairs"] == [("dir_mutex", "server_lock"), ("file_lock", "server_lock")]
+               for r in rec["runs"].values())
     assert rec["runs"]["B"]["rpcs_by_type"]["READ"] > rec["runs"]["A"]["rpcs_by_type"]["READ"] / 2
     if not fault:
         assert failures == [] and rec["losses_bitwise"]

@@ -1,7 +1,9 @@
 """`chip_smoke.py`'s buffetfs_ingest phase on the CPU at a small size (256
 sample files of train_ssm's 2049 tokens in 4 shard directories): its exact
 gates pass over the port's BuffetFS, and an agent that sends one RPC more a
-read (a LOOKUP_DIR, or a Lustre-style OPEN_RECORD) fails them."""
+read (a LOOKUP_DIR, or a Lustre-style OPEN_RECORD), or that serves its
+permission checks by RPC, fails them.  train_resume's gates on its storage
+and its lock nestings name each planted fault."""
 import _torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 from pathlib import Path
@@ -28,6 +30,9 @@ def test_buffetfs_ingest_passes_its_gates_at_a_small_size():
     rec = cs.buffetfs_ingest(torch.device("cpu"), n_files=FILES, n_dirs=DIRS)
     assert cs.ingest_failures(rec) == []
     assert rec["bytes_each"] == [8208] and rec["n_servers"] == 4
+    # the files' owner reads them: no permission check costs an RPC
+    assert rec["perm_check_rpcs"] == {"warmed": 0, "after_epoch": 0,
+                                      "after_open_read_close": 0}
     ep = rec["epoch"]
     # the pipeline's thread reads ahead of the epoch, by at most prefetch + 1
     # batches of io_threads' reads in flight
@@ -100,6 +105,30 @@ def test_buffetfs_ingest_fails_an_agent_that_sends_one_rpc_more_a_read(verb):
     assert any(f.startswith("BuffetFS open/read/close per file") for f in failures)
 
 
+class _RefetchingGroups(core.BAgent):
+    """An agent that drops its cached group table and fetches it again
+    before every read: a permission check served by RPC."""
+    def read(self, fd, n=-1):
+        with self._tree_lock:
+            self._groups_table = None
+        self._group_table()
+        return super().read(fd, n)
+
+
+def test_ingest_failures_name_permission_checks_served_by_rpc():
+    cs = _chip_smoke()
+    rec = cs.buffetfs_ingest(torch.device("cpu"), n_files=64, n_dirs=2,
+                             agent_cls=_RefetchingGroups)
+    perm, reads = rec["perm_check_rpcs"], rec["epoch"]["samples_read"]
+    assert perm["after_epoch"] - perm["warmed"] == reads
+    assert perm["after_open_read_close"] - perm["after_epoch"] == 64
+    failures = cs.ingest_failures(rec)
+    warm, epoch = perm["warmed"], perm["after_epoch"]
+    assert f"perm_check_rpcs moved over the epoch: {warm} -> {epoch}" in failures
+    assert (f"perm_check_rpcs moved over the open/read/close pass: {epoch} -> "
+            f"{epoch + 64}") in failures
+
+
 def test_ingest_failures_name_a_missing_close_and_a_wrong_batch():
     cs = _chip_smoke()
     rec = cs.buffetfs_ingest(torch.device("cpu"), n_files=64, n_dirs=2)
@@ -120,7 +149,7 @@ def test_resume_failures_name_an_open_record_and_a_run_without_rpcs():
     per_step = {"rmsnorm": 2}
     run = {"start_step": 0, "losses": [1.0], "steps_run": 1,
            "launches": {"rmsnorm": 2}, "critical_rpcs": 5, "async_rpcs": 5,
-           "rpcs_by_type": {"READ": 5, "CLOSE": 5}}
+           "rpcs_by_type": {"READ": 5, "CLOSE": 5}, "lock_pairs": _PAIRS}
     rec = {"stop": 1, "steps": 2, "restored_diff_leaves": [], "batch_diffs": [],
            "batches_compared": 1, "loss_rel_err": [0.0],
            "runs": {"A": dict(run), "B": dict(run, start_step=1), "C": dict(run)}}
@@ -130,3 +159,33 @@ def test_resume_failures_name_an_open_record_and_a_run_without_rpcs():
     assert cs.resume_failures(rec, per_step) == [
         "run B sent 1 OPEN_RECORD",
         "run C sent no critical RPC: {'READ': 5, 'CLOSE': 5}"]
+
+
+_PAIRS = [("dir_mutex", "server_lock"), ("file_lock", "server_lock")]
+
+
+def _resume_rec():
+    run = {"start_step": 0, "losses": [1.0], "steps_run": 1,
+           "launches": {"rmsnorm": 2}, "critical_rpcs": 5, "async_rpcs": 5,
+           "rpcs_by_type": {"READ": 5, "CLOSE": 5}}
+    return {"stop": 1, "steps": 2, "restored_diff_leaves": [], "batch_diffs": [],
+            "batches_compared": 1, "loss_rel_err": [0.0],
+            "runs": {n: dict(run, start_step=int(n == "B"), lock_pairs=list(_PAIRS))
+                     for n in "ABC"}}
+
+
+def test_resume_failures_name_a_lock_inversion_an_unregistered_class_and_no_nesting():
+    """train_resume's lock-order gate: a run that nested a server lock
+    outside a per-file one, one that nested a lock class the registry does
+    not know, and one whose recorder saw no nesting each fail it."""
+    cs = _chip_smoke()
+    per_step = {"rmsnorm": 2}
+    rec = _resume_rec()
+    assert cs.resume_failures(rec, per_step) == []
+    rec["runs"]["A"]["lock_pairs"] = _PAIRS + [("server_lock", "file_lock")]
+    rec["runs"]["B"]["lock_pairs"] = _PAIRS + [("file_lock", "lease_lock")]
+    rec["runs"]["C"]["lock_pairs"] = []
+    assert cs.resume_failures(rec, per_step) == [
+        "run A nested locks against the declared order: [('server_lock', 'file_lock')]",
+        "run B nested unregistered lock classes ['lease_lock']",
+        "run C recorded no lock nesting"]

@@ -60,7 +60,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.runtime.compression", "repro_torch.runtime.pipeline_par",
             "repro_torch.runtime.elastic", "repro_torch.launch.mesh",
             "repro_torch.analysis.model_math", "repro_torch.analysis.trace",
-            "repro_torch.launch.dryrun", "repro_torch.kernels.abstract"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.kernels.abstract",
+            "repro_torch.core.analysis", "repro_torch.core.analysis.buffetlint",
+            "repro_torch.core.analysis.lockrec",
+            "repro_torch.core.analysis.__main__"} <= set(mods)
     assert {f"repro_torch.core.{m}" for m in CORE_MODULES} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -106,7 +109,7 @@ def test_core_holds_the_jax_packages_modules_and_public_names():
     assert names == jax_names
 
 
-@pytest.mark.parametrize("path", sorted((PKG / "core").glob("*.py")),
+@pytest.mark.parametrize("path", sorted((PKG / "core").rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_core_imports_the_standard_library_and_itself_only(path):
     """Every import of `repro_torch.core` is of the standard library or
@@ -126,6 +129,47 @@ def test_core_imports_the_standard_library_and_itself_only(path):
             assert top == "__future__" or top in sys.stdlib_module_names, \
                 f"{path}: imports {n}"
             assert not n.startswith("repro"), f"{path}: imports {n}"
+
+
+# every module of the JAX package: the port's file that takes its place
+COUNTERPARTS = {
+    "analysis/hlo.py": "analysis/trace.py",
+    "analysis/model_math.py": "analysis/model_math.py",
+    **{f"{d}/{m}.py": f"{d}/{m}.py" for d, names in {
+        "ckpt": ("__init__", "manager"),
+        "configs": ("__init__", "base", "chatglm3_6b", "command_r_35b",
+                    "deepseek_v2_lite_16b", "deepseek_v3_671b", "jamba_1_5_large_398b",
+                    "mamba2_130m", "musicgen_large", "pixtral_12b", "stablelm_3b",
+                    "starcoder2_15b"),
+        "core": ("__init__",) + CORE_MODULES,
+        "core/analysis": ("__init__", "buffetlint", "lockrec"),
+        "data": ("__init__", "dataset", "pipeline", "sampler", "tokens"),
+        "kernels": ("__init__",),
+        "kernels/cross_entropy": ("__init__", "kernel", "ops", "ref"),
+        "kernels/decode_attention": ("__init__", "kernel", "ref"),
+        "kernels/flash_attention": ("__init__", "kernel", "ops", "ref"),
+        "kernels/rmsnorm": ("__init__", "kernel", "ops", "ref"),
+        "kernels/ssd_scan": ("__init__", "kernel", "ops", "ref"),
+        "launch": ("dryrun", "mesh", "serve", "train"),
+        "models": ("__init__", "layers", "ssm", "transformer"),
+        "optim": ("__init__", "adamw"),
+        "runtime": ("__init__", "compression", "elastic", "pipeline_par", "sharding",
+                    "steps"),
+    }.items() for m in names},
+    "context.py": "context.py",
+    # a jax.jit wrapper of decode_attention: the kernel module's wrapper
+    "kernels/decode_attention/ops.py": "kernels/decode_attention/kernel.py",
+}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each `.py` file of `src/repro` is in the table, and its port file
+    exists."""
+    jax_root = ROOT / "src" / "repro"
+    jax_files = sorted(p.relative_to(jax_root).as_posix() for p in jax_root.rglob("*.py"))
+    assert [f for f in jax_files if f not in COUNTERPARTS] == []
+    assert [f for f in COUNTERPARTS if not (jax_root / f).is_file()] == []
+    assert [v for v in COUNTERPARTS.values() if not (PKG / v).is_file()] == []
 
 
 # ---------------------------------------------------------------------------
