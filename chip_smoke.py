@@ -104,6 +104,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    decode attention a layer, pixtral-12b's RMSNorm); pixtral-12b and
    musicgen-large through the stub frontend (`Server.batch`: each token's
    row of a seeded table built once); each followed by its cross_check.
+   Every one of these serve phases decodes through the Server's CUDA graph
+   of the decode step: its warm-up call, at the timed batch, captures it
+   (`capture_s`) and the timed run replays it (capture_s 0); the graph's
+   kernel nodes of the hand-written kernels (`graph_kernel_nodes` of its
+   DOT dump) must be one step's launches (`*_decode_launches`); an eager
+   loop of `serve_step` on the same weights (`eager_generate`, its tokens/s
+   printed beside the graphed rate) must give the same tokens and bitwise
+   the same last logits.
 5. train_check, train_check_ssm, train_check_moe, train_check_v3,
    train_check_hybrid, train_check_starcoder2 — one loss and every
    gradient of reduced chatglm3-6b (64 tokens), of reduced mamba2-130m (192
@@ -215,7 +223,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    activation specs; the same tokens as the serve phase's, the last step's
    logits bitwise or within TOL_SHARDED_LOGITS, `dense_serve_launches`
    (`sharded_serve_failures`); printed: prefill ms and decode tokens/s
-   beside the serve phase's (DTensor's host cost), peak GB.
+   beside the serve phase's (DTensor's host cost; the sharded Server
+   decodes eagerly, the serve phase through its graph), peak GB.
    dryrun — with the NCCL group destroyed, `repro_torch.launch.dryrun`
    traces on a fake process group (fake tensors of the card's device; no
    launch, no allocation): chatglm3-6b's cells on a 1 x 1 mesh at the
@@ -458,6 +467,17 @@ SHARDED_RESUME_STOP = 4
 # cache on the same 1 x 1 mesh: the same tokens, the last step's logits
 # bitwise or within TOL_SHARDED_LOGITS (max |diff| over max |logit|)
 TOL_SHARDED_LOGITS = 1e-5
+# the serve phases decode through the Server's CUDA graph of the decode
+# step; each graph's kernel nodes are named by these symbols of csrc/, each
+# the kernel of one wrapper (the SSD backward's three launches a call are
+# counted by its walkers)
+GRAPH_KERNELS = {"rmsnorm_kernel": "rmsnorm", "rmsnorm_bwd_kernel": "rmsnorm_bwd",
+                 "flash_fwd_kernel": "flash_attention_fwd",
+                 "flash_bwd_dq_kernel": "flash_attention_bwd_dq",
+                 "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv",
+                 "decode_kernel": "decode_attention", "ce_fwd_kernel": "fused_ce",
+                 "ce_bwd_kernel": "fused_ce_bwd", "ssd_scan_kernel": "ssd_scan",
+                 "ssd_bwd_walk_kernel": "ssd_scan_bwd"}
 # dryrun: the 1 x 1 train cell's traced peak within TOL_DRYRUN_PEAK
 # (relative) of the train phase's max_memory_allocated(), its FLOPs within
 # TOL_DRYRUN_FLOPS of `dense_train_flops`
@@ -1073,18 +1093,27 @@ def moe_layer_count(cfg) -> int:
     return cfg.n_layers - cfg.moe.n_dense_prefix
 
 
-def hybrid_serve_launches(cfg) -> dict:
-    """Kernel launches of a serve run (a prefill and NEW decode steps) of a
-    hybrid model: per forward every layer's mixer_norm and ffn_norm, each
-    Mamba layer's gated out_norm, and final_norm; the prefill's attention
-    through the flash forward and its Mamba layers through the SSD scan;
-    each decode step's attention through decode attention (its Mamba layers
+def hybrid_decode_launches(cfg) -> dict:
+    """Kernel launches of one decode step of a hybrid model: every layer's
+    mixer_norm and ffn_norm, each Mamba layer's gated out_norm, and
+    final_norm; the attention layer's decode attention (the Mamba layers
     run the plain recurrence, as JAX's decode)."""
     hy = cfg.hybrid
     nb = cfg.n_layers // hy.period
-    norms = nb * (2 * hy.period + hy.period - 1) + 1
-    return {"rmsnorm": norms * (1 + NEW), "flash_attention_fwd": nb,
-            "ssd_scan": nb * (hy.period - 1), "decode_attention": nb * NEW}
+    return {"rmsnorm": nb * (2 * hy.period + hy.period - 1) + 1, "decode_attention": nb}
+
+
+def hybrid_serve_launches(cfg) -> dict:
+    """Kernel launches of a serve run (a prefill and NEW decode steps) of a
+    hybrid model: the norms of `hybrid_decode_launches` every step; the
+    prefill's attention through the flash forward and its Mamba layers
+    through the SSD scan; each decode step's attention through decode
+    attention."""
+    hy = cfg.hybrid
+    nb = cfg.n_layers // hy.period
+    step = hybrid_decode_launches(cfg)
+    return {"rmsnorm": step["rmsnorm"] * (1 + NEW), "flash_attention_fwd": nb,
+            "ssd_scan": nb * (hy.period - 1), "decode_attention": step["decode_attention"] * NEW}
 
 
 def hybrid_train_launches(cfg) -> dict:
@@ -1182,6 +1211,94 @@ def dense_serve_launches(cfg, new=NEW) -> dict:
     for k, v in dense_decode_launches(cfg).items():
         out[k] = out.get(k, 0) + new * v
     return out
+
+
+def ssm_decode_launches(cfg) -> dict:
+    """Kernel launches of one decode step of a Mamba2 model: each layer's
+    norm and gated out_norm, and final_norm (the recurrence is plain torch,
+    as JAX's decode)."""
+    return {"rmsnorm": 2 * cfg.n_layers + 1}
+
+
+def ssm_serve_launches(cfg) -> dict:
+    """Kernel launches of a serve run of a Mamba2 model: a prefill (the norms
+    and each layer's SSD scan) and NEW decode steps."""
+    return {"rmsnorm": ssm_decode_launches(cfg)["rmsnorm"] * (1 + NEW),
+            "ssd_scan": cfg.n_layers}
+
+
+def graph_kernel_nodes(dot: str) -> dict:
+    """The nodes of a CUDA graph's DOT dump (`CUDAGraph.debug_dump` of a
+    graph kept after its capture): {"by_name": {kernel symbol: nodes},
+    "by_wrapper": {wrapper: nodes} for the hand-written kernels
+    (GRAPH_KERNELS), "kernel_nodes", "memcpy_nodes": {kind (DtoD, HtoD,
+    ...): nodes}, "other_nodes": {type (MEMSET, ...): nodes}}."""
+    starts = [m.start() for m in re.finditer(r'^"graph_\d+_node_\d+"\s*\[', dot, re.M)]
+    by_name, memcpy, other = {}, {}, {}
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        node = dot[a:b]
+        if "KERNEL" in node:
+            m = re.search(r"ID\s*\|\s*\d+[^|]*\|\s*([^\s|}\\<]+)", node)
+            name = m.group(1) if m else "?"
+            by_name[name] = by_name.get(name, 0) + 1
+        elif "MEMCPY" in node:
+            m = re.search(r"kind\s*\|\s*(\w+)", node)
+            kind = m.group(1) if m else "?"
+            memcpy[kind] = memcpy.get(kind, 0) + 1
+        else:
+            m = re.search(r'label="\{\s*(\w+)', node)
+            kind = m.group(1) if m else "?"
+            other[kind] = other.get(kind, 0) + 1
+    by_wrapper = {}
+    for name, n in by_name.items():
+        for sym, wrapper in GRAPH_KERNELS.items():
+            if re.search(rf"(?<![a-z_]){sym}(?![a-z_])", name):
+                by_wrapper[wrapper] = by_wrapper.get(wrapper, 0) + n
+    return {"by_name": by_name, "by_wrapper": by_wrapper,
+            "kernel_nodes": sum(by_name.values()), "memcpy_nodes": memcpy,
+            "other_nodes": other}
+
+
+def decode_graph_nodes(srv, batch) -> dict:
+    """`graph_kernel_nodes` of the Server's decode graph at `batch`, dumped
+    to a temporary file."""
+    graph = srv.decode_graph(batch)
+    if graph is None:
+        raise AssertionError(f"no decode graph at batch {batch}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decode.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            return graph_kernel_nodes(f.read())
+
+
+def eager_generate(srv, prompts, n) -> dict:
+    """The Server's greedy decode as a plain loop, the graphed decode's
+    reference: `prefill_step` into a fresh cache, then `n` eager
+    `serve_step`s at host int positions on the Server's weights.  Returns
+    the tokens [B, n], the last step's logits and the decode tokens/s (host
+    clock, synchronised)."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.steps import prefill_step, serve_step
+    dev, cfg = srv.device, srv.cfg
+    b, s0 = prompts.shape
+    with torch.inference_mode():
+        toks = torch.from_numpy(np.asarray(prompts)).long().to(dev)
+        logits, cache = prefill_step(srv.params, init_cache(cfg, b, srv.max_len, dev),
+                                     srv.batch(toks), cfg)
+        tok, outs = logits[:, -1].argmax(-1), []
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(n):
+            outs.append(tok)
+            logits, cache = serve_step(srv.params, cache, srv.batch(tok[:, None]), s0 + i, cfg)
+            tok = logits[:, -1].argmax(-1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    return {"tokens": torch.stack(outs, 1).cpu().numpy().astype(np.int32),
+            "last_logits": logits, "decode_tok_per_s": b * n / max(dt, 1e-9)}
 
 
 def dense_train_launches(cfg) -> dict:
@@ -1299,11 +1416,17 @@ def mla_norms(cfg) -> int:
     return 3 + int(bool(cfg.mla.q_lora_rank))
 
 
+def moe_decode_launches(cfg) -> dict:
+    """Kernel launches of one forward (a prefill or a decode step) of an MLA
+    + MoE model: every layer's norms and final_norm; nothing else (MLA's
+    absorbed attention and the MoE are plain torch)."""
+    return {"rmsnorm": mla_norms(cfg) * cfg.n_layers + 1}
+
+
 def moe_serve_launches(cfg) -> dict:
     """Kernel launches of a serve run (a prefill and NEW decode steps) of an
-    MLA + MoE model: every layer's norms and final_norm, every step; nothing
-    else (MLA's absorbed attention and the MoE are plain torch)."""
-    return {"rmsnorm": (mla_norms(cfg) * cfg.n_layers + 1) * (1 + NEW)}
+    MLA + MoE model: `moe_decode_launches` every step."""
+    return {"rmsnorm": moe_decode_launches(cfg)["rmsnorm"] * (1 + NEW)}
 
 
 def moe_train_launches(cfg, seq) -> dict:
@@ -3867,15 +3990,21 @@ def main() -> int:
 
     # -- the serve paths: Server.generate, launch counts, then prefill(S + 1)
     # against prefill(S) + decode(1) -----------------------------------------
-    def serve(phase, arch, prompt, max_len, prompt_seed, want, warmup, config=None,
-              cut=(), keep=None):
+    def serve(phase, arch, prompt, max_len, prompt_seed, want, step_want, warmup,
+              config=None, cut=(), keep=None):
         """Full-width `arch` (or `config`, a cut of it: the config the Server
         reads is that one, for the time it builds) serves BATCH prompts of
         `prompt` tokens and NEW more through Server.generate; every launch
-        count must be `want`(cfg).  Returns the server, the prompts (one
-        token longer) and the counts; `keep` (a dict) receives the tokens,
-        a host copy of the last step's logits, prefill ms, decode tokens/s
-        and peak GB."""
+        count must be `want`(cfg).  The warm-up call (`warmup`(prompts): its
+        prompts at batch BATCH and its new tokens) captures the decode
+        step's CUDA graph, which the timed run replays (its capture_s must
+        be 0); the graph's hand-written kernel nodes must be
+        `step_want`(cfg), one decode step's launches.  Then an eager loop of
+        serve_step on the same weights (`eager_generate`) must give the same
+        tokens and bitwise the last logits.  Returns the server, the prompts
+        (one token longer) and the counts; `keep` (a dict) receives the
+        tokens, a host copy of the last step's logits, prefill ms, decode
+        tokens/s and peak GB."""
         t0 = time.perf_counter()
         with (config_as(arch, config) if config is not None else contextlib.nullcontext()):
             srv = Server(arch, reduced=False, max_len=max_len, device="cuda", seed=SEED)
@@ -3884,20 +4013,36 @@ def main() -> int:
         cfg = srv.cfg
         prompts = np.random.default_rng(prompt_seed).integers(
             1, cfg.vocab_size, size=(BATCH, prompt + 1)).astype(np.int32)
-        srv.generate(*warmup(prompts))             # warm-up: cuBLAS, allocator
+        # warm-up at the timed batch: cuBLAS, the allocator, the graph's capture
+        warm = srv.generate(*warmup(prompts))
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         out = srv.generate(prompts[:, :prompt], NEW)
         got = launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
         expect = {name: 0 for name in got}
         expect.update(want(cfg))
+        nodes = decode_graph_nodes(srv, BATCH)
+        node_expect = {k: v for k, v in step_want(cfg).items() if v}
+        eager = eager_generate(srv, prompts[:, :prompt], NEW)
+        eager_equal = bool(np.array_equal(eager["tokens"], out["tokens"]))
+        eager_bitwise = bool(torch.equal(eager["last_logits"], out["last_logits"]))
         emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "head_dim": cfg.head_dim, "reduced": list(cut), "batch": BATCH, "prompt": prompt,
               "new_tokens": NEW,
               "init_s": init_s, "prefill_ms": out["prefill_s"] * 1e3,
               "decode_tok_per_s": out["decode_tok_per_s"],
               "decode_step_ms": BATCH / out["decode_tok_per_s"] * 1e3,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "eager_decode_tok_per_s": eager["decode_tok_per_s"],
+              "eager_decode_step_ms": BATCH / eager["decode_tok_per_s"] * 1e3,
+              "capture_s": warm["capture_s"], "timed_capture_s": out["capture_s"],
+              "graph_kernel_nodes": nodes["kernel_nodes"],
+              "graph_memcpy_nodes": nodes["memcpy_nodes"],
+              "graph_other_nodes": nodes["other_nodes"],
+              "graph_nodes_by_wrapper": nodes["by_wrapper"],
+              "graph_nodes_expected": node_expect, "graph_nodes_by_name": nodes["by_name"],
+              "eager_tokens_equal": eager_equal, "eager_last_logits_bitwise": eager_bitwise,
+              "peak_mem_gb": peak,
               "launches": got, "expected_launches": expect, "finite": out["finite"],
               "tokens_head": out["tokens"][:, :8].tolist()})
         if got != expect:
@@ -3906,11 +4051,25 @@ def main() -> int:
             raise AssertionError(f"non-finite logits in the {phase} run")
         if out["tokens"].shape != (BATCH, NEW):
             raise AssertionError(f"{phase} tokens shape {out['tokens'].shape}")
+        if not (warm["capture_s"] > 0 and out["capture_s"] == 0):
+            raise AssertionError(f"{phase}: the warm-up must capture the decode graph and the "
+                                 f"timed run replay it: capture_s {warm['capture_s']}, "
+                                 f"{out['capture_s']}")
+        if nodes["by_wrapper"] != node_expect:
+            raise AssertionError(f"{phase}: the decode graph's kernel nodes "
+                                 f"{nodes['by_wrapper']} != one step's launches {node_expect}")
+        if set(nodes["memcpy_nodes"]) - {"DtoD"}:
+            raise AssertionError(f"{phase}: the decode graph copies other than device to "
+                                 f"device: {nodes['memcpy_nodes']}")
+        if not (eager_equal and eager_bitwise):
+            raise AssertionError(f"{phase}: the graphed decode differs from the eager "
+                                 f"serve_step loop: tokens equal {eager_equal}, last logits "
+                                 f"bitwise {eager_bitwise}")
+        del eager
         if keep is not None:
             keep.update(tokens=out["tokens"], last_logits=out["last_logits"].float().cpu(),
                         prefill_ms=out["prefill_s"] * 1e3,
-                        decode_tok_per_s=out["decode_tok_per_s"],
-                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                        decode_tok_per_s=out["decode_tok_per_s"], peak_mem_gb=peak)
         return srv, prompts, got
 
     def cross_check(phase, srv, prompts, cache_len, noise_floor=False):
@@ -3947,8 +4106,8 @@ def main() -> int:
     # last logits and peak are serve_sharded's and dryrun's reference
     served = {}
     srv, prompts, by_path["serve"] = serve(
-        "serve", ARCH, PROMPT, MAX_LEN, SEED + 1, dense_serve_launches,
-        lambda p: (p[:1, :16], 2), keep=served)
+        "serve", ARCH, PROMPT, MAX_LEN, SEED + 1, dense_serve_launches, dense_decode_launches,
+        lambda p: (p[:, :16], 2), keep=served)
     cross_check("cross_check", srv, prompts, MAX_LEN, noise_floor=True)
     del srv
     torch.cuda.empty_cache()
@@ -3960,8 +4119,8 @@ def main() -> int:
     served_ssm = {}
     srv, prompts, by_path["serve_ssm"] = serve(
         "serve_ssm", SSM_ARCH, SSM_PROMPT, SSM_PROMPT + NEW + 1, SEED + 5,
-        lambda c: {"rmsnorm": (2 * c.n_layers + 1) * (1 + NEW), "ssd_scan": c.n_layers},
-        lambda p: (p[:, :SSM_PROMPT], 1), keep=served_ssm)
+        ssm_serve_launches, ssm_decode_launches, lambda p: (p[:, :SSM_PROMPT], 2),
+        keep=served_ssm)
     cross_check("cross_check_ssm", srv, prompts, 0)
     del srv
     torch.cuda.empty_cache()
@@ -3969,7 +4128,7 @@ def main() -> int:
     # stablelm-3b: head dim 80, LayerNorm (plain torch, as JAX's jnp), MHA
     srv, prompts, by_path["serve_stablelm"] = serve(
         "serve_stablelm", LM_ARCH, PROMPT, MAX_LEN, SEED + 8, dense_serve_launches,
-        lambda p: (p[:1, :16], 2))
+        dense_decode_launches, lambda p: (p[:, :16], 2))
     cross_check("cross_check_stablelm", srv, prompts, MAX_LEN)
     del srv
     torch.cuda.empty_cache()
@@ -3980,13 +4139,13 @@ def main() -> int:
     # warm-up is at the served shape: the prefill's expert products are
     # [64, 240, ...] (capacity 240), the decode steps' [64, 1, ...].
     def serve_moe_and_check(phase, check_phase, arch, prompt_seed, config=None, cut=(),
-                            want=moe_serve_launches, serve_bound=mla_moe_serve_bound,
-                            keep=None):
+                            want=moe_serve_launches, step_want=moe_decode_launches,
+                            serve_bound=mla_moe_serve_bound, keep=None):
         """An MoE model's serve phase (an MLA model's one kernel the RMSNorm),
         its serve bound, then moe_cross_check, gated with each MoE layer's
         selection pinned (no flip at a gap >= NEAR_TIE)."""
-        srv, prompts, got = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed, want,
-                                  lambda p: (p[:, :PROMPT], 1), config=config, cut=cut,
+        srv, prompts, got = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed, want, step_want,
+                                  lambda p: (p[:, :PROMPT], 2), config=config, cut=cut,
                                   keep=keep)
         emit({"phase": f"{phase}_bound", "batch": BATCH, "prompt": PROMPT,
               **serve_bound(srv.cfg, srv.params, BATCH, PROMPT)})
@@ -4025,7 +4184,7 @@ def main() -> int:
     by_path["serve_hybrid"] = serve_moe_and_check(
         "serve_hybrid", "cross_check_hybrid", HYBRID_ARCH, SEED + 34,
         config=hybrid_serve_config(), cut=HYBRID_SERVE_CUT, want=hybrid_serve_launches,
-        serve_bound=hybrid_serve_bound, keep=served_hybrid)
+        step_want=hybrid_decode_launches, serve_bound=hybrid_serve_bound, keep=served_hybrid)
 
     # the last four families at full width and full depth, one at a time
     # (command-r-35b's 60.6 GB of bf16 weights alone on the card): each serve
@@ -4035,7 +4194,8 @@ def main() -> int:
     for phase, arch, prompt_seed in DENSE_SERVES:
         t_phase = time.perf_counter()
         srv, prompts, by_path[phase] = serve(phase, arch, PROMPT, MAX_LEN, prompt_seed,
-                                             dense_serve_launches, lambda p: (p[:1, :16], 2))
+                                             dense_serve_launches, dense_decode_launches,
+                                             lambda p: (p[:, :16], 2))
         emit({"phase": f"{phase}_bound", "batch": BATCH, "prompt": PROMPT,
               **dense_serve_bound(srv.cfg, srv.params, BATCH, PROMPT),
               "stub_table_gb": (0 if srv._stub is None

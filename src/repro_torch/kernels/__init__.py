@@ -37,6 +37,17 @@ def launches() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add `times` x `counts` ({wrapper name: launches}, as `launches()`
+    gives them) to the wrappers' counts.  A wrapper counts when it is
+    called: a CUDA graph's capture calls it without running the kernel and
+    a replay runs the kernel without calling it, so whoever captures takes
+    the capture's counts back out (`times=-1`) and adds one step's counts at
+    each replay; `launches()` then means kernels run."""
+    for fn in WRAPPERS:
+        fn.launches += times * counts.get(fn.__name__, 0)
+
+
 def reset_traced() -> None:
     for fn in WRAPPERS:
         fn.traced = 0
@@ -47,7 +58,7 @@ def traced_calls() -> dict:
     return {fn.__name__: fn.traced for fn in WRAPPERS}
 
 
-__all__ = ["WRAPPERS", "attention_bwd_ref", "attention_ref", "ce_bwd_ref", "ce_ref",
+__all__ = ["WRAPPERS", "add_launches", "attention_bwd_ref", "attention_ref", "ce_bwd_ref", "ce_ref",
            "ce_rows_ref", "decode_attention", "decode_attention_ref", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_fwd", "fused_ce", "fused_ce_bwd", "fused_ce_op", "launches",

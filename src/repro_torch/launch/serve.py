@@ -11,22 +11,34 @@ JAX's dry run lowers it (JAX's own Server never shards): params at
 each batch at `batch_shardings`, every step under the cell's activation
 specs; the logits come back whole.
 
+The decode step is compiled as JAX's Server jits `serve_step` with the
+cache donated: on a CUDA device without a mesh the Server captures one
+decode step per batch size as a `torch.cuda.CUDAGraph` and replays it for
+every later token, the position a device scalar the step advances itself.
+The batch size's cache is kept (the donated buffer) and zeroed at each
+call.  On the CPU, and under a mesh (whose cache keeps host int positions),
+the same step runs eagerly; the choice follows the device, with no switch
+and no fallback: a capture or replay that fails raises.  The prefill stays
+eager, as a graph replayed once per prompt shape saves nothing.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --tokens 32
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import InputShape, get_config
 from ..context import activation_specs
+from ..kernels import add_launches, launches
 from ..models import init_cache, init_model
 from ..runtime import sharding as sh
 from ..runtime.steps import prefill_step, serve_step, shard_batch, shard_cache, shard_params
+from ..tree import tree_leaves
 
 
 def resolve_device(device) -> torch.device:
@@ -60,6 +72,25 @@ def stub_table(vocab: int, d: int, device) -> torch.Tensor:
     return table
 
 
+class _Decode:
+    """One batch size's decode state, kept across calls as JAX's jit keeps a
+    step's executable and its donated cache: the cache, the step's inputs
+    (the token [B, 1], the position, a 0-d int64) and what the step writes
+    in place (each token fed at its position in `tokens` [B, max_len], the
+    finite flag); on the card also the step's CUDA graph, its output logits
+    (rewritten by every replay) and one replay's kernel launches."""
+
+    def __init__(self, cache, batch: int, max_len: int, device) -> None:
+        self.cache = cache
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros((), dtype=torch.long, device=device)
+        self.tokens = torch.zeros((batch, max_len), dtype=torch.long, device=device)
+        self.finite = torch.ones((), dtype=torch.bool, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+
+
 class Server:
     def __init__(self, arch: str, *, reduced: bool = True, max_len: int = 512,
                  params=None, device="cuda", seed: int = 0, mesh=None) -> None:
@@ -78,6 +109,7 @@ class Server:
         # device
         self._stub = (None if self.cfg.frontend is None
                       else stub_table(self.cfg.vocab_size, self.cfg.d_model, self.device))
+        self._decodes: Dict[int, _Decode] = {}
 
     def _embed_stub(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
         """Stub modality frontend: deterministic pseudo-embeddings per token,
@@ -111,55 +143,119 @@ class Server:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def decode_graph(self, batch: int) -> Optional[torch.cuda.CUDAGraph]:
+        """The decode step's CUDA graph at this batch size, once captured.
+        It keeps its nodes (`keep_graph`): `debug_dump(path)` writes them."""
+        d = self._decodes.get(batch)
+        return None if d is None else d.graph
+
     def generate(self, prompts: np.ndarray, n_tokens: int) -> Dict[str, object]:
         """prompts [B, S0] int -> generated [B, n_tokens], greedy.
 
         Returns the JAX Server's dict (tokens, prefill_s, decode_tok_per_s)
-        plus `finite`: whether every logit of the run was finite, and
-        `last_logits`: the last step's logits [B, 1, V].  Runs under
-        inference mode, or under a mesh under no_grad: in inference mode
-        DTensor meets composite ops (einsum) undecomposed and decomposes
-        them anew at every call, an order of magnitude more host time."""
+        plus `finite`: whether every logit of the run was finite,
+        `last_logits`: a copy of the last step's logits [B, 1, V], and
+        `capture_s`: the seconds this call spent capturing the decode graph
+        (0 where one was reused, and off the graph's path), which
+        decode_tok_per_s leaves out.  Runs under inference mode, or under a
+        mesh under no_grad: in inference mode DTensor meets composite ops
+        (einsum) undecomposed and decomposes them anew at every call, an
+        order of magnitude more host time."""
         with torch.inference_mode() if self.mesh is None else torch.no_grad():
             return self._generate(prompts, n_tokens)
+
+    def _state(self, batch: int) -> _Decode:
+        """The batch size's decode state, its cache zeroed (a new one the
+        first time): the prefill reads the Mamba layers' states as its h0."""
+        d = self._decodes.get(batch)
+        if d is None:
+            cache = init_cache(self.cfg, batch, self.max_len, self.device)
+            if self.mesh is not None:
+                cache = shard_cache(cache, self.cfg, self.mesh, batch, self.max_len)
+            d = self._decodes[batch] = _Decode(cache, batch, self.max_len, self.device)
+        else:
+            for t in tree_leaves(d.cache):
+                t.zero_()
+        return d
+
+    def _decode_once(self, d: _Decode, pos) -> torch.Tensor:
+        """One decode step on d's buffers, the same ops eagerly and in a
+        graph: the token fed is kept at its position, the step runs at
+        `pos` (d.pos, or a host int under a mesh), then the finite flag, the
+        next token (the argmax) and the next position are written in place.
+        Returns the step's logits."""
+        b = d.tok.shape[0]
+        d.tokens.index_copy_(1, d.pos.reshape(1), d.tok)
+        logits, _ = self._step(serve_step, d.cache, self.batch(d.tok),
+                               InputShape("decode", self.max_len, b, "decode"), pos)
+        d.finite.logical_and_(torch.isfinite(logits).all())
+        d.tok.copy_(logits[:, -1].argmax(-1, keepdim=True))
+        d.pos.add_(1)
+        return logits
+
+    def _warm_up_and_capture(self, d: _Decode) -> Tuple[torch.Tensor, float]:
+        """The first decode step at a batch size on the card, then its graph.
+        The step runs eagerly on the stream that then captures (the warm-up:
+        the kernels build, cuBLAS initialises) and is this call's first
+        step; the capture runs nothing.  The wrappers counted the captured
+        calls, which ran no kernel: those counts are taken back out and kept
+        as one replay's.  Returns the step's logits and the capture's
+        seconds."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            logits = self._decode_once(d, d.pos)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = launches()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=stream):
+            d.logits = self._decode_once(d, d.pos)
+        graph.instantiate()             # a kept graph is instantiated on request
+        capture_s = time.perf_counter() - t0
+        d.launches = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+        add_launches(d.launches, -1)
+        d.graph = graph
+        return logits, capture_s
 
     def _generate(self, prompts: np.ndarray, n_tokens: int) -> Dict[str, object]:
         b, s0 = prompts.shape
         if s0 + n_tokens > self.max_len:
             raise ValueError(f"{s0} prompt + {n_tokens} new tokens exceed "
                              f"max_len {self.max_len}")
-        cache = init_cache(self.cfg, b, self.max_len, self.device)
-        if self.mesh is not None:
-            cache = shard_cache(cache, self.cfg, self.mesh, b, self.max_len)
+        d = self._state(b)
+        graphed = self.device.type == "cuda" and self.mesh is None
         prefill = InputShape("prefill", s0, b, "prefill")
-        decode = InputShape("decode", self.max_len, b, "decode")
         batch = self.batch(torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                            device=self.device))
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self._step(prefill_step, cache, batch, prefill)
+        logits, _ = self._step(prefill_step, d.cache, batch, prefill)
         self._sync()
         prefill_s = time.perf_counter() - t0
 
-        finite = torch.isfinite(logits).all()
-        outs: List[torch.Tensor] = []
-        tok = logits[:, -1].argmax(-1)
+        d.finite.copy_(torch.isfinite(logits).all())
+        d.tok.copy_(logits[:, -1].argmax(-1, keepdim=True))
+        d.pos.fill_(s0)
+        capture_s = 0.0
         self._sync()
         t0 = time.perf_counter()
         for i in range(n_tokens):
-            outs.append(tok)
-            logits, cache = self._step(serve_step, cache, self.batch(tok[:, None]), decode,
-                                       s0 + i)
-            finite &= torch.isfinite(logits).all()
-            tok = logits[:, -1].argmax(-1)
+            if d.graph is not None:
+                d.graph.replay()
+                add_launches(d.launches)
+                logits = d.logits
+            elif graphed:
+                logits, capture_s = self._warm_up_and_capture(d)
+            else:
+                logits = self._decode_once(d, d.pos if self.mesh is None else s0 + i)
         self._sync()
-        decode_s = time.perf_counter() - t0
-        tokens = (torch.stack(outs, 1) if outs
-                  else torch.empty((b, 0), dtype=torch.long))
-        return {"tokens": tokens.cpu().numpy().astype(np.int32),
+        decode_s = time.perf_counter() - t0 - capture_s
+        return {"tokens": d.tokens[:, s0:s0 + n_tokens].cpu().numpy().astype(np.int32),
                 "prefill_s": prefill_s,
                 "decode_tok_per_s": b * n_tokens / max(decode_s, 1e-9),
-                "finite": bool(finite), "last_logits": logits}
+                "finite": bool(d.finite), "last_logits": logits.clone(),
+                "capture_s": capture_s}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

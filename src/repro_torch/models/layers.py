@@ -206,15 +206,39 @@ def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def device_pos(pos, device) -> torch.Tensor:
+    """A cache position as a 0-d int64 tensor on `device`, as JAX traces its
+    `jnp.int32`: a host int is filled in on the device (no host-to-device
+    copy), a tensor is taken as it is (never read back to the host)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(torch.long)
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
+def _cache_put(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """new [B, s, ...] into one layer's cache [B, T, ...] at rows pos ..
+    pos + s, in place: a slice at a host int (the prefill's), an index copy
+    at a device position (a decode step's; JAX's `dynamic_update_slice`)."""
+    new = new.to(cache.dtype)
+    if isinstance(pos, torch.Tensor):
+        cache.index_copy_(1, pos + torch.arange(new.shape[1], device=cache.device), new)
+    else:
+        cache[:, pos:pos + new.shape[1]] = new
+
+
 def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *,
                   kv_cache: Optional[Dict[str, torch.Tensor]] = None,
-                  cache_pos: Optional[int] = None):
+                  cache_pos=None):
     """Causal self-attention.  If `kv_cache` ({"k", "v"}: one layer's
     [B, T, Hkv, dh] bf16 slices) is given, x is the new token chunk and its
     keys and values are written into the cache at `cache_pos` IN PLACE (the
-    JAX version returns an updated copy).  A cache of DTensors takes the
-    sharded path: `_cache_write`, then `_decode_sharded` or
+    JAX version returns an updated copy).  A decode step's `cache_pos` may
+    be a 0-d tensor on the device (`device_pos`): its write is an index
+    copy and decode attention reads `lengths` = pos + 1 on the device, so
+    one step serves every position.  The prefill's is a host int (the flash
+    forward's q offset).  A cache of DTensors takes the sharded path, at a
+    host int: `_cache_write`, then `_decode_sharded` or
     `_prefill_cached_sharded`.  Returns (y, kv_cache)."""
     wk, wv = p["wk"], p["wv"]
     bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias else (None, None)
@@ -262,11 +286,10 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
             out = _prefill_cached_sharded(q, ck, cv, cache_pos, scale)
     else:
         ck, cv = kv_cache["k"], kv_cache["v"]
-        ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
+        _cache_put(ck, k, cache_pos)
+        _cache_put(cv, v, cache_pos)
         if s == 1:
-            lengths = torch.full((x.shape[0],), cache_pos + 1, dtype=torch.int32,
-                                 device=x.device)
+            lengths = (device_pos(cache_pos, x.device) + 1).to(torch.int32).repeat(x.shape[0])
             out = decode_attention(q[:, 0], ck, cv, lengths, scale=scale)[:, None]
         else:
             # attend over the bf16 cache (as JAX reads it back), not k/v
@@ -648,17 +671,19 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
 
 def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
             kv_cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_pos: Optional[int] = None):
+            cache_pos=None):
     """MLA attention.  Without a cache (the train path) K and V are expanded
     from the latent and causal attention runs over [nope | rope] head dims
     through the flash kernels, the rotary keys broadcast over the heads, as
     JAX's no-cache branch.  With the latent cache ({"ckv": [B, T, kv_lora],
     "krope": [B, T, rope]}: one layer's bf16 slices), for the prefill and
     the decode step alike: x's latent and rotary keys are written into the
-    cache at `cache_pos` IN PLACE, then attention runs ABSORBED in the
-    latent space in fp32, as JAX's cache branch computes it.  The einsums
-    read the first cache_pos + s rows; JAX reads all T, whose masked rows
-    weigh exactly 0.  Under a mesh the latent projection and kv_norm run on
+    cache at `cache_pos` (a host int, or a decode step's 0-d device tensor:
+    `_cache_put`) IN PLACE, then attention runs ABSORBED in the latent
+    space in fp32, as JAX's cache branch computes it, under the causal
+    mask: a decode step over all T rows of the cache, as JAX reads them,
+    so its shapes do not depend on its position (`_mla_rows`).  Under a
+    mesh the latent projection and kv_norm run on
     each rank's tokens, the heads split over "model" as the products place
     them, and a cache of DTensors takes `_mla_absorbed_sharded`.  Returns
     (y, kv_cache)."""
@@ -686,25 +711,40 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
         return y, None
 
     s = x.shape[1]
-    kv_len = cache_pos + s
     cc, cr = kv_cache["ckv"], kv_cache["krope"]
     if isinstance(cc, DTensor):
         out = _mla_absorbed_sharded(p, q_nope, q_rope, ckv, k_rope, cc, cr, cache_pos, scale)
         return _product("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), kv_cache
-    cc[:, cache_pos:kv_len] = ckv.to(cc.dtype)
-    cr[:, cache_pos:kv_len] = k_rope.to(cr.dtype)
-    ccf, crf = cc[:, :kv_len].float(), cr[:, :kv_len].float()
+    _cache_put(cc, ckv, cache_pos)
+    _cache_put(cr, k_rope, cache_pos)
+    t = _mla_rows(cc.shape[1], cache_pos, s)
+    ccf, crf = cc[:, :t].float(), cr[:, :t].float()
     # absorption: q' = W_uk^T q_nope lives in the latent space
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(), p["wk_b"].float())
     scores = (torch.einsum("bshr,btr->bhst", q_lat, ccf)
               + torch.einsum("bshk,btk->bhst", q_rope.float(), crf)) * scale
-    t_idx = torch.arange(kv_len, device=x.device)
-    q_idx = cache_pos + torch.arange(s, device=x.device)
-    w = torch.softmax(scores.masked_fill(t_idx[None, :] > q_idx[:, None], -1e30), dim=-1)
+    w = torch.softmax(scores.masked_fill(_future(t, cache_pos, s, x.device), -1e30), dim=-1)
     lat = torch.einsum("bhst,btr->bshr", w, ccf)
     out = torch.einsum("bshr,rhk->bshk", lat, p["wv_b"].float())
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return y, kv_cache
+
+
+def _mla_rows(t: int, pos, s: int) -> int:
+    """The cache rows MLA's absorbed attention reads: a decode step all T,
+    as JAX's cache branch reads them, so its shapes do not depend on its
+    position; a prefill at host int `pos` its first pos + s (the rows past
+    them weigh exactly 0 under the mask, and reading them would double the
+    prefill's fp32 products at a cache twice the prompt)."""
+    return t if s == 1 else pos + s
+
+
+def _future(t: int, pos, s: int, device) -> torch.Tensor:
+    """The causal mask [s, t] of s queries at positions pos .. pos + s
+    (`pos` a host int or a 0-d device tensor) over t cache rows: True where
+    a row lies past its query."""
+    return (torch.arange(t, device=device)[None, :]
+            > (pos + torch.arange(s, device=device))[:, None])
 
 
 def _mla_absorbed_sharded(p: Params, q_nope: DTensor, q_rope: DTensor, ckv: DTensor,
@@ -720,14 +760,14 @@ def _mla_absorbed_sharded(p: Params, q_nope: DTensor, q_rope: DTensor, ckv: DTen
     fp32; they are reduced to a head split (a reduce-scatter), masked and
     softmaxed there, gathered whole to weigh each rank's latent columns, and
     the latent output goes back to the head split (an all-to-all) for wv_b.
-    Returns the attention output [B, s, H, v_head_dim] in fp32 at q's
+    The rows read are the unsharded step's (`_mla_rows`).  Returns the
+    attention output [B, s, H, v_head_dim] in fp32 at q's
     placements."""
     mesh = cc.device_mesh
     if any(q.is_shard(1) for q in cc.placements):
         raise NotImplementedError("an MLA cache split by its sequence (a batch that does not "
                                   "divide the data axes) has no sharded path")
     s = q_nope.shape[1]
-    kv_len = pos + s
     _cache_write(cc, ckv, pos)
     _cache_write(cr, k_rope, pos)
     split = [c.is_shard(2) for c in cc.placements]      # mesh dims that split the columns
@@ -748,21 +788,21 @@ def _mla_absorbed_sharded(p: Params, q_nope: DTensor, q_rope: DTensor, ckv: DTen
     q_lat = local(lambda a, w: torch.einsum("bshk,rhk->bshr", a.float(), w.float()), qpl,
                   q_nope, to(p["wk_b"], heads))
 
+    t = _mla_rows(cc.shape[1], pos, s)
+
     def scores_fn(ql, qr, c, r):
-        return (torch.einsum("bshr,btr->bhst", ql, c[:, :kv_len].float())
-                + torch.einsum("bshk,btk->bhst", qr, r[:, :kv_len].float())) * scale
+        return (torch.einsum("bshr,btr->bhst", ql, c[:, :t].float())
+                + torch.einsum("bshk,btk->bhst", qr, r[:, :t].float())) * scale
 
     scores = local(scores_fn, [Partial() if sp else b for sp, b in zip(split, batch)],
                    cols(q_lat), cols(q_rope.float()), cc, cr)
     scores = to(scores, [Shard(1) if sp else b for sp, b in zip(split, batch)])
 
     def softmax(sc):
-        t_idx = torch.arange(kv_len, device=sc.device)
-        q_idx = pos + torch.arange(s, device=sc.device)
-        return torch.softmax(sc.masked_fill(t_idx[None, :] > q_idx[:, None], -1e30), dim=-1)
+        return torch.softmax(sc.masked_fill(_future(t, pos, s, sc.device), -1e30), dim=-1)
 
     w = local(softmax, list(scores.placements), scores)
-    lat = local(lambda w_, c: torch.einsum("bhst,btr->bshr", w_, c[:, :kv_len].float()),
+    lat = local(lambda w_, c: torch.einsum("bhst,btr->bshr", w_, c[:, :t].float()),
                 [Shard(3) if sp else b for sp, b in zip(split, batch)], to(w, batch), cc)
     return local(lambda a, w_: torch.einsum("bshr,rhk->bshk", a, w_.float()), qpl,
                  to(lat, qpl), to(p["wv_b"], heads))

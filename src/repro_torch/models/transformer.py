@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..context import constrain_bsd, keep_shards, recompute_kwargs, replicated
 from ..kernels.cross_entropy import fused_ce_op
+from ..tree import tree_leaves
 from . import layers as L
 from . import ssm as S
 
@@ -447,10 +448,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict[str, 
 
 
 def _model_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                cache: Dict[str, Any], cache_pos: int
+                cache: Dict[str, Any], cache_pos
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Shared incremental forward for prefill (s>1) and decode (s=1); the
-    sinusoidal positions start at `cache_pos`."""
+    sinusoidal positions start at `cache_pos` (a host int, or a decode
+    step's 0-d int64 device tensor: the positions are int64 either way, so
+    the rotary and sinusoidal angles are the same bits)."""
     if cfg.pos_embed == "sinusoidal":
         batch = dict(batch, pos0=cache_pos)
     h = constrain_bsd(_embed_inputs(params, batch, cfg))
@@ -512,6 +515,15 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                cache: Dict[str, Any], pos: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One token step against a cache filled up to `pos`."""
-    return _model_step(params, batch, cfg, cache, int(pos))
+                cache: Dict[str, Any], pos) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token step against a cache filled up to `pos`: a host int or a
+    0-d integer tensor on the cache's device, as JAX traces its
+    `jnp.int32`.  Without a mesh an int becomes such a tensor
+    (`layers.device_pos`) and a tensor is never read back, so every position
+    runs the same ops on the same shapes: one captured step replays for all
+    of them.  A cache of DTensors (under a mesh) keeps its host int
+    positions and its sharded paths."""
+    leaf = tree_leaves(cache)[0]
+    if not isinstance(leaf, DTensor):
+        pos = L.device_pos(pos, leaf.device)
+    return _model_step(params, batch, cfg, cache, pos)

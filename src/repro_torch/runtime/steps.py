@@ -169,8 +169,10 @@ def prefill_step(params: Any, cache: Any, batch: Dict[str, torch.Tensor],
 
 
 def serve_step(params: Any, cache: Any, batch: Dict[str, torch.Tensor],
-               pos: int, cfg: ModelConfig):
-    """One-token decode against a cache filled to `pos`."""
+               pos, cfg: ModelConfig):
+    """One-token decode against a cache filled to `pos`: a host int or a 0-d
+    integer tensor on the cache's device (JAX's traced `jnp.int32`; see
+    `decode_step`)."""
     return decode_step(params, batch, cfg, cache, pos)
 
 

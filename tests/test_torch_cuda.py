@@ -283,6 +283,74 @@ def test_reduced_server_on_card_matches_cpu(dev):
         "rmsnorm": (2 * n + 1) * 9, "flash_attention_fwd": n, "decode_attention": n * 8}
 
 
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "mamba2-130m"])
+def test_graphed_server_decode_is_the_eager_step_loop(dev, arch):
+    """Server.generate on the card decodes through its CUDA graph of the
+    decode step: the warm-up step runs eagerly, the capture runs nothing and
+    the replays run the rest.  Against an eager loop of prefill_step +
+    serve_step at int positions on the same weights (chip_smoke.py's
+    `eager_generate`): equal tokens and bitwise last logits; the run's
+    launch counts a prefill's and 8 steps'; the graph's hand-written
+    kernel nodes one step's launches.  A second generate reuses the graph
+    (capture_s 0) and gives the same tokens and bits."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import Server
+    cs = _chip_smoke()
+    srv = Server(arch, max_len=64, device=dev, seed=3)
+    cfg = srv.cfg
+    prompts = np.random.default_rng(4).integers(1, cfg.vocab_size, (2, 16)).astype(np.int32)
+    if cfg.family == "ssm":
+        step = cs.ssm_decode_launches(cfg)
+        want = {"rmsnorm": step["rmsnorm"] * 9, "ssd_scan": cfg.n_layers}
+    else:
+        step = cs.dense_decode_launches(cfg)
+        want = cs.dense_serve_launches(cfg, new=8)
+    reset_launches()
+    out = srv.generate(prompts, 8)
+    assert {k: v for k, v in launches().items() if v} == want
+    assert out["finite"] and out["capture_s"] > 0
+    ref = cs.eager_generate(srv, prompts, 8)
+    np.testing.assert_array_equal(out["tokens"], ref["tokens"])
+    assert torch.equal(out["last_logits"], ref["last_logits"])
+    again = srv.generate(prompts, 8)
+    assert again["capture_s"] == 0
+    np.testing.assert_array_equal(again["tokens"], out["tokens"])
+    assert torch.equal(again["last_logits"], out["last_logits"])
+    nodes = cs.decode_graph_nodes(srv, 2)
+    assert nodes["by_wrapper"] == step, nodes
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b", "mamba2-130m",
+                                  "deepseek-v2-lite-16b", "musicgen-large", "hybrid_small"])
+def test_decode_step_on_fake_card_tensors_reads_nothing_on_the_host(dev, arch):
+    """The dry run's fake "cuda" tensors (`abstract_params`,
+    `abstract_cache`, `abstract_batch`) and a fake 0-d position, the
+    kernels' abstract path: the decode step records no host read and no
+    host-to-device copy (`tests/_torch_host_traffic.py`), as the CPU test on
+    "meta" (tests/test_torch_serve_graph.py)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from _torch_host_traffic import HostTraffic
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.runtime.steps import (abstract_batch, abstract_cache, abstract_params,
+                                           serve_step)
+    cfg = (_chip_smoke().hybrid_small_config() if arch == "hybrid_small"
+           else get_config(arch).reduced())
+    mode = FakeTensorMode()
+    params = abstract_params(cfg, "cuda", mode)
+    cache = abstract_cache(cfg, 2, 32, "cuda", mode)
+    batch = abstract_batch(cfg, InputShape("decode", 32, 2, "decode"), for_decode=True,
+                           device="cuda", mode=mode)
+    with mode:
+        pos = torch.empty((), dtype=torch.long, device="cuda")
+    log = HostTraffic()
+    with mode, log, torch.no_grad():
+        logits, _ = serve_step(params, cache, batch, pos, cfg)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size) and logits.is_cuda
+    assert not log.host_ops() and not log.to_device, (log.host_ops(), log.to_device)
+
+
 @pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large"])
 def test_reduced_frontend_server_on_card_matches_cpu(dev, arch):
     """A reduced stub-frontend arch served on the card (kernels; the stub
