@@ -200,6 +200,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    train_command_r — command-r-35b at full width cut to 2 of 40 layers,
    fp32 moments: the CE at vocab 256000 and the tied table's two gradient
    paths.  Every launch count per step: `dense_train_launches`.
+   Each of these unsharded train phases (train, train_stablelm,
+   train_ssm, train_resume's three runs, train_moe, train_hybrid,
+   train_v3, train_musicgen, train_command_r) trains through the Trainer's
+   CUDA graph of the whole step: the first step runs eagerly on the
+   capturing stream, then the capture (`capture_s`), then replays.  The
+   graph's hand-written kernel nodes must be one step's launches, every
+   copy node device to device, every RMSNorm backward node cooperative and
+   its grid barrier back at 0 after the run (`train_graph_failures`).  The
+   same run as an eager loop of `train_step` from the same seed on the same
+   batches (`eager_train`; train_resume: run C's) must give every loss and
+   final param bitwise (`graph_vs_eager`; where it does not, a second eager
+   run decides: the graph fails if the eager step repeats itself, else the
+   phase is held to train_sharded's bounds).  Graphed and eager step ms,
+   capture_s and both peaks are printed; the eager run is the reference
+   the sharded phases and the dry runs read (its losses, params, peak, and
+   the MoE routes: a capture cannot run the RouteRecorder's reads to the
+   host).
    train_sharded — the train phase's chatglm3-6b run again (its weights,
    fixed batch and 8 steps) with the state through `shard_train_state` on
    a 1 x 1 (data, model) DeviceMesh of a one-rank NCCL process group and
@@ -1231,16 +1248,21 @@ def graph_kernel_nodes(dot: str) -> dict:
     """The nodes of a CUDA graph's DOT dump (`CUDAGraph.debug_dump` of a
     graph kept after its capture): {"by_name": {kernel symbol: nodes},
     "by_wrapper": {wrapper: nodes} for the hand-written kernels
-    (GRAPH_KERNELS), "kernel_nodes", "memcpy_nodes": {kind (DtoD, HtoD,
-    ...): nodes}, "other_nodes": {type (MEMSET, ...): nodes}}."""
+    (GRAPH_KERNELS), "cooperative": {wrapper, or symbol: nodes} of the
+    kernel nodes launched cooperatively, "kernel_nodes", "memcpy_nodes":
+    {kind (DtoD, HtoD, ...): nodes}, "other_nodes": {type (MEMSET, ...):
+    nodes}}."""
     starts = [m.start() for m in re.finditer(r'^"graph_\d+_node_\d+"\s*\[', dot, re.M)]
-    by_name, memcpy, other = {}, {}, {}
+    by_name, memcpy, other, coop = {}, {}, {}, {}
     for a, b in zip(starts, starts[1:] + [len(dot)]):
         node = dot[a:b]
         if "KERNEL" in node:
             m = re.search(r"ID\s*\|\s*\d+[^|]*\|\s*([^\s|}\\<]+)", node)
             name = m.group(1) if m else "?"
             by_name[name] = by_name.get(name, 0) + 1
+            if re.search(r"cooperative\s*\|\s*1", node):
+                key = _wrapper_of(name) or name
+                coop[key] = coop.get(key, 0) + 1
         elif "MEMCPY" in node:
             m = re.search(r"kind\s*\|\s*(\w+)", node)
             kind = m.group(1) if m else "?"
@@ -1251,25 +1273,195 @@ def graph_kernel_nodes(dot: str) -> dict:
             other[kind] = other.get(kind, 0) + 1
     by_wrapper = {}
     for name, n in by_name.items():
-        for sym, wrapper in GRAPH_KERNELS.items():
-            if re.search(rf"(?<![a-z_]){sym}(?![a-z_])", name):
-                by_wrapper[wrapper] = by_wrapper.get(wrapper, 0) + n
-    return {"by_name": by_name, "by_wrapper": by_wrapper,
+        wrapper = _wrapper_of(name)
+        if wrapper is not None:
+            by_wrapper[wrapper] = by_wrapper.get(wrapper, 0) + n
+    return {"by_name": by_name, "by_wrapper": by_wrapper, "cooperative": coop,
             "kernel_nodes": sum(by_name.values()), "memcpy_nodes": memcpy,
             "other_nodes": other}
 
 
-def decode_graph_nodes(srv, batch) -> dict:
-    """`graph_kernel_nodes` of the Server's decode graph at `batch`, dumped
-    to a temporary file."""
-    graph = srv.decode_graph(batch)
+def _wrapper_of(name):
+    """The wrapper whose hand-written kernel the symbol `name` is
+    (GRAPH_KERNELS), or None."""
+    for sym, wrapper in GRAPH_KERNELS.items():
+        if re.search(rf"(?<![a-z_]){sym}(?![a-z_])", name):
+            return wrapper
+    return None
+
+
+def graph_nodes(graph, what) -> dict:
+    """`graph_kernel_nodes` of a kept CUDA graph, dumped to a temporary
+    file; `what` names it in the error where there is no graph."""
     if graph is None:
-        raise AssertionError(f"no decode graph at batch {batch}")
+        raise AssertionError(f"no {what} graph")
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "decode.dot")
+        path = os.path.join(tmp, "graph.dot")
         graph.debug_dump(path)
         with open(path) as f:
             return graph_kernel_nodes(f.read())
+
+
+def decode_graph_nodes(srv, batch) -> dict:
+    """`graph_kernel_nodes` of the Server's decode graph at `batch`."""
+    return graph_nodes(srv.decode_graph(batch), f"decode (batch {batch})")
+
+
+def train_graph_record(tr) -> dict:
+    """What the Trainer's train graph holds and left behind, on the card:
+    its nodes (`graph_kernel_nodes`, the count of distinct kernel symbols
+    for `by_name`), one replay's launches by wrapper, and
+    the RMSNorm backward's grid barrier of the graph's stream ([arrivals,
+    generation]: each launch leaves the arrivals at 0; None where the step
+    has no RMSNorm backward).  `train_graph_failures` reads it."""
+    from repro_torch.kernels.rmsnorm.kernel import _BARRIERS
+    from repro_torch.tree import tree_leaves
+    g = tr._graph
+    if g is None:
+        raise AssertionError("the Trainer ran no train graph")
+    index = tree_leaves(tr.state)[0].device.index
+    barrier = _BARRIERS.get((index, g.stream.cuda_stream))
+    nodes = graph_nodes(tr.train_graph(), "train")
+    nodes["distinct_kernels"] = len(nodes.pop("by_name"))
+    return {"nodes": nodes, "step_launches": dict(g.launches),
+            "rmsnorm_bwd_barrier": None if barrier is None else barrier.tolist()}
+
+
+def train_graph_failures(rec, per_step) -> list:
+    """Why a train graph's record (`train_graph_record`) fails its checks
+    (none: it passes): its hand-written kernel nodes by wrapper and one
+    replay's launches are both `per_step` (name: one step's launches); no
+    copy but device to device; every RMSNorm backward node, and no other,
+    launched cooperatively; its grid barrier's arrivals back at 0."""
+    out, nodes = [], rec["nodes"]
+    want = {k: v for k, v in per_step.items() if v}
+    if nodes["by_wrapper"] != want:
+        out.append(f"the train graph's hand-written kernel nodes {nodes['by_wrapper']} != "
+                   f"one step's launches {want}")
+    if rec["step_launches"] != want:
+        out.append(f"a replay counts {rec['step_launches']} launches, not one step's {want}")
+    if set(nodes["memcpy_nodes"]) - {"DtoD"}:
+        out.append(f"the train graph copies other than device to device: "
+                   f"{nodes['memcpy_nodes']}")
+    coop = {k: v for k, v in want.items() if k == "rmsnorm_bwd"}
+    if nodes["cooperative"] != coop:
+        out.append(f"cooperative kernel nodes {nodes['cooperative']} != the RMSNorm "
+                   f"backward's {coop}")
+    bar = rec["rmsnorm_bwd_barrier"]
+    if coop and (bar is None or bar[0] != 0):
+        out.append(f"the RMSNorm backward's grid barrier after the run: {bar} (arrivals "
+                   "must be 0)")
+    return out
+
+
+def eager_train(dev, tc, batches, routes=False) -> dict:
+    """The Trainer's run as a plain loop, the graphed run's reference:
+    `runtime.steps.train_step`, eagerly, from the Trainer's init (`tc`'s
+    seed, depth cut and AdamW config) on `batches` (numpy batch dicts, one a
+    step, each moved to the device before its step's clock starts).
+    Returns the losses (and mtp_ces where the model has an MTP head), a
+    host copy of the final params by dotted name, the step ms (host clock
+    around each synchronised step; the median after the first), the
+    launches, and on the card the peak device memory (`peak_mem_gb`, and
+    `peak_bytes` above what was allocated when it started, after
+    `warm_cublas`) and the peak reserved; with `routes` every MoE call's
+    selection (a RouteRecorder's calls: its reads to the host are in the
+    step ms)."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.steps import train_step
+    on_card = torch.device(dev).type == "cuda"
+    base = 0
+    if on_card:
+        warm_cublas(dev)
+        base = torch.cuda.memory_allocated()
+    tr = Trainer(tc, batches=[])
+    tr.init_state()
+    state, cfg, opt_cfg, to_device = tr.state, tr.cfg, tr.opt_cfg, tr._to_device
+    del tr
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, mtp_ces, times = [], [], []
+    reset_launches()
+    with RouteRecorder(L) if routes else contextlib.nullcontext() as recorder:
+        for raw in batches:
+            batch = to_device(raw)
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch, cfg, opt_cfg)
+            losses.append(float(metrics["loss"]))      # waits for the step
+            times.append(time.perf_counter() - t0)
+            if "mtp_ce" in metrics:
+                mtp_ces.append(float(metrics["mtp_ce"]))
+    out = {"losses": losses, "params": host_copy(state["params"]), "launches": launches(),
+           "step_ms": statistics.median(times[1:] or times) * 1e3,
+           "step_times_ms": [t * 1e3 for t in times]}
+    if mtp_ces:
+        out["mtp_ces"] = mtp_ces
+    if on_card:
+        out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   peak_bytes=torch.cuda.max_memory_allocated() - base,
+                   peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    if routes:
+        out["routes"] = recorder.take()
+    return out
+
+
+def _run_diffs(a, b) -> dict:
+    """Two runs' records ({"losses", "params", optional "mtp_ces"}) side by
+    side: whether the losses (and mtp_ces) and the params are bitwise, the
+    first step whose loss differs, each loss's relative error, and the param
+    leaves that differ with their relative L2 errors."""
+    leaves = {}
+    for name, want in a["params"].items():
+        got = b["params"].get(name)
+        if got is None or got.shape != want.shape:
+            leaves[name] = math.inf
+        elif not torch.equal(got, want):
+            leaves[name] = float((got.float() - want.float()).norm()
+                                 / max(float(want.float().norm()), 1e-30))
+    leaves.update({n: math.inf for n in b["params"] if n not in a["params"]})
+    la, lb = a["losses"], b["losses"]
+    diff_steps = [i + 1 for i, (x, y) in enumerate(zip(la, lb)) if x != y]
+    return {"losses_bitwise": la == lb and a.get("mtp_ces") == b.get("mtp_ces"),
+            "params_bitwise": not leaves, "first_loss_step_differing":
+            diff_steps[0] if diff_steps else None,
+            "loss_rel_err": [abs(x - y) / abs(y) for x, y in zip(la, lb)],
+            "steps_compared": min(len(la), len(lb)), "steps": (len(la), len(lb)),
+            "differing_leaves": leaves}
+
+
+def graph_vs_eager(graphed, eager, again=None) -> dict:
+    """The graphed Trainer run against its eager reference (`eager_train`
+    from the same seed on the same batches), each {"losses", "params" (host
+    copies by name), "mtp_ces" where the model has them}: held bitwise,
+    every loss, mtp_ce and param leaf.  Where they differ, `again` (a second
+    eager run) tells whether the eager step repeats itself: if it does, the
+    graph changed bits and the phase fails; if it does not (an op of the
+    step is not deterministic), the graphed run is held to train_sharded's
+    bounds (each loss within TOL_SHARDED_LOSS, each leaf within
+    TOL_SHARDED_PARAM relative L2), and the steps and leaves where the two
+    eager runs differ are printed.  Returns the record; `ok` is the
+    verdict, `held_to` the rule applied."""
+    rec = {"graph": _run_diffs(eager, graphed)}
+    g = rec["graph"]
+    rec["bitwise"] = g["losses_bitwise"] and g["params_bitwise"]
+    rec["held_to"] = "bitwise"
+    rec["ok"] = rec["bitwise"] and g["steps"][0] == g["steps"][1]
+    if rec["bitwise"] or again is None:
+        return rec
+    e = rec["eager_again"] = _run_diffs(eager, again)
+    rec["eager_repeatable"] = e["losses_bitwise"] and e["params_bitwise"]
+    if not rec["eager_repeatable"]:
+        rec["held_to"] = (f"train_sharded's bounds: losses {TOL_SHARDED_LOSS}, params "
+                          f"{TOL_SHARDED_PARAM} (two eager runs differ)")
+        rec["ok"] = (g["steps"][0] == g["steps"][1]
+                     and all(x <= TOL_SHARDED_LOSS for x in g["loss_rel_err"])
+                     and all(x <= TOL_SHARDED_PARAM for x in g["differing_leaves"].values()))
+    return rec
 
 
 def eager_generate(srv, prompts, n) -> dict:
@@ -1541,7 +1733,11 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
     run's lock nestings: the (held, acquired) pairs of lock classes that a
     `LockOrderRecorder` saw on its Trainer's servers from just after the
     Trainer was built (so A's corpus build is not recorded; its saves,
-    reads and restarts are).  `resume_failures` reads it."""
+    reads and restarts are); on the card each run's train graph
+    (`train_graph_record`) and capture_s.  Then C's run again as an eager
+    loop of `train_step` on the batches C read (`eager_train`): its
+    launches, and C's losses and final params against it
+    (`graph_vs_eager`).  `resume_failures` reads it."""
     from repro_torch.core.analysis import LockOrderRecorder
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.train import Trainer, TrainerConfig
@@ -1564,9 +1760,13 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
         locks = LockOrderRecorder()
         for srv in tr.cluster.servers.values():
             locks.instrument_server(srv)
-        seen, to_device = [], tr._to_device
-        tr._to_device = lambda b: (seen.append({k: np.array(v) for k, v in b.items()}),
-                                   to_device(b))[1]
+        seen = []
+
+        def recorded(batches):
+            for b in batches:
+                seen.append({k: np.array(v) for k, v in b.items()})
+                yield b
+        tr.batches = recorded(tr.batches)
         t0 = time.perf_counter()
         tr.init_or_restore()      # B's: the restore
         if on_card:
@@ -1576,6 +1776,7 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
         reset()
         out = tr.run(until)
         got = read()
+        graph = train_graph_record(tr) if on_card else None
         tr.agent.drain()
         rpc = tr.agent.stats.snapshot()
         if name == "A":     # the corpus, through the Trainer's client
@@ -1593,6 +1794,7 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
             "step_ms": out["step_s"] * 1e3,
             "step_times_ms": [t * 1e3 for t in out["step_times_s"]], "saves": tr.ckpt.saves,
             "last_wait_s": out["ckpt_wait_s"], "launches": got,
+            "capture_s": out["capture_s"], "graph": graph,
             "lock_pairs": sorted(locks.pairs),
             "bytes_written": sum(s["bytes"] for s in tr.ckpt.saves),
             "files_written": sum(s["files"] for s in tr.ckpt.saves),
@@ -1607,10 +1809,24 @@ def train_resume(dev, arch=SSM_ARCH, reduced=False, batch=TRAIN_B, seq=SSM_TRAIN
         b, b_seen, b_restored = run("B", "stopped")
         del b
         c, c_seen, _ = run("C", "whole")
+        c_tc, c_final = c.tc, host_copy(c.state["params"])
         del c
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["seconds"] = time.perf_counter() - t_phase
+    # C's run again as a plain eager loop of train_step on the batches C
+    # read: C's losses and final params bitwise (a second eager run where
+    # they differ)
+    reset()
+    eager = eager_train(dev, c_tc, c_seen)
+    rec["eager_launches"] = read()
+    graphed = {"losses": rec["runs"]["C"]["losses"], "params": c_final}
+    versus = graph_vs_eager(graphed, eager)
+    if not versus["bitwise"]:
+        versus = graph_vs_eager(graphed, eager, eager_train(dev, c_tc, c_seen))
+    rec["vs_eager"] = versus
+    rec["eager_step_ms"] = eager["step_ms"]
+    rec["eager_peak_mem_gb"] = eager.get("peak_mem_gb")
     rec["restored_diff_leaves"] = (
         sorted(set(a_final) ^ set(b_restored or {})) + [
             n for n in a_final if n in (b_restored or {})
@@ -1639,7 +1855,10 @@ def resume_failures(rec, per_step) -> list:
     every run went through BuffetFS RPCs and sent no OPEN_RECORD (BuffetFS
     defers the open onto the first data RPC); every run recorded lock
     nestings (a silent recorder would make the next two checks vacuous),
-    of registered lock classes only, none against the declared order."""
+    of registered lock classes only, none against the declared order; on
+    the card every run captured its train graph and passes
+    `train_graph_failures`; the eager reference's launches `per_step` a
+    step, and C bitwise it (`graph_vs_eager`)."""
     from repro_torch.core.analysis import LockOrderRecorder
     from repro_torch.core.analysis.buffetlint import LOCK_RANK
     runs, stop = rec["runs"], rec["stop"]
@@ -1679,6 +1898,18 @@ def resume_failures(rec, per_step) -> list:
         want.update({k: v * r["steps_run"] for k, v in per_step.items()})
         if r["launches"] != want:
             out.append(f"run {name}'s launches {r['launches']} != {r['steps_run']} x {per_step}")
+        if r["graph"] is not None:      # on the card: each run through its train graph
+            if not r["capture_s"] > 0:
+                out.append(f"run {name} captured no train graph")
+            out += [f"run {name}: {f}" for f in train_graph_failures(r["graph"], per_step)]
+    want = {k: 0 for k in rec["eager_launches"]}
+    want.update({k: v * rec["steps"] for k, v in per_step.items()})
+    if rec["eager_launches"] != want:
+        out.append(f"the eager reference's launches {rec['eager_launches']} != "
+                   f"{rec['steps']} x {per_step}")
+    if not rec["vs_eager"]["ok"]:
+        out.append(f"C differs from the eager train_step loop on its batches (held to "
+                   f"{rec['vs_eager']['held_to']}): {rec['vs_eager']}")
     return out
 
 
@@ -4253,15 +4484,24 @@ def main() -> int:
         """Full-width `arch` (its first `n_layers` layers when given) trains
         `steps` steps of TRAIN_B x `seq` tokens (remat per layer, CE_CHUNKS
         cross-entropy chunks, AdamW) on one fixed batch, repeated: a
-        learnable target.  Every loss finite, the last below the first (and
-        so the MTP head's mtp_ce, where the model has one), every launch
-        count per step `want`(cfg).  `keep` (a dict) receives the losses,
-        the median step ms, a host copy of the final params, the argument
-        bytes, the peak device memory (`peak_mem_gb`) and its part above
-        what the earlier phases still held (`peak_bytes`, the dry run's
-        reference, read after `warm_cublas` so that no phase's peak holds
-        the cuBLAS workspaces, whatever ran before it), and with `routes`
-        every MoE call's selection (a RouteRecorder's calls)."""
+        learnable target.  The Trainer runs its train graph (an eager
+        warm-up step on the capturing stream, the capture, then replays):
+        every loss finite, the last below the first (and so the MTP head's
+        mtp_ce, where the model has one), every launch count per step
+        `want`(cfg), the graph's nodes and barrier by
+        `train_graph_failures`.  Then, with the Trainer gone, the same run
+        as a plain eager loop of `train_step` (`eager_train`): losses and
+        final params bitwise the graphed run's (`graph_vs_eager`; a second
+        eager run where they differ), its launches the same.  Both runs'
+        step ms and peaks are printed.  `keep` (a dict) receives what the
+        eager comparisons read, from the eager run: the losses, the median
+        step ms, a host copy of the final params, the argument bytes, the
+        peak device memory (`peak_mem_gb`) and its part above what the
+        earlier phases still held (`peak_bytes`, the dry run's reference,
+        read after `warm_cublas` so that no phase's peak holds the cuBLAS
+        workspaces, whatever ran before it), and with `routes` every MoE
+        call's selection (a RouteRecorder's calls: a capture cannot run the
+        recorder's reads to the host)."""
         t_phase = time.perf_counter()
         tc = TrainerConfig(arch=arch, reduced=False, global_batch=TRAIN_B, seq_len=seq,
                            steps=steps, log_every=steps, device="cuda", seed=SEED,
@@ -4281,26 +4521,55 @@ def main() -> int:
                         for t in tree_leaves(tr.state) + list(tr._to_device(fixed).values()))
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        with RouteRecorder(L) if routes else contextlib.nullcontext() as recorder:
-            out = tr.run()
+        out = tr.run()
         got = launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
         per_step = {name: 0 for name in got}
         per_step.update(want(cfg))
+        graph = train_graph_record(tr)
+        graph_failures = train_graph_failures(graph, per_step)
+        graphed = {"losses": out["losses"], "params": host_copy(tr.state["params"])}
+        if "mtp_ces" in out:
+            graphed["mtp_ces"] = out["mtp_ces"]
+        del tr
+        torch.cuda.empty_cache()
+        left_bytes = torch.cuda.memory_allocated() - base
+        eager = eager_train(dev, tc, [fixed] * steps, routes=routes)
+        versus = graph_vs_eager(graphed, eager)
+        if not versus["bitwise"]:
+            versus = graph_vs_eager(graphed, eager, eager_train(dev, tc, [fixed] * steps))
         flops = model_flops(cfg, n_params, TRAIN_B, seq)
         losses = out["losses"]
+        nodes = graph["nodes"]
         emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "head_dim": cfg.head_dim, "n_params": n_params, "global_batch": TRAIN_B,
               "seq_len": seq, "steps": steps, "remat": cfg.remat, "ce_chunks": CE_CHUNKS,
               "moment_dtype": str(moment_dtype).split(".")[-1], "reduced": cut,
               "init_s": init_s, "losses": losses, "mtp_ces": out.get("mtp_ces"),
-              "step_ms": out["step_s"] * 1e3,
+              "step_ms": out["step_s"] * 1e3, "eager_step_ms": eager["step_ms"],
+              "capture_s": out["capture_s"],
+              "step_times_ms": [t * 1e3 for t in out["step_times_s"]],
+              "eager_step_times_ms": eager["step_times_ms"],
+              "eager_routes_recorded": routes,
               "tokens_per_s": out["tokens_per_s"], "state_gb": state_gb,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "cublas_warm_bytes": warm_bytes,
+              "peak_mem_gb": peak_gb, "eager_peak_mem_gb": eager["peak_mem_gb"],
+              "peak_reserved_gb": reserved_gb,
+              "eager_peak_reserved_gb": eager["peak_reserved_gb"],
+              "graph_left_bytes": left_bytes, "cublas_warm_bytes": warm_bytes,
               "model_tflops_per_step": flops / 1e12,
               "model_tflops_per_s": flops / out["step_s"] / 1e12,
               "launches_per_step": {k: v / steps for k, v in got.items()},
               "expected_launches_per_step": per_step,
+              "graph_kernel_nodes": nodes["kernel_nodes"],
+              "graph_memcpy_nodes": nodes["memcpy_nodes"],
+              "graph_other_nodes": nodes["other_nodes"],
+              "graph_nodes_by_wrapper": nodes["by_wrapper"],
+              "graph_cooperative_nodes": nodes["cooperative"],
+              "rmsnorm_bwd_barrier": graph["rmsnorm_bwd_barrier"],
+              "graph_failures": graph_failures,
+              "vs_eager": {**versus, "graph": {k: v for k, v in versus["graph"].items()
+                                               if k != "loss_rel_err"}},
               "seconds": time.perf_counter() - t_phase})
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite loss in the {phase} run: {losses}")
@@ -4313,14 +4582,23 @@ def main() -> int:
                                  f"{out.get('mtp_ces')}")
         if got != {k: v * steps for k, v in per_step.items()}:
             raise AssertionError(f"{phase} launch counts {got} != {steps} x {per_step}")
+        if eager["launches"] != got:
+            raise AssertionError(f"{phase}: the eager run's launches {eager['launches']} != "
+                                 f"the graphed run's {got}")
+        if not out["capture_s"] > 0:
+            raise AssertionError(f"{phase}: the Trainer captured no train graph")
+        if graph_failures:
+            raise AssertionError(f"{phase}: {graph_failures}")
+        if not versus["ok"]:
+            raise AssertionError(f"{phase}: the graphed run differs from the eager train_step "
+                                 f"loop (held to {versus['held_to']}): {versus}")
         if keep is not None:
-            keep.update(losses=losses, step_ms=out["step_s"] * 1e3,
-                        params=host_copy(tr.state["params"]), argument_bytes=arg_bytes,
-                        peak_bytes=torch.cuda.max_memory_allocated() - base,
-                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            keep.update(losses=eager["losses"], step_ms=eager["step_ms"],
+                        params=eager["params"], argument_bytes=arg_bytes,
+                        peak_bytes=eager["peak_bytes"], peak_mem_gb=eager["peak_mem_gb"])
             if routes:
-                keep["routes"] = recorder.take()
-        del tr
+                keep["routes"] = eager["routes"]
+        del graphed, eager
         torch.cuda.empty_cache()
         return got
 

@@ -34,6 +34,21 @@ resumes from the latest one when `tc.resume` is set.  A caller that passes
 yields: tokens, labels, loss_mask) gets no dataset and no checkpoint.
 Runs on `cuda` unless the config says `device="cpu"`.
 
+The train step is compiled as JAX's Trainer jits `train_step` with the
+state donated: on a CUDA device, with a state of plain tensors, the first
+step runs eagerly on a side stream (the warm-up: the kernels build, cuBLAS
+initialises, the RMSNorm backward's grid barrier is made for that stream),
+then one whole step (the loss's forward, autograd's backward through the
+hand-written backward kernels, AdamW) is captured there as a
+`torch.cuda.CUDAGraph`, and every later step copies its batch into the
+graph's static buffers and replays it.  AdamW advances every state leaf in
+place, so the graph replays onto the state's own tensors; a state whose
+leaves are not the captured ones (`init_or_restore`, or a caller setting
+`state`), or a batch of another shape, is captured anew.  On the CPU, and
+with DTensor leaves (a sharded state), the same step runs eagerly; the
+choice follows the device and the leaves' type, with no switch and no
+fallback: a capture or replay that fails raises.
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
         --steps 20 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --full \\
@@ -58,18 +73,23 @@ import tempfile
 import time
 import weakref
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
+from typing import Any, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import core
 from ..ckpt import CheckpointManager
 from ..configs import get_config
 from ..data import BuffetDataset, DataPipeline, ShardedSampler
+from ..kernels import add_launches, launches
 from ..optim import AdamWConfig
 from ..runtime.steps import make_train_state, make_train_step_fn
+from ..tree import tree_leaves
 from .serve import resolve_device
+
+BATCH_DTYPES = {"tokens": torch.long, "labels": torch.long, "loss_mask": torch.float32}
 
 
 @dataclass
@@ -92,6 +112,35 @@ class TrainerConfig:
     moment_dtype: torch.dtype = torch.float32
     n_layers: Optional[int] = None      # keep the config's first n layers
     #                                     (hybrid: n_layers // period blocks)
+
+
+class _TrainGraph:
+    """The train step's CUDA graph and what it replays on, kept across steps
+    and runs as JAX's jit keeps a step's executable: the state's leaves it
+    was captured on (weak references: the graph keeps no state alive), the
+    static batch each step is copied into, the stream it was warmed up and
+    captured on, and once captured the graph, its static metrics (rewritten
+    by every replay) and one replay's kernel launches."""
+
+    def __init__(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                 device: torch.device) -> None:
+        self.leaves = [weakref.ref(t) for t in tree_leaves(state)]
+        self.batch = {k: torch.empty_like(v, device=device) for k, v in batch.items()}
+        self.stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.metrics: Dict[str, torch.Tensor] = {}
+        self.launches: Dict[str, int] = {}
+
+    def takes(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> bool:
+        """Whether a step on `state` and `batch` (host tensors) replays on
+        what was captured: the same leaf tensors, a batch of the same keys,
+        shapes and dtypes."""
+        leaves = tree_leaves(state)
+        return (len(leaves) == len(self.leaves)
+                and all(r() is t for r, t in zip(self.leaves, leaves))
+                and batch.keys() == self.batch.keys()
+                and all(v.shape == self.batch[k].shape and v.dtype == self.batch[k].dtype
+                        for k, v in batch.items()))
 
 
 class Trainer:
@@ -124,6 +173,7 @@ class Trainer:
         self.step_fn = make_train_step_fn(self.cfg, self.opt_cfg)
         self.state: Optional[Dict[str, Any]] = None
         self.start_step = 0
+        self._graph: Optional[_TrainGraph] = None
 
     def _setup_storage(self, lib: Any, corpus: Optional[list]) -> None:
         """The corpus, sampler, pipeline and checkpoints over `lib`, as the
@@ -183,6 +233,7 @@ class Trainer:
 
     def init_state(self, params: Any = None) -> None:
         """Random weights from `tc.seed` on the device, or the given params."""
+        self._graph = None          # its pool goes before a new state is made
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
         self.state = make_train_state(self.cfg, self.opt_cfg, gen, self.device,
                                       params=params)
@@ -212,15 +263,90 @@ class Trainer:
                                       "seed": man.extra["sampler"]["seed"]})
         print(f"[trainer] resumed from step {self.start_step}")
 
+    @staticmethod
+    def _host_batch(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=dt)
+                for k, dt in BATCH_DTYPES.items() if k in batch}
+
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        dtypes = {"tokens": torch.long, "labels": torch.long,
-                  "loss_mask": torch.float32}
-        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=dt).to(self.device)
-                for k, dt in dtypes.items() if k in batch}
+        return {k: v.to(self.device) for k, v in self._host_batch(batch).items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _graphed(self) -> bool:
+        """Whether steps run through the train graph: on a CUDA device with
+        a state of plain tensors (DTensor leaves run eagerly)."""
+        return self.device.type == "cuda" and not any(
+            isinstance(t, DTensor) for t in tree_leaves(self.state))
+
+    def train_graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The train step's CUDA graph, once captured.  It keeps its nodes
+        (`keep_graph`): `debug_dump(path)` writes them."""
+        return None if self._graph is None else self._graph.graph
+
+    def _stage(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The graph's static batch with `batch` copied in from the host (a
+        new `_TrainGraph`, to be captured, where the state's leaves or the
+        batch's shapes are not the captured ones)."""
+        host = self._host_batch(batch)
+        if self._graph is None or not self._graph.takes(self.state, host):
+            self._graph = None
+            self._graph = _TrainGraph(self.state, host, self.device)
+        for k, v in host.items():
+            self._graph.batch[k].copy_(v)
+        return self._graph.batch
+
+    def _train_once(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One train step on `batch`, the same ops eagerly and in a graph:
+        AdamW writes the state's leaves in place.  Returns the metrics."""
+        self.state, metrics = self.step_fn(self.state, batch)
+        return metrics
+
+    def _warm_up_and_capture(self, g: _TrainGraph) -> Tuple[Dict[str, torch.Tensor], float]:
+        """The first step on g's state and batch, then its graph.  The step
+        runs eagerly on g's stream (the warm-up: the kernels build, cuBLAS
+        initialises, the RMSNorm backward's grid barrier is made for that
+        stream, outside the graph's pool) and is this run's step; the
+        warm-up's cached blocks are released before the graph's private pool
+        takes its own; the capture runs nothing.  The wrappers counted the
+        captured calls, which ran no kernel: those counts are taken back out
+        and kept as one replay's.  Returns the step's metrics and the
+        capture's seconds."""
+        stream = g.stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            metrics = self._train_once(g.batch)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._sync()
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = launches()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=stream):
+            g.metrics = self._train_once(g.batch)
+        graph.instantiate()             # a kept graph is instantiated on request
+        capture_s = time.perf_counter() - t0
+        g.launches = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+        add_launches(g.launches, -1)
+        if not g.takes(self.state, g.batch):
+            raise RuntimeError("the captured train step replaced a state leaf: its graph "
+                               "would replay onto stale tensors")
+        g.graph = graph
+        return metrics, capture_s
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], float]:
+        """One step: a replay of the train graph, its warm-up and capture, or
+        the eager step.  Returns the metrics and the seconds spent capturing."""
+        g = self._graph if self._graphed() else None
+        if g is None:
+            return self._train_once(batch), 0.0
+        if g.graph is None:
+            return self._warm_up_and_capture(g)
+        g.graph.replay()
+        add_launches(g.launches)
+        return g.metrics, 0.0
 
     def run(self, until: Optional[int] = None) -> Dict[str, Any]:
         """Steps `start_step` .. `until` (default `tc.steps`; an earlier
@@ -229,7 +355,9 @@ class Trainer:
         final_loss and steps (as the JAX Trainer; with a storage client
         that counts RPCs, also its critical_rpcs and async_rpcs), plus the
         loss and the wall time of every step run (step_times_s, each ending
-        in a sync), step_s (their median after the first), tokens_per_s,
+        in a sync, a capture's seconds left out), step_s (their median after
+        the first), tokens_per_s, capture_s (the seconds this run spent
+        capturing the train graph: 0 where one was replayed, and on the CPU),
         with checkpoints the seconds the last save's writes kept the run
         waiting at its end (ckpt_wait_s), and with an MTP head the `mtp_ce`
         of every step (mtp_ces)."""
@@ -238,13 +366,16 @@ class Trainer:
         tc = self.tc
         stop = tc.steps if until is None else until
         losses, times, mtp_ces = [], [], []
+        capture_s = 0.0
         for step in range(self.start_step, stop):
-            batch = self._to_device(next(self.batches))
+            raw = next(self.batches)
+            batch = self._stage(raw) if self._graphed() else self._to_device(raw)
             self._sync()
             t0 = time.perf_counter()
-            self.state, metrics = self.step_fn(self.state, batch)
+            metrics, cap = self._step(batch)
             losses.append(float(metrics["loss"]))          # waits for the step
-            times.append(time.perf_counter() - t0)
+            times.append(time.perf_counter() - t0 - cap)
+            capture_s += cap
             if "mtp_ce" in metrics:
                 mtp_ces.append(float(metrics["mtp_ce"]))
             if (step + 1) % tc.log_every == 0 or step == stop - 1:
@@ -273,7 +404,7 @@ class Trainer:
         tokens = tc.global_batch * tc.seq_len
         out = {"final_loss": losses[-1] if losses else math.nan, "steps": tc.steps,
                "losses": losses, "step_s": step_s, "step_times_s": times,
-               "tokens_per_s": tokens / step_s}
+               "tokens_per_s": tokens / step_s, "capture_s": capture_s}
         if wait_s is not None:
             out["ckpt_wait_s"] = wait_s
         if self.lib is not None and self.lib.agent.stats is not None:

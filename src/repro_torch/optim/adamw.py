@@ -11,9 +11,11 @@ updated whole).  The update is elementwise, so the blocks change no bit.
 `step`, `lr`, the clip scale and the bias corrections stay fp32 tensors on
 the params' device, so an update never waits for the host.
 
-Unlike the JAX version, `adamw_update` writes the new params and moments
-into the given tensors in place (a full-width train state has no room for
-a second copy) and returns them.
+Unlike the JAX version, `adamw_update` writes the new params, moments and
+step counter into the given tensors in place (a full-width train state has
+no room for a second copy) and returns them: every leaf of the state that
+comes out is the tensor that went in, which a CUDA graph of the train step
+replays onto (`launch/train.py`).
 
 A sharded state (DTensor params, their gradients at the params' placements)
 takes the same update on each rank's local shards: the moments are made at
@@ -117,7 +119,7 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads: PyTree, opt: Dict[str, Any], params: PyTree,
                  cfg: AdamWConfig) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
-    step = opt["step"] + 1
+    step = opt["step"].add_(1)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step)

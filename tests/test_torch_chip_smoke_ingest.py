@@ -149,9 +149,9 @@ def test_resume_failures_name_an_open_record_and_a_run_without_rpcs():
     per_step = {"rmsnorm": 2}
     run = {"start_step": 0, "losses": [1.0], "steps_run": 1,
            "launches": {"rmsnorm": 2}, "critical_rpcs": 5, "async_rpcs": 5,
-           "rpcs_by_type": {"READ": 5, "CLOSE": 5}, "lock_pairs": _PAIRS}
+           "rpcs_by_type": {"READ": 5, "CLOSE": 5}, "lock_pairs": _PAIRS, "graph": None}
     rec = {"stop": 1, "steps": 2, "restored_diff_leaves": [], "batch_diffs": [],
-           "batches_compared": 1, "loss_rel_err": [0.0],
+           "batches_compared": 1, "loss_rel_err": [0.0], **_EAGER,
            "runs": {"A": dict(run), "B": dict(run, start_step=1), "C": dict(run)}}
     assert cs.resume_failures(rec, per_step) == []
     rec["runs"]["B"]["rpcs_by_type"] = {"READ": 5, "CLOSE": 5, "OPEN_RECORD": 1}
@@ -162,14 +162,17 @@ def test_resume_failures_name_an_open_record_and_a_run_without_rpcs():
 
 
 _PAIRS = [("dir_mutex", "server_lock"), ("file_lock", "server_lock")]
+# run C's eager reference, as train_resume records it on the CPU (no train
+# graph there): a step's launches and bitwise C's
+_EAGER = {"eager_launches": {"rmsnorm": 4}, "vs_eager": {"ok": True, "held_to": "bitwise"}}
 
 
 def _resume_rec():
     run = {"start_step": 0, "losses": [1.0], "steps_run": 1,
            "launches": {"rmsnorm": 2}, "critical_rpcs": 5, "async_rpcs": 5,
-           "rpcs_by_type": {"READ": 5, "CLOSE": 5}}
+           "rpcs_by_type": {"READ": 5, "CLOSE": 5}, "graph": None}
     return {"stop": 1, "steps": 2, "restored_diff_leaves": [], "batch_diffs": [],
-            "batches_compared": 1, "loss_rel_err": [0.0],
+            "batches_compared": 1, "loss_rel_err": [0.0], **_EAGER,
             "runs": {n: dict(run, start_step=int(n == "B"), lock_pairs=list(_PAIRS))
                      for n in "ABC"}}
 

@@ -351,6 +351,182 @@ def test_decode_step_on_fake_card_tensors_reads_nothing_on_the_host(dev, arch):
     assert not log.host_ops() and not log.to_device, (log.host_ops(), log.to_device)
 
 
+# ---------------------------------------------------------------------------
+# the Trainer's train graph: one CUDA graph of forward, backward and AdamW,
+# captured after an eager warm-up step and replayed for every later step
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPH_ARCHS = ["chatglm3-6b", "mamba2-130m", "deepseek-v2-lite-16b"]
+
+
+def _graph_trainer(cs, arch, steps, seq=128, batches=None, seed=5):
+    """A Trainer on the card for reduced `arch` (deepseek-v2-lite-16b as
+    chip_smoke.py's `moe_small_config`: MLA at the full head dims, through
+    the <192, 128> flash kernels) on one fixed batch of 2 x `seq`, bf16
+    moments; its config, the batch and one step's launches by chip_smoke.py's
+    counts, and a context that lends `get_config` the config."""
+    import contextlib
+    import itertools
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, TrainerConfig
+
+    moe = arch == cs.MOE_ARCH
+
+    def ctx():
+        return cs.config_as(arch, cs.moe_small_config()) if moe else contextlib.nullcontext()
+    with ctx():
+        cfg = cs.moe_small_config() if moe else get_config(arch).reduced()
+        tc = TrainerConfig(arch=arch, reduced=not moe, global_batch=2, seq_len=seq,
+                           steps=steps, log_every=steps, device="cuda", seed=seed,
+                           moment_dtype=torch.bfloat16)
+        fixed = cs.fixed_batch(cfg.vocab_size, 2, seq, seed + 1)
+        tr = Trainer(tc, batches=itertools.repeat(fixed) if batches is None else batches)
+    per_step = (cs.moe_train_launches(cfg, seq) if moe else cs.ssm_train_launches(cfg)
+                if cfg.family == "ssm" else cs.dense_train_launches(cfg))
+    return tr, tc, fixed, {k: v for k, v in per_step.items() if v}, ctx
+
+
+@pytest.mark.parametrize("arch", TRAIN_GRAPH_ARCHS)
+def test_graphed_trainer_is_the_eager_train_step_loop(dev, arch):
+    """The Trainer on the card warms up, captures its train graph and
+    replays it: 3 steps, then a second run(until=6) from step 3 that
+    replays the same graph (capture_s 0).  Losses and final params bitwise
+    an eager loop of train_step from the same seed on the same batch
+    (chip_smoke.py's `eager_train`, `graph_vs_eager`); the launch counts 6 x
+    one step's, as the eager loop's; the graph's hand-written nodes one
+    step's launches, no copy but device to device, the RMSNorm backward's
+    nodes cooperative and its grid barrier back at 0 after every step
+    (`train_graph_failures`)."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.rmsnorm.kernel import _BARRIERS
+
+    cs = _chip_smoke()
+    tr, tc, fixed, per_step, ctx = _graph_trainer(cs, arch, steps=6)
+    reset_launches()
+    with ctx():
+        first = tr.run(until=3)
+        graph = tr.train_graph()
+        assert first["capture_s"] > 0 and graph is not None
+        key = (0, tr._graph.stream.cuda_stream)
+        losses = list(first["losses"])
+        for step in range(3, 6):
+            tr.start_step = step
+            out = tr.run(until=step + 1)
+            assert out["capture_s"] == 0 and tr.train_graph() is graph
+            assert int(_BARRIERS[key][0]) == 0
+            losses += out["losses"]
+        got = {k: v for k, v in launches().items() if v}
+        assert got == {k: 6 * v for k, v in per_step.items()}
+        assert cs.train_graph_failures(cs.train_graph_record(tr), per_step) == []
+        graphed = {"losses": losses, "params": cs.host_copy(tr.state["params"])}
+        del tr
+        eager = cs.eager_train(dev, tc, [fixed] * 6)
+    assert {k: v for k, v in eager["launches"].items() if v} == got
+    rec = cs.graph_vs_eager(graphed, eager)
+    assert rec["ok"] and rec["bitwise"], rec
+
+
+def test_graphed_trainer_captures_anew_for_a_new_state_or_batch_shape(dev):
+    """A state set after the capture (`init_state`, or a caller's copy of
+    the state) or a batch of another length is captured anew, never
+    replayed onto the captured tensors: each gives the first run's losses
+    bitwise (the same seed and batch), from a new graph."""
+    import copy
+
+    cs = _chip_smoke()
+    tr, tc, fixed, per_step, _ = _graph_trainer(cs, "chatglm3-6b", steps=3)
+    tr.init_state()
+    init = copy.deepcopy(tr.state)
+    first = tr.run()
+    graph = tr.train_graph()
+    tr.init_state()
+    again = tr.run()
+    assert again["capture_s"] > 0 and tr.train_graph() is not graph
+    assert again["losses"] == first["losses"]
+    graph = tr.train_graph()
+    tr.state = copy.deepcopy(init)
+    third = tr.run()
+    assert third["capture_s"] > 0 and tr.train_graph() is not graph
+    assert third["losses"] == first["losses"]
+    short = cs.fixed_batch(tr.cfg.vocab_size, 2, 64, 7)
+    tr2, *_ = _graph_trainer(cs, "chatglm3-6b", steps=4, batches=iter([fixed, fixed, short,
+                                                                        short]))
+    out = tr2.run(until=2)
+    graph = tr2.train_graph()
+    tr2.start_step = 2
+    out2 = tr2.run()
+    assert out["capture_s"] > 0 and out2["capture_s"] > 0 and tr2.train_graph() is not graph
+    assert tuple(tr2._graph.batch["tokens"].shape) == (2, 64)
+    assert out["losses"] == first["losses"][:2]
+
+
+def test_capture_takes_the_checkpoints_rng_state_stash(dev):
+    """`torch.utils.checkpoint` as the model calls it (non-reentrant, the
+    RNG state stashed in the forward and set again in the recompute) under
+    a CUDA graph capture: the capture takes it, and a replay gives the
+    eager step's gradient bitwise."""
+    from torch.utils.checkpoint import checkpoint
+
+    w = torch.randn(64, 64, device=dev, requires_grad=True)
+    x = torch.randn(8, 64, device=dev)
+
+    def step():
+        y = checkpoint(lambda a, b: torch.tanh(a @ b), x, w, use_reentrant=False)
+        return torch.autograd.grad(y.sum(), [w])[0]
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = step()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b", "mamba2-130m",
+                                  "deepseek-v2-lite-16b", "deepseek-v3-671b",
+                                  "musicgen-large", "hybrid_small"])
+def test_train_step_on_fake_card_tensors_reads_nothing_on_the_host(dev, arch):
+    """The dry run's fake "cuda" state and batch (`abstract_state`,
+    `abstract_batch`; the kernels' abstract path, so the MoE family at
+    chip_smoke.py's configs with MLA at the full head dims, v3's with its
+    MTP head): `train_step` records no
+    host read and no host-to-device copy (`tests/_torch_host_traffic.py`),
+    and every state leaf comes out the tensor that went in, as the CPU test
+    on "meta" (tests/test_torch_train_graph.py)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from _torch_host_traffic import HostTraffic
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import abstract_batch, abstract_state, train_step
+    from repro_torch.tree import tree_leaves
+
+    cs = _chip_smoke()
+    # the MoE family with MLA at the full head dims, which the flash kernels
+    # take (the reduced configs' <48, 32> is no flash instance)
+    cfg = {"hybrid_small": cs.hybrid_small_config, "deepseek-v2-lite-16b": cs.moe_small_config,
+           "deepseek-v3-671b": cs.v3_small_config}.get(arch, lambda: get_config(arch).reduced())()
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=8)
+    mode = FakeTensorMode()
+    state = abstract_state(cfg, opt_cfg, "cuda", mode)
+    batch = abstract_batch(cfg, InputShape("train", 64, 2, "train"), device="cuda", mode=mode)
+    batch = {k: batch[k] for k in ("tokens", "labels", "loss_mask")}
+    leaves = tree_leaves(state)
+    log = HostTraffic()
+    with mode, log:
+        new_state, metrics = train_step(state, batch, cfg, opt_cfg)
+    assert metrics["loss"].is_cuda and metrics["loss"].shape == ()
+    assert not log.host_ops() and not log.to_device, (log.host_ops(), log.to_device)
+    assert all(a is b for a, b in zip(tree_leaves(new_state), leaves))
+
+
 @pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large"])
 def test_reduced_frontend_server_on_card_matches_cpu(dev, arch):
     """A reduced stub-frontend arch served on the card (kernels; the stub
